@@ -1,0 +1,47 @@
+"""mbb_emcee_tpu_torch: modified-blackbody SED fitting in PyTorch, with the
+hot path as hand-written CUDA kernels for NVIDIA Hopper (H100).
+
+The port of mbb_emcee_tpu (JAX + Pallas), which stays beside it as the
+reference. The single-fit main path:
+
+  * greybody SED model, batched over parameter vectors (models/)
+  * Gaussian likelihood with covariance, box limits, Gaussian priors, fixed
+    parameters and photometric upper limits (likelihood.py); on a CUDA
+    device one lnprob kernel launch per batch (ops/lnprob_kernel.py,
+    csrc/lnprob.cu)
+  * the affine-invariant stretch-move sampler; on a CUDA device each
+    sampling phase is one kernel launch (ops/sampler_kernel.py,
+    csrc/sampler.cu); on the CPU the plain torch sampler (sampler.py)
+  * the MBBFitter burn -> re-center -> re-burn -> production protocol
+  * derived posteriors (L_IR, dust mass, peak wavelength) and HDF5 files
+    readable by either package (results.py, hdf5io.py)
+
+The kernels are built with nvcc at first use (ops/build.py). Importing the
+package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
+read or written.
+"""
+
+from mbb_emcee_tpu_torch.constants import PARAM_NAMES, NPARAMS
+from mbb_emcee_tpu_torch.models.modified_blackbody import (
+    MBBShape, ModifiedBlackbody, log_mbb_fnu, mbb_fnu)
+from mbb_emcee_tpu_torch.models.cosmology import (
+    Cosmology, luminosity_distance)
+from mbb_emcee_tpu_torch.likelihood import (
+    LikelihoodSpec, Photometry, build_lnprob)
+from mbb_emcee_tpu_torch.sampler import EnsembleSampler, SamplerState
+from mbb_emcee_tpu_torch.ops.build import build_kernels
+from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
+from mbb_emcee_tpu_torch.fitter import MBBFitter
+from mbb_emcee_tpu_torch.results import MBBResults
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PARAM_NAMES", "NPARAMS",
+    "MBBShape", "ModifiedBlackbody", "log_mbb_fnu", "mbb_fnu",
+    "Cosmology", "luminosity_distance",
+    "LikelihoodSpec", "Photometry", "build_lnprob",
+    "EnsembleSampler", "SamplerState", "FusedSampler", "build_kernels",
+    "MBBFitter", "MBBResults",
+    "__version__",
+]

@@ -1,0 +1,277 @@
+"""Command-line entry point: run_mbb_emcee_tpu_torch.
+
+The flags of mbb_emcee_tpu/cli.py (positional photometry file + output
+HDF5, sampler geometry, model shape, per-parameter limits / priors / initial
+values / fixing, covariance file, derived-quantity switches) plus --device.
+Flags whose features are not ported yet exit non-zero up front with the
+ROADMAP.md item that carries them.
+
+Usage example:
+    run_mbb_emcee_tpu_torch phot.txt fit.h5 -z 2.2 --nwalkers 250 -b 100 \
+        -n 500 --get-lir --get-dustmass --get-peaklambda --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+import time
+
+from mbb_emcee_tpu_torch.constants import PARAM_NAMES
+
+# Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
+# queue-A item that carries each.
+_WAITING = (
+    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"), ("map", "--map", "A9"),
+    ("init_map", "--init-map", "A9"),
+    ("get_evidence", "--get-evidence", "A9"), ("loo", "--loo", "A9"),
+    ("loo_exact", "--loo-exact", "A9"), ("ppc", "--ppc", "A9"),
+    ("plot_sed", "--plot-sed", "A10"), ("plot_corner", "--plot-corner", "A10"),
+    ("plot_chain", "--plot-chain", "A10"), ("plot_ppc", "--plot-ppc", "A10"),
+    ("checkpoint", "--checkpoint", "A4"), ("resume", "--resume", "A4"),
+    ("extend_until", "--extend-until", "A4"),
+    ("responsefile", "--responsefile", "A2"),
+    ("builtin_responses", "--builtin-responses", "A2"),
+    ("profile_dir", "--profile-dir", "A8"),
+)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="run_mbb_emcee_tpu_torch",
+        description="Fit a modified blackbody to photometry with an "
+                    "affine-invariant MCMC ensemble sampler on a CUDA GPU "
+                    "(PyTorch + hand-written CUDA kernels) or the CPU.")
+    p.add_argument("photfile", help="text photometry: '[band] wave_um "
+                                    "flux_mJy unc_mJy' per line")
+    p.add_argument("outfile", help="output HDF5 file")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where to fit (default: cuda if available, else "
+                        "cpu)")
+
+    g = p.add_argument_group("sampler")
+    g.add_argument("-w", "--nwalkers", type=int, default=250)
+    g.add_argument("-b", "--burn", type=int, default=50,
+                   help="burn-in steps (default 50)")
+    g.add_argument("-n", "--nsteps", type=int, default=250,
+                   help="production steps per walker (default 250)")
+    g.add_argument("--thin", type=int, default=1,
+                   help="record every THIN-th step")
+    g.add_argument("--no-recenter-burn", action="store_true",
+                   help="skip the re-center-on-best-walker re-burn phase")
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--n-ensembles", type=int, default=1,
+                   help="independent ensembles (only 1 is ported)")
+    g.add_argument("--stretch-a", type=float, default=2.0,
+                   help="stretch-move scale parameter a (default 2)")
+    g.add_argument("--nthreads", type=int, default=None,
+                   help="accepted for reference compatibility; ignored")
+    g.add_argument("--checkpoint", default=None)
+    g.add_argument("--checkpoint-interval", type=int, default=100)
+    g.add_argument("--resume", action="store_true")
+    g.add_argument("--sampler-backend", choices=["auto", "torch", "fused"],
+                   default="auto",
+                   help="'fused' runs each sampling phase as one CUDA "
+                        "kernel launch; 'torch' is the plain torch sampler; "
+                        "'auto' (default) is fused on cuda, torch on cpu")
+    g.add_argument("--hmc", action="store_true")
+    g.add_argument("--hmc-leapfrog", type=int, default=16)
+    g.add_argument("--hmc-target-accept", type=float, default=0.8)
+    g.add_argument("--pt", action="store_true")
+    g.add_argument("--pt-rungs", type=int, default=12)
+    g.add_argument("--pt-beta-min", type=float, default=None)
+    g.add_argument("--map", action="store_true")
+    g.add_argument("--map-starts", type=int, default=8)
+    g.add_argument("--init-map", action="store_true")
+
+    g = p.add_argument_group("serving loop")
+    g.add_argument("--extend-until", type=float, default=None,
+                   metavar="RHAT")
+    g.add_argument("--extend-step", type=int, default=None)
+    g.add_argument("--max-steps", type=int, default=None)
+    g.add_argument("--tau-mult", type=float, default=None)
+
+    g = p.add_argument_group("model")
+    g.add_argument("--opthin", action="store_true",
+                   help="optically thin model (drops lambda0)")
+    g.add_argument("--noalpha", action="store_true",
+                   help="no Wien-side power-law merge (drops alpha)")
+    g.add_argument("--wavenorm", type=float, default=500.0,
+                   help="observer-frame normalization wavelength, um")
+
+    g = p.add_argument_group("parameters",
+                             f"PARAM is one of {', '.join(PARAM_NAMES)}")
+    g.add_argument("--initval", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--initscatter", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "SCATTER"))
+    g.add_argument("--lowlim", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--uplim", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--fixed", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--prior", nargs=3, action="append", default=[],
+                   metavar=("PARAM", "MEAN", "SIGMA"),
+                   help="Gaussian prior")
+
+    g = p.add_argument_group("data")
+    g.add_argument("--covfile", default=None,
+                   help="FITS file with a photometric covariance matrix")
+    g.add_argument("--covextn", type=int, default=0,
+                   help="FITS extension of the covariance (default 0)")
+    g.add_argument("--cov-is-total", action="store_true",
+                   help="covariance already includes diag(unc^2)")
+    g.add_argument("--responsefile", default=None)
+    g.add_argument("--responsedir", default=None)
+    g.add_argument("--builtin-responses", action="store_true")
+    g.add_argument("--photon-counter", action="store_true")
+    g.add_argument("--phot-uplim", action="append", default=[],
+                   metavar="BAND",
+                   help="flag this photometry band (name or 0-based "
+                        "index) as an UPPER LIMIT (repeatable)")
+
+    g = p.add_argument_group("derived quantities")
+    g.add_argument("-z", "--redshift", type=float, default=None)
+    g.add_argument("--cosmology", default="WMAP9",
+                   help="named cosmology (WMAP5/7/9, Planck13/15/18)")
+    g.add_argument("--lumdist", type=float, default=None,
+                   help="explicit luminosity distance in Mpc")
+    g.add_argument("--get-lir", action="store_true",
+                   help="compute L_IR(8-1000um rest) posterior")
+    g.add_argument("--lir-wavemin", type=float, default=8.0)
+    g.add_argument("--lir-wavemax", type=float, default=1000.0)
+    g.add_argument("--get-dustmass", action="store_true")
+    g.add_argument("--kappa", type=float, default=2.64,
+                   help="dust opacity m^2/kg (default 2.64)")
+    g.add_argument("--kappa-wave", type=float, default=125.0,
+                   help="rest wavelength of kappa, um (default 125)")
+    g.add_argument("--get-peaklambda", action="store_true")
+    g.add_argument("--derived-thin", type=int, default=1,
+                   help="thin factor for derived-quantity chains")
+    g.add_argument("--ppc", action="store_true")
+    g.add_argument("--loo", action="store_true")
+    g.add_argument("--loo-exact", action="store_true")
+    g.add_argument("--get-evidence", action="store_true")
+    g.add_argument("--nlive", type=int, default=512)
+
+    g = p.add_argument_group("plots")
+    g.add_argument("--plot-sed", default=None, metavar="PNG")
+    g.add_argument("--plot-corner", default=None, metavar="PNG")
+    g.add_argument("--plot-chain", default=None, metavar="PNG")
+    g.add_argument("--plot-ppc", default=None, metavar="PNG")
+
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--profile-dir", default=None)
+    return p
+
+
+def _refuse_waiting_flags(args):
+    for attr, flag, item in _WAITING:
+        if getattr(args, attr):
+            raise SystemExit(
+                f"{flag} is not ported to mbb_emcee_tpu_torch yet "
+                f"(ROADMAP.md, queue A, item {item})")
+    if args.n_ensembles != 1:
+        raise SystemExit("--n-ensembles > 1 is not ported to "
+                         "mbb_emcee_tpu_torch yet (ROADMAP.md, queue A, "
+                         "item A7)")
+
+
+def _uplim_mask(specs, nbands, band_names):
+    """Resolve repeated --phot-uplim values (band name or 0-based index)
+    into an (nbands,) boolean mask; names match first."""
+    import numpy as np
+    mask = np.zeros(nbands, bool)
+    for b in specs:
+        if band_names is not None and b in band_names:
+            i = band_names.index(b)
+        else:
+            try:
+                i = int(b)
+            except ValueError:
+                known = ", ".join(band_names) if band_names else "none"
+                raise SystemExit(
+                    f"--phot-uplim {b!r}: unknown band name "
+                    f"(known: {known}); use a 0-based index instead")
+        if not 0 <= i < nbands:
+            raise SystemExit(f"--phot-uplim {b}: index out of range "
+                             f"(have {nbands} bands)")
+        mask[i] = True
+    return mask
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_waiting_flags(args)
+    if importlib.util.find_spec("h5py") is None:
+        raise SystemExit("writing the HDF5 output file needs h5py, which is "
+                         "not installed")
+    if (args.get_lir or args.get_dustmass) and args.redshift is None:
+        # before sampling: failing after the run would lose the fit
+        raise SystemExit(
+            "--get-lir/--get-dustmass need the source redshift: pass "
+            "-z/--redshift (add --lumdist to override the luminosity "
+            "distance)")
+
+    import logging
+    from mbb_emcee_tpu_torch.fitter import MBBFitter, default_device
+    from mbb_emcee_tpu_torch.results import MBBResults
+    from mbb_emcee_tpu_torch.utils.log import enable_console
+
+    log = enable_console(logging.INFO if args.verbose else logging.WARNING)
+    device = args.device or default_device()
+    fit = MBBFitter(nwalkers=args.nwalkers, photfile=args.photfile,
+                    wavenorm=args.wavenorm, noalpha=args.noalpha,
+                    opthin=args.opthin, seed=args.seed, a=args.stretch_a,
+                    device=device, sampler_backend=args.sampler_backend)
+    if args.covfile is not None:
+        fit.read_cov(args.covfile, args.covextn, args.cov_is_total)
+    if args.phot_uplim:
+        phot = fit._require_data()
+        fit.set_phot_upperlimits(
+            _uplim_mask(args.phot_uplim, phot.nbands, phot.band_names))
+    for param, v in args.initval:
+        fit.set_param_init(param, float(v))
+    for param, v in args.initscatter:
+        fit.set_param_init(param, scatter=float(v))
+    for param, v in args.lowlim:
+        fit.set_lowlim(param, float(v))
+    for param, v in args.uplim:
+        fit.set_uplim(param, float(v))
+    for param, v in args.fixed:
+        fit.fix_param(param, float(v))
+    for param, m, s in args.prior:
+        fit.set_gaussian_prior(param, float(m), float(s))
+
+    log.info(f"Device: {fit.device}")
+    log.info(f"Running fit: {args.nwalkers} walkers, burn={args.burn}, "
+             f"steps={args.nsteps}, thin={args.thin}")
+    t0 = time.perf_counter()
+    fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+            recenter_burn=not args.no_recenter_burn, verbose=args.verbose)
+    secs = time.perf_counter() - t0
+    total = args.nsteps + (args.burn if args.no_recenter_burn
+                           else 2 * args.burn)
+    log.info(f"  fit (burn + production): {total} steps in {secs:.2f}s "
+             f"({args.nwalkers * total / secs:,.0f} walker-steps/s, "
+             f"host clock, build and first-call costs included)")
+
+    res = MBBResults(fit=fit, redshift=args.redshift,
+                     cosmology=args.cosmology, lumdist=args.lumdist)
+    if args.get_lir:
+        res.compute_lir(args.lir_wavemin, args.lir_wavemax,
+                        thin=args.derived_thin)
+    if args.get_dustmass:
+        res.compute_dustmass(args.kappa, args.kappa_wave,
+                             thin=args.derived_thin)
+    if args.get_peaklambda:
+        res.compute_peaklambda(thin=args.derived_thin)
+    res.writeToHDF5(args.outfile)
+    print(res)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

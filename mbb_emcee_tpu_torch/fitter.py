@@ -1,0 +1,376 @@
+"""Fit orchestration: data ingest, priors/limits/fixed params, burn-in
+protocol, production run.
+
+Torch twin of mbb_emcee_tpu/fitter.py: the reference's burn-in ->
+re-center-on-best-walker -> re-burn -> reset -> production protocol, each
+phase one sampler call. On a CUDA device each call is one launch of the
+stretch-move kernel (ops/sampler_kernel.py); on the CPU the plain torch
+sampler runs the same protocol.
+
+Parameters are observer frame: theta = (T/(1+z), beta, lambda0*(1+z),
+alpha, fnorm). Randomness: the walker balls come from a torch.Generator
+seeded with `seed`; the proposals from the Philox stream keyed by a 64-bit
+key derived from the same seed.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from mbb_emcee_tpu_torch.constants import PARAM_NAMES, NPARAMS, HCOK_UM_K
+from mbb_emcee_tpu_torch.models.modified_blackbody import MBBShape
+from mbb_emcee_tpu_torch.likelihood import (
+    Photometry, LikelihoodSpec, build_lnprob)
+from mbb_emcee_tpu_torch.sampler import (
+    EnsembleSampler, make_initial_ball, autocorrelation_time, split_rhat)
+from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
+
+# Default initial guess and ball scatter (observer frame).
+DEFAULT_INIT = np.array([12.0, 2.0, 250.0, 4.0, 40.0])
+DEFAULT_SCATTER = np.array([2.0, 0.3, 50.0, 0.8, 8.0])
+
+
+def not_ported(feature, item):
+    """The error for a surface of the JAX package this port does not have
+    yet; `item` names its entry in ROADMAP.md's queue."""
+    return NotImplementedError(
+        f"{feature} is not ported to mbb_emcee_tpu_torch yet "
+        f"(ROADMAP.md, queue A, item {item})")
+
+
+def default_device():
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def philox_key(seed):
+    """64-bit Philox key from an integer seed (splitmix64 finalizer)."""
+    z = (int(seed) + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return z ^ (z >> 31)
+
+
+class MBBFitter(ParamSpaceMixin):
+    """Single-source modified-blackbody fit (the reference's mbb_fitter).
+
+    device: "cuda" or "cpu" (default: cuda when available).
+    sampler_backend: "fused" (the whole run as one kernel launch), "torch"
+    (the plain torch sampler) or "auto" = fused on CUDA, torch on the CPU.
+    """
+
+    def __init__(self, nwalkers=250, photfile=None, covfile=None, covextn=0,
+                 wavenorm=500.0, noalpha=False, opthin=False, *,
+                 redshift=None, responses=None, nthreads=None, seed=1234,
+                 a=2.0, device=None, sampler_backend="auto", mesh=None,
+                 n_ensembles=1):
+        del nthreads  # walker parallelism is on the device
+        if responses is not None:
+            raise not_ported("instrument-response mode (responses=)", "A2")
+        if mesh is not None:
+            raise not_ported("walker sharding over a mesh (mesh=)", "A11")
+        if int(n_ensembles) != 1:
+            raise not_ported("n_ensembles > 1 (the batch tier, kernel K3)",
+                             "A7")
+        if sampler_backend not in ("auto", "torch", "fused"):
+            raise ValueError(
+                "sampler_backend must be 'auto', 'torch' or 'fused'")
+        self.device = torch.device(device or default_device())
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"device must be cuda or cpu; got {device!r}")
+        self.sampler_backend = sampler_backend
+        self.nwalkers = int(nwalkers)
+        self.shape = MBBShape(opthin=bool(opthin), noalpha=bool(noalpha),
+                              wavenorm=float(wavenorm))
+        self.redshift = None if redshift is None else float(redshift)
+        self.a = float(a)
+        self.seed = int(seed)
+
+        self._spec = LikelihoodSpec.default()
+        self._init = DEFAULT_INIT.copy()
+        self._scatter = DEFAULT_SCATTER.copy()
+        self._user_init = np.zeros(NPARAMS, bool)
+        self._user_scatter = np.zeros(NPARAMS, bool)
+        self.phot: Photometry | None = None
+
+        self.free_space = None
+        self.chain_free = None      # (nrec, nwalkers, nfree) tensor
+        self.lnprobability = None   # (nrec, nwalkers) tensor
+        self.burn_chain_free = None
+        self.acceptance_fraction = None
+        self.thin = 1
+
+        if photfile is not None:
+            self.read_data(photfile)
+        if covfile is not None:
+            if self.phot is None:
+                raise ValueError("covfile given without photometry")
+            self.phot.read_cov(covfile, covextn=covextn)
+
+    # -- data ingest -----------------------------------------------------------
+    def read_data(self, photfile):
+        """Load text photometry (ref: mbb_fitter.read_data)."""
+        phot = Photometry.from_file(photfile)
+        self._check_uplim_mask(phot)
+        self.phot = phot
+        return self
+
+    def set_data(self, wave, flux, unc, cov=None, band_names=None):
+        phot = Photometry(wave, flux, unc, cov=cov, band_names=band_names)
+        self._check_uplim_mask(phot)
+        self.phot = phot
+        return self
+
+    def _check_uplim_mask(self, phot):
+        ub = self._spec.uplim_bands
+        if ub is not None and ub.size != phot.nbands:
+            raise ValueError(
+                f"the photometric upper-limit mask was set for {ub.size} "
+                f"bands but the new data has {phot.nbands}; call "
+                f"set_phot_upperlimits again (or clear it with None) "
+                f"before binding this data")
+
+    def read_cov(self, covfile, covextn=0, is_total=False):
+        self._require_data().read_cov(covfile, covextn, is_total)
+        return self
+
+    def set_phot_upperlimits(self, mask):
+        """Flag bands whose flux column is an upper limit (None clears)."""
+        if mask is None:
+            self._spec = _replace(self._spec, uplim_bands=None)
+            return self
+        mask = np.asarray(mask, bool)
+        if mask.size != self._require_data().nbands:
+            raise ValueError("upper-limit mask length mismatch")
+        self._spec = _replace(self._spec, uplim_bands=mask)
+        return self
+
+    def _require_data(self) -> Photometry:
+        if self.phot is None:
+            raise RuntimeError("no photometry loaded; call read_data/set_data")
+        return self.phot
+
+    # f_nu of a greybody peaks near x = hc/(lambda k T) ~ 4.
+    _WIEN_X_PEAK = 4.0
+
+    def _auto_init_fnorm(self):
+        """Unless the user set them, seed fnorm from the flux of the band
+        nearest wavenorm and T from the brightest band's wavelength."""
+        if self.phot is None:
+            return
+        if not self._user_init[4]:
+            idx = int(np.argmin(np.abs(self.phot.wave -
+                                       self.shape.wavenorm)))
+            fn = float(self.phot.flux[idx])
+            if fn > 0:
+                self._init[4] = fn
+                if not self._user_scatter[4]:
+                    self._scatter[4] = max(2.0 * float(self.phot.unc[idx]),
+                                           0.05 * fn)
+        if not self._user_init[0]:
+            lam_pk = float(self.phot.wave[int(np.argmax(self.phot.flux))])
+            t0 = HCOK_UM_K / (self._WIEN_X_PEAK * lam_pk)
+            t0 = float(np.clip(t0, self._spec.lower[0] * 1.02,
+                               self._spec.upper[0] * 0.98))
+            self._init[0] = t0
+            if not self._user_scatter[0]:
+                self._scatter[0] = max(0.15 * t0, 1.0)
+
+    # -- likelihood and sampler ----------------------------------------------------
+    def _response_pack(self):
+        return None
+
+    def _resolve_sampler_backend(self):
+        if self.sampler_backend != "auto":
+            return self.sampler_backend
+        return "fused" if self.device.type == "cuda" else "torch"
+
+    def build(self):
+        """Build (lnprob, free_space, sampler). Called by run()."""
+        spec = self._effective_spec()
+        backend = self._resolve_sampler_backend()
+        self._backend_used = backend
+        if backend == "fused":
+            from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
+            sampler = FusedSampler(
+                self.nwalkers, self._require_data(), self.shape, spec,
+                response_pack=self._response_pack(), a=self.a,
+                device=self.device)
+            return sampler.lnprob_batch, sampler.free_space, sampler
+        lnprob, free_space = build_lnprob(
+            self._require_data(), self.shape, spec,
+            response_pack=self._response_pack(), device=self.device)
+        sampler = EnsembleSampler(self.nwalkers, free_space.nfree, lnprob,
+                                  a=self.a)
+        return lnprob, free_space, sampler
+
+    def __call__(self, params):
+        """lnprob at a FULL 5-parameter vector (ref: mbb_fitter.__call__);
+        the box and priors apply, fixed parameters take the given values.
+        On CUDA this is one launch of the lnprob kernel."""
+        from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+            prepare_lnprob_inputs, mbb_lnprob)
+        params = np.asarray(params, dtype=np.float64)
+        if params.shape != (NPARAMS,):
+            raise ValueError(f"expected {NPARAMS}-vector")
+        open_spec = _replace(self._effective_spec(),
+                             fixed=np.zeros(NPARAMS, bool),
+                             fixed_values=np.zeros(NPARAMS))
+        # The packed operands are cached on a content fingerprint: ported
+        # upstream code calls this in per-sample loops.
+        phot = self._require_data()
+        h = hashlib.sha256(repr(self.shape).encode())
+        for arr in (open_spec.lower, open_spec.upper, open_spec.prior_mean,
+                    open_spec.prior_isigma, open_spec.uplim_bands,
+                    phot.wave, phot.flux, phot.unc, phot.cov):
+            h.update(b"-" if arr is None else np.asarray(arr).tobytes())
+        key = h.hexdigest()
+        cache = getattr(self, "_call_cache", None)
+        if cache is None or cache[0] != key:
+            ops = prepare_lnprob_inputs(phot, self.shape, open_spec,
+                                        device=self.device)
+            cache = (key, ops)
+            self._call_cache = cache
+        x = torch.as_tensor(params.astype(np.float32)[None, :],
+                            device=self.device)
+        return float(mbb_lnprob(x, cache[1])[0])
+
+    # -- the run -------------------------------------------------------------------
+    def run(self, nburn=50, nsteps=250, thin=1, p0=None,
+            recenter_burn=True, verbose=False, checkpoint=None,
+            checkpoint_interval=100, resume=False, init="auto"):
+        """Burn-in -> re-center on the best burn-in sample -> re-burn ->
+        reset -> production (ref: mbb_fitter.run). Stores the production
+        chain on the fitter's device; wrap in MBBResults for analysis.
+        Returns self."""
+        del checkpoint_interval
+        if init == "map":
+            raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
+        if init != "auto":
+            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
+        if checkpoint is not None or resume:
+            raise not_ported("checkpoint/resume", "A4")
+        if int(thin) < 1:
+            raise ValueError(f"thin={thin} must be >= 1")
+        if int(nsteps) % int(thin):
+            raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+
+        self._auto_init_fnorm()
+        _, free_space, sampler = self.build()
+        self.free_space = free_space
+        self.thin = int(thin)
+        idx = free_space.free_idx
+        gen = torch.Generator().manual_seed(self.seed)
+        if p0 is None:
+            p0 = make_initial_ball(gen, self._init[idx], self._scatter[idx],
+                                   self.nwalkers, free_space.lower,
+                                   free_space.upper, device=self.device)
+        else:
+            p0 = torch.as_tensor(np.asarray(p0, np.float32),
+                                 device=self.device)
+            if p0.shape[-1] == NPARAMS:
+                p0 = p0[..., torch.as_tensor(idx, device=self.device)]
+        state = sampler.init_state(p0, seed=philox_key(self.seed))
+
+        if nburn > 0:
+            state, bchain, blnp = sampler.run_mcmc(state, nburn)
+            self.burn_chain_free = bchain
+            if recenter_burn:
+                # Re-center the whole ensemble on the best burn-in sample
+                # with a tight ball, then burn again from there; the Philox
+                # stream continues where the burn-in stopped.
+                flat = bchain.reshape(-1, free_space.nfree)
+                best = flat[int(torch.argmax(blnp.reshape(-1)))]
+                p0b = make_initial_ball(gen, best.double().cpu().numpy(),
+                                        self._scatter[idx] * 0.1,
+                                        self.nwalkers, free_space.lower,
+                                        free_space.upper, device=self.device)
+                state = sampler.init_state(p0b, seed=state.seed,
+                                           step=state.step)
+                state = sampler.advance(state, nburn)
+            state = sampler.reset_counters(state)
+
+        state, chain, lnpchain = sampler.run_mcmc(state, nsteps, thin)
+        self.chain_free = chain
+        self.lnprobability = lnpchain
+        self.final_state = state
+        self.acceptance_fraction = sampler.acceptance_fraction(state)
+        self.sampler = sampler
+
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            log = enable_console()
+            af = self.acceptance_fraction
+            log.info(f"Sampler: {self._backend_used} on {self.device}")
+            log.info(f"Mean acceptance fraction: {af.mean():.3f} "
+                     f"(min {af.min():.3f}, max {af.max():.3f})")
+            tau = self.autocorrelation_time()
+            names = self.free_param_names
+            for n, t in zip(names, tau):
+                log.info(f"  autocorrelation time [{n}]: {t:.1f} steps")
+            if chain.shape[0] >= 4:
+                rhat = self.gelman_rubin()
+                log.info("  split-R-hat: " + ", ".join(
+                    f"{n}={r:.3f}" for n, r in zip(names, rhat)))
+        return self
+
+    def run_hmc(self, *args, **kwargs):
+        raise not_ported("run_hmc (Hamiltonian Monte Carlo)", "A9")
+
+    def run_pt(self, *args, **kwargs):
+        raise not_ported("run_pt (parallel tempering)", "A9")
+
+    def fit_map(self, *args, **kwargs):
+        raise not_ported("fit_map (MAP + Laplace triage)", "A9")
+
+    def compute_evidence(self, *args, **kwargs):
+        raise not_ported("compute_evidence (nested sampling)", "A9")
+
+    def compute_loo_exact(self, *args, **kwargs):
+        raise not_ported("compute_loo_exact (exact LOO refits)", "A9")
+
+    def extend(self, *args, **kwargs):
+        raise not_ported("extend (continuing a production run)", "A4")
+
+    # -- products --------------------------------------------------------------------
+    def _chain_np(self):
+        if self.chain_free is None:
+            raise RuntimeError("run() has not been called")
+        return self.chain_free.double().cpu().numpy()
+
+    @property
+    def chain(self):
+        """Full-parameter production chain, reference layout
+        (nwalkers, nsteps, 5)."""
+        full = self.free_space.expand(self._chain_np())
+        return np.transpose(full, (1, 0, 2))
+
+    def autocorrelation_time(self):
+        return autocorrelation_time(self._chain_np())
+
+    @property
+    def free_param_names(self):
+        """Free-parameter names in chain-column order."""
+        if self.free_space is None:
+            raise RuntimeError("run() has not been called")
+        return [PARAM_NAMES[i] for i in self.free_space.free_idx]
+
+    def gelman_rubin(self):
+        """Split-R-hat per free parameter of the recorded chain."""
+        return split_rhat(self._chain_np())
+
+    def converged(self, rhat_max=1.1, tau_mult=None, rhat=None):
+        """Every free parameter's split-R-hat below `rhat_max`; with
+        `tau_mult`, also a recorded chain at least tau_mult x the largest
+        autocorrelation time (a NaN tau counts as 1)."""
+        if rhat is None:
+            rhat = self.gelman_rubin()
+        ok = bool(np.all(np.asarray(rhat) < float(rhat_max)))
+        if ok and tau_mult is not None:
+            tau = np.nan_to_num(np.asarray(self.autocorrelation_time(),
+                                           np.float64), nan=1.0)
+            ok = bool(self.chain_free.shape[0] >= float(tau_mult)
+                      * float(np.max(tau)))
+        return ok

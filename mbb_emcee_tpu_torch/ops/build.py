@@ -1,0 +1,102 @@
+"""Build the hand-written CUDA kernels (csrc/*.cu) and bind them with ctypes.
+
+`build_kernels()` compiles every source of csrc/ with nvcc for Hopper
+(sm_90a) into one shared library with a plain C interface, at first use,
+into build/mbb_emcee_tpu_torch/<hash>/ beside the package (the hash covers
+the sources and the flags, so an edited kernel is rebuilt), and loads it
+with ctypes. The compiler's register and spill report is kept beside the
+library in build.log. Nothing is compiled when the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = (Path(__file__).resolve().parent.parent.parent / "build"
+              / "mbb_emcee_tpu_torch")
+LIB_NAME = "libmbb_kernels.so"
+# -fmad=false: no multiply-add contraction, so the kernels round op by op
+# as the plain torch versions do (see csrc/lnprob.cuh).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def find_nvcc():
+    """Path of nvcc: on PATH, under $CUDA_HOME, or the toolkit's default
+    location; None when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    return None
+
+
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path():
+    """Where the library for the current sources is (or will be) built."""
+    return BUILD_ROOT / _source_hash() / LIB_NAME
+
+
+@functools.lru_cache(maxsize=1)
+def build_kernels():
+    """Compile (if needed) and load the kernel library; returns the ctypes
+    handle, cached for the process after the first success. Raises
+    RuntimeError when nvcc is missing or the build fails."""
+    lib = library_path()
+    if not lib.is_file():
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(
+                "nvcc not found: the CUDA kernels of mbb_emcee_tpu_torch "
+                "are built from csrc/ at first use and need the CUDA "
+                "toolkit (nvcc on PATH, or CUDA_HOME set)")
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+        srcs = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *srcs],
+                              capture_output=True, text=True)
+        (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n"
+                f"{proc.stderr[-6000:]}")
+        os.replace(tmp, lib)
+    return _load(str(lib))
+
+
+def _load(path):
+    lib = ctypes.CDLL(path)
+    lib.mbb_lnprob_launch.argtypes = [_P, _P, _P, _I, _P, _P, _P]
+    lib.mbb_lnprob_launch.restype = _I
+    lib.mbb_stretch_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
+        ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
+    lib.mbb_stretch_launch.restype = _I
+    return lib
+
+
+def build_log():
+    """The compiler output of the current build (registers, spills), or
+    None before the first build."""
+    log = library_path().parent / "build.log"
+    return log.read_text() if log.is_file() else None

@@ -1,0 +1,145 @@
+"""K1: the batched lnprob as a hand-written CUDA kernel, and its wrapper.
+
+Replaces the TPU kernel mbb_emcee_tpu/ops/pallas_lnprob.py::_make_kernel
+(:248; body _make_lnp_compute :136-245), which build_pallas_lnprob (:338)
+launches. The CUDA source is csrc/lnprob.cu with the per-walker body in
+csrc/lnprob.cuh, which the stretch-move kernel (csrc/sampler.cu) shares.
+What bounds it and how it is laid out is noted in csrc/lnprob.cuh.
+
+The plain PyTorch version of this kernel is likelihood.build_lnprob's
+batched function; `prepare_lnprob_inputs` builds it beside the packed kernel
+operands. `mbb_lnprob` runs the plain version for a tensor on the CPU, and
+for a CUDA tensor launches the kernel or raises; `mbb_lnprob.launches`
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from mbb_emcee_tpu_torch.constants import NPARAMS
+from mbb_emcee_tpu_torch.likelihood import FreeSpace, build_lnprob
+from mbb_emcee_tpu_torch.models.modified_blackbody import LOG_C2
+from mbb_emcee_tpu_torch.ops.build import build_kernels
+
+# Caps of the kernels' shared-memory staging (csrc/lnprob.cuh).
+MAX_BANDS = 32
+MAX_NODES = 65
+
+
+@dataclasses.dataclass(frozen=True)
+class LnprobOperands:
+    """Everything both kernels need for one likelihood, on one device:
+    the packed constant buffer (layout in csrc/lnprob.cuh), the runtime
+    configuration as host int32/fp32 arrays, and the plain version."""
+    consts: torch.Tensor
+    icfg: np.ndarray
+    fcfg: np.ndarray
+    free_space: FreeSpace
+    plain: Callable
+
+    @property
+    def nfree(self):
+        return self.free_space.nfree
+
+    @property
+    def device(self):
+        return self.consts.device
+
+
+def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
+                          device="cpu") -> LnprobOperands:
+    """Pack a likelihood (photometry, model shape, spec, optional
+    (waves, weights) response pack of shape (nbands, nnodes)) into kernel
+    operands on `device`, with the plain version built beside them."""
+    plain, free_space = build_lnprob(phot, shape, spec,
+                                     response_pack=response_pack,
+                                     device=device)
+    nb = phot.nbands
+    if response_pack is not None:
+        waves = np.asarray(response_pack[0], np.float64)
+        weights = np.asarray(response_pack[1], np.float64)
+        if waves.shape != weights.shape or waves.ndim != 2 \
+                or waves.shape[0] != nb:
+            raise ValueError("response pack must be two (nbands, nnodes) "
+                             "arrays")
+    else:
+        waves = np.asarray(phot.wave, np.float64)[:, None]
+        weights = np.ones((nb, 1))
+    nnodes = waves.shape[1]
+    if nb > MAX_BANDS or nnodes > MAX_NODES:
+        raise ValueError(
+            f"the CUDA kernels take at most {MAX_BANDS} bands and "
+            f"{MAX_NODES} response nodes per band; got {nb} x {nnodes}")
+
+    use_chol = phot.cov is not None
+    whiten = (np.linalg.inv(np.linalg.cholesky(phot.cov)) if use_chol
+              else np.diag(1.0 / phot.unc))
+    # Fixed parameters get a finite window centered on their value: the
+    # kernel uses the same limits for the in-box check and the clip, so
+    # they must contain the value (fix_param('alpha', 0.0) with the
+    # default lower bound of 0.01).
+    fv = np.asarray(spec.fixed_values, np.float64)
+    lower = np.where(spec.fixed, fv - 1.0, spec.lower)
+    upper = np.where(spec.fixed, fv + 1.0, spec.upper)
+    packed = np.concatenate([
+        lower, upper, spec.prior_mean, spec.prior_isigma,
+        phot.flux, whiten.ravel(), waves.ravel(), weights.ravel()])
+    consts = torch.as_tensor(packed.astype(np.float32), device=device)
+
+    uplim = 0
+    if spec.uplim_bands is not None:
+        for b in np.nonzero(np.asarray(spec.uplim_bands, bool))[0]:
+            uplim |= 1 << int(b)
+    free_idx = np.zeros(NPARAMS, np.int64)
+    free_idx[:free_space.nfree] = free_space.free_idx
+    icfg = np.array([int(shape.opthin), int(shape.noalpha), int(use_chol),
+                     nb, nnodes, uplim, free_space.nfree, *free_idx],
+                    np.int64).astype(np.uint32).view(np.int32)
+    fcfg = np.array([*free_space.template, LOG_C2,
+                     LOG_C2 - math.log(shape.wavenorm)], np.float32)
+    return LnprobOperands(consts=consts, icfg=icfg, fcfg=fcfg,
+                          free_space=free_space, plain=plain)
+
+
+def current_stream_handle(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def mbb_lnprob(theta_free, ops: LnprobOperands):
+    """Batched lnprob (n, nfree) -> (n,) of the likelihood in `ops`:
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    if theta_free.device != ops.device:
+        raise ValueError(f"theta on {theta_free.device}, likelihood "
+                         f"operands on {ops.device}")
+    if theta_free.device.type == "cpu":
+        return ops.plain(theta_free)
+    if theta_free.device.type != "cuda":
+        raise ValueError(f"unsupported device {theta_free.device}")
+    if theta_free.dtype != torch.float32 or theta_free.dim() != 2 \
+            or theta_free.shape[1] != ops.nfree \
+            or not theta_free.is_contiguous():
+        raise ValueError(
+            f"theta must be a contiguous float32 (n, {ops.nfree}) tensor; "
+            f"got {theta_free.dtype} {tuple(theta_free.shape)}")
+    lib = build_kernels()
+    n = theta_free.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=theta_free.device)
+    with torch.cuda.device(theta_free.device):
+        rc = lib.mbb_lnprob_launch(
+            theta_free.data_ptr(), ops.consts.data_ptr(), out.data_ptr(), n,
+            ops.icfg.ctypes.data, ops.fcfg.ctypes.data,
+            current_stream_handle(theta_free.device))
+    if rc != 0:
+        raise RuntimeError(f"mbb_lnprob kernel launch failed: CUDA error "
+                           f"{rc}")
+    mbb_lnprob.launches += 1
+    return out
+
+
+mbb_lnprob.launches = 0

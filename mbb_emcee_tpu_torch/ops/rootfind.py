@@ -1,0 +1,61 @@
+"""Fixed-iteration, branchless 1-D root finding and maximization.
+
+Torch twin of mbb_emcee_tpu/ops/rootfind.py. A fixed iteration count keeps
+every call shape-static and batched over any leading shape (walkers, chain
+samples); the loops are plain Python over whole tensors.
+"""
+
+import torch
+
+_INVPHI = 0.6180339887498949   # 1/phi
+_INVPHI2 = 0.3819660112501051  # 1/phi^2
+
+
+def bisect_newton_decreasing(g_and_gp, lo, hi, bisect_iters=10,
+                             newton_iters=3):
+    """Root of a strictly DECREASING g on [lo, hi] (g(lo) > 0 > g(hi)):
+    fixed bisection to localize, then bracket-clamped Newton to polish.
+
+    g_and_gp(u) -> (g(u), g'(u)) with g' < 0 on the bracket; lo/hi are
+    tensors of the batch shape. The clamp keeps every Newton iterate inside
+    the current bracket, so the solve cannot diverge.
+    """
+    a, b = lo, hi
+    for _ in range(bisect_iters):
+        m = 0.5 * (a + b)
+        gm, _ = g_and_gp(m)
+        pos = gm > 0.0
+        a = torch.where(pos, m, a)
+        b = torch.where(pos, b, m)
+    u = 0.5 * (a + b)
+    for _ in range(newton_iters):
+        gu, gpu = g_and_gp(u)
+        u = torch.minimum(torch.maximum(
+            u - gu / torch.clamp(gpu, max=-1e-10), a), b)
+    return u
+
+
+def golden_max(f, lo, hi, iters=64):
+    """Argmax of a unimodal function on [lo, hi] by golden-section search.
+
+    lo/hi are tensors of the batch shape; f maps such a tensor to values of
+    the same shape. iters=64 shrinks the interval by 0.618^64 ~ 4e-14 of its
+    width (fp32-saturating). Returns (x_max, f(x_max)).
+    """
+    a, b = lo, hi
+    x1 = a + _INVPHI2 * (b - a)
+    x2 = a + _INVPHI * (b - a)
+    f1, f2 = f(x1), f(x2)
+    for _ in range(iters):
+        # If f1 >= f2 the max is in [a, x2]; else in [x1, b].
+        left = f1 >= f2
+        a_n = torch.where(left, a, x1)
+        b_n = torch.where(left, x2, b)
+        x1_n = torch.where(left, a_n + _INVPHI2 * (b_n - a_n), x2)
+        x2_n = torch.where(left, x1, a_n + _INVPHI * (b_n - a_n))
+        # One new evaluation per iteration: the other interior value carries.
+        f_new = f(torch.where(left, x1_n, x2_n))
+        f1, f2 = torch.where(left, f_new, f2), torch.where(left, f1, f_new)
+        a, b, x1, x2 = a_n, b_n, x1_n, x2_n
+    xm = 0.5 * (a + b)
+    return xm, f(xm)

@@ -1,0 +1,156 @@
+"""The PyTorch port's package boundary: it imports neither jax nor the JAX
+package, builds its kernels only on demand (and says so clearly when nvcc is
+missing), dispatches CPU tensors to the plain versions without touching the
+kernel launch counters, and refuses the surfaces that are not ported yet
+with the ROADMAP.md item that carries them."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from mbb_emcee_tpu_torch import MBBFitter  # noqa: E402
+from mbb_emcee_tpu_torch.likelihood import (  # noqa: E402
+    LikelihoodSpec, Photometry)
+from mbb_emcee_tpu_torch.models.modified_blackbody import (  # noqa: E402
+    MBBShape)
+from mbb_emcee_tpu_torch.ops import build  # noqa: E402
+from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob  # noqa: E402
+from mbb_emcee_tpu_torch.ops.sampler_kernel import (  # noqa: E402
+    FusedSampler, mbb_stretch_run)
+from mbb_emcee_tpu_torch.sampler import (  # noqa: E402
+    make_initial_ball, stretch_run_plain)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "mbb_emcee_tpu_torch"
+WAVE = np.array([100.0, 160.0, 250.0, 350.0, 500.0])
+FLUX = np.array([11.2, 32.1, 44.8, 38.2, 22.9])
+
+
+def test_import_leaves_jax_and_reference_out():
+    """In a fresh interpreter (this one already holds jax): importing the
+    port and its CLI loads no jax, no mbb_emcee_tpu and no h5py."""
+    code = ("import sys, mbb_emcee_tpu_torch, mbb_emcee_tpu_torch.cli, "
+            "mbb_emcee_tpu_torch.convert\n"
+            "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py') "
+            "if m in sys.modules]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_line_imports_jax():
+    pat = re.compile(r"^\s*(import jax|from jax|import mbb_emcee_tpu$|"
+                     r"from mbb_emcee_tpu[ .])")
+    offending = [f"{p.relative_to(REPO)}:{i}"
+                 for p in sorted(PKG.rglob("*.py"))
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if pat.match(line)]
+    assert offending == []
+
+
+def test_build_kernels_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    build.build_kernels.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.build_kernels()
+    finally:
+        build.build_kernels.cache_clear()
+    assert not list(tmp_path.iterdir())
+
+
+def test_kernel_sources_are_packaged():
+    names = sorted(p.name for p in (PKG / "csrc").iterdir())
+    assert names == ["lnprob.cu", "lnprob.cuh", "sampler.cu"]
+
+
+def _problem():
+    phot = Photometry(WAVE, FLUX, 0.05 * FLUX)
+    spec = LikelihoodSpec.default()
+    spec.upper[0] = 100.0
+    spec.upper[1] = 5.0
+    return phot, MBBShape(), spec
+
+
+def test_cpu_dispatch_leaves_launch_counters_at_zero():
+    phot, shape, spec = _problem()
+    k1, k2 = mbb_lnprob.launches, mbb_stretch_run.launches
+    plain_runs = stretch_run_plain.runs
+    samp = FusedSampler(16, phot, shape, spec, device="cpu")
+    p0 = make_initial_ball(torch.Generator().manual_seed(0),
+                           [30.0, 1.8, 250.0, 3.5, 23.0],
+                           [2.0, 0.1, 20.0, 0.3, 1.0], 16,
+                           samp.free_space.lower, samp.free_space.upper)
+    state = samp.init_state(p0, seed=7)
+    state, chain, lnp = samp.run_mcmc(state, 4, thin=2)
+    assert chain.shape == (2, 16, 5) and lnp.shape == (2, 16)
+    assert bool(torch.all(torch.isfinite(lnp)))
+    assert mbb_lnprob.launches == k1
+    assert mbb_stretch_run.launches == k2
+    assert stretch_run_plain.runs == plain_runs + 1
+
+
+@pytest.mark.parametrize("device,backend,want", [
+    ("cpu", "auto", "torch"), ("cuda", "auto", "fused"),
+    ("cpu", "fused", "fused"), ("cuda", "torch", "torch")])
+def test_auto_backend_follows_the_device(device, backend, want):
+    fit = MBBFitter(device=device, sampler_backend=backend)
+    assert fit._resolve_sampler_backend() == want
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(responses=object()), "A2"), (dict(n_ensembles=2), "A7"),
+    (dict(mesh=object()), "A11")])
+def test_constructor_refuses_unported_options(kwargs, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        MBBFitter(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda f: f.run(checkpoint="x.h5"), "A4"),
+    (lambda f: f.run(init="map"), "A9"),
+    (lambda f: f.run_hmc(), "A9"), (lambda f: f.run_pt(), "A9"),
+    (lambda f: f.fit_map(), "A9"), (lambda f: f.compute_evidence(), "A9"),
+    (lambda f: f.compute_loo_exact(), "A9"), (lambda f: f.extend(10), "A4")])
+def test_fitter_refuses_unported_surfaces(call, item):
+    fit = MBBFitter(nwalkers=16, device="cpu")
+    fit.set_data(WAVE, FLUX, 0.05 * FLUX)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        call(fit)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    """On a CUDA machine: K1 and K2 against their plain versions at the
+    main path's shape (chip_smoke.py runs the full set of cases)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    phot, shape, spec = _problem()
+    samp = FusedSampler(250, phot, shape, spec, rng="external",
+                        device="cuda")
+    p0 = make_initial_ball(torch.Generator().manual_seed(1),
+                           [30.0, 1.8, 250.0, 3.5, 23.0],
+                           [2.0, 0.1, 20.0, 0.3, 1.0], 250,
+                           samp.free_space.lower, samp.free_space.upper,
+                           device="cuda")
+    torch.testing.assert_close(mbb_lnprob(p0, samp.ops),
+                               samp.ops.plain(p0), rtol=1e-5, atol=1e-4)
+    state = samp.init_state(p0, seed=3)
+    u = torch.rand((3, 12, 125), generator=torch.Generator().manual_seed(2))
+    u = u.clamp(1e-3, 1 - 1e-3).to("cuda")
+    got = samp.run_mcmc(state, 6, thin=2, uniforms=u)
+    want = stretch_run_plain(state, samp.ops.plain, 3, 2, 2.0, u)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=1e-5)
+    assert torch.equal(got[0].naccept, want[0].naccept)
