@@ -20,7 +20,23 @@ non-zero without printing a result):
      parity sentinel's configs, held against the recorded fp64 oracle
      moments, with the kernels' launch counts;
   6. time: marginal walker-steps/s of the kernel sampler against the plain
-     torch sampler on the card.
+     torch sampler on the card;
+  7. K3 (multi-source stretch-move kernel) against its plain replay on the
+     card, on shared external uniforms: 5 sources with per-source upper
+     limits and a missing band, a band-correlated case, a 5 x 65 response
+     pack;
+  8. K3's Philox mode: bitwise deterministic, replayed bitwise by the plain
+     multi run, and equal to K2 bitwise for one source; then K3 against the
+     plain multi run at the shapes the batch path gives it (256 sources,
+     and 4), where a chain may part from the plain one only on an accept
+     decision that sits within lnprob rounding of its threshold;
+  9. the batch path through the user's entry points, with K3's launch count
+     taken over each entry point's run (3 launches each, no plain run):
+     MBBFitter(n_ensembles=4) on the parity sentinel's config 1 against the
+     recorded fp64 oracle moments, and MultiFitter at 256 sources x 250
+     walkers x 5 bands (full model) with summaries and derived posteriors;
+ 10. time: K3's aggregate walker-steps/s at 256 x 250 x 5 against the plain
+     multi run on the card.
 
 It then prints the kernel table as one JSON line, the nvidia-smi line, and
 as its last line {"ok": true, "device": {...}}. Without a CUDA device it
@@ -50,6 +66,8 @@ K2_RTOL, K2_ATOL, K2_LNP_ATOL = 2e-5, 1e-5, 1e-4
 
 NWALKERS = 250
 DEVICE = "cuda"
+# The batch cell: bench.py's multisource shape, 256 sources x 250 walkers.
+NSOURCES = 256
 
 
 def log(msg):
@@ -495,6 +513,470 @@ def phase_time(card):
     return out
 
 
+def batch_data(nsrc, seed, missing_every=0):
+    """Config 2 (full 5-parameter model) mock photometry for `nsrc` sources:
+    per-source noise from numpy seeds seed..seed+nsrc-1, and band 0 missing
+    (NaN) in every `missing_every`-th source. Returns (flux, unc) (S, 5)."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    rows = [vp.mock_data(vp.CONFIGS[2], seed=seed + s) for s in range(nsrc)]
+    flux = np.stack([r[0] for r in rows])
+    unc = np.stack([r[1] for r in rows])
+    if missing_every:
+        flux[1::missing_every, 0] = np.nan
+        unc[1::missing_every, 0] = np.nan
+    return flux, unc
+
+
+def batch_fitter(flux, unc, redshifts=None, **kw):
+    """A port MultiFitter on `flux`/`unc` with config 2's box and priors."""
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MultiFitter
+    mf = MultiFitter(nwalkers=NWALKERS, device=DEVICE, **kw)
+    mf.set_data(vp.WAVE, flux, unc, redshifts=redshifts)
+    mf.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
+    for (pi, mean, sig) in vp.CONFIGS[2]["priors"]:
+        mf.set_gaussian_prior(pi, mean, sig)
+    return mf
+
+
+def _compare_multi(tag, got, want, bitwise=False):
+    """K3 and plain multi runs -> max abs chain difference; raises unless
+    the chains agree within K2's replay tolerances (or bitwise), the lnprob
+    within K2's, and the accept counts exactly."""
+    import numpy as np
+    (sg, cg, lg), (sw, cw, lw) = got, want
+    cg, cw = cg.cpu().numpy(), cw.cpu().numpy()
+    lg, lw = lg.cpu().numpy(), lw.cpu().numpy()
+    ok_c = (np.array_equal(cg, cw) if bitwise
+            else np.allclose(cg, cw, rtol=K2_RTOL, atol=K2_ATOL))
+    ok_l = np.allclose(lg, lw, rtol=K2_RTOL, atol=K2_LNP_ATOL)
+    ok_a = np.array_equal(sg.naccept.cpu().numpy(), sw.naccept.cpu().numpy())
+    ok_f = bool(np.isfinite(lg).all())
+    dmax = float(np.abs(cg - cw).max())
+    log(f"[{tag}] chain max |d| {dmax:.3g}"
+        + (" (bitwise required)" if bitwise else "")
+        + f", lnp max |d| {float(np.abs(lg - lw).max()):.3g}, accepts "
+        f"{int(sg.naccept.sum())} vs {int(sw.naccept.sum())} "
+        f"{'PASS' if ok_c and ok_l and ok_a and ok_f else 'FAIL'}")
+    if not (ok_c and ok_l and ok_a and ok_f):
+        raise AssertionError(f"[{tag}] K3 run disagrees with plain")
+    return dmax
+
+
+def _multi_ball(free_space, nsrc, seed):
+    import torch
+    return torch.stack([_ball(free_space, NWALKERS, seed + s, DEVICE)
+                        for s in range(nsrc)])
+
+
+def phase_k3():
+    """K3 in external-uniforms mode against the plain multi run on the
+    card: 5 sources x 250 walkers, 3 records x thin 2, per case."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    nsrc = 5
+    flux, unc = batch_data(nsrc, seed=100, missing_every=3)
+    _, shape, spec = problem(2)
+    ul = np.zeros((nsrc, 5), bool)
+    ul[0, 4] = ul[3, 3] = True
+    ul[1, 0] = True            # a limit on source 1's MISSING band: weight 0
+    mf = batch_fitter(flux, unc)
+    mf.set_band_correlation(vp.CAL_CORR)
+    whiten = mf._whiten_operand()
+    cases = [
+        ("uplims + missing band", dict(spec=dataclasses.replace(
+            spec, uplim_bands=ul))),
+        ("band correlation + missing band", dict(spec=spec, whiten=whiten)),
+        ("response 5x65 + uplims", dict(
+            spec=dataclasses.replace(spec, uplim_bands=ul),
+            response_pack=numpy_response_pack(vp.WAVE)))]
+    worst = 0.0
+    for name, kw in cases:
+        samp = FusedMultiSampler(NWALKERS, vp.WAVE, flux, unc, shape,
+                                 rng="external", device=DEVICE, **kw)
+        state = samp.init_state(_multi_ball(samp.free_space, nsrc, 20),
+                                seed=3)
+        nrec, thin = 3, 2
+        u = np.random.default_rng(11).uniform(
+            0.001, 0.999, (nsrc, nrec, 6 * thin, samp.half))
+        u = torch.as_tensor(u.astype(np.float32), device=DEVICE)
+        got = samp.run_mcmc(state, nrec * thin, thin, uniforms=u)
+        want = multi_stretch_run_plain(state, samp.ops.plain, nrec, thin,
+                                       samp.a, u)
+        log(f"[7] K3 {name}: {nsrc} sources x {NWALKERS} walkers, "
+            f"{nrec} records x thin {thin}")
+        worst = max(worst, _compare_multi("7", got, want))
+    return worst
+
+
+def phase_k3_philox():
+    """K3 in Philox mode: twice with one seed bitwise equal; the plain
+    multi run drawing the same per-source streams replays it; for one
+    source it is K2 bitwise."""
+    import dataclasses
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    nsrc = 5
+    flux, unc = batch_data(nsrc, seed=200, missing_every=3)
+    phot, shape, spec = problem(2)
+    samp = FusedMultiSampler(NWALKERS, vp.WAVE, flux, unc, shape, spec,
+                             device=DEVICE)
+    state = samp.init_state(_multi_ball(samp.free_space, nsrc, 30),
+                            seed=0x5EED_1234_ABCD)
+    r1 = samp.run_mcmc(state, 200, thin=10)
+    r2 = samp.run_mcmc(state, 200, thin=10)
+    same = (torch.equal(r1[1], r2[1]) and torch.equal(r1[2], r2[2])
+            and torch.equal(r1[0].naccept, r2[0].naccept))
+    log(f"[8] K3 Philox mode, same seed twice: chains bitwise "
+        f"{'equal PASS' if same else 'DIFFERENT FAIL'}")
+    if not same:
+        raise AssertionError("K3 chains are not deterministic")
+    r3 = samp.run_mcmc(dataclasses.replace(state, seed=state.seed + 1), 200,
+                       thin=10)
+    if torch.equal(r1[1], r3[1]) or torch.equal(r1[1][0], r1[1][1]):
+        raise AssertionError("another seed or source gave the same chain")
+    log("[8] another seed, and another source, give another chain PASS")
+    got = samp.run_mcmc(state, 6, thin=2)
+    want = multi_stretch_run_plain(state, samp.ops.plain, 3, 2, samp.a)
+    _compare_multi("8", got, want, bitwise=True)
+
+    single = FusedSampler(NWALKERS, phot, shape, spec, device=DEVICE)
+    one = FusedMultiSampler(NWALKERS, vp.WAVE, phot.flux[None],
+                            phot.unc[None], shape, spec, device=DEVICE)
+    p0 = _ball(single.free_space, NWALKERS, 4, DEVICE)
+    a = single.run_mcmc(single.init_state(p0, seed=77), 200, thin=10)
+    b = one.run_mcmc(one.init_state(p0[None], seed=77), 200, thin=10)
+    same = (torch.equal(a[1], b[1][0]) and torch.equal(a[2], b[2][0])
+            and torch.equal(a[0].naccept, b[0].naccept[0])
+            and torch.equal(a[0].position, b[0].pos[0]))
+    log(f"[8] K3 with one source against K2, same seed and likelihood: "
+        f"chains, lnprob and accepts bitwise "
+        f"{'equal PASS' if same else 'DIFFERENT FAIL'}")
+    if not same:
+        raise AssertionError("K3 at S=1 differs from K2")
+
+
+def cell_sampler():
+    """K3's sampler and a Philox start state at the batch cell's shape:
+    256 sources x 250 walkers x 5 bands, full 5-parameter model."""
+    flux, unc = batch_data(NSOURCES, seed=3000)
+    mf = batch_fitter(flux, unc)
+    samp = mf._build_sampler(mf._effective_spec())
+    state = samp.init_state(_multi_ball(samp.free_space, NSOURCES, 40),
+                            seed=77)
+    return samp, state
+
+
+def _replay_record(samp, pos, seed, step, thin):
+    """One record (`thin` single steps) of every source from positions
+    `pos` at Philox step `step`, on K3 and on the plain multi run: the
+    (chain, lnpchain) of each."""
+    import torch
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import mbb_multi_stretch_run
+    from mbb_emcee_tpu_torch.sampler import (
+        MultiSamplerState, multi_stretch_run_plain)
+    st = MultiSamplerState(
+        pos=pos.contiguous(), lnp=torch.zeros(pos.shape[:2], device=DEVICE),
+        naccept=torch.zeros(pos.shape[:2], dtype=torch.int32, device=DEVICE),
+        nsteps=0, seed=seed, step=step)
+    _, ck, lk = mbb_multi_stretch_run(st, samp.ops, thin, 1, samp.a)
+    _, cp, lp = multi_stretch_run_plain(st, samp.ops.plain, thin, 1, samp.a)
+    return (ck, lk), (cp, lp)
+
+
+def _parting_margin(samp, pos, seed, step, replay, s):
+    """Where source s parts in a replayed record: the walkers of the first
+    half-step whose K3 and plain positions differ. Each must be the same
+    proposal, accepted on one side and rejected on the other, and its
+    decision must sit within rounding of the threshold: |log ratio - log u|
+    (the plain side's) no more than the lnprob replay tolerance of the two
+    lnprob values the ratio differences. Returns (t, max distance, max
+    tolerance); raises otherwise (a wrong stream, partner or stride)."""
+    import torch
+    from mbb_emcee_tpu_torch.ops.philox import stretch_uniforms
+    (ck, _), (cp, lp) = replay
+    ck, cp, lp = ck[s], cp[s], lp[s]
+    half, nfree = pos.shape[1] // 2, pos.shape[2]
+    parted = (ck != cp).any(-1)
+    if not parted.any():
+        raise AssertionError(f"source {s} does not part in its replay")
+    t = int(torch.nonzero(parted.any(-1))[0])
+    hb = int(not parted[t, :half].any())        # 0: half A, 1: half B
+    act = slice(half * hb, half * (hb + 1))
+    if t == 0:
+        # the plain run's first call: both halves recomputed from pos
+        prev, lnp_prev = pos[s], samp.ops.plain(pos[:, act])[s]
+    else:
+        prev, lnp_prev = cp[t - 1], lp[t - 1, act]
+    active = prev[act]
+    passive = cp[t, :half] if hb else prev[half:]
+    u3 = stretch_uniforms(seed, step + t, 1, half, DEVICE,
+                          source=[s])[0, 3 * hb:3 * hb + 3]
+    z = ((samp.a - 1.0) * u3[0] + 1.0) ** 2 / samp.a
+    j = torch.clamp((u3[1] * half).to(torch.int64), max=half - 1)
+    prop = passive[j] + z[:, None] * (active - passive[j])
+    batch = pos[:, :half].clone()
+    batch[s] = prop
+    lnp_prop = samp.ops.plain(batch)[s]
+    lanes = torch.nonzero(parted[t, act]).flatten()
+    for side in (ck[t, act], cp[t, act]):
+        new = side[lanes]
+        if not ((new == prop[lanes]).all(-1)
+                | (new == active[lanes]).all(-1)).all():
+            raise AssertionError(
+                f"source {s} record step {t}: a parting walker's position "
+                "is neither its proposal nor its previous position")
+    log_ratio = (nfree - 1) * torch.log(z) + lnp_prop - lnp_prev
+    dist = (log_ratio - torch.log(u3[2]))[lanes].abs()
+    tol = (2 * K2_LNP_ATOL + K2_RTOL * (lnp_prop.abs() + lnp_prev.abs()))[
+        lanes]
+    if not (dist <= tol).all():
+        raise AssertionError(
+            f"source {s} parts at step {t} on a decision "
+            f"{float(dist.max()):.3g} from its threshold: not a rounding")
+    return t, float(dist.max()), float(tol.max())
+
+
+def _compare_multi_width(tag, samp, state, got, want, thin):
+    """K3 against the plain multi run at a width where lnprob rounding (a
+    few ulp) can tip an accept decision that sits on its threshold. Every
+    source's chain must equal the plain one bitwise, with lnprob within
+    K2's replay tolerance and accept counts equal, up to the record where
+    it parts, if it parts; a parting source must part at such a decision
+    (_parting_margin, on a single-step replay of that record). Returns the
+    max abs chain difference over the sources that never part."""
+    import numpy as np
+    import torch
+    (sg, cg, lg), (sw, cw, lw) = got, want
+    rec_parted = (cg != cw).any(-1).any(-1)             # (S, nrec)
+    parted = rec_parted.any(-1).cpu().numpy()
+    first = torch.argmax(rec_parted.to(torch.int8), dim=1).cpu().numpy()
+    cg_, cw_ = cg.cpu().numpy(), cw.cpu().numpy()
+    lg_, lw_ = lg.cpu().numpy(), lw.cpu().numpy()
+    ag, aw = sg.naccept.cpu().numpy(), sw.naccept.cpu().numpy()
+    nrec = cg_.shape[1]
+    upto = np.where(parted, first, nrec)
+    ok_l = all(np.allclose(lg_[s, :upto[s]], lw_[s, :upto[s]],
+                           rtol=K2_RTOL, atol=K2_LNP_ATOL)
+               for s in range(cg_.shape[0]))
+    ok_a = np.array_equal(ag[~parted], aw[~parted])
+    ok_f = bool(np.isfinite(lg_).all())
+    dmax = float(np.abs(cg_[~parted] - cw_[~parted]).max(initial=0.0))
+    notes, replays = [], {}
+    for s in np.nonzero(parted)[0]:
+        r = int(first[s])
+        pos = state.pos if r == 0 else cw[:, r - 1]
+        step = state.step + r * thin
+        if r not in replays:
+            replays[r] = _replay_record(samp, pos, state.seed, step, thin)
+        t, dist, tol = _parting_margin(samp, pos, state.seed, step,
+                                       replays[r], int(s))
+        notes.append(f"source {s} at step {r * thin + t}: |log ratio - "
+                     f"log u| {dist:.3g} <= {tol:.3g}")
+    ok = ok_l and ok_a and ok_f and dmax == 0.0
+    nsrc = cg_.shape[0]
+    log(f"[{tag}] {nsrc - parted.sum()}/{nsrc} sources bitwise equal over "
+        f"{nrec * thin} steps (lnp within tolerance, accepts equal); "
+        f"{parted.sum()} parted on an accept decision within rounding of "
+        f"its threshold" + (": " + "; ".join(notes) if notes else "")
+        + f" {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] K3 run disagrees with plain")
+    return dmax
+
+
+def phase_k3_width():
+    """K3 against the plain multi run, both drawing the per-source Philox
+    streams, at the shapes the batch path gives it: the batch cell (256
+    sources x 250 walkers) and MBBFitter(n_ensembles=4) on config 1 (4
+    sources), 200 steps thinned by 10 each."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    samp, state = cell_sampler()
+    got = samp.run_mcmc(state, 200, thin=10)
+    want = multi_stretch_run_plain(state, samp.ops.plain, 20, 10, samp.a)
+    log(f"[8] K3 at the batch cell's width: {NSOURCES} sources x {NWALKERS} "
+        f"walkers, 20 records x thin 10")
+    worst = _compare_multi_width("8", samp, state, got, want, 10)
+
+    phot, shape, spec = problem(1)
+    k = 4
+    samp = FusedMultiSampler(
+        NWALKERS, vp.WAVE, np.broadcast_to(phot.flux, (k, 5)),
+        np.broadcast_to(phot.unc, (k, 5)), shape, spec, device=DEVICE)
+    state = samp.init_state(_multi_ball(samp.free_space, k, 50), seed=1234)
+    got = samp.run_mcmc(state, 200, thin=10)
+    want = multi_stretch_run_plain(state, samp.ops.plain, 20, 10, samp.a)
+    log(f"[8] K3 at MBBFitter(n_ensembles={k})'s shape: config 1, {k} "
+        f"sources x {NWALKERS} walkers, 20 records x thin 10")
+    return max(worst, _compare_multi_width("8", samp, state, got, want, 10))
+
+
+def _k3_counts(path, reset=False):
+    """Zero K3's launch count and the plain multi run's run count
+    (reset=True) just before entry point `path`, or read them just after
+    it and require exactly its 3 launches (burn, re-burn, production) and
+    no plain run. Returns the K3 launch count."""
+    from mbb_emcee_tpu_torch import sampler as plain_sampler
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import mbb_multi_stretch_run
+    if reset:
+        mbb_multi_stretch_run.launches = 0
+        plain_sampler.multi_stretch_run_plain.runs = 0
+        return 0
+    n, plain = (mbb_multi_stretch_run.launches,
+                plain_sampler.multi_stretch_run_plain.runs)
+    ok = n == 3 and plain == 0
+    log(f"[9] {path}: {n} K3 launches, {plain} plain multi runs "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{path} did not run through K3 alone, once "
+                             "per phase")
+    return n
+
+
+def phase_batch_path():
+    """The batch path through the user's entry points, with K3's launch
+    count taken over each entry point's run. Returns the counts."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MBBFitter
+
+    with open(vp.SENTINEL_PATH) as fh:
+        reference = json.load(fh)["configs"]
+    geom = vp.SENTINEL
+    by_path = {}
+
+    # (a) MBBFitter(n_ensembles=4), sentinel config 1 at its geometry
+    ci, k = vp.SENTINEL_CONFIG, 4
+    cfg = vp.CONFIGS[ci]
+    free = vp.free_indices(cfg)
+    flux, unc, cov = vp.mock_data(cfg)
+    fit = MBBFitter(nwalkers=NWALKERS, seed=1000, opthin=cfg["opthin"],
+                    noalpha=cfg["noalpha"], device=DEVICE, n_ensembles=k)
+    fit.set_data(vp.WAVE, flux, unc, cov=cov)
+    fit.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
+    for (pi, mean, sig) in cfg["priors"]:
+        fit.set_gaussian_prior(pi, mean, sig)
+    for i in range(5):
+        fit.set_param_init(i, vp.TRUE[i])
+    path = f"MBBFitter(n_ensembles={k})"
+    _k3_counts(path, reset=True)
+    fit.run(nburn=geom.nburn_jax, nsteps=geom.nstep_jax)
+    by_path[path] = _k3_counts(path)
+    mf = fit._mf
+    if mf._backend_used != "fused":
+        raise AssertionError("n_ensembles > 1 did not select K3")
+    chains, chains_free = mf.chain, mf.chain_free.double().cpu().numpy()
+    meds, wids, ses = [], [], []
+    for e in range(k):
+        flat = chains[e].reshape(-1, 5)
+        m, w = vp.stats(flat, free)
+        meds.append(m)
+        wids.append(w)
+        ses.append(tau_se(chains_free[e], flat, free))
+    mj, wj, sjm, sjw = vp.aggregate(meds, wids, ses)
+    ok, lines = vp.check_sentinel(
+        {"medians": mj, "widths": wj, "se_medians": sjm, "se_widths": sjw},
+        reference[str(ci)])
+    log(f"[9] MBBFitter(n_ensembles={k}) {cfg['label']}: {k} ensembles x "
+        f"{NWALKERS} walkers x ({geom.nburn_jax} burn + {geom.nstep_jax} "
+        f"steps) against the recorded fp64 oracle moments; merged chain "
+        f"{tuple(fit.chain_free.shape)}, cross-ensemble split-R-hat max "
+        f"{np.nanmax(fit.gelman_rubin()):.4f}:")
+    for line in lines:
+        log(f"[9]   {line}")
+    if not ok:
+        raise AssertionError(f"n_ensembles={k}: posterior off the recorded "
+                             "oracle moments")
+
+    # (b) MultiFitter at the batch cell's width
+    flux, unc = batch_data(NSOURCES, seed=1000, missing_every=16)
+    z = np.random.default_rng(5).uniform(0.5, 4.0, NSOURCES)
+    mf = batch_fitter(flux, unc, redshifts=z, seed=4321)
+    path = f"MultiFitter {NSOURCES}x{NWALKERS}"
+    _k3_counts(path, reset=True)
+    t1 = time.time()
+    mf.run(nburn=50, nsteps=250)
+    t_run = time.time() - t1
+    by_path[path] = _k3_counts(path)
+    if mf._backend_used != "fused":
+        raise AssertionError("MultiFitter did not select K3")
+    shape_ok = tuple(mf.chain_free.shape) == (NSOURCES, 250, NWALKERS, 5)
+    cen = {p: mf.par_cen(p) for p in mf.free_param_names}
+    rhat = mf.gelman_rubin()
+    t2 = time.time()
+    derived = {"lir": mf.compute_lir(), "dustmass": mf.compute_dustmass(),
+               "peaklambda": mf.compute_peaklambda()}
+    t_derived = time.time() - t2
+    finite = (shape_ok and all(np.isfinite(c).all() for c in cen.values())
+              and np.isfinite(rhat).all()
+              and all(np.isfinite(d).all() and d.shape == (
+                  NSOURCES, 250 * NWALKERS) for d in derived.values()))
+    af = mf.acceptance_fraction.mean(axis=1)
+    log(f"[9] MultiFitter {NSOURCES} sources x {NWALKERS} walkers x 5 bands "
+        f"(band 0 missing in {len(range(1, NSOURCES, 16))} sources), run("
+        f"nburn=50, nsteps=250) {t_run:.2f} s, derived posteriors "
+        f"{t_derived:.2f} s (host clock, first calls included)")
+    log(f"[9]   acceptance per source {af.min():.3f}..{af.max():.3f}; "
+        f"split-R-hat max {rhat.max():.3f}; T median of medians "
+        f"{np.median(cen['T'][:, 0]):.4g}; lir_cen[0] "
+        f"{mf.lir_cen()[0, 0]:.5g}, dustmass_cen[0] "
+        f"{mf.dustmass_cen()[0, 0]:.5g}, peaklambda_cen[0] "
+        f"{mf.peaklambda_cen()[0, 0]:.5g} "
+        f"{'PASS' if finite else 'FAIL'}")
+    if not finite:
+        raise AssertionError("batch summaries or posteriors not finite")
+    return by_path
+
+
+def phase_time_k3(card):
+    """K3 against the plain multi run on the card at the batch cell's shape:
+    256 sources x 250 walkers x 5 bands, full 5-parameter model."""
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import mbb_multi_stretch_run
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    samp, state = cell_sampler()
+    out = {}
+    out["k3_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200, thin=10), 5)
+    out["k3_plain_ms"] = _cuda_ms(lambda: multi_stretch_run_plain(
+        state, samp.ops.plain, 20, 10, samp.a), 1)
+    k3_dev = _profiled_device_us(
+        lambda: mbb_multi_stretch_run(state, samp.ops, 20, 10, samp.a), 3,
+        "mbb_multi_stretch_kernel")
+    t1 = min(_host_s(lambda: samp.run_mcmc(state, 1000, thin=10))
+             for _ in range(3))
+    t3 = min(_host_s(lambda: samp.run_mcmc(state, 3000, thin=10))
+             for _ in range(3))
+    walkers = NSOURCES * NWALKERS
+    rate = walkers * 2000 / (t3 - t1)
+    rate_plain = walkers * 200 / (out["k3_plain_ms"] / 1e3)
+    log(f"[10] K3 run, {NSOURCES} sources x {NWALKERS} walkers x 200 steps: "
+        f"kernel {out['k3_ms']:.3f} ms, plain torch multi run "
+        f"{out['k3_plain_ms']:.1f} ms ({card})")
+    log("[10] torch.profiler device time per K3 launch (200 steps): "
+        + ("not measured" if k3_dev is None else f"{k3_dev:.1f} us")
+        + f" ({card})")
+    log(f"[10] K3 sampler: 1000 steps {t1 * 1e3:.2f} ms, 3000 steps "
+        f"{t3 * 1e3:.2f} ms (thin 10) -> marginal {rate:,.0f} aggregate "
+        f"walker-steps/s, {rate / NSOURCES:,.0f} per source ({card})")
+    log(f"[10] plain torch multi run: {rate_plain:,.0f} aggregate "
+        f"walker-steps/s over 200 steps ({card})")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -513,6 +995,11 @@ def main():
     phase_determinism()
     counts = phase_main_path()
     t = phase_time(card)
+    k3_err = phase_k3()
+    phase_k3_philox()
+    k3_err = max(k3_err, phase_k3_width())
+    k3_by_path = phase_batch_path()
+    t.update(phase_time_k3(card))
     kernels = [
         {"name": "mbb_lnprob", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/lnprob.cu",
@@ -524,6 +1011,13 @@ def main():
          "replaces": "mbb_emcee_tpu/ops/pallas_sampler.py:63",
          "launches": counts["mbb_stretch_run"], "max_abs_err": k2_err,
          "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"]},
+        {"name": "mbb_multi_stretch_run", "route": "cuda",
+         "source": "mbb_emcee_tpu_torch/csrc/multifit.cu",
+         "replaces": "mbb_emcee_tpu/ops/pallas_multifit.py:203",
+         "launches": sum(k3_by_path.values()),
+         "launches_by_path": k3_by_path,
+         "max_abs_err": k3_err, "ms": t["k3_ms"],
+         "plain_ms": t["k3_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

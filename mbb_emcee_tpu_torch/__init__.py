@@ -16,6 +16,12 @@ reference. The single-fit main path:
   * derived posteriors (L_IR, dust mass, peak wavelength) and HDF5 files
     readable by either package (results.py, hdf5io.py)
 
+and the batch tier that serves a catalog: MultiFitter (multifit.py,
+batchengine.py, catalog.py, the run_mbb_emcee_tpu_torch_batch CLI) and
+MBBFitter(n_ensembles > 1), on a CUDA device one launch of the
+multi-source stretch-move kernel per sampling phase
+(ops/multifit_kernel.py, csrc/multifit.cu).
+
 The kernels are built with nvcc at first use (ops/build.py). Importing the
 package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
 read or written.
@@ -33,6 +39,8 @@ from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
 from mbb_emcee_tpu_torch.fitter import MBBFitter
 from mbb_emcee_tpu_torch.results import MBBResults
+from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+from mbb_emcee_tpu_torch.multifit import MultiFitter
 
 __version__ = "0.1.0"
 
@@ -42,6 +50,6 @@ __all__ = [
     "Cosmology", "luminosity_distance",
     "LikelihoodSpec", "Photometry", "build_lnprob",
     "EnsembleSampler", "SamplerState", "FusedSampler", "build_kernels",
-    "MBBFitter", "MBBResults",
+    "MBBFitter", "MBBResults", "FusedMultiSampler", "MultiFitter",
     "__version__",
 ]

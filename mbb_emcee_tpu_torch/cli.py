@@ -62,7 +62,10 @@ def build_parser():
                    help="skip the re-center-on-best-walker re-burn phase")
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--n-ensembles", type=int, default=1,
-                   help="independent ensembles (only 1 is ported)")
+                   help="run this many independent ensembles through the "
+                        "batch tier (one multi-source kernel launch per "
+                        "phase on cuda) and merge their chains; diagonal "
+                        "uncertainties only")
     g.add_argument("--stretch-a", type=float, default=2.0,
                    help="stretch-move scale parameter a (default 2)")
     g.add_argument("--nthreads", type=int, default=None,
@@ -173,10 +176,6 @@ def _refuse_waiting_flags(args):
             raise SystemExit(
                 f"{flag} is not ported to mbb_emcee_tpu_torch yet "
                 f"(ROADMAP.md, queue A, item {item})")
-    if args.n_ensembles != 1:
-        raise SystemExit("--n-ensembles > 1 is not ported to "
-                         "mbb_emcee_tpu_torch yet (ROADMAP.md, queue A, "
-                         "item A7)")
 
 
 def _uplim_mask(specs, nbands, band_names):
@@ -208,6 +207,11 @@ def main(argv=None):
     if importlib.util.find_spec("h5py") is None:
         raise SystemExit("writing the HDF5 output file needs h5py, which is "
                          "not installed")
+    if args.n_ensembles > 1 and args.covfile is not None:
+        raise SystemExit(
+            "--n-ensembles runs through the batched likelihood, which "
+            "supports diagonal uncertainties only; drop --covfile or "
+            "--n-ensembles")
     if (args.get_lir or args.get_dustmass) and args.redshift is None:
         # before sampling: failing after the run would lose the fit
         raise SystemExit(
@@ -225,7 +229,8 @@ def main(argv=None):
     fit = MBBFitter(nwalkers=args.nwalkers, photfile=args.photfile,
                     wavenorm=args.wavenorm, noalpha=args.noalpha,
                     opthin=args.opthin, seed=args.seed, a=args.stretch_a,
-                    device=device, sampler_backend=args.sampler_backend)
+                    device=device, sampler_backend=args.sampler_backend,
+                    n_ensembles=args.n_ensembles)
     if args.covfile is not None:
         fit.read_cov(args.covfile, args.covextn, args.cov_is_total)
     if args.phot_uplim:
@@ -254,8 +259,9 @@ def main(argv=None):
     secs = time.perf_counter() - t0
     total = args.nsteps + (args.burn if args.no_recenter_burn
                            else 2 * args.burn)
+    walkers = args.nwalkers * args.n_ensembles
     log.info(f"  fit (burn + production): {total} steps in {secs:.2f}s "
-             f"({args.nwalkers * total / secs:,.0f} walker-steps/s, "
+             f"({walkers * total / secs:,.0f} walker-steps/s, "
              f"host clock, build and first-call costs included)")
 
     res = MBBResults(fit=fit, redshift=args.redshift,

@@ -1,0 +1,443 @@
+"""Batch command line: run_mbb_emcee_tpu_torch_batch.
+
+Torch twin of mbb_emcee_tpu/cli_batch.py. Reads a source CATALOG
+(catalog.py format: shared bands, one row per source) and fits the whole
+batch through MultiFitter -- on a CUDA device each sampling phase is one
+launch of the multi-source kernel -- then writes one HDF5 file in the JAX
+package's batch schema (MultiFitter.from_h5 of either package reloads it).
+
+Usage example:
+    run_mbb_emcee_tpu_torch_batch catalog.txt batch.h5 -b 150 -n 1000 \
+        --get-lir --get-peaklambda --summary --device cuda
+
+The flags are the JAX batch CLI's plus --device. Flags whose features are
+not ported yet exit non-zero up front with the ROADMAP.md item that carries
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+import time
+
+from mbb_emcee_tpu_torch.constants import PARAM_NAMES
+
+# Flags of the JAX package's batch CLI whose features wait, and the
+# ROADMAP.md queue-A item that carries each.
+_WAITING = (
+    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"), ("map", "--map", "A9"),
+    ("init_map", "--init-map", "A9"),
+    ("get_evidence", "--get-evidence", "A9"), ("ppc", "--ppc", "A9"),
+    ("loo", "--loo", "A9"), ("population", "--population", "A9"),
+    ("plot_population", "--plot-population", "A10"),
+    ("checkpoint", "--checkpoint", "A4"), ("resume", "--resume", "A4"),
+    ("responsefile", "--responsefile", "A2"),
+    ("builtin_responses", "--builtin-responses", "A2"),
+    ("mesh_devices", "--mesh-devices", "A11"),
+    ("profile_dir", "--profile-dir", "A8"),
+)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="run_mbb_emcee_tpu_torch_batch",
+        description="Fit a catalog of modified-blackbody sources as one "
+                    "batch on a CUDA GPU (one multi-source kernel launch "
+                    "per sampling phase) or the CPU.")
+    p.add_argument("catalog", help="catalog file: 'wave = ...' header + "
+                                   "'name z flux unc [flux unc ...]' rows")
+    p.add_argument("outfile", help="output HDF5 file (whole batch; reload "
+                                   "with MultiFitter.from_h5)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where to fit (default: cuda if available, else "
+                        "cpu)")
+
+    g = p.add_argument_group("sampler")
+    g.add_argument("-w", "--nwalkers", type=int, default=250)
+    g.add_argument("-b", "--burn", type=int, default=50,
+                   help="burn-in steps (default 50)")
+    g.add_argument("-n", "--nsteps", type=int, default=250,
+                   help="production steps per walker (default 250)")
+    g.add_argument("--thin", type=int, default=1,
+                   help="record every THIN-th step")
+    g.add_argument("--no-recenter-burn", action="store_true",
+                   help="skip the per-source re-center-on-best-walker "
+                        "re-burn phase")
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--stretch-a", type=float, default=2.0,
+                   help="stretch-move scale parameter a (default 2)")
+    g.add_argument("--sampler-backend", choices=["auto", "torch", "fused"],
+                   default="auto",
+                   help="'fused' runs each sampling phase as one launch of "
+                        "the multi-source CUDA kernel; 'torch' is the plain "
+                        "torch multi run; 'auto' (default) is fused on "
+                        "cuda, torch on cpu")
+    g.add_argument("--mesh-devices", type=int, default=None, metavar="N")
+    g.add_argument("--checkpoint", default=None)
+    g.add_argument("--checkpoint-interval", type=int, default=100)
+    g.add_argument("--resume", action="store_true")
+    g.add_argument("--hmc", action="store_true")
+    g.add_argument("--hmc-leapfrog", type=int, default=16)
+    g.add_argument("--hmc-target-accept", type=float, default=0.8)
+    g.add_argument("--pt", action="store_true")
+    g.add_argument("--pt-rungs", type=int, default=12)
+    g.add_argument("--pt-beta-min", type=float, default=None)
+    g.add_argument("--map", action="store_true")
+    g.add_argument("--map-starts", type=int, default=8)
+    g.add_argument("--init-map", action="store_true")
+
+    g = p.add_argument_group(
+        "serving loop",
+        "run-until-converged: after the production run, keep extending "
+        "until every source's split-R-hat is below the threshold")
+    g.add_argument("--extend-until", type=float, default=None,
+                   metavar="RHAT",
+                   help="extend production until max per-source split-"
+                        "R-hat < RHAT (e.g. 1.05)")
+    g.add_argument("--extend-step", type=int, default=None,
+                   help="steps per extension (default: --nsteps)")
+    g.add_argument("--max-steps", type=int, default=None,
+                   help="stop extending after this many total production "
+                        "steps (default: 10x --nsteps)")
+    g.add_argument("--tau-mult", type=float, default=None,
+                   help="additionally require chain length >= TAU_MULT x "
+                        "the largest autocorrelation time (emcee's rule "
+                        "of thumb is ~50)")
+
+    g = p.add_argument_group("model")
+    g.add_argument("--opthin", action="store_true",
+                   help="optically thin model (drops lambda0)")
+    g.add_argument("--noalpha", action="store_true",
+                   help="no Wien-side power-law merge (drops alpha)")
+    g.add_argument("--wavenorm", type=float, default=500.0,
+                   help="observer-frame normalization wavelength, um")
+
+    g = p.add_argument_group("parameters",
+                             f"PARAM is one of {', '.join(PARAM_NAMES)}; "
+                             "applied to every source in the batch")
+    g.add_argument("--initval", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--initscatter", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "SCATTER"))
+    g.add_argument("--lowlim", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--uplim", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--fixed", nargs=2, action="append", default=[],
+                   metavar=("PARAM", "VALUE"))
+    g.add_argument("--prior", nargs=3, action="append", default=[],
+                   metavar=("PARAM", "MEAN", "SIGMA"),
+                   help="Gaussian prior")
+
+    g = p.add_argument_group("data")
+    g.add_argument("--responsefile", default=None)
+    g.add_argument("--responsedir", default=None)
+    g.add_argument("--builtin-responses", action="store_true")
+    g.add_argument("--photon-counter", action="store_true")
+    g.add_argument("--phot-uplim", action="append", default=[],
+                   metavar="BAND",
+                   help="flag this band (name or 0-based index) as an "
+                        "UPPER LIMIT for every source, in addition to "
+                        "any 'uplims' catalog header row (repeatable)")
+    g.add_argument("--corrfile", default=None,
+                   help="FITS image with the shared (nb, nb) band "
+                        "CORRELATION matrix (each source's covariance is "
+                        "D_s R D_s with its own catalog uncertainties; a "
+                        "covariance matrix is normalized to its "
+                        "correlation); not combinable with upper limits")
+    g.add_argument("--corrextn", type=int, default=0,
+                   help="FITS extension of --corrfile (default 0)")
+
+    g = p.add_argument_group(
+        "derived quantities",
+        "computed for the whole batch, using the catalog's per-source "
+        "redshift column")
+    g.add_argument("--cosmology", default="WMAP9",
+                   help="named cosmology (WMAP5/7/9, Planck13/15/18)")
+    g.add_argument("--get-lir", action="store_true",
+                   help="compute per-source L_IR(8-1000um rest) posteriors")
+    g.add_argument("--lir-wavemin", type=float, default=8.0)
+    g.add_argument("--lir-wavemax", type=float, default=1000.0)
+    g.add_argument("--get-dustmass", action="store_true")
+    g.add_argument("--kappa", type=float, default=2.64,
+                   help="dust opacity m^2/kg (default 2.64)")
+    g.add_argument("--kappa-wave", type=float, default=125.0,
+                   help="rest wavelength of kappa, um (default 125)")
+    g.add_argument("--get-peaklambda", action="store_true")
+    g.add_argument("--derived-thin", type=int, default=1,
+                   help="thin factor for derived-quantity chains")
+    g.add_argument("--get-evidence", action="store_true")
+    g.add_argument("--ppc", action="store_true")
+    g.add_argument("--loo", action="store_true")
+    g.add_argument("--nlive", type=int, default=512)
+
+    g = p.add_argument_group("population")
+    g.add_argument("--population", nargs="+", default=None, metavar="PARAM")
+    g.add_argument("--plot-population", default=None, metavar="PNG")
+
+    g = p.add_argument_group("output")
+    g.add_argument("--chunk-size", type=int, default=None, metavar="C",
+                   help="process the catalog in fixed C-source chunks "
+                        "(bounds host and device memory for huge catalogs; "
+                        "every chunk keeps the batch shape, so the sampler "
+                        "is built once). The final chunk overlaps the "
+                        "previous one so it is exactly C sources. Writes "
+                        "OUTFILE.partNNN.h5 per chunk")
+    g.add_argument("--store-thin", type=int, default=1,
+                   help="thin the STORED chains by this factor (summaries "
+                        "printed here always use the full chain)")
+    g.add_argument("--summary", action="store_true",
+                   help="print a per-source summary table (median +/- "
+                        "errors, R-hat)")
+
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--profile-dir", default=None)
+    return p
+
+
+def _refuse_waiting_flags(args):
+    for attr, flag, item in _WAITING:
+        if getattr(args, attr):
+            raise SystemExit(
+                f"{flag} is not ported to mbb_emcee_tpu_torch yet "
+                f"(ROADMAP.md, queue A, item {item})")
+
+
+def _validate_extend_flags(args):
+    """--extend-until needs >= 4 recorded steps per pass and an extension
+    length the production thin divides: checked BEFORE sampling, so a bad
+    flag cannot lose a finished run."""
+    thin = max(args.thin, 1)
+    if args.nsteps // thin < 4:
+        raise SystemExit(
+            f"--extend-until needs at least 4 recorded steps per pass; "
+            f"--nsteps {args.nsteps} / --thin {args.thin} records only "
+            f"{args.nsteps // thin}")
+    step = args.extend_step if args.extend_step is not None else args.nsteps
+    if step <= 0:
+        raise SystemExit(f"--extend-step must be positive; got {step}")
+    if step % thin:
+        raise SystemExit(
+            f"--extend-step {step} must be divisible by --thin {thin} "
+            f"(extensions record every thin-th step)")
+    if args.max_steps is not None and args.max_steps <= 0:
+        raise SystemExit("--max-steps must be positive")
+
+
+def _safe_rhat(mf):
+    """(S,) max split-R-hat per source, NaN when fewer than 4 steps are
+    recorded (the file is still written and the summary printed)."""
+    import numpy as np
+    try:
+        return mf.gelman_rubin().max(axis=1)
+    except ValueError:
+        return np.full(mf.nsources, np.nan)
+
+
+def _summary_table(mf, offset=0):
+    """Per-source lines: free-parameter medians +/- 1 sigma and split-R-hat;
+    `offset` shifts the printed indices to catalog positions (chunks)."""
+    names = mf.free_param_names
+    cen = {p: mf.par_cen(p) for p in names}          # (S, 3) each
+    rhat = _safe_rhat(mf)
+    lines = ["#   source            " +
+             "".join(f"{p:>24}" for p in names) + f"{'max-Rhat':>10}"]
+    srcnames = mf.source_names or [f"src{i + offset}"
+                                   for i in range(mf.nsources)]
+    for i, nm in enumerate(srcnames):
+        cells = "".join(
+            f"  {cen[p][i, 0]:>10.4g} +{cen[p][i, 1]:.3g}/-{cen[p][i, 2]:.3g}"
+            .rjust(24) for p in names)
+        lines.append(f"{i + offset:>3} {nm:<16}{cells}{rhat[i]:>10.3f}")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_waiting_flags(args)
+    if importlib.util.find_spec("h5py") is None:
+        raise SystemExit("writing the HDF5 output file needs h5py, which is "
+                         "not installed")
+
+    import logging
+    from mbb_emcee_tpu_torch.catalog import read_catalog
+    from mbb_emcee_tpu_torch.fitter import default_device
+    from mbb_emcee_tpu_torch.multifit import MultiFitter
+    from mbb_emcee_tpu_torch.utils.log import enable_console
+
+    cat = read_catalog(args.catalog)
+    C = args.chunk_size
+    if C is not None and C <= 0:
+        raise SystemExit("--chunk-size must be positive")
+    chunked = C is not None and C < cat.nsources
+    if args.extend_until is not None:
+        _validate_extend_flags(args)
+    if (args.get_lir or args.get_dustmass) and not cat.has_redshifts:
+        # before sampling: failing after the run would lose every chunk
+        raise SystemExit("--get-lir/--get-dustmass need finite "
+                         "redshifts in the catalog's z column")
+
+    mf = MultiFitter(nwalkers=args.nwalkers, wavenorm=args.wavenorm,
+                     noalpha=args.noalpha, opthin=args.opthin,
+                     seed=args.seed, a=args.stretch_a,
+                     sampler_backend=args.sampler_backend,
+                     device=args.device or default_device())
+    # With --chunk-size only one C-source tile is bound at a time; the
+    # first now, so data-dependent setters (the band correlation) work.
+    first = slice(0, C) if chunked else slice(None)
+    mf.set_data(cat.wave, cat.flux[first], cat.unc[first],
+                band_names=cat.band_names,
+                source_names=list(cat.names[first]),
+                redshifts=cat.redshifts[first] if cat.has_redshifts
+                else None)
+    # None, shared (nb,), or per-source (S, nb) when the catalog used
+    # '<flux' tokens; --phot-uplim bands OR in (broadcasting over sources)
+    uplims = cat.uplim_mask()
+    if args.phot_uplim:
+        from mbb_emcee_tpu_torch.cli import _uplim_mask
+        shared = _uplim_mask(args.phot_uplim, cat.wave.size,
+                             cat.band_names)
+        uplims = shared if uplims is None else (uplims | shared)
+    if uplims is not None and uplims.any():
+        mf.set_phot_upperlimits(
+            uplims[first] if uplims.ndim == 2 else uplims)
+
+    if args.corrfile is not None:
+        from mbb_emcee_tpu_torch.utils.fits import read_band_correlation
+        try:
+            mf.set_band_correlation(
+                read_band_correlation(args.corrfile, extn=args.corrextn))
+        except ValueError as e:
+            raise SystemExit(f"--corrfile: {e}")
+
+    for param, v in args.initval:
+        mf.set_param_init(param, float(v))
+    for param, v in args.initscatter:
+        mf.set_param_init(param, scatter=float(v))
+    for param, v in args.lowlim:
+        mf.set_lowlim(param, float(v))
+    for param, v in args.uplim:
+        mf.set_uplim(param, float(v))
+    for param, v in args.fixed:
+        mf.fix_param(param, float(v))
+    for param, m, s in args.prior:
+        mf.set_gaussian_prior(param, float(m), float(s))
+
+    log = enable_console(logging.INFO if args.verbose else logging.WARNING)
+    log.info(f"Device: {mf.device}")
+    if not chunked:
+        return _fit_and_write(mf, args, log, args.outfile)
+    return _serve_chunked(mf, cat, args, log, uplims, C)
+
+
+def _serve_chunked(mf, cat, args, log, uplims, C):
+    """Fixed C-source tiles, so every chunk keeps the batch shape and reuses
+    the sampler (the data are runtime operands). The final chunk OVERLAPS
+    the previous one instead of padding, so every part holds real
+    sources."""
+    import os
+
+    import numpy as np
+
+    starts = list(range(0, cat.nsources - C + 1, C))
+    if starts[-1] + C < cat.nsources:
+        starts.append(cat.nsources - C)
+    base, ext = os.path.splitext(args.outfile)
+    nb = cat.wave.size
+    for ci, s0 in enumerate(starts):
+        sl = slice(s0, s0 + C)
+        if uplims is not None and uplims.ndim == 2 and uplims.any():
+            # a per-source mask binds to source identities; clear before
+            # re-binding data (set_data refuses a stale 2-D mask)
+            mf.set_phot_upperlimits(np.zeros(nb, bool))
+        mf.set_data(cat.wave, cat.flux[sl], cat.unc[sl],
+                    band_names=cat.band_names,
+                    source_names=list(cat.names[s0:s0 + C]),
+                    redshifts=(cat.redshifts[sl]
+                               if cat.has_redshifts else None))
+        if uplims is not None and uplims.any():
+            mf.set_phot_upperlimits(
+                uplims[sl] if uplims.ndim == 2 else uplims)
+        part = f"{base}.part{ci:03d}{ext or '.h5'}"
+        log.info(f"chunk {ci + 1}/{len(starts)}: sources "
+                 f"{s0}..{s0 + C - 1} -> {part}")
+        _fit_and_write(mf, args, log, part, offset=s0)
+    print(f"{cat.nsources} sources served in {len(starts)} chunks of {C} "
+          f"(fixed batch shape; final chunk overlaps its predecessor) "
+          f"-> {base}.part*{ext or '.h5'}")
+    return 0
+
+
+def _fit_and_write(mf, args, log, outfile, offset=0):
+    """Fit the bound batch, run the --extend-until serving loop, compute
+    the derived posteriors, write `outfile`, print the summary."""
+    import numpy as np
+
+    log.info(f"Batch fit: {mf.nsources} sources x {args.nwalkers} walkers, "
+             f"burn={args.burn}, steps={args.nsteps}")
+    t0 = time.perf_counter()
+    mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+           recenter_burn=not args.no_recenter_burn, verbose=args.verbose)
+    total = args.nsteps + (args.burn if args.no_recenter_burn
+                           else 2 * args.burn)
+
+    if args.extend_until is not None:
+        step = args.extend_step or args.nsteps
+        max_steps = args.max_steps or 10 * args.nsteps
+        # Fixed window + floor stride: R-hat over the full chain span at a
+        # fixed reduction shape as the chain grows.
+        window = max(4, args.nsteps // max(args.thin, 1))
+
+        def _converged():
+            nrec = int(mf.chain_free.shape[1])
+            return mf.converged(rhat_max=args.extend_until, window=window,
+                                stride=max(1, nrec // window),
+                                tau_mult=args.tau_mult)
+
+        done = args.nsteps
+        while done < max_steps:
+            ok = _converged()
+            n_bad = int(np.sum(~ok))
+            if n_bad == 0:
+                break
+            log.info(f"  {n_bad}/{mf.nsources} sources above full-span "
+                     f"R-hat {args.extend_until}; extending by {step} "
+                     f"steps")
+            mf.extend(step, verbose=args.verbose)
+            done += step
+            total += step
+        else:
+            ok = _converged()
+        log.info(f"serving loop done at {done} production steps: "
+                 f"{int(np.sum(ok))}/{mf.nsources} sources converged")
+    secs = time.perf_counter() - t0
+    log.info(f"  batch fit: {total} steps in {secs:.2f}s "
+             f"({mf.nsources * args.nwalkers * total / secs:,.0f} "
+             f"walker-steps/s, host clock, build and first-call costs "
+             f"included)")
+
+    if args.get_lir:
+        mf.compute_lir(wavemin=args.lir_wavemin, wavemax=args.lir_wavemax,
+                       thin=args.derived_thin, cosmology=args.cosmology)
+    if args.get_dustmass:
+        mf.compute_dustmass(kappa=args.kappa, kappa_wave=args.kappa_wave,
+                            thin=args.derived_thin,
+                            cosmology=args.cosmology)
+    if args.get_peaklambda:
+        mf.compute_peaklambda(thin=args.derived_thin)
+
+    mf.writeToHDF5(outfile, thin=args.store_thin)
+    if args.summary:
+        print(_summary_table(mf, offset=offset))
+    else:
+        rhat = _safe_rhat(mf)
+        print(f"{mf.nsources} sources fit; max split-R-hat "
+              f"{rhat.max():.3f} (median {np.median(rhat):.3f}); "
+              f"batch written to {outfile}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,9 @@
 //
 // Replaces the TPU kernel mbb_emcee_tpu/ops/pallas_sampler.py
 // ::_make_sampler_kernel (:63-194), launched by FusedPallasSampler._make_run
-// (:327-422, pallas_call at :395). Per step: half A updates against half B,
-// then half B against the NEW half A, with
-//   z = ((a-1) u0 + 1)^2 / a,  j = min(floor(u1 * half), half - 1),
-//   accept iff ln u2 < (nfree-1) ln z + dlnp  and  lnp' > SUPPORT_FLOOR.
-// Both halves' lnprob are recomputed at the start, as the TPU kernel does.
+// (:327-422, pallas_call at :395). The run loop (update rule, Philox stream,
+// record layout) is mbb_stretch_body in stretch.cuh, which the multi-source
+// kernel (multifit.cu) runs once per source.
 //
 // Bound: at 250 walkers x 5 bands the ensemble fits in one block on one SM,
 // and every step is a chain of two dependent half updates, each one lnprob
@@ -19,33 +17,9 @@
 // randomness is Philox-4x32-10 computed in registers, or read from an
 // external uniforms array (rows z/partner/accept for half A, then half B)
 // for replay against the plain version. Chain records are written straight
-// into (nrec, nwalkers, nfree) / (nrec, nwalkers) tensors. No atomics: the
-// same seed gives bitwise-identical chains.
+// into (nrec, nwalkers, nfree) / (nrec, nwalkers) tensors.
 
-#include "lnprob.cuh"
-
-static __device__ __forceinline__ uint4 mbb_philox4x32_10(uint4 ctr,
-                                                          uint2 key) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      key.x += 0x9E3779B9u;
-      key.y += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * ctr.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, ctr.x);
-    const uint32_t lo1 = 0xCD9E8D57u * ctr.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, ctr.z);
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-  }
-  return ctr;
-}
-
-// (bits >> 8) 2^-24 + 2^-25: the uniform mapping of the TPU kernel
-// (pallas_sampler.py:171-172) and of ops/philox.py.
-static __device__ __forceinline__ float mbb_bits_to_uniform(uint32_t b) {
-  return (float)(b >> 8) * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
-}
+#include "stretch.cuh"
 
 __global__ void __launch_bounds__(1024)
 mbb_stretch_kernel(const float* __restrict__ pos_in,
@@ -59,106 +33,10 @@ mbb_stretch_kernel(const float* __restrict__ pos_in,
                    unsigned long long step0, MbbConfig c) {
   __shared__ MbbShared s;
   extern __shared__ float dyn[];
-  const int hp = blockDim.x;                 // half rounded up to 32
-  float* pos = dyn;                          // [2][5][hp]
-  float* lnp = pos + 2 * MBB_NPARAMS * hp;   // [2][hp]
-  int* acc = (int*)(lnp + 2 * hp);           // [2][hp]
-  const int k = threadIdx.x;
-  const int nw = 2 * half;
-
   mbb_stage_consts(s, consts, c);
-  if (k < half) {
-    for (int h = 0; h < 2; ++h) {
-      const int w = h * half + k;
-#pragma unroll
-      for (int i = 0; i < MBB_NPARAMS; ++i) {
-        const int f = c.fmap[i];
-        pos[(h * MBB_NPARAMS + i) * hp + k] =
-            f >= 0 ? pos_in[(size_t)w * c.nfree + f] : c.tmpl[i];
-      }
-      acc[h * hp + k] = nacc_in[w];
-    }
-  }
-  __syncthreads();
-  if (k < half) {
-    for (int h = 0; h < 2; ++h) {
-      float th[MBB_NPARAMS];
-#pragma unroll
-      for (int i = 0; i < MBB_NPARAMS; ++i)
-        th[i] = pos[(h * MBB_NPARAMS + i) * hp + k];
-      lnp[h * hp + k] = mbb_lnprob_eval(th, c, s);
-    }
-  }
-  __syncthreads();
-
-  const float am1 = a - 1.0f;
-  const float dexp = (float)(c.nfree - 1);
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  for (int r = 0; r < nrec; ++r) {
-    for (int t = 0; t < thin; ++t) {
-      const unsigned long long step =
-          step0 + (unsigned long long)r * thin + t;
-      for (int h = 0; h < 2; ++h) {
-        if (k < half) {
-          float u0, u1, u2;
-          if (uniforms != nullptr) {
-            const float* ub =
-                uniforms + ((size_t)r * 6 * thin + 6 * t + 3 * h) * half;
-            u0 = ub[k];
-            u1 = ub[half + k];
-            u2 = ub[2 * half + k];
-          } else {
-            const uint4 x = mbb_philox4x32_10(
-                make_uint4((uint32_t)step, (uint32_t)h, (uint32_t)k,
-                           (uint32_t)(step >> 32)),
-                key);
-            u0 = mbb_bits_to_uniform(x.x);
-            u1 = mbb_bits_to_uniform(x.y);
-            u2 = mbb_bits_to_uniform(x.z);
-          }
-          const float zw = am1 * u0 + 1.0f;
-          const float z = (zw * zw) / a;
-          const int j = min((int)(u1 * (float)half), half - 1);
-          float* act = pos + h * MBB_NPARAMS * hp;
-          const float* pas = pos + (1 - h) * MBB_NPARAMS * hp;
-          float prop[MBB_NPARAMS];
-#pragma unroll
-          for (int i = 0; i < MBB_NPARAMS; ++i) {
-            const float pp = pas[i * hp + j];
-            prop[i] = pp + z * (act[i * hp + k] - pp);
-          }
-          const float lp = mbb_lnprob_eval(prop, c, s);
-          const float lr = dexp * logf(z) + lp - lnp[h * hp + k];
-          if (logf(u2) < lr && lp > MBB_SUPPORT_FLOOR) {
-#pragma unroll
-            for (int i = 0; i < MBB_NPARAMS; ++i) act[i * hp + k] = prop[i];
-            lnp[h * hp + k] = lp;
-            acc[h * hp + k] += 1;
-          }
-        }
-        __syncthreads();
-      }
-    }
-    if (k < half) {
-      for (int h = 0; h < 2; ++h) {
-        const int w = h * half + k;
-        for (int f = 0; f < c.nfree; ++f)
-          chain[((size_t)r * nw + w) * c.nfree + f] =
-              pos[(h * MBB_NPARAMS + c.free_idx[f]) * hp + k];
-        lnpchain[(size_t)r * nw + w] = lnp[h * hp + k];
-      }
-    }
-  }
-  if (k < half) {
-    for (int h = 0; h < 2; ++h) {
-      const int w = h * half + k;
-      for (int f = 0; f < c.nfree; ++f)
-        pos_out[(size_t)w * c.nfree + f] =
-            pos[(h * MBB_NPARAMS + c.free_idx[f]) * hp + k];
-      lnp_out[w] = lnp[h * hp + k];
-      nacc_out[w] = acc[h * hp + k];
-    }
-  }
+  mbb_stretch_body(pos_in, nacc_in, uniforms, chain, lnpchain, pos_out,
+                   lnp_out, nacc_out, half, nrec, thin, a, seed, step0, 0u,
+                   c, s, dyn);
 }
 
 // Launch one block of round_up(half, 32) threads on `stream`; returns
@@ -171,8 +49,7 @@ extern "C" int mbb_stretch_launch(
     const float* fcfg, void* stream) {
   const MbbConfig c = mbb_read_config(icfg, fcfg);
   const int hp = (half + 31) / 32 * 32;
-  const size_t dyn = (size_t)hp * (2 * MBB_NPARAMS + 2) * sizeof(float) +
-                     (size_t)hp * 2 * sizeof(int);
+  const size_t dyn = mbb_stretch_dyn_bytes(half);
   cudaError_t err = cudaFuncSetAttribute(
       mbb_stretch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);

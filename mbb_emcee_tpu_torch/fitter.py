@@ -59,6 +59,11 @@ class MBBFitter(ParamSpaceMixin):
     device: "cuda" or "cpu" (default: cuda when available).
     sampler_backend: "fused" (the whole run as one kernel launch), "torch"
     (the plain torch sampler) or "auto" = fused on CUDA, torch on the CPU.
+    n_ensembles > 1 runs K independent ensembles of this fit through the
+    batch tier (MultiFitter; on CUDA one multi-source kernel launch per
+    phase) and merges their chains into one (K * nwalkers)-walker product:
+    K x the samples, a cross-ensemble split-R-hat, and independent burn-ins.
+    Diagonal uncertainties only.
     """
 
     def __init__(self, nwalkers=250, photfile=None, covfile=None, covextn=0,
@@ -71,9 +76,10 @@ class MBBFitter(ParamSpaceMixin):
             raise not_ported("instrument-response mode (responses=)", "A2")
         if mesh is not None:
             raise not_ported("walker sharding over a mesh (mesh=)", "A11")
-        if int(n_ensembles) != 1:
-            raise not_ported("n_ensembles > 1 (the batch tier, kernel K3)",
-                             "A7")
+        if int(n_ensembles) < 1:
+            raise ValueError(f"n_ensembles={n_ensembles} must be >= 1")
+        self.n_ensembles = int(n_ensembles)
+        self._mf = None
         if sampler_backend not in ("auto", "torch", "fused"):
             raise ValueError(
                 "sampler_backend must be 'auto', 'torch' or 'fused'")
@@ -256,6 +262,13 @@ class MBBFitter(ParamSpaceMixin):
             raise ValueError(f"thin={thin} must be >= 1")
         if int(nsteps) % int(thin):
             raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+        self._mf = None       # a fresh run() invalidates any merged state
+        if self.n_ensembles > 1:
+            if p0 is not None:
+                raise ValueError(
+                    "n_ensembles > 1 does not combine with an explicit p0")
+            return self._run_ensembles(nburn, nsteps, thin, recenter_burn,
+                                       verbose)
 
         self._auto_init_fnorm()
         _, free_space, sampler = self.build()
@@ -331,8 +344,76 @@ class MBBFitter(ParamSpaceMixin):
     def compute_loo_exact(self, *args, **kwargs):
         raise not_ported("compute_loo_exact (exact LOO refits)", "A9")
 
-    def extend(self, *args, **kwargs):
-        raise not_ported("extend (continuing a production run)", "A4")
+    def _run_ensembles(self, nburn, nsteps, thin, recenter_burn, verbose):
+        """K independent ensembles through MultiFitter on replicated data,
+        merged into one (nrec, K * nwalkers, nfree) product so every
+        downstream consumer (MBBResults, gelman_rubin) sees one wider
+        ensemble."""
+        from mbb_emcee_tpu_torch.multifit import MultiFitter
+
+        phot = self._require_data()
+        if phot.cov is not None:
+            raise ValueError(
+                "n_ensembles > 1 uses the batched likelihood (diagonal "
+                "uncertainties only); drop the covariance or use "
+                "n_ensembles=1")
+        K = self.n_ensembles
+        mf = MultiFitter(nwalkers=self.nwalkers,
+                         wavenorm=self.shape.wavenorm,
+                         noalpha=self.shape.noalpha,
+                         opthin=self.shape.opthin, seed=self.seed, a=self.a,
+                         sampler_backend=self.sampler_backend,
+                         device=self.device)
+        mf._spec = self._spec
+        mf._init = self._init.copy()
+        mf._scatter = self._scatter.copy()
+        mf._user_init = self._user_init.copy()
+        mf._user_scatter = self._user_scatter.copy()
+        mf.set_data(phot.wave, np.broadcast_to(phot.flux, (K, phot.nbands)),
+                    np.broadcast_to(phot.unc, (K, phot.nbands)),
+                    band_names=phot.band_names)
+        mf.run(nburn=nburn, nsteps=nsteps, thin=thin,
+               recenter_burn=recenter_burn, verbose=verbose)
+        self._merge_ensembles(mf)
+        self._mf = mf
+        self._backend_used = mf._backend_used
+        self.sampler = mf._sampler
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            log = enable_console()
+            log.info(f"Merged {K} independent ensembles ({self.nwalkers} "
+                     f"walkers each); mean acceptance "
+                     f"{self.acceptance_fraction.mean():.3f}")
+            if self.chain_free.shape[0] >= 4:
+                log.info("  cross-ensemble split-R-hat: " + ", ".join(
+                    f"{n}={r:.3f}" for n, r in zip(self.free_param_names,
+                                                   self.gelman_rubin())))
+        return self
+
+    def _merge_ensembles(self, mf):
+        """(K, nrec, nw, nfree) -> (nrec, K * nw, nfree): walker k * nw + w
+        of the merged ensemble is walker w of ensemble k."""
+        K, nrec, nw, nfree = mf.chain_free.shape
+        self.free_space = mf.free_space
+        self.thin = mf.thin
+        self.chain_free = mf.chain_free.transpose(0, 1).reshape(
+            nrec, K * nw, nfree)
+        self.lnprobability = mf.lnprobability.transpose(0, 1).reshape(
+            nrec, K * nw)
+        self.acceptance_fraction = np.asarray(
+            mf.acceptance_fraction).reshape(-1)
+
+    def extend(self, nsteps, verbose=False):
+        """Continue the production run (n_ensembles > 1: every ensemble,
+        through MultiFitter.extend, then merged again). The single-ensemble
+        extend waits for ROADMAP.md item A4."""
+        if self._mf is None:
+            if self.n_ensembles > 1:
+                raise RuntimeError("run() has not been called")
+            raise not_ported("extend (continuing a production run)", "A4")
+        self._mf.extend(nsteps, verbose=verbose)
+        self._merge_ensembles(self._mf)
+        return self
 
     # -- products --------------------------------------------------------------------
     def _chain_np(self):

@@ -9,6 +9,9 @@ evaluation and masked to the finite LNPROB_FLOOR.
 
 `build_lnprob` returns a function of a (n, nfree) batch; it is the plain
 version the CUDA lnprob kernel (ops/lnprob_kernel.py) is held against.
+`build_lnprob_data` is the batch tier's: per-source photometry as
+arguments, (S, n, nfree) -> (S, n), the plain version of the multi-source
+kernel's likelihood.
 """
 
 from __future__ import annotations
@@ -311,6 +314,91 @@ def build_lnprob(phot: Photometry, shape: MBBShape, spec: LikelihoodSpec,
             r = torch.sum(whiten * delta[:, None, :], dim=-1)
         else:
             r = delta * diag_iunc
+        lnl = -0.5 * torch.sum(r * r, dim=-1)
+        dp = (theta - prior_mean) * prior_isig
+        lnpri = -0.5 * torch.sum(dp * dp, dim=-1)
+        return torch.where(inbox, lnl + lnpri,
+                           torch.full_like(lnl, LNPROB_FLOOR))
+
+    return lnprob, free_space
+
+
+def signed_iunc(unc, uplim_bands=None):
+    """(..., nb) inverse uncertainties with NEGATIVE sign marking
+    upper-limit slots (the encoding build_lnprob_data and the multi-source
+    kernel read). `uplim_bands` may be a shared (nb,) mask, a per-source
+    (S, nb) mask, or None; non-finite unc (missing bands) maps to exactly 0
+    weight either way. Host fp64: 1/sigma is rounded to fp32 once, later."""
+    unc = np.asarray(unc, np.float64)
+    if np.any(np.isfinite(unc) & (unc <= 0.0)):
+        raise ValueError(
+            "uncertainties must be positive; mark missing bands with "
+            "NaN/inf, not 0 (1/0 = inf would silently floor every "
+            "proposal's lnprob and freeze that source's chain)")
+    with np.errstate(divide="ignore"):
+        iunc = np.where(np.isfinite(unc), 1.0 / unc, 0.0)
+    if uplim_bands is not None:
+        m = np.broadcast_to(np.asarray(uplim_bands, bool), iunc.shape)
+        iunc = np.where(m, -iunc, iunc)
+    return iunc
+
+
+def build_lnprob_data(shape: MBBShape, spec: LikelihoodSpec,
+                      response_pack=None, correlated=False, device="cpu"):
+    """The batch tier's lnprob: the photometry arrives as ARGUMENTS, with a
+    leading source axis, so one function serves a whole catalog.
+
+    Returns (lnprob_fn, free_space) with
+        lnprob_fn(theta_free (S, n, nfree), wave (nb,), flux (S, nb),
+                  iunc (S, nb)) -> (S, n)
+    where iunc is the SIGNED 1/sigma of signed_iunc (negative: that band's
+    flux is a one-sided upper limit for that source; 0: a missing band).
+    With correlated=True the 4th argument is instead a per-source
+    (S, nb, nb) whitening matrix W, r = W delta (correlated band errors;
+    rows and columns of missing bands zero). Box, priors and fixed
+    parameters are the shared `spec`, as in build_lnprob, and the operation
+    order is build_lnprob's. One-sided upper limits do not compose with
+    correlated errors: spec.uplim_bands must then be unset.
+
+    This is the plain version the multi-source kernel
+    (ops/multifit_kernel.py) is held against."""
+    if correlated and spec.uplim_bands is not None and np.any(
+            np.asarray(spec.uplim_bands)):
+        raise ValueError(
+            "photometric upper limits (one-sided likelihood) do not "
+            "compose with correlated band errors; unset one of them")
+    sa = spec_arrays(spec)
+    free_space = sa.free_space
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    free_idx = torch.as_tensor(free_space.free_idx, device=device)
+    template, lo_free, hi_free, lo_full, hi_full, prior_mean, prior_isig = (
+        dev(a) for a in sa[1:])
+    if response_pack is not None:
+        resp_waves, resp_weights = (dev(a) for a in response_pack)
+
+    def lnprob(theta_free, wave, flux, iunc):
+        nsrc, n = theta_free.shape[:2]
+        theta = template.expand(nsrc, n, NPARAMS).clone()
+        theta[..., free_idx] = theta_free
+        inbox = torch.all((theta_free >= lo_free) & (theta_free <= hi_free),
+                          dim=-1)
+        theta_safe = torch.minimum(torch.maximum(theta, lo_full), hi_full)
+        if response_pack is None:
+            model = torch.exp(log_mbb_fnu(theta_safe, wave, shape))
+        else:
+            vals = torch.exp(log_mbb_fnu(theta_safe, resp_waves, shape))
+            model = torch.sum(resp_weights * vals, dim=-1)
+        delta = model - flux[:, None, :]
+        if correlated:
+            r = torch.sum(iunc[:, None, :, :] * delta[:, :, None, :],
+                          dim=-1)
+        else:
+            u = iunc[:, None, :]
+            delta = torch.where(u < 0, torch.clamp(delta, min=0.0), delta)
+            r = delta * torch.abs(u)
         lnl = -0.5 * torch.sum(r * r, dim=-1)
         dp = (theta - prior_mean) * prior_isig
         lnpri = -0.5 * torch.sum(dp * dp, dim=-1)

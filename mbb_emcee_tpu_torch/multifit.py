@@ -1,0 +1,578 @@
+"""Batched multi-source fitting: the batch tier that serves a catalog.
+
+Torch twin of mbb_emcee_tpu/multifit.py. S independent photometry sets --
+sharing the model shape, parameter box/priors/fixed parameters and band
+geometry, each with its own fluxes, uncertainties, missing bands, upper
+limits and redshift -- are fit at once:
+
+  * on a CUDA device each sampling phase (burn, re-burn, production,
+    extend) is ONE launch of the multi-source kernel K3
+    (ops/multifit_kernel.py, csrc/multifit.cu), one thread block per
+    source; sampler_backend="torch" runs the plain multi run
+    (sampler.multi_stretch_run_plain) instead, on any device;
+  * burn-in re-centering is per source, on the best walker of that
+    source's final burn state;
+  * summaries (par_cen, best_fit, split-R-hat, tau) and derived posteriors
+    (L_IR, dust mass, peak wavelength) are batched reductions over all
+    sources on the chain's device (batchengine.py);
+  * writeToHDF5/from_h5 use the JAX package's batch schema (schema 1), so
+    either package reads the other's file; results(i) is a full
+    MBBResults for one source.
+
+Randomness: the walker balls come from a torch.Generator seeded with
+`seed`, in source order; the proposals from the Philox stream keyed by
+fitter.philox_key(seed), one stream per source (source 0's is the
+single-fit stream).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mbb_emcee_tpu_torch import derived
+from mbb_emcee_tpu_torch.batchengine import BatchEngine
+from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
+from mbb_emcee_tpu_torch.fitter import (
+    DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, default_device, not_ported,
+    philox_key)
+from mbb_emcee_tpu_torch.likelihood import (
+    FreeSpace, LikelihoodSpec, Photometry)
+from mbb_emcee_tpu_torch.models.modified_blackbody import (
+    MBBShape, log_mbb_fnu_params)
+from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
+from mbb_emcee_tpu_torch.results import _percentile_summary
+from mbb_emcee_tpu_torch.sampler import make_initial_ball
+
+
+class MultiFitter(BatchEngine, ParamSpaceMixin):
+    """Fit many sources at once with a shared model configuration.
+
+    Usage:
+        mf = MultiFitter(nwalkers=250)
+        mf.set_data(wave, flux_batch, unc_batch)   # (nb,), (S, nb), (S, nb)
+        mf.set_uplim("T", 100.0)                   # shared across sources
+        mf.run(nburn=100, nsteps=500)
+        mf.par_cen("T")                            # (S, 3)
+        mf.compute_lir(redshifts)                  # (S, nsamp)
+        res3 = mf.results(3, redshift=z3)          # full MBBResults view
+
+    device: "cuda" or "cpu" (default: cuda when available).
+    sampler_backend: "fused" (each phase one launch of the multi-source
+    kernel; the plain multi run for CPU tensors), "torch" (the plain multi
+    run) or "auto" = fused on CUDA, torch on the CPU.
+    """
+
+    def __init__(self, nwalkers=250, wavenorm=500.0, noalpha=False,
+                 opthin=False, responses=None, seed=1234, a=2.0, mesh=None,
+                 sampler_backend="auto", device=None):
+        if responses is not None:
+            raise not_ported("instrument-response mode (responses=)", "A2")
+        if mesh is not None:
+            raise not_ported("source sharding over a mesh (mesh=)", "A11")
+        if sampler_backend not in ("auto", "torch", "fused"):
+            raise ValueError(
+                "sampler_backend must be 'auto', 'torch' or 'fused'")
+        self.device = torch.device(device or default_device())
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"device must be cuda or cpu; got {device!r}")
+        self.sampler_backend = sampler_backend
+        self.nwalkers = int(nwalkers)
+        self.shape = MBBShape(opthin=bool(opthin), noalpha=bool(noalpha),
+                              wavenorm=float(wavenorm))
+        self.a = float(a)
+        self.seed = int(seed)
+        # the quadrature pack a reloaded file carries (from_h5)
+        self._restored_pack = None
+        self._spec = LikelihoodSpec.default()
+        self._init = DEFAULT_INIT.copy()
+        self._scatter = DEFAULT_SCATTER.copy()
+        self._user_init = np.zeros(NPARAMS, bool)
+        self._user_scatter = np.zeros(NPARAMS, bool)
+        self.wave = None
+        self.flux = None
+        self.unc = None
+        self._band_corr = None      # (nb, nb) shared band correlation
+        self.band_names = None
+        self.source_names = None    # (S,) catalog identifiers
+        self.redshifts = None       # (S,) per-source z
+        self.chain_free = None      # (S, nrec, nw, nfree) tensor
+        self.lnprobability = None   # (S, nrec, nw) tensor
+        self.acceptance_fraction = None
+        self.free_space: FreeSpace | None = None
+        self.thin = 1
+        self.final_state = None
+        self._sampler = None
+        self.lir_chain = None       # (S, nsamp), compute_lir()
+        self.dustmass_chain = None  # (S, nsamp), compute_dustmass()
+        self.peaklambda_chain = None  # (S, nsamp), compute_peaklambda()
+
+    # -- likelihood operands ---------------------------------------------------
+    def _response_pack(self):
+        return self._restored_pack
+
+    def _model_token(self, spec):
+        """Content of everything the batch likelihood is built from besides
+        the per-source data: shape, parameter space, wavelengths, response
+        pack."""
+        pack = self._response_pack()
+        return (self.shape, self.wave.tobytes(),
+                tuple(np.asarray(getattr(spec, k)).tobytes() for k in (
+                    "lower", "upper", "fixed", "fixed_values", "prior_mean",
+                    "prior_isigma")),
+                None if pack is None else tuple(a.tobytes() for a in pack))
+
+    def _posterior_token(self, spec):
+        """Identity of the posterior a run sampled (extend() refuses to
+        splice chains across a change): the model, geometry, band
+        correlation CONTENT, upper-limit mask and band names."""
+        uplim = (None if spec.uplim_bands is None
+                 else np.asarray(spec.uplim_bands).tobytes())
+        return (self._model_token(spec), self.nsources, self.nwalkers,
+                int(self.thin), float(self.a),
+                None if self._band_corr is None
+                else self._band_corr.tobytes(),
+                uplim,
+                None if self.band_names is None
+                else tuple(self.band_names))
+
+    def _same_data(self):
+        return (getattr(self, "_run_data", None) is not None
+                and np.array_equal(self._run_data[0], self.flux)
+                and np.array_equal(self._run_data[1], self.unc)
+                and np.array_equal(self._run_data[2], self.wave))
+
+    def _init_centers(self, init="auto"):
+        """Per-source initial centers and scatters (S, 5): fnorm from each
+        source's flux nearest wavenorm, T from each source's brightest band
+        (the batched MBBFitter._auto_init_fnorm)."""
+        if init == "map":
+            raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
+        if init != "auto":
+            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
+        S = self.nsources
+        centers = np.broadcast_to(self._init, (S, NPARAMS)).copy()
+        scatters = np.broadcast_to(self._scatter, (S, NPARAMS)).copy()
+        if not self._user_init[4]:
+            idx = int(np.argmin(np.abs(self.wave - self.shape.wavenorm)))
+            fn = self.flux[:, idx]
+            ok = fn > 0
+            centers[ok, 4] = fn[ok]
+            if not self._user_scatter[4]:
+                scatters[ok, 4] = np.maximum(2.0 * self.unc[ok, idx],
+                                             0.05 * fn[ok])
+        if not self._user_init[0]:
+            lam_pk = self.wave[np.argmax(self.flux, axis=1)]
+            t0 = np.clip(HCOK_UM_K / (MBBFitter._WIEN_X_PEAK * lam_pk),
+                         self._spec.lower[0] * 1.02,
+                         self._spec.upper[0] * 0.98)
+            centers[:, 0] = t0
+            if not self._user_scatter[0]:
+                scatters[:, 0] = np.maximum(0.15 * t0, 1.0)
+        return centers, scatters
+
+    def _resolve_sampler_backend(self):
+        if self.sampler_backend != "auto":
+            return self.sampler_backend
+        return "fused" if self.device.type == "cuda" else "torch"
+
+    def _build_sampler(self, spec):
+        """A new batch sampler for `spec` on this data (building one packs a
+        few hundred constants; the kernel library is built once per
+        process)."""
+        from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+        backend = self._resolve_sampler_backend()
+        whiten = (None if self._band_corr is None
+                  else self._whiten_operand())
+        self._sampler = FusedMultiSampler(
+            self.nwalkers, self.wave, self.flux, self.unc, self.shape, spec,
+            response_pack=self._response_pack(), a=self.a, whiten=whiten,
+            device=self.device, plain=backend == "torch")
+        self._backend_used = backend
+        return self._sampler
+
+    def _balls(self, gen, centers, scatters):
+        """(S, nwalkers, nfree) walker balls, one per source in source
+        order from the CPU generator `gen`, reflected at the box."""
+        fs = self.free_space
+        return torch.stack([
+            make_initial_ball(gen, c, s, self.nwalkers, fs.lower, fs.upper)
+            for c, s in zip(centers, scatters)]).to(self.device)
+
+    # -- the batched run -------------------------------------------------------
+    def run(self, nburn=50, nsteps=250, thin=1, recenter_burn=True,
+            verbose=False, checkpoint=None, checkpoint_interval=100,
+            resume=False, init="auto"):
+        """Burn -> per-source re-center on its best walker -> re-burn ->
+        reset -> production, all sources in lockstep; each phase is one
+        sampler call (one K3 launch on CUDA). Returns self."""
+        del checkpoint_interval
+        if self.flux is None:
+            raise RuntimeError("no data; call set_data")
+        if int(thin) < 1:
+            raise ValueError(f"thin={thin} must be >= 1")
+        if nsteps % thin:
+            raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+        if checkpoint is not None or resume:
+            raise not_ported("checkpoint/resume of a batch run", "A4")
+        spec = self._effective_spec()
+        samp = self._build_sampler(spec)
+        self.free_space = samp.free_space
+        self._run_spec = spec       # persisted by writeToHDF5
+        self.thin = int(thin)
+        fs = self.free_space
+
+        centers, scatters = self._init_centers(init)
+        cen_f, sca_f = centers[:, fs.free_idx], scatters[:, fs.free_idx]
+        gen = torch.Generator().manual_seed(self.seed)
+        state = samp.init_state(self._balls(gen, cen_f, sca_f),
+                                seed=philox_key(self.seed))
+        if nburn > 0:
+            state = samp.advance(state, nburn)
+            if recenter_burn:
+                # Each source re-centers on the best walker of ITS final
+                # burn state (not the single fit's whole-burn-chain rule);
+                # the Philox streams continue where the burn stopped.
+                S = self.nsources
+                best = state.pos[torch.arange(S, device=state.pos.device),
+                                 torch.argmax(state.lnp, dim=1)]
+                p0b = self._balls(gen, best.double().cpu().numpy(),
+                                  0.1 * sca_f)
+                state = samp.init_state(p0b, seed=state.seed,
+                                        step=state.step)
+                state = samp.advance(state, nburn)
+            state = samp.reset_counters(state)
+
+        state, chain, lnpchain = samp.run_mcmc(state, nsteps, thin)
+        self._record(state, chain, lnpchain)
+        self._run_data = (self.flux.copy(), self.unc.copy(),
+                          self.wave.copy())
+        self._post_token = self._posterior_token(spec)
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            af = self.acceptance_fraction
+            enable_console().info(
+                f"MultiFitter ({self._backend_used} on {self.device}): "
+                f"mean acceptance fraction over {self.nsources} sources: "
+                f"{af.mean():.3f} (per-source min {af.mean(1).min():.3f}, "
+                f"max {af.mean(1).max():.3f})")
+        return self
+
+    def _record(self, state, chain, lnpchain):
+        self.final_state = state
+        self.chain_free = chain
+        self.lnprobability = lnpchain
+        self.acceptance_fraction = self._sampler.acceptance_fraction(state)
+
+    def extend(self, nsteps, verbose=False):
+        """Continue the production run of every source from the stored
+        final state (the run-until-converged serving loop). The Philox
+        streams continue, so run(n1) + extend(n2) gives the chain of the
+        longer run(n1 + n2), on both backends."""
+        if self.final_state is None:
+            raise RuntimeError(
+                "extend() requires a prior stretch-move run() on this "
+                "fitter (a reloaded file carries no sampler state)")
+        if not self._same_data():
+            raise RuntimeError(
+                "set_data() was called after run(); extend() would keep "
+                "sampling the PREVIOUS batch's posterior -- call run() "
+                "for the new data instead")
+        spec = self._effective_spec()
+        if self._posterior_token(spec) != self._post_token:
+            raise RuntimeError(
+                "the parameter space / error model / band configuration "
+                "changed after run(); extend() would splice chains from "
+                "different posteriors -- call run() instead")
+        if nsteps % self.thin:
+            raise ValueError(
+                f"nsteps={nsteps} not divisible by thin={self.thin}")
+        state, chain, lnp = self._sampler.run_mcmc(
+            self.final_state, int(nsteps), self.thin)
+        self._record(state, torch.cat([self.chain_free, chain], dim=1),
+                     torch.cat([self.lnprobability, lnp], dim=1))
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            enable_console().info(
+                f"  extended by {nsteps} steps -> "
+                f"{self.chain_free.shape[1]} recorded per source")
+        return self
+
+    def run_pt(self, *args, **kwargs):
+        raise not_ported("run_pt (parallel tempering)", "A9")
+
+    def run_hmc(self, *args, **kwargs):
+        raise not_ported("run_hmc (Hamiltonian Monte Carlo)", "A9")
+
+    def run_map(self, *args, **kwargs):
+        raise not_ported("run_map (MAP + Laplace triage)", "A9")
+
+    def compute_evidence(self, *args, **kwargs):
+        raise not_ported("compute_evidence (nested sampling)", "A9")
+
+    def posterior_predictive(self, *args, **kwargs):
+        raise not_ported("posterior_predictive (PPC)", "A9")
+
+    def compute_loo(self, *args, **kwargs):
+        raise not_ported("compute_loo (WAIC + PSIS-LOO)", "A9")
+
+    # -- batched derived quantities --------------------------------------------
+    def _params(self, th):
+        """(S, n, 5) samples -> five (S, n, 1) parameter tensors."""
+        return [th[..., i:i + 1] for i in range(NPARAMS)]
+
+    def compute_lir(self, redshifts=None, wavemin=8.0, wavemax=1000.0,
+                    thin=1, lumdists=None, cosmology="WMAP9"):
+        """(S, nsamp) L_IR posteriors in L_sun: one batched quadrature over
+        sources x samples, per-source nodes scaled by 1+z. `redshifts`
+        defaults to the vector stored by set_data()."""
+        self._require_run()
+        z = self._source_redshifts(redshifts)
+        lam_h, w_h = derived.lir_nodes_weights((1.0 + z)[:, None], wavemin,
+                                               wavemax)
+        lam = torch.as_tensor(lam_h.astype(np.float32), device=self.device)
+        w = torch.as_tensor(w_h.astype(np.float32), device=self.device)
+
+        def integrand(th):
+            lnf = log_mbb_fnu_params(*self._params(th), lam[:, None, :],
+                                     self.shape)
+            return torch.sum(w[:, None, :] * torch.exp(lnf), dim=-1)
+
+        integ = self._chunked_samples(integrand, self._thinned(thin),
+                                      derived.LIR_NODES)
+        prefac = derived.lir_prefactor(self._dl_mpc(z, lumdists, cosmology))
+        self.lir_chain = prefac[:, None] * integ
+        return self.lir_chain
+
+    def lir_cen(self, percentile=68.3):
+        if self.lir_chain is None:
+            raise RuntimeError("call compute_lir(redshifts) first")
+        return np.stack([_percentile_summary(c, percentile)
+                         for c in self.lir_chain])
+
+    def compute_dustmass(self, redshifts=None, kappa=2.64, kappa_wave=125.0,
+                         thin=1, lumdists=None, cosmology="WMAP9"):
+        """(S, nsamp) dust-mass posteriors in M_sun. `redshifts` defaults
+        to the vector stored by set_data()."""
+        self._require_run()
+        z = self._source_redshifts(redshifts)
+        opz = 1.0 + z
+        lam_obs = torch.as_tensor((kappa_wave * opz).astype(np.float32),
+                                  device=self.device)
+
+        def integrand(th):
+            s_mjy = torch.exp(log_mbb_fnu_params(
+                *self._params(th), lam_obs[:, None, None], self.shape))
+            x = HCOK_UM_K / (lam_obs[:, None] * th[..., 0])
+            return s_mjy[..., 0] * torch.expm1(
+                torch.clamp(x, max=derived.DUST_X_CLAMP))
+
+        g = self._chunked_samples(integrand, self._thinned(thin), 4)
+        prefac = derived.dustmass_prefactor(
+            self._dl_mpc(z, lumdists, cosmology), opz, kappa, kappa_wave)
+        self.dustmass_chain = prefac[:, None] * g
+        return self.dustmass_chain
+
+    def dustmass_cen(self, percentile=68.3):
+        if self.dustmass_chain is None:
+            raise RuntimeError("call compute_dustmass(redshifts) first")
+        return np.stack([_percentile_summary(c, percentile)
+                         for c in self.dustmass_chain])
+
+    def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
+                           hi=derived.PEAK_RANGE[1]):
+        """(S, nsamp) observed peak-wavelength posteriors in um."""
+        self._require_run()
+        peak = derived.peak_finder(self.shape, lo, hi)
+
+        def fn(th):
+            return peak(th.reshape(-1, NPARAMS)).reshape(th.shape[:2])
+
+        self.peaklambda_chain = self._chunked_samples(fn, self._thinned(thin),
+                                                      8)
+        return self.peaklambda_chain
+
+    def peaklambda_cen(self, percentile=68.3):
+        if self.peaklambda_chain is None:
+            raise RuntimeError("call compute_peaklambda() first")
+        return np.stack([_percentile_summary(c, percentile)
+                         for c in self.peaklambda_chain])
+
+    def sed_percentiles(self, waves, percentile=68.3, thin=1):
+        """(S, 3, nwave) per-wavelength [median, upper, lower] f_nu in mJy
+        at the OBSERVED wavelengths `waves` (micron), one batched
+        evaluation over sources x samples x wavelengths."""
+        self._require_run()
+        w = torch.as_tensor(np.atleast_1d(np.asarray(waves, np.float32)),
+                            device=self.device)
+        sed = derived.sed_eval(self.shape, w)
+
+        def fn(th):
+            return sed(th.reshape(-1, NPARAMS)).reshape(
+                th.shape[:2] + (w.numel(),))
+
+        fluxes = self._chunked_samples(fn, self._thinned(thin), w.numel())
+        return derived.sed_band(fluxes, percentile, sample_axis=1)
+
+    # -- persistence -----------------------------------------------------------
+    def writeToHDF5(self, filename, thin=1):
+        """Persist the whole batch to one HDF5 file in the JAX package's
+        batch schema (schema 1); `thin` subsamples the stored chains.
+        Reload with MultiFitter.from_h5 (either package's)."""
+        import h5py
+        self._require_run()
+        # the spec the RUN sampled under, not the current one
+        spec = getattr(self, "_run_spec", None) or self._effective_spec()
+        t = max(int(thin), 1)
+        chain = self.chain_free[:, ::t].cpu().numpy().astype(np.float32)
+        lnp = self.lnprobability[:, ::t].cpu().numpy().astype(np.float32)
+        with h5py.File(filename, "w") as f:
+            f.attrs["schema_version"] = 1
+            f.attrs["package"] = "mbb_emcee_tpu_torch.multifit"
+            f.attrs["nwalkers"] = self.nwalkers
+            f.attrs["nsources"] = self.nsources
+            f.attrs["thin"] = self.thin * t
+            f.attrs["opthin"] = self.shape.opthin
+            f.attrs["noalpha"] = self.shape.noalpha
+            f.attrs["wavenorm"] = self.shape.wavenorm
+            f.create_dataset("ChainFree", data=chain, compression="gzip")
+            f.create_dataset("LnProbability", data=lnp, compression="gzip")
+            f.create_dataset("AcceptanceFraction",
+                             data=self.acceptance_fraction)
+            f.create_dataset("Wave", data=self.wave)
+            f.create_dataset("Flux", data=self.flux)
+            f.create_dataset("Unc", data=self.unc)
+            if self.band_names is not None:
+                f.attrs["band_names"] = np.array(
+                    [n.encode() for n in self.band_names])
+            pack = self._response_pack()
+            if pack is not None:
+                g = f.create_group("ResponsePack")
+                g.create_dataset("Nodes", data=pack[0])
+                g.create_dataset("Weights", data=pack[1])
+            if self.source_names is not None:
+                f.create_dataset("SourceNames", data=np.array(
+                    [n.encode() for n in self.source_names]))
+            if self.redshifts is not None:
+                f.create_dataset("Redshifts", data=self.redshifts)
+            for ds, dchain in (("LIRChain", self.lir_chain),
+                               ("DustMassChain", self.dustmass_chain),
+                               ("PeakLambdaChain", self.peaklambda_chain)):
+                if dchain is not None:
+                    f.create_dataset(ds, data=np.asarray(dchain, np.float32),
+                                     compression="gzip")
+            sp = f.create_group("ParamSpec")
+            for name in ("lower", "upper", "fixed", "fixed_values",
+                         "prior_mean", "prior_isigma"):
+                sp.create_dataset(name, data=getattr(spec, name))
+            if spec.uplim_bands is not None:
+                sp.create_dataset("uplim_bands", data=spec.uplim_bands)
+            if self._band_corr is not None:
+                sp.create_dataset("band_correlation", data=self._band_corr)
+        return filename
+
+    @classmethod
+    def from_h5(cls, filename, device=None):
+        """Reload a persisted batch (either package's file): summaries,
+        derived quantities and per-source MBBResults views work on the
+        restored object; extend() needs a fresh run()."""
+        import h5py
+        with h5py.File(filename, "r") as f:
+            mf = cls(nwalkers=int(f.attrs["nwalkers"]),
+                     wavenorm=float(f.attrs["wavenorm"]),
+                     noalpha=bool(f.attrs["noalpha"]),
+                     opthin=bool(f.attrs["opthin"]), device=device)
+            names = (None if "band_names" not in f.attrs else
+                     [n.decode() for n in f.attrs["band_names"]])
+            mf.set_data(np.asarray(f["Wave"]), np.asarray(f["Flux"]),
+                        np.asarray(f["Unc"]), band_names=names,
+                        source_names=(
+                            None if "SourceNames" not in f else
+                            [n.decode() for n in f["SourceNames"]]),
+                        redshifts=(None if "Redshifts" not in f else
+                                   np.asarray(f["Redshifts"])))
+            if "ResponsePack" in f:
+                mf._restored_pack = (
+                    np.asarray(f["ResponsePack"]["Nodes"]),
+                    np.asarray(f["ResponsePack"]["Weights"]))
+            for ds, attr in (("LIRChain", "lir_chain"),
+                             ("DustMassChain", "dustmass_chain"),
+                             ("PeakLambdaChain", "peaklambda_chain")):
+                if ds in f:
+                    setattr(mf, attr, np.asarray(f[ds], np.float64))
+            sp = f["ParamSpec"]
+            mf._spec = _replace(
+                mf._spec,
+                lower=np.asarray(sp["lower"]),
+                upper=np.asarray(sp["upper"]),
+                fixed=np.asarray(sp["fixed"], bool),
+                fixed_values=np.asarray(sp["fixed_values"]),
+                prior_mean=np.asarray(sp["prior_mean"]),
+                prior_isigma=np.asarray(sp["prior_isigma"]),
+                uplim_bands=(np.asarray(sp["uplim_bands"], bool)
+                             if "uplim_bands" in sp else None))
+            if "band_correlation" in sp:
+                mf._band_corr = np.asarray(sp["band_correlation"],
+                                           np.float64)
+            mf.free_space = FreeSpace.from_spec(mf._effective_spec())
+            mf.chain_free = torch.as_tensor(
+                np.asarray(f["ChainFree"], np.float32), device=mf.device)
+            mf.lnprobability = torch.as_tensor(
+                np.asarray(f["LnProbability"], np.float32),
+                device=mf.device)
+            mf.acceptance_fraction = np.asarray(f["AcceptanceFraction"])
+            mf.thin = int(f.attrs["thin"])
+        return mf
+
+    # -- single-source views ---------------------------------------------------
+    def results(self, i, redshift=None, cosmology="WMAP9", lumdist=None):
+        """Full MBBResults for source i. `redshift` defaults to the
+        per-source vector stored by set_data()."""
+        from mbb_emcee_tpu_torch.results import MBBResults
+        self._require_run()
+        i = int(i)
+        if redshift is None and self.redshifts is not None:
+            redshift = float(self.redshifts[i])
+        return MBBResults(fit=_SourceView(self, i), redshift=redshift,
+                          cosmology=cosmology, lumdist=lumdist)
+
+
+class _SourceView:
+    """One source of a MultiFitter presented as a finished MBBFitter (the
+    attribute surface MBBResults._from_fit reads)."""
+
+    def __init__(self, mf: MultiFitter, i: int):
+        self.chain_free = mf.chain_free[i]
+        self.chain = np.transpose(
+            mf.free_space.expand(mf.chain_free[i].double().cpu().numpy()),
+            (1, 0, 2))
+        self.lnprobability = mf.lnprobability[i]
+        self.acceptance_fraction = mf.acceptance_fraction[i]
+        self.shape = mf.shape
+        self.redshift = None
+        self.device = mf.device
+        self._pack = mf._response_pack()
+        cov = None
+        if mf._band_corr is not None:
+            # this source's covariance C = D R D; a missing band is an
+            # infinite-variance row/col with zero cross terms, the limit
+            # the marginalized whitening implements
+            d = mf.unc[i]
+            cov = mf._band_corr * np.outer(d, d)
+            miss = ~np.isfinite(d)
+            if miss.any():
+                cov[miss, :] = 0.0
+                cov[:, miss] = 0.0
+                cov[miss, miss] = np.inf
+        self.phot = Photometry(mf.wave, mf.flux[i], mf.unc[i], cov=cov,
+                               band_names=mf.band_names)
+        spec = mf._effective_spec()
+        if spec.uplim_bands is not None and spec.uplim_bands.ndim == 2:
+            spec = _replace(spec, uplim_bands=spec.uplim_bands[i])
+        self.spec = spec
+        self._init = mf._init.copy()
+        self.thin = mf.thin
+        self.nwalkers = mf.nwalkers
+
+    def _response_pack(self):
+        return self._pack

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels (csrc/*.cu) and bind them with ctypes.
 
 `build_kernels()` compiles every source of csrc/ with nvcc for Hopper
-(sm_90a) into one shared library with a plain C interface, at first use,
+(sm_90a), one nvcc process per source, all started together, and links the
+objects into one shared library with a plain C interface, at first use,
 into build/mbb_emcee_tpu_torch/<hash>/ beside the package (the hash covers
 the sources and the flags, so an edited kernel is rebuilt), and loads it
 with ctypes. The compiler's register and spill report is kept beside the
@@ -24,9 +25,9 @@ BUILD_ROOT = (Path(__file__).resolve().parent.parent.parent / "build"
 LIB_NAME = "libmbb_kernels.so"
 # -fmad=false: no multiply-add contraction, so the kernels round op by op
 # as the plain torch versions do (see csrc/lnprob.cuh).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,15 +72,35 @@ def build_kernels():
                 "are built from csrc/ at first use and need the CUDA "
                 "toolkit (nvcc on PATH, or CUDA_HOME set)")
         lib.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        srcs = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *srcs],
-                              capture_output=True, text=True)
-        (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n"
-                f"{proc.stderr[-6000:]}")
+        tag = f"{os.getpid()}.tmp"
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            # nvcc tells an object from a source by the .o suffix
+            obj = lib.with_name(f"{src.stem}.{tag}.o")
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for obj, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{obj.name}: code {proc.returncode}\n{out}")
+        tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *(str(obj) for obj, _ in jobs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            if link.returncode != 0:
+                failed.append(f"link: code {link.returncode}\n{link.stdout}")
+        for obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        (lib.parent / "build.log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-6000:])
         os.replace(tmp, lib)
     return _load(str(lib))
 
@@ -92,6 +113,10 @@ def _load(path):
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
         ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
     lib.mbb_stretch_launch.restype = _I
+    lib.mbb_multi_stretch_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
+    lib.mbb_multi_stretch_launch.restype = _I
     return lib
 
 

@@ -52,15 +52,11 @@ class LnprobOperands:
         return self.consts.device
 
 
-def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
-                          device="cpu") -> LnprobOperands:
-    """Pack a likelihood (photometry, model shape, spec, optional
-    (waves, weights) response pack of shape (nbands, nnodes)) into kernel
-    operands on `device`, with the plain version built beside them."""
-    plain, free_space = build_lnprob(phot, shape, spec,
-                                     response_pack=response_pack,
-                                     device=device)
-    nb = phot.nbands
+def response_nodes(wave, response_pack=None):
+    """The (nbands, nnodes) fp64 wavelength nodes and weights the kernels
+    sum over: the response pack, or one unit-weight node per band at the
+    data wavelength; checked against the kernels' shared-memory caps."""
+    nb = len(wave)
     if response_pack is not None:
         waves = np.asarray(response_pack[0], np.float64)
         weights = np.asarray(response_pack[1], np.float64)
@@ -69,17 +65,24 @@ def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
             raise ValueError("response pack must be two (nbands, nnodes) "
                              "arrays")
     else:
-        waves = np.asarray(phot.wave, np.float64)[:, None]
+        waves = np.asarray(wave, np.float64)[:, None]
         weights = np.ones((nb, 1))
     nnodes = waves.shape[1]
     if nb > MAX_BANDS or nnodes > MAX_NODES:
         raise ValueError(
             f"the CUDA kernels take at most {MAX_BANDS} bands and "
             f"{MAX_NODES} response nodes per band; got {nb} x {nnodes}")
+    return waves, weights
 
-    use_chol = phot.cov is not None
-    whiten = (np.linalg.inv(np.linalg.cholesky(phot.cov)) if use_chol
-              else np.diag(1.0 / phot.unc))
+
+def pack_constants(shape, spec, free_space, flux, whiten, nodes, use_chol,
+                   device):
+    """(consts, icfg, fcfg): the packed constant buffer on `device` (layout
+    in csrc/lnprob.cuh) and the host configuration arrays, for fluxes
+    `flux` (nb,), whitening `whiten` (nb, nb) and `nodes` = (waves,
+    weights) from response_nodes."""
+    waves, weights = nodes
+    nb, nnodes = waves.shape
     # Fixed parameters get a finite window centered on their value: the
     # kernel uses the same limits for the in-box check and the clip, so
     # they must contain the value (fix_param('alpha', 0.0) with the
@@ -89,7 +92,7 @@ def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
     upper = np.where(spec.fixed, fv + 1.0, spec.upper)
     packed = np.concatenate([
         lower, upper, spec.prior_mean, spec.prior_isigma,
-        phot.flux, whiten.ravel(), waves.ravel(), weights.ravel()])
+        flux, np.ravel(whiten), waves.ravel(), weights.ravel()])
     consts = torch.as_tensor(packed.astype(np.float32), device=device)
 
     uplim = 0
@@ -103,6 +106,23 @@ def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
                     np.int64).astype(np.uint32).view(np.int32)
     fcfg = np.array([*free_space.template, LOG_C2,
                      LOG_C2 - math.log(shape.wavenorm)], np.float32)
+    return consts, icfg, fcfg
+
+
+def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
+                          device="cpu") -> LnprobOperands:
+    """Pack a likelihood (photometry, model shape, spec, optional
+    (waves, weights) response pack of shape (nbands, nnodes)) into kernel
+    operands on `device`, with the plain version built beside them."""
+    plain, free_space = build_lnprob(phot, shape, spec,
+                                     response_pack=response_pack,
+                                     device=device)
+    nodes = response_nodes(phot.wave, response_pack)
+    use_chol = phot.cov is not None
+    whiten = (np.linalg.inv(np.linalg.cholesky(phot.cov)) if use_chol
+              else np.diag(1.0 / phot.unc))
+    consts, icfg, fcfg = pack_constants(shape, spec, free_space, phot.flux,
+                                        whiten, nodes, use_chol, device)
     return LnprobOperands(consts=consts, icfg=icfg, fcfg=fcfg,
                           free_space=free_space, plain=plain)
 

@@ -1,8 +1,9 @@
 """Philox-4x32-10 counter-based generator in plain torch.
 
-The stretch-move kernel (csrc/sampler.cu) draws its proposal randomness with
-Philox-4x32-10 (Salmon et al. 2011, "Parallel random numbers: as easy as
-1, 2, 3"), keyed by a 64-bit launch seed and counted by (step, half, lane).
+The stretch-move kernels (csrc/stretch.cuh) draw their proposal randomness
+with Philox-4x32-10 (Salmon et al. 2011, "Parallel random numbers: as easy
+as 1, 2, 3"), keyed by a 64-bit launch seed and counted by (step,
+half + 2 * source, lane).
 This module is the same generator written with int64 torch ops, so the
 plain sampler draws the identical stream on any device and a kernel run can
 be replayed exactly by the plain version.
@@ -55,21 +56,28 @@ def bits_to_uniform(bits):
     return (bits >> 8).to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
 
 
-def stretch_uniforms(key, step0, nsteps, half, device):
-    """The kernel's proposal uniforms for `nsteps` ensemble steps starting
+def stretch_uniforms(key, step0, nsteps, half, device, source=0):
+    """The kernels' proposal uniforms for `nsteps` ensemble steps starting
     at global step `step0`, laid out as the external-uniforms input:
     (6 * nsteps, half) fp32, rows 6t + 3h + c for step t, half h (0 = A,
     1 = B) and draw c (0 z, 1 partner, 2 accept).
 
-    Counter words: (step low 32 bits, half, lane, step high 32 bits)."""
+    Counter words: (step low 32 bits, h + 2 * source, lane, step high 32
+    bits), so source 0 is the single-ensemble kernel's stream. `source` is
+    an int, or a 1-D sequence of S source indices, which adds a leading
+    axis: (S, 6 * nsteps, half), the multi-source kernel's streams."""
+    src = torch.as_tensor(source, dtype=torch.int64, device=device)
+    lead = tuple(src.shape)
+    src = src.reshape(lead + (1, 1, 1))
     step = (torch.arange(nsteps, dtype=torch.int64, device=device)
             + int(step0)).view(nsteps, 1, 1)
     h = torch.arange(2, dtype=torch.int64, device=device).view(1, 2, 1)
     lane = torch.arange(half, dtype=torch.int64, device=device).view(1, 1,
                                                                      half)
-    c0 = (step & _MASK32).expand(nsteps, 2, half)
-    c3 = (step >> 32).expand(nsteps, 2, half)
-    x0, x1, x2, _ = philox4x32(c0, h.expand(nsteps, 2, half),
-                               lane.expand(nsteps, 2, half), c3, int(key))
-    u = torch.stack([bits_to_uniform(x) for x in (x0, x1, x2)], dim=2)
-    return u.reshape(6 * nsteps, half)
+    full = lead + (nsteps, 2, half)
+    c0 = (step & _MASK32).expand(full)
+    c1 = ((h + 2 * src) & _MASK32).expand(full)
+    c3 = (step >> 32).expand(full)
+    x0, x1, x2, _ = philox4x32(c0, c1, lane.expand(full), c3, int(key))
+    u = torch.stack([bits_to_uniform(x) for x in (x0, x1, x2)], dim=-2)
+    return u.reshape(lead + (6 * nsteps, half))

@@ -16,7 +16,9 @@ stretch-move kernel (ops/sampler_kernel.py): it consumes the kernel's
 uniform layout, (nrec, 6 * thin, half) with rows z/partner/accept for half A
 then half B, and draws them from the kernel's own Philox-4x32-10 stream
 (ops/philox.py) when none are given, so for a given seed both produce the
-same chain up to fp32 rounding.
+same chain up to fp32 rounding. `multi_stretch_run_plain` is the same loop
+over S independent ensembles in lockstep, the plain version of the
+multi-source kernel (ops/multifit_kernel.py), one Philox stream per source.
 """
 
 from __future__ import annotations
@@ -55,64 +57,97 @@ class SamplerState:
         return torch.cat([self.lnp_a, self.lnp_b], dim=0)
 
 
+@dataclasses.dataclass
+class MultiSamplerState:
+    """State of S independent ensembles advanced in lockstep (the batch
+    tier); positions in the free-parameter space. `seed` and `step` are
+    shared: source s draws the Philox stream (seed, step, source s)."""
+    pos: torch.Tensor        # (S, nwalkers, ndim)
+    lnp: torch.Tensor        # (S, nwalkers)
+    naccept: torch.Tensor    # (S, nwalkers) int32 accept counts since reset
+    nsteps: int              # steps taken since reset
+    seed: int
+    step: int = 0
+
+
 def stretch_half_step_from_uniforms(u3, active, passive, lnp_active,
                                     lnprob_batch, a=2.0):
     """Update one half-ensemble against the frozen other half, consuming
-    uniforms u3 of shape (3, n): z draw, partner pick, accept. Returns
-    (new_active, new_lnp, accepted_bool)."""
-    ndim = active.shape[1]
-    z = ((a - 1.0) * u3[0] + 1.0) ** 2 / a
-    npass = passive.shape[0]
-    j = torch.clamp((u3[1] * npass).to(torch.int64), max=npass - 1)
-    partners = passive[j]
-    proposal = partners + z[:, None] * (active - partners)
+    uniforms u3 of shape (..., 3, n): z draw, partner pick, accept. Leading
+    axes are independent ensembles (the batch tier's sources): active and
+    passive are (..., n, ndim), lnp_active (..., n), and lnprob_batch maps
+    (..., n, ndim) -> (..., n). Returns (new_active, new_lnp, accepted)."""
+    ndim = active.shape[-1]
+    z = ((a - 1.0) * u3[..., 0, :] + 1.0) ** 2 / a
+    npass = passive.shape[-2]
+    j = torch.clamp((u3[..., 1, :] * npass).to(torch.int64), max=npass - 1)
+    partners = torch.take_along_dim(passive, j[..., None], dim=-2)
+    proposal = partners + z[..., None] * (active - partners)
     lnp_prop = lnprob_batch(proposal)
     log_ratio = (ndim - 1) * torch.log(z) + lnp_prop - lnp_active
     # u3[2] can be exactly 0 in fp32 and log(0) = -inf would accept an
     # out-of-box proposal sitting at the finite LNPROB_FLOOR.
-    accept = (torch.log(u3[2]) < log_ratio) & (lnp_prop > SUPPORT_FLOOR)
-    new_active = torch.where(accept[:, None], proposal, active)
+    accept = ((torch.log(u3[..., 2, :]) < log_ratio)
+              & (lnp_prop > SUPPORT_FLOOR))
+    new_active = torch.where(accept[..., None], proposal, active)
     new_lnp = torch.where(accept, lnp_prop, lnp_active)
     return new_active, new_lnp, accept
+
+
+def _stretch_records(pos_a, pos_b, lnprob_batch, nrec, thin, a, draw):
+    """The run loop both plain runs share: `nrec` records of `thin` steps,
+    each record's uniforms (..., 6 * thin, half) from draw(r). Both halves'
+    lnprob are recomputed first, as the kernels do. Returns the final
+    halves, their lnprob, the accepts of each half, chain
+    (..., nrec, nw, ndim) and lnpchain (..., nrec, nw)."""
+    lead = pos_a.shape[:-2]
+    half, ndim = pos_a.shape[-2:]
+    device = pos_a.device
+    lnp_a, lnp_b = lnprob_batch(pos_a), lnprob_batch(pos_b)
+    acc_a = torch.zeros(lead + (half,), dtype=torch.int32, device=device)
+    acc_b = torch.zeros_like(acc_a)
+    chain = torch.empty(lead + (nrec, 2 * half, ndim), dtype=pos_a.dtype,
+                        device=device)
+    lnpchain = torch.empty(lead + (nrec, 2 * half), dtype=pos_a.dtype,
+                           device=device)
+    for r in range(nrec):
+        u = draw(r)
+        for t in range(thin):
+            pos_a, lnp_a, ok_a = stretch_half_step_from_uniforms(
+                u[..., 6 * t:6 * t + 3, :], pos_a, pos_b, lnp_a,
+                lnprob_batch, a)
+            pos_b, lnp_b, ok_b = stretch_half_step_from_uniforms(
+                u[..., 6 * t + 3:6 * t + 6, :], pos_b, pos_a, lnp_b,
+                lnprob_batch, a)
+            acc_a += ok_a
+            acc_b += ok_b
+        chain[..., r, :half, :] = pos_a
+        chain[..., r, half:, :] = pos_b
+        lnpchain[..., r, :half] = lnp_a
+        lnpchain[..., r, half:] = lnp_b
+    return pos_a, pos_b, lnp_a, lnp_b, acc_a, acc_b, chain, lnpchain
 
 
 def stretch_run_plain(state: SamplerState, lnprob_batch, nrec, thin,
                       a=2.0, uniforms=None):
     """`nrec` records of `thin` ensemble steps each, recording after every
-    thin block. Both halves' lnprob are recomputed first, as the kernel
-    does. `uniforms` (nrec, 6 * thin, half) replaces the Philox stream.
+    thin block: the plain version of the stretch-move kernel (K2).
+    `uniforms` (nrec, 6 * thin, half) replaces the Philox stream.
 
     Returns (state, chain (nrec, nwalkers, ndim), lnpchain (nrec, nwalkers)).
     """
     stretch_run_plain.runs += 1
-    pos_a, pos_b = state.pos_a, state.pos_b
-    half, ndim = pos_a.shape
-    device = pos_a.device
-    lnp_a, lnp_b = lnprob_batch(pos_a), lnprob_batch(pos_b)
-    acc_a = torch.zeros(half, dtype=torch.int32, device=device)
-    acc_b = torch.zeros(half, dtype=torch.int32, device=device)
-    chain = torch.empty((nrec, 2 * half, ndim), dtype=pos_a.dtype,
-                        device=device)
-    lnpchain = torch.empty((nrec, 2 * half), dtype=pos_a.dtype,
-                           device=device)
-    for r in range(nrec):
-        if uniforms is None:
-            u = stretch_uniforms(state.seed, state.step + r * thin, thin,
-                                 half, device)
-        else:
-            u = uniforms[r]
-        for t in range(thin):
-            pos_a, lnp_a, ok_a = stretch_half_step_from_uniforms(
-                u[6 * t:6 * t + 3], pos_a, pos_b, lnp_a, lnprob_batch, a)
-            pos_b, lnp_b, ok_b = stretch_half_step_from_uniforms(
-                u[6 * t + 3:6 * t + 6], pos_b, pos_a, lnp_b, lnprob_batch,
-                a)
-            acc_a += ok_a
-            acc_b += ok_b
-        chain[r, :half] = pos_a
-        chain[r, half:] = pos_b
-        lnpchain[r, :half] = lnp_a
-        lnpchain[r, half:] = lnp_b
+    half = state.pos_a.shape[0]
+
+    def draw(r):
+        if uniforms is not None:
+            return uniforms[r]
+        return stretch_uniforms(state.seed, state.step + r * thin, thin,
+                                half, state.pos_a.device)
+
+    pos_a, pos_b, lnp_a, lnp_b, acc_a, acc_b, chain, lnpchain = \
+        _stretch_records(state.pos_a, state.pos_b, lnprob_batch, nrec,
+                         thin, a, draw)
     new_state = SamplerState(
         pos_a=pos_a, pos_b=pos_b, lnp_a=lnp_a, lnp_b=lnp_b,
         naccept=state.naccept + torch.cat([acc_a, acc_b]),
@@ -122,6 +157,41 @@ def stretch_run_plain(state: SamplerState, lnprob_batch, nrec, thin,
 
 
 stretch_run_plain.runs = 0
+
+
+def multi_stretch_run_plain(state: MultiSamplerState, lnprob_batch, nrec,
+                            thin, a=2.0, uniforms=None):
+    """The plain version of the multi-source stretch-move kernel (K3): S
+    independent ensembles, `nrec` records of `thin` steps each, all sources
+    in lockstep. lnprob_batch maps (S, n, ndim) -> (S, n). `uniforms`
+    (S, nrec, 6 * thin, half) replaces the per-source Philox streams.
+
+    Returns (state, chain (S, nrec, nwalkers, ndim),
+    lnpchain (S, nrec, nwalkers))."""
+    multi_stretch_run_plain.runs += 1
+    nsrc, nw = state.pos.shape[:2]
+    half = nw // 2
+    sources = torch.arange(nsrc, device=state.pos.device)
+
+    def draw(r):
+        if uniforms is not None:
+            return uniforms[:, r]
+        return stretch_uniforms(state.seed, state.step + r * thin, thin,
+                                half, state.pos.device, source=sources)
+
+    pos_a, pos_b, lnp_a, lnp_b, acc_a, acc_b, chain, lnpchain = \
+        _stretch_records(state.pos[:, :half], state.pos[:, half:],
+                         lnprob_batch, nrec, thin, a, draw)
+    new_state = MultiSamplerState(
+        pos=torch.cat([pos_a, pos_b], dim=1),
+        lnp=torch.cat([lnp_a, lnp_b], dim=1),
+        naccept=state.naccept + torch.cat([acc_a, acc_b], dim=1),
+        nsteps=state.nsteps + nrec * thin, seed=state.seed,
+        step=state.step + nrec * thin)
+    return new_state, chain, lnpchain
+
+
+multi_stretch_run_plain.runs = 0
 
 
 def _check_run_args(nsteps, thin):

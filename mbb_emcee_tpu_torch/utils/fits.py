@@ -111,3 +111,22 @@ def write_fits_image(path, data, extra_cards=()):
     with open(path, "wb") as fh:
         fh.write(header.encode("ascii"))
         fh.write(body)
+
+
+def read_band_correlation(path, extn=0):
+    """Read a band CORRELATION matrix from a FITS image extension for the
+    batch CLI's --corrfile flag. Accepts a covariance matrix too -- only its
+    correlation structure is kept (the per-source error scales come from
+    the catalog's unc columns). Raises ValueError on a non-square matrix or
+    a non-positive diagonal; positive-definiteness is checked downstream by
+    set_band_correlation."""
+    R = np.asarray(read_fits_image(path, extn=extn), np.float64)
+    if R.ndim != 2 or R.shape[0] != R.shape[1]:
+        raise ValueError(
+            f"correlation file must hold a square matrix; got {R.shape}")
+    d = np.diag(R)
+    if np.any(d <= 0):
+        raise ValueError("correlation matrix has non-positive diagonal")
+    if not np.allclose(d, 1.0, atol=1e-8):
+        R = R / np.sqrt(np.outer(d, d))
+    return R

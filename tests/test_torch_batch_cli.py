@@ -1,0 +1,199 @@
+"""The port's batch command line (run_mbb_emcee_tpu_torch_batch) and its
+ingest on the CPU: the catalog reader and the band-correlation reader
+against the JAX package's, the CLI end to end writing files the JAX package
+loads (whole batch, chunked, correlated, run-until-converged), its up-front
+checks and the refusal of each flag that waits for a ROADMAP.md item; and
+the single-fit CLI's --n-ensembles."""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import mbb_emcee_tpu as J  # noqa: E402
+from mbb_emcee_tpu.catalog import read_catalog as j_read_catalog  # noqa: E402
+from mbb_emcee_tpu.utils.fits import (  # noqa: E402
+    read_band_correlation as j_read_band_correlation)
+import mbb_emcee_tpu_torch as T  # noqa: E402
+from mbb_emcee_tpu_torch import cli, cli_batch  # noqa: E402
+from mbb_emcee_tpu_torch.catalog import read_catalog  # noqa: E402
+from mbb_emcee_tpu_torch.utils.fits import (  # noqa: E402
+    read_band_correlation, write_fits_image)
+
+CATALOG = """\
+# a small survey catalog
+wave = 100 160 250 350 500
+bands = PACS_100 PACS_160 SPIRE_250 SPIRE_350 SPIRE_500
+SMM_J0001   2.20   11.2 0.8  32.1 1.9  44.8 2.4  38.2 2.1  22.9 1.5
+SMM_J0002   1.85    9.4 0.7  28.8 1.7  40.1 2.2  35.5 2.0  21.3 1.4
+SMM_J0003   2.60    nan nan  25.0 1.6  39.0 2.2  36.0 2.0  <30.0 1.5
+SMM_J0004   1.40   14.0 0.9  35.0 2.0  45.0 2.5  36.5 2.0  21.0 1.4
+SMM_J0005   3.10    8.0 0.7  24.0 1.5  36.0 2.1  34.0 1.9  22.0 1.4
+"""
+FAST = ["-w", "16", "-b", "10", "-n", "20", "--device", "cpu"]
+
+
+def _catalog(tmp_path, text=CATALOG, nsrc=None):
+    lines = text.splitlines()
+    if nsrc is not None:
+        head = [ln for ln in lines if not ln.startswith("SMM")]
+        lines = head + [ln for ln in lines if ln.startswith("SMM")][:nsrc]
+    path = tmp_path / "cat.txt"
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def test_read_catalog_matches_jax(tmp_path):
+    """The port's copy of the catalog reader parses what the JAX
+    package's parses: names, redshifts, a NaN missing band, a '<' per-source
+    upper limit OR-combined with an 'uplims' header row."""
+    text = CATALOG.replace("bands =", "uplims = 0 0 0 0 1\nbands =")
+    path = _catalog(tmp_path, text)
+    got, want = read_catalog(path), j_read_catalog(str(path))
+    assert got.names == want.names and got.band_names == want.band_names
+    for a in ("redshifts", "wave", "flux", "unc", "uplim_bands",
+              "uplim_src"):
+        np.testing.assert_array_equal(getattr(got, a), getattr(want, a))
+    np.testing.assert_array_equal(got.uplim_mask(), want.uplim_mask())
+    assert got.uplim_mask()[2, 4] and got.nsources == 5
+    assert got.has_redshifts
+    (tmp_path / "bad.txt").write_text("SMM 1.0 1 2\n")
+    with pytest.raises(ValueError, match="wave"):
+        read_catalog(tmp_path / "bad.txt")
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["corr", "cov"])
+def test_read_band_correlation_matches_jax(tmp_path, scaled):
+    r = np.full((5, 5), 0.3)
+    np.fill_diagonal(r, 1.0)
+    d = np.array([1.0, 2.0, 0.5, 3.0, 1.5]) if scaled else np.ones(5)
+    write_fits_image(tmp_path / "r.fits", r * np.outer(d, d))
+    got = read_band_correlation(tmp_path / "r.fits")
+    np.testing.assert_allclose(got, j_read_band_correlation(
+        str(tmp_path / "r.fits")), rtol=1e-15)
+    np.testing.assert_allclose(got, r, rtol=1e-12)
+    write_fits_image(tmp_path / "bad.fits", np.ones((5, 4)))
+    with pytest.raises(ValueError, match="square"):
+        read_band_correlation(tmp_path / "bad.fits")
+
+
+def test_batch_cli_writes_a_file_jax_loads(tmp_path, capsys):
+    out = tmp_path / "batch.h5"
+    rc = cli_batch.main([str(_catalog(tmp_path, nsrc=4)), str(out), *FAST,
+                         "--get-lir", "--get-dustmass", "--get-peaklambda",
+                         "--derived-thin", "4", "--store-thin", "2",
+                         "--summary", "-v"])
+    assert rc == 0 and out.is_file()
+    text = capsys.readouterr().out
+    assert "SMM_J0003" in text and "max-Rhat" in text
+    assert "Device: cpu" in text
+    jmf = J.MultiFitter.from_h5(str(out))
+    assert jmf.nsources == 4 and jmf.thin == 2
+    assert np.asarray(jmf.chain_free).shape == (4, 10, 16, 5)
+    assert jmf.source_names[2] == "SMM_J0003"
+    assert jmf.lir_chain.shape == (4, 20 * 16 // 4)
+    assert np.all(np.isfinite(jmf.dustmass_chain))
+    ul = jmf._spec.uplim_bands
+    assert ul.shape == (4, 5) and ul[2, 4] and ul.sum() == 1
+    assert np.isinf(jmf.unc[2, 0]) and jmf.flux[2, 0] == 0.0
+    assert np.all(np.isfinite(jmf.par_cen("T")))
+    tmf = T.MultiFitter.from_h5(out, device="cpu")
+    np.testing.assert_allclose(tmf.par_cen("beta"), jmf.par_cen("beta"),
+                               rtol=1e-5)
+
+
+def test_batch_cli_chunked_writes_part_files(tmp_path, capsys):
+    """--chunk-size 2 on 5 sources: three parts of 2 sources, the last
+    overlapping its predecessor, each a normal batch file."""
+    out = tmp_path / "batch.h5"
+    rc = cli_batch.main([str(_catalog(tmp_path)), str(out), *FAST,
+                         "--chunk-size", "2", "--phot-uplim", "SPIRE_350"])
+    assert rc == 0 and not out.exists()
+    assert "5 sources served in 3 chunks of 2" in capsys.readouterr().out
+    names = []
+    for i in range(3):
+        jmf = J.MultiFitter.from_h5(str(tmp_path / f"batch.part{i:03d}.h5"))
+        assert jmf.nsources == 2
+        names += jmf.source_names
+        assert jmf._spec.uplim_bands[:, 3].all()
+    assert names == ["SMM_J0001", "SMM_J0002", "SMM_J0003", "SMM_J0004",
+                     "SMM_J0004", "SMM_J0005"]
+
+
+def test_batch_cli_correlated_and_extend_until(tmp_path, capsys):
+    """--corrfile fits with correlated band errors; --extend-until keeps
+    extending (here to --max-steps) on the same Philox streams."""
+    r = np.full((5, 5), 0.2)
+    np.fill_diagonal(r, 1.0)
+    write_fits_image(tmp_path / "r.fits", r)
+    text = CATALOG.replace("<30.0", "30.0")
+    out = tmp_path / "corr.h5"
+    rc = cli_batch.main([str(_catalog(tmp_path, text, nsrc=3)), str(out),
+                         *FAST, "--corrfile", str(tmp_path / "r.fits"),
+                         "--extend-until", "1.0001", "--extend-step", "10",
+                         "--max-steps", "40"])
+    assert rc == 0
+    jmf = J.MultiFitter.from_h5(str(out))
+    np.testing.assert_allclose(jmf._band_corr, r)
+    assert np.asarray(jmf.chain_free).shape[1] == 40
+    assert "3 sources fit" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--get-lir"], "redshift"),
+    (["--extend-until", "1.05", "-n", "3"], "4 recorded"),
+    (["--extend-until", "1.05", "--extend-step", "3", "--thin", "2",
+      "-n", "20"], "divisible"),
+    (["--chunk-size", "0"], "positive")])
+def test_batch_cli_checks_before_sampling(tmp_path, monkeypatch, flags,
+                                          match):
+    def no_run(*a, **k):
+        raise AssertionError("sampled before the up-front check")
+    monkeypatch.setattr(T.MultiFitter, "run", no_run)
+    text = CATALOG.replace("2.20", "nan")
+    with pytest.raises(SystemExit, match=match):
+        cli_batch.main([str(_catalog(tmp_path, text)),
+                        str(tmp_path / "o.h5"), *FAST, *flags])
+
+
+def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
+    r = np.eye(5)
+    write_fits_image(tmp_path / "r.fits", r)
+    with pytest.raises(SystemExit, match="corrfile"):
+        cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
+                        *FAST, "--corrfile", str(tmp_path / "r.fits")])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--hmc"], "A9"), (["--pt"], "A9"), (["--map"], "A9"),
+    (["--init-map"], "A9"), (["--get-evidence"], "A9"), (["--ppc"], "A9"),
+    (["--loo"], "A9"), (["--population", "T"], "A9"),
+    (["--plot-population", "p.png"], "A10"),
+    (["--checkpoint", "c.h5"], "A4"), (["--resume"], "A4"),
+    (["--responsefile", "r.txt"], "A2"), (["--builtin-responses"], "A2"),
+    (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
+def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
+        cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
+                        *FAST, *flags])
+
+
+def test_single_cli_n_ensembles(tmp_path, capsys):
+    """run_mbb_emcee_tpu_torch --n-ensembles 3: three ensembles merged into
+    one 48-walker product the JAX package loads; --covfile is refused up
+    front."""
+    phot = tmp_path / "phot.txt"
+    phot.write_text("100.0  11.2  0.8\n160.0  32.1  1.9\n250.0  44.8  2.4\n"
+                    "350.0  38.2  2.1\n500.0  22.9  1.5\n")
+    out = tmp_path / "fit.h5"
+    rc = cli.main([str(phot), str(out), *FAST, "--n-ensembles", "3", "-z",
+                   "2.2", "--get-lir"])
+    assert rc == 0
+    res = J.MBBResults(h5file=str(out))
+    assert res.chain.shape == (48, 20, 5)
+    assert res.lir_chain.shape == (48 * 20,)
+    write_fits_image(tmp_path / "cov.fits", np.eye(5))
+    with pytest.raises(SystemExit, match="diagonal"):
+        cli.main([str(phot), str(out), *FAST, "--n-ensembles", "2",
+                  "--covfile", str(tmp_path / "cov.fits")])

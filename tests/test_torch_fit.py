@@ -240,7 +240,7 @@ def test_cli_checks_redshift_before_sampling(tmp_path, monkeypatch):
     (["--loo-exact"], "A9"), (["--ppc"], "A9"),
     (["--plot-sed", "x.png"], "A10"), (["--plot-corner", "x.png"], "A10"),
     (["--checkpoint", "c.h5"], "A4"), (["--resume"], "A4"),
-    (["--extend-until", "1.05"], "A4"), (["--n-ensembles", "2"], "A7"),
+    (["--extend-until", "1.05"], "A4"), (["--plot-chain", "x.png"], "A10"),
     (["--responsefile", "r.txt"], "A2"), (["--builtin-responses"], "A2"),
     (["--profile-dir", "prof"], "A8")])
 def test_cli_refuses_waiting_flags(tmp_path, flags, item):

@@ -4,6 +4,7 @@ missing), dispatches CPU tensors to the plain versions without touching the
 kernel launch counters, and refuses the surfaces that are not ported yet
 with the ROADMAP.md item that carries them."""
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -23,10 +24,12 @@ from mbb_emcee_tpu_torch.models.modified_blackbody import (  # noqa: E402
     MBBShape)
 from mbb_emcee_tpu_torch.ops import build  # noqa: E402
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob  # noqa: E402
+from mbb_emcee_tpu_torch.ops.multifit_kernel import (  # noqa: E402
+    FusedMultiSampler)
 from mbb_emcee_tpu_torch.ops.sampler_kernel import (  # noqa: E402
     FusedSampler, mbb_stretch_run)
 from mbb_emcee_tpu_torch.sampler import (  # noqa: E402
-    make_initial_ball, stretch_run_plain)
+    make_initial_ball, multi_stretch_run_plain, stretch_run_plain)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "mbb_emcee_tpu_torch"
@@ -36,9 +39,13 @@ FLUX = np.array([11.2, 32.1, 44.8, 38.2, 22.9])
 
 def test_import_leaves_jax_and_reference_out():
     """In a fresh interpreter (this one already holds jax): importing the
-    port and its CLI loads no jax, no mbb_emcee_tpu and no h5py."""
+    port, its CLIs and the batch tier loads no jax, no mbb_emcee_tpu and no
+    h5py."""
     code = ("import sys, mbb_emcee_tpu_torch, mbb_emcee_tpu_torch.cli, "
-            "mbb_emcee_tpu_torch.convert\n"
+            "mbb_emcee_tpu_torch.convert, mbb_emcee_tpu_torch.cli_batch, "
+            "mbb_emcee_tpu_torch.catalog, mbb_emcee_tpu_torch.multifit, "
+            "mbb_emcee_tpu_torch.batchengine, "
+            "mbb_emcee_tpu_torch.ops.multifit_kernel\n"
             "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py') "
             "if m in sys.modules]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -73,7 +80,8 @@ def test_build_kernels_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_packaged():
     names = sorted(p.name for p in (PKG / "csrc").iterdir())
-    assert names == ["lnprob.cu", "lnprob.cuh", "sampler.cu"]
+    assert names == ["lnprob.cu", "lnprob.cuh", "multifit.cu", "sampler.cu",
+                     "stretch.cuh"]
 
 
 def _problem():
@@ -111,7 +119,8 @@ def test_auto_backend_follows_the_device(device, backend, want):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(responses=object()), "A2"), (dict(n_ensembles=2), "A7"),
+    (dict(responses=object()), "A2"),
+    (dict(n_ensembles=2, responses=object()), "A2"),
     (dict(mesh=object()), "A11")])
 def test_constructor_refuses_unported_options(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
@@ -133,8 +142,9 @@ def test_fitter_refuses_unported_surfaces(call, item):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
-    """On a CUDA machine: K1 and K2 against their plain versions at the
-    main path's shape (chip_smoke.py runs the full set of cases)."""
+    """On a CUDA machine: K1, K2 and K3 against their plain versions at the
+    main path's walker count (chip_smoke.py runs the full set of cases).
+    This file imports no jax, so it runs on a machine without it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     phot, shape, spec = _problem()
@@ -152,5 +162,24 @@ def test_kernels_match_plain_versions_on_the_card():
     u = u.clamp(1e-3, 1 - 1e-3).to("cuda")
     got = samp.run_mcmc(state, 6, thin=2, uniforms=u)
     want = stretch_run_plain(state, samp.ops.plain, 3, 2, 2.0, u)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=1e-5)
+    assert torch.equal(got[0].naccept, want[0].naccept)
+
+    # K3: 3 sources, per-source upper limits and a missing band
+    flux = np.stack([FLUX * f for f in (0.8, 1.0, 1.3)])
+    unc = 0.05 * flux
+    flux[1, 0] = unc[1, 0] = np.nan
+    ul = np.zeros((3, 5), bool)
+    ul[0, 4] = ul[2, 1] = True
+    multi = FusedMultiSampler(250, WAVE, flux, unc, shape,
+                              dataclasses.replace(spec, uplim_bands=ul),
+                              rng="external", device="cuda")
+    mstate = multi.init_state(torch.stack([p0, p0.flip(0), p0.roll(7, 0)]),
+                              seed=3)
+    u3 = torch.rand((3, 3, 12, 125),
+                    generator=torch.Generator().manual_seed(4))
+    u3 = u3.clamp(1e-3, 1 - 1e-3).to("cuda")
+    got = multi.run_mcmc(mstate, 6, thin=2, uniforms=u3)
+    want = multi_stretch_run_plain(mstate, multi.ops.plain, 3, 2, 2.0, u3)
     torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=1e-5)
     assert torch.equal(got[0].naccept, want[0].naccept)
