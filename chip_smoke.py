@@ -36,11 +36,30 @@ non-zero without printing a result):
      recorded fp64 oracle moments, and MultiFitter at 256 sources x 250
      walkers x 5 bands (full model) with summaries and derived posteriors;
  10. time: K3's aggregate walker-steps/s at 256 x 250 x 5 against the plain
-     multi run on the card.
+     multi run on the card;
+ 11. response mode: K1 against its plain version on BASELINE config 3's
+     5 x 65 built-in pack, a 5 x 129 pack, an 8 x 400 pack (above the old
+     2080-float staging cap) and an 8 x 1000 pack (above 48 KB of shared
+     memory); K2's external-uniforms replay against its plain run on the
+     5 x 65 pack (the shape phase 14 runs K2 at), the 5 x 129 and the
+     8 x 1000 packs, and K3 against its plain multi run on the 129-node
+     pack;
+ 12. extend: run(n) against run(n1) + extend(n - n1), bitwise, for MBBFitter
+     on K2 and MultiFitter on K3, with their launch counts;
+ 13. time: K1 and K2 in response mode (config 3, 250 walkers x 5 bands x 65
+     nodes) against their plain versions, beside K2 in point mode on the
+     same model;
+ 14. the <=1% parity contract of tests/data/hwparity_oracle.json at its FULL
+     geometry through MBBFitter.run (8 fits x 250 walkers x (1500 burn +
+     8000 steps) per config): configs 0, 1, 2, 3 (response mode, K2 with
+     the 5 x 65 pack), 5 and 6, every row printed, and config 4's derived
+     L_IR, dust mass and peak wavelength with the elementwise L_IR check
+     against the scipy oracle; the kernels' launch counts over the phase.
 
 It then prints the kernel table as one JSON line, the nvidia-smi line, and
 as its last line {"ok": true, "device": {...}}. Without a CUDA device it
-exits with code 1 before any phase.
+exits with code 1 before any phase. A whole run takes about 95 s on one
+H100 (H100 80GB HBM3 at 700 W), the kernels' build included.
 """
 
 import json
@@ -80,6 +99,26 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def port_response_pack(nnodes=65):
+    """(ResponseSet, (waves, weights)) of BASELINE config 3's bands from the
+    port's built-in library: tools/validate_tpu_parity.py's response_pack,
+    which imports the JAX package. The pack is the JAX package's bit for bit
+    (tests/test_torch_response.py), so vp.mock_data gives config 3 the data
+    its recorded oracle moments were made from."""
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.response import ResponseSet
+    rs = ResponseSet.builtin(vp.BANDS, nnodes=nnodes)
+    return rs, rs.pack(vp.BANDS)
+
+
+def use_port_response_pack():
+    """Build config 3's mock data without jax: bind the parity tool's
+    response_pack to port_response_pack (the same formula then runs in
+    vp.mock_data on the port's pack)."""
+    from tools import validate_tpu_parity as vp
+    vp.response_pack = port_response_pack
 
 
 def problem(ci, alpha_fixed_at=None, response_pack=None):
@@ -166,12 +205,7 @@ def phase_build():
 
 def phase_k1():
     """K1 against build_lnprob's function on the card, per case."""
-    import numpy as np
-    import torch
     from tools import validate_tpu_parity as vp
-    from mbb_emcee_tpu_torch.likelihood import LNPROB_FLOOR
-    from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
-        prepare_lnprob_inputs, mbb_lnprob)
 
     cases = [("config0 thin3", dict(ci=0)), ("config1 thick4", dict(ci=1)),
              ("config2 full5", dict(ci=2)), ("config5 cov", dict(ci=5)),
@@ -182,31 +216,10 @@ def phase_k1():
     worst = 0.0
     for name, kw in cases:
         ci = kw.pop("ci")
-        pack = kw.get("response_pack")
-        phot, shape, spec = problem(ci, **kw)
-        ops = prepare_lnprob_inputs(phot, shape, spec, pack, device=DEVICE)
-        th, bad = thetas(ops.free_space)
-        x = torch.as_tensor(th, device=DEVICE)
-        got = mbb_lnprob(x, ops).double().cpu().numpy()
-        want = ops.plain(x).double().cpu().numpy()
-        floor_g = got <= LNPROB_FLOOR / 2
-        floor_w = want <= LNPROB_FLOOR / 2
-        if not np.array_equal(floor_g, floor_w) or not floor_w[bad].all():
-            raise AssertionError(f"K1 {name}: out-of-box floor mismatch")
-        if not np.all(got[floor_g] == np.float32(LNPROB_FLOOR)):
-            raise AssertionError(f"K1 {name}: floor is not LNPROB_FLOOR")
-        m = ~floor_w
-        dabs = np.abs(got[m] - want[m])
-        drel = dabs / np.maximum(np.abs(want[m]), 1e-30)
-        rtol, atol = ((K1_ALPHA0_RTOL, K1_ALPHA0_ATOL) if "alpha" in name
-                      else (K1_RTOL, K1_ATOL))
-        ok = np.all(dabs <= atol + rtol * np.abs(want[m]))
-        log(f"[2] K1 {name}: {m.sum()} in box, {(~m).sum()} floored; "
-            f"max |d| {dabs.max():.3g}, max rel {drel.max():.3g} "
-            f"(rtol {rtol:g}, atol {atol:g}) {'PASS' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K1 {name} disagrees with plain torch")
-        worst = max(worst, float(dabs.max()))
+        tol = ((K1_ALPHA0_RTOL, K1_ALPHA0_ATOL) if "alpha" in name
+               else (K1_RTOL, K1_ATOL))
+        worst = max(worst, _k1_case("2", name, *problem(ci, **kw),
+                                    kw.get("response_pack"), *tol))
     # MBBFitter.__call__ (one K1 launch on cuda) against the CPU fitter
     from mbb_emcee_tpu_torch import MBBFitter
     phot, _, _ = problem(2)
@@ -256,23 +269,7 @@ def _compare_runs(tag, got, want):
 def phase_k2():
     """K2 in external-uniforms mode against the plain replay on the card:
     250 walkers, config 2, 3 records x thin 2."""
-    import numpy as np
-    import torch
-    from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
-    from mbb_emcee_tpu_torch.sampler import stretch_run_plain
-
-    phot, shape, spec = problem(2)
-    samp = FusedSampler(NWALKERS, phot, shape, spec, rng="external",
-                        device=DEVICE)
-    p0 = _ball(samp.free_space, NWALKERS, 2, DEVICE)
-    state = samp.init_state(p0, seed=3)
-    nrec, thin = 3, 2
-    u = np.random.default_rng(11).uniform(
-        0.001, 0.999, (nrec, 6 * thin, samp.half)).astype(np.float32)
-    u = torch.as_tensor(u, device=DEVICE)
-    got = samp.run_mcmc(state, nrec * thin, thin, uniforms=u)
-    want = stretch_run_plain(state, samp.ops.plain, nrec, thin, samp.a, u)
-    return _compare_runs("3", got, want)
+    return _k2_replay("3", *problem(2), None)
 
 
 def phase_determinism():
@@ -324,9 +321,14 @@ def port_fit(ci, flux, unc, cov, seed, nburn, nsteps):
     from mbb_emcee_tpu_torch import MBBFitter
 
     cfg = vp.CONFIGS[ci]
+    responses, band_names = None, None
+    if cfg["response"]:
+        responses, _ = port_response_pack()
+        band_names = vp.BANDS
     fit = MBBFitter(nwalkers=NWALKERS, seed=seed, opthin=cfg["opthin"],
-                    noalpha=cfg["noalpha"], device=DEVICE)
-    fit.set_data(vp.WAVE, flux, unc, cov=cov)
+                    noalpha=cfg["noalpha"], responses=responses,
+                    device=DEVICE)
+    fit.set_data(vp.WAVE, flux, unc, cov=cov, band_names=band_names)
     fit.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
     ub = cfg.get("uplim_band")
     if ub is not None:
@@ -356,22 +358,36 @@ def tau_se(chain_free, flat, free):
     return 1.2533 * std / np.sqrt(n_eff), 1.54 * std / np.sqrt(n_eff)
 
 
+def _counts(reset=False):
+    """Zero (reset=True) or read the launch counts of K1, K2 and K3 and the
+    run counts of the two plain samplers."""
+    from mbb_emcee_tpu_torch import sampler as plain_sampler
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import mbb_multi_stretch_run
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import mbb_stretch_run
+    fns = {"mbb_lnprob": (mbb_lnprob, "launches"),
+           "mbb_stretch_run": (mbb_stretch_run, "launches"),
+           "mbb_multi_stretch_run": (mbb_multi_stretch_run, "launches"),
+           "plain_sampler_runs": (plain_sampler.stretch_run_plain, "runs"),
+           "plain_multi_runs": (plain_sampler.multi_stretch_run_plain,
+                                "runs")}
+    if reset:
+        for fn, attr in fns.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in fns.items()}
+
+
 def phase_main_path():
     """The main path through the user's entry points, with the kernels'
     launch counts taken over exactly this phase. Returns the counts."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MBBResults
-    from mbb_emcee_tpu_torch import sampler as plain_sampler
-    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
-    from mbb_emcee_tpu_torch.ops.sampler_kernel import mbb_stretch_run
 
     with open(vp.SENTINEL_PATH) as fh:
         reference = json.load(fh)["configs"]
     geom = vp.SENTINEL
-    mbb_lnprob.launches = 0
-    mbb_stretch_run.launches = 0
-    plain_sampler.stretch_run_plain.runs = 0
+    _counts(reset=True)
     t0 = time.time()
     for ci in vp.SENTINEL_CONFIGS:
         cfg = vp.CONFIGS[ci]
@@ -412,9 +428,7 @@ def phase_main_path():
             f"-{c[2]:.4g}")
     log("[5] HDF5 write skipped: h5py is not needed on the card's machine; "
         "the CPU tests cover writing and cross-loading the file")
-    counts = {"mbb_lnprob": mbb_lnprob.launches,
-              "mbb_stretch_run": mbb_stretch_run.launches,
-              "plain_sampler_runs": plain_sampler.stretch_run_plain.runs}
+    counts = _counts()
     log(f"[5] launch counts over the main path ({time.time() - t0:.1f} s): "
         f"{counts}")
     if counts["mbb_lnprob"] < 1 or counts["mbb_stretch_run"] < 1 \
@@ -826,18 +840,15 @@ def phase_k3_width():
 
 
 def _k3_counts(path, reset=False):
-    """Zero K3's launch count and the plain multi run's run count
-    (reset=True) just before entry point `path`, or read them just after
-    it and require exactly its 3 launches (burn, re-burn, production) and
-    no plain run. Returns the K3 launch count."""
-    from mbb_emcee_tpu_torch import sampler as plain_sampler
-    from mbb_emcee_tpu_torch.ops.multifit_kernel import mbb_multi_stretch_run
+    """Zero the launch and run counts (reset=True) just before entry point
+    `path`, or read them just after it and require exactly its 3 K3
+    launches (burn, re-burn, production) and no plain multi run. Returns
+    the K3 launch count."""
     if reset:
-        mbb_multi_stretch_run.launches = 0
-        plain_sampler.multi_stretch_run_plain.runs = 0
+        _counts(reset=True)
         return 0
-    n, plain = (mbb_multi_stretch_run.launches,
-                plain_sampler.multi_stretch_run_plain.runs)
+    c = _counts()
+    n, plain = c["mbb_multi_stretch_run"], c["plain_multi_runs"]
     ok = n == 3 and plain == 0
     log(f"[9] {path}: {n} K3 launches, {plain} plain multi runs "
         f"{'PASS' if ok else 'FAIL'}")
@@ -977,6 +988,344 @@ def phase_time_k3(card):
     return out
 
 
+# Eight built-in bands for the packs above the kernels' old fixed staging
+# (65 nodes x 32 bands per array, 2080 floats).
+WIDE_BANDS = ["PACS_70", "PACS_100", "PACS_160", "SPIRE_250", "SPIRE_350",
+              "SPIRE_500", "SCUBA2_850", "AZTEC_1100"]
+
+
+def response_case(names, nnodes, ci=3):
+    """(phot, shape, spec, pack): config ci's model, box and priors on the
+    built-in bands `names` at `nnodes` nodes each, with photometry at the
+    bands' effective wavelengths from the true SED through the pack, 5%
+    errors and noise from numpy seed 7."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.likelihood import Photometry
+    from mbb_emcee_tpu_torch.models.modified_blackbody import mbb_fnu
+    from mbb_emcee_tpu_torch.response import ResponseSet
+    rs = ResponseSet.builtin(names, nnodes=nnodes)
+    pack = rs.pack(names)
+    _, shape, spec = problem(ci)
+    sed = mbb_fnu(torch.tensor(vp.TRUE[None], dtype=torch.float32),
+                  torch.as_tensor(pack[0]), shape)[0].double().numpy()
+    f = (pack[1] * sed).sum(axis=-1)
+    unc = 0.05 * f
+    flux = f + unc * np.random.default_rng(7).standard_normal(f.size)
+    wave = np.array([rs[n].effective_wavelength for n in names])
+    return Photometry(wave, flux, unc, band_names=list(names)), shape, spec, \
+        pack
+
+
+def _k1_case(tag, name, phot, shape, spec, pack, rtol=K1_RTOL,
+             atol=K1_ATOL):
+    """K1 against the plain version on 4096 vectors, about 10% out of the
+    box (which both must floor at exactly LNPROB_FLOOR); returns the max abs
+    difference."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.likelihood import LNPROB_FLOOR
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+        lnprob_smem_bytes, mbb_lnprob, prepare_lnprob_inputs)
+    ops = prepare_lnprob_inputs(phot, shape, spec, pack, device=DEVICE)
+    th, bad = thetas(ops.free_space)
+    x = torch.as_tensor(th, device=DEVICE)
+    got = mbb_lnprob(x, ops).double().cpu().numpy()
+    want = ops.plain(x).double().cpu().numpy()
+    floor_g = got <= LNPROB_FLOOR / 2
+    floor_w = want <= LNPROB_FLOOR / 2
+    if not np.array_equal(floor_g, floor_w) or not floor_w[bad].all():
+        raise AssertionError(f"K1 {name}: out-of-box floor mismatch")
+    if not np.all(got[floor_g] == np.float32(LNPROB_FLOOR)):
+        raise AssertionError(f"K1 {name}: floor is not LNPROB_FLOOR")
+    m = ~floor_w
+    dabs = np.abs(got[m] - want[m])
+    ok = np.all(dabs <= atol + rtol * np.abs(want[m]))
+    nb, nn = int(ops.icfg[3]), int(ops.icfg[4])
+    log(f"[{tag}] K1 {name} ({nb} x {nn} nodes, "
+        f"{lnprob_smem_bytes(nb, nn)} B of shared memory "
+        f"per block): {m.sum()} in box, {(~m).sum()} floored; max |d| "
+        f"{dabs.max():.3g}, max rel "
+        f"{(dabs / np.maximum(np.abs(want[m]), 1e-30)).max():.3g} (rtol "
+        f"{rtol:g}, atol {atol:g}) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1 {name} disagrees with plain torch")
+    return float(dabs.max())
+
+
+def _k2_replay(tag, phot, shape, spec, pack):
+    """K2 in external-uniforms mode against the plain replay (phase 3's
+    check) on a response pack; reports whether the chains are bitwise."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
+    from mbb_emcee_tpu_torch.sampler import stretch_run_plain
+    samp = FusedSampler(NWALKERS, phot, shape, spec, response_pack=pack,
+                        rng="external", device=DEVICE)
+    state = samp.init_state(_ball(samp.free_space, NWALKERS, 2, DEVICE),
+                            seed=3)
+    nrec, thin = 3, 2
+    u = np.random.default_rng(11).uniform(
+        0.001, 0.999, (nrec, 6 * thin, samp.half)).astype(np.float32)
+    u = torch.as_tensor(u, device=DEVICE)
+    got = samp.run_mcmc(state, nrec * thin, thin, uniforms=u)
+    want = stretch_run_plain(state, samp.ops.plain, nrec, thin, samp.a, u)
+    log(f"[{tag}] chains bitwise equal: "
+        f"{'yes' if torch.equal(got[1], want[1]) else 'no'}")
+    return _compare_runs(tag, got, want)
+
+
+def phase_response_kernels():
+    """K1, K2 and K3 against their plain versions on response packs: config
+    3's 5 x 65, 5 x 129, and two 8-band packs above the old staging cap
+    (the second above 48 KB of shared memory per block); K2 on the 5 x 65,
+    5 x 129 and 8 x 1000 packs, K3 on the 5 x 129 pack. Returns the max
+    abs differences (K1, K2, K3)."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    phot3, shape3, spec3 = problem(3)
+    _, pack65 = port_response_pack(65)
+    cases = [("config 3 builtin", phot3, pack65),
+             ("builtin:129", phot3, port_response_pack(129)[1])]
+    for nn in (400, 1000):
+        phot, _, _, pack = response_case(WIDE_BANDS, nn)
+        cases.append((f"8 bands x builtin:{nn}", phot, pack))
+    k1 = max(_k1_case("11", name, phot, shape3, spec3, pack)
+             for name, phot, pack in cases)
+    k2 = 0.0
+    for name, pack in (("5 x 65 pack (the main path's)", pack65),
+                       ("5 x 129 pack", cases[1][2])):
+        log(f"[11] K2 replay, config 3 on the {name}: {NWALKERS} walkers, "
+            f"3 records x thin 2")
+        k2 = max(k2, _k2_replay("11", phot3, shape3, spec3, pack))
+    log(f"[11] K2 replay on the 8 x 1000 pack")
+    k2 = max(k2, _k2_replay("11", cases[3][1], shape3, spec3, cases[3][2]))
+
+    nsrc = 5
+    rng = np.random.default_rng(300)
+    flux = phot3.flux[None] * rng.uniform(0.8, 1.2, (nsrc, 1))
+    unc = np.broadcast_to(phot3.unc, (nsrc, 5)).copy()
+    samp = FusedMultiSampler(NWALKERS, vp.WAVE, flux, unc, shape3, spec3,
+                             response_pack=cases[1][2], rng="external",
+                             device=DEVICE)
+    state = samp.init_state(_multi_ball(samp.free_space, nsrc, 60), seed=3)
+    nrec, thin = 3, 2
+    u = np.random.default_rng(12).uniform(
+        0.001, 0.999, (nsrc, nrec, 6 * thin, samp.half))
+    u = torch.as_tensor(u.astype(np.float32), device=DEVICE)
+    got = samp.run_mcmc(state, nrec * thin, thin, uniforms=u)
+    want = multi_stretch_run_plain(state, samp.ops.plain, nrec, thin,
+                                   samp.a, u)
+    log(f"[11] K3 on the 5 x 129 pack: {nsrc} sources x {NWALKERS} walkers, "
+        f"{nrec} records x thin {thin}")
+    k3 = _compare_multi("11", got, want)
+    return k1, k2, k3
+
+
+def phase_extend():
+    """run(n) against run(n1) + extend(n - n1): MBBFitter on K2 (config 1)
+    and MultiFitter on K3 (8 sources, thin 2); chains, lnprob and accept
+    counts bitwise. Returns the launch counts over the phase."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+
+    ci = 1
+    flux, unc, cov = vp.mock_data(vp.CONFIGS[ci])
+    _counts(reset=True)
+    whole = port_fit(ci, flux, unc, cov, seed=77, nburn=100, nsteps=400)
+    part = port_fit(ci, flux, unc, cov, seed=77, nburn=100, nsteps=150)
+    part.extend(250)
+    same = (torch.equal(whole.chain_free, part.chain_free)
+            and torch.equal(whole.lnprobability, part.lnprobability)
+            and np.array_equal(whole.acceptance_fraction,
+                               part.acceptance_fraction))
+    log(f"[12] MBBFitter config 1: run(400) against run(150) + extend(250): "
+        f"chains, lnprob and acceptance bitwise "
+        f"{'equal PASS' if same else 'DIFFERENT FAIL'}")
+    if not same:
+        raise AssertionError("run + extend differs from the longer run on K2")
+
+    bflux, bunc = batch_data(8, seed=500)
+    runs = []
+    for n1 in (400, 150):
+        mf = batch_fitter(bflux, bunc, seed=99)
+        mf.run(nburn=100, nsteps=n1, thin=2)
+        if n1 < 400:
+            mf.extend(400 - n1)
+        runs.append(mf)
+    same = (torch.equal(runs[0].chain_free, runs[1].chain_free)
+            and torch.equal(runs[0].lnprobability, runs[1].lnprobability)
+            and torch.equal(runs[0].final_state.naccept,
+                            runs[1].final_state.naccept))
+    counts = _counts()
+    log(f"[12] MultiFitter 8 sources, thin 2: run(400) against run(150) + "
+        f"extend(250): chains, lnprob and accepts bitwise "
+        f"{'equal PASS' if same else 'DIFFERENT FAIL'}")
+    log(f"[12] launch counts over the phase: {counts}")
+    if not same:
+        raise AssertionError("run + extend differs from the longer run on K3")
+    if counts["mbb_stretch_run"] != 7 or counts["mbb_multi_stretch_run"] != 7 \
+            or counts["plain_sampler_runs"] or counts["plain_multi_runs"]:
+        raise AssertionError("the extend phase did not run on K2 and K3 "
+                             "alone, once per phase")
+    log("[12] checkpoint/resume: HDF5 files need h5py, which the card's "
+        "machine lacks; the CPU tests hold checkpointed and resumed runs "
+        "bitwise to the uninterrupted chain")
+    return counts
+
+
+def phase_time_response(card):
+    """K1 and K2 in response mode against their plain versions at BASELINE
+    config 3's shape (250 walkers x 5 bands x 65 nodes, thin model), and
+    K2's marginal rate beside point mode on the same model."""
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
+    from mbb_emcee_tpu_torch.sampler import EnsembleSampler
+
+    phot, shape, spec = problem(3)
+    _, pack = port_response_pack(65)
+    out, rates = {}, {}
+    for mode, rp in (("point", None), ("response", pack)):
+        samp = FusedSampler(NWALKERS, phot, shape, spec, response_pack=rp,
+                            device=DEVICE)
+        p0 = _ball(samp.free_space, NWALKERS, 6, DEVICE)
+        state = samp.init_state(p0, seed=77)
+        t1 = min(_host_s(lambda: samp.run_mcmc(state, 1000))
+                 for _ in range(3))
+        t3 = min(_host_s(lambda: samp.run_mcmc(state, 3000))
+                 for _ in range(3))
+        rates[mode] = NWALKERS * 2000 / (t3 - t1)
+        log(f"[13] K2 {mode} mode, config 3: 1000 steps {t1 * 1e3:.2f} ms, "
+            f"3000 steps {t3 * 1e3:.2f} ms -> marginal {rates[mode]:,.0f} "
+            f"walker-steps/s ({card})")
+    # the response-mode sampler of the last pass
+    out["k1_resp_ms"] = _cuda_ms(lambda: mbb_lnprob(p0, samp.ops), 200)
+    out["k1_resp_plain_ms"] = _cuda_ms(lambda: samp.ops.plain(p0), 50)
+    out["k2_resp_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200), 5)
+    plain = EnsembleSampler(NWALKERS, samp.ndim, samp.ops.plain, a=samp.a)
+    out["k2_resp_plain_ms"] = _cuda_ms(lambda: plain.run_mcmc(state, 200), 1)
+    k1_dev = _profiled_device_us(lambda: mbb_lnprob(p0, samp.ops), 50,
+                                 "mbb_lnprob_kernel")
+    k2_dev = _profiled_device_us(lambda: samp.run_mcmc(state, 200), 3,
+                                 "mbb_stretch_kernel")
+    log(f"[13] K1 response mode, 250 walkers x 5 x 65: kernel "
+        f"{out['k1_resp_ms']:.4f} ms, plain torch "
+        f"{out['k1_resp_plain_ms']:.4f} ms per call ({card})")
+    log(f"[13] K2 response mode, 250 walkers x 200 steps: kernel "
+        f"{out['k2_resp_ms']:.3f} ms, plain torch "
+        f"{out['k2_resp_plain_ms']:.1f} ms ({card})")
+    log("[13] torch.profiler device time per launch: K1 "
+        + ("not measured" if k1_dev is None else f"{k1_dev:.2f} us")
+        + ", K2 (200 steps) "
+        + ("not measured" if k2_dev is None else f"{k2_dev:.1f} us")
+        + f" ({card})")
+    log(f"[13] response over point mode, K2 marginal rate: "
+        f"{rates['response'] / rates['point']:.4f} ({card})")
+    return out
+
+
+def phase_parity(geom=None):
+    """The <=1% contract (max(1%, 3 sigma_MC)) of the recorded fp64 oracle
+    moments at their FULL geometry (or `geom`, for a rehearsal), through
+    MBBFitter.run on the card, as tools/validate_tpu_parity.py's run_config
+    and run_derived hold the JAX package. Returns the launch counts over
+    the phase."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MBBResults
+    from mbb_emcee_tpu_torch.constants import LSUN_W, MJY_WM2HZ, MPC_M
+    from tests.reference_impl.mbb_oracle import ModifiedBlackbodyOracle
+
+    geom = geom or vp.FULL
+    data = vp.load_recorded_oracle()
+    _counts(reset=True)
+    t0 = time.time()
+    log(f"[14] {geom.k_jax} fits x {NWALKERS} walkers x ({geom.nburn_jax} "
+        f"burn + {geom.nstep_jax} steps) per config against "
+        f"tests/data/hwparity_oracle.json:")
+    for row in vp.HEADER_ROWS:
+        log(f"[14] {row}")
+    failed = []
+    for ci in vp.ORACLE_CONFIGS:
+        status, entry = vp.recorded_entry(ci, data)
+        if status != "ok":
+            raise AssertionError(f"config {ci}: recorded oracle entry is "
+                                 f"{status}")
+        cfg = vp.CONFIGS[ci]
+        free = vp.free_indices(cfg)
+        flux, unc, cov = vp.mock_data(cfg)
+        meds, wids = [], []
+        for k in range(geom.k_jax):
+            fit = port_fit(ci, flux, unc, cov, seed=1000 + 17 * k,
+                           nburn=geom.nburn_jax, nsteps=geom.nstep_jax)
+            m, w = vp.stats(fit.chain.reshape(-1, 5), free)
+            meds.append(m)
+            wids.append(w)
+        mj, wj, sjm, sjw = vp.aggregate(meds, wids)
+        rows, ok = vp.compare_rows(
+            cfg["label"], [vp.PARAM_NAMES[i] for i in free], mj, wj, sjm,
+            sjw, *(np.asarray(entry[k]) for k in (
+                "medians", "widths", "se_medians", "se_widths")))
+        for row in rows:
+            log(f"[14] {row}")
+        if not ok:
+            failed.append(cfg["label"])
+
+    # config 4: derived posteriors of a config 2 fit at z = 2.0, thin 8
+    status, entry = vp.recorded_entry("derived", data)
+    if status != "ok":
+        raise AssertionError(f"config 4: recorded oracle entry is {status}")
+    flux, unc, _ = vp.mock_data(vp.CONFIGS[2])
+    fit = port_fit(2, flux, unc, None, seed=900, nburn=geom.nburn_jax,
+                   nsteps=geom.nstep_jax)
+    res = MBBResults(fit=fit, redshift=vp.DERIVED_Z)
+    ok4 = True
+    for kind in vp.DERIVED_KINDS:
+        cj = getattr(res, f"compute_{kind}")(thin=vp.DERIVED_THIN)
+        qj = np.percentile(cj, [15.85, 50.0, 84.15])
+        qo = np.asarray(entry["quantiles"][kind])
+        dmed = abs(qj[1] - qo[1]) / qo[1]
+        dwid = abs((qj[2] - qj[0]) - (qo[2] - qo[0])) / (qo[2] - qo[0])
+        tol = max(0.01, 4.5 / np.sqrt(min(len(cj), entry["n"]) / 35.0))
+        row_ok = dmed <= tol and dwid <= max(3 * tol, 0.10)
+        ok4 &= row_ok
+        log(f"[14] | config4 derived | {kind} | {100 * dmed:.2f}% | - | "
+            f"{100 * dwid:.2f}% | - | {'PASS' if row_ok else 'FAIL'} |")
+    stride = max(len(res.flatchain) // 12, 1)
+    samples = res.flatchain[::stride][:12]
+    prefac = (4.0 * np.pi * (res._dl_mpc() * MPC_M) ** 2 * MJY_WM2HZ
+              / LSUN_W)
+    lir_k = res.compute_lir(thin=1)
+    z = vp.DERIVED_Z
+    worst = 0.0
+    for n, smp in enumerate(samples):
+        want = prefac * ModifiedBlackbodyOracle(*smp).freq_integrate(
+            8.0 * (1 + z), 1000.0 * (1 + z))
+        worst = max(worst, abs(lir_k[n * stride] - want) / want)
+    ok_el = worst <= 3e-3
+    log(f"[14] | config4 derived | lir elementwise, {len(samples)} samples "
+        f"against the scipy oracle | max {100 * worst:.4f}% (<= 0.3%) | - | "
+        f"- | - | {'PASS' if ok_el else 'FAIL'} |")
+    if not (ok4 and ok_el):
+        failed.append("config4 derived")
+    counts = _counts()
+    log(f"[14] launch counts over the parity phase "
+        f"({time.time() - t0:.1f} s): {counts}")
+    if failed:
+        raise AssertionError(f"parity FAIL: {', '.join(failed)}")
+    if counts["mbb_lnprob"] < 1 or counts["mbb_stretch_run"] < 1 \
+            or counts["plain_sampler_runs"] != 0:
+        raise AssertionError("the parity fits did not run through K1 and K2 "
+                             "alone")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -985,6 +1334,7 @@ def main():
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     use_repo_tests_package()
+    use_port_response_pack()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
@@ -1000,23 +1350,42 @@ def main():
     k3_err = max(k3_err, phase_k3_width())
     k3_by_path = phase_batch_path()
     t.update(phase_time_k3(card))
+    r1, r2, r3 = phase_response_kernels()
+    ext = phase_extend()
+    t.update(phase_time_response(card))
+    par = phase_parity()
+    k1_by_path = {"single fit (phase 5)": counts["mbb_lnprob"],
+                  "extend (phase 12)": ext["mbb_lnprob"],
+                  "parity matrix (phase 14)": par["mbb_lnprob"]}
+    k2_by_path = {"single fit (phase 5)": counts["mbb_stretch_run"],
+                  "extend (phase 12)": ext["mbb_stretch_run"],
+                  "parity matrix (phase 14)": par["mbb_stretch_run"]}
+    k3_by_path["extend (phase 12)"] = ext["mbb_multi_stretch_run"]
     kernels = [
         {"name": "mbb_lnprob", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/lnprob.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_lnprob.py:248",
-         "launches": counts["mbb_lnprob"], "max_abs_err": k1_err,
-         "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"]},
+         "launches": sum(k1_by_path.values()),
+         "launches_by_path": k1_by_path,
+         "max_abs_err": max(k1_err, r1),
+         "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"],
+         "response_ms": t["k1_resp_ms"],
+         "response_plain_ms": t["k1_resp_plain_ms"]},
         {"name": "mbb_stretch_run", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/sampler.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_sampler.py:63",
-         "launches": counts["mbb_stretch_run"], "max_abs_err": k2_err,
-         "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"]},
+         "launches": sum(k2_by_path.values()),
+         "launches_by_path": k2_by_path,
+         "max_abs_err": max(k2_err, r2),
+         "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"],
+         "response_ms": t["k2_resp_ms"],
+         "response_plain_ms": t["k2_resp_plain_ms"]},
         {"name": "mbb_multi_stretch_run", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/multifit.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_multifit.py:203",
          "launches": sum(k3_by_path.values()),
          "launches_by_path": k3_by_path,
-         "max_abs_err": k3_err, "ms": t["k3_ms"],
+         "max_abs_err": max(k3_err, r3), "ms": t["k3_ms"],
          "plain_ms": t["k3_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))

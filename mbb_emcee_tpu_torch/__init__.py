@@ -13,8 +13,12 @@ reference. The single-fit main path:
     sampling phase is one kernel launch (ops/sampler_kernel.py,
     csrc/sampler.cu); on the CPU the plain torch sampler (sampler.py)
   * the MBBFitter burn -> re-center -> re-burn -> production protocol
+  * instrument-response mode: band-integrated fluxes over filter curves
+    (response.py, instruments.py), packed into the kernels' band sums
   * derived posteriors (L_IR, dust mass, peak wavelength) and HDF5 files
     readable by either package (results.py, hdf5io.py)
+  * checkpoint / resume of the production run and extend() of a finished
+    one, bitwise the uninterrupted chain (checkpoint.py)
 
 and the batch tier that serves a catalog: MultiFitter (multifit.py,
 batchengine.py, catalog.py, the run_mbb_emcee_tpu_torch_batch CLI) and
@@ -41,6 +45,7 @@ from mbb_emcee_tpu_torch.fitter import MBBFitter
 from mbb_emcee_tpu_torch.results import MBBResults
 from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
 from mbb_emcee_tpu_torch.multifit import MultiFitter
+from mbb_emcee_tpu_torch.response import Response, ResponseSet
 
 __version__ = "0.1.0"
 
@@ -51,5 +56,5 @@ __all__ = [
     "LikelihoodSpec", "Photometry", "build_lnprob",
     "EnsembleSampler", "SamplerState", "FusedSampler", "build_kernels",
     "MBBFitter", "MBBResults", "FusedMultiSampler", "MultiFitter",
-    "__version__",
+    "Response", "ResponseSet", "__version__",
 ]

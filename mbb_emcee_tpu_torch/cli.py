@@ -2,7 +2,9 @@
 
 The flags of mbb_emcee_tpu/cli.py (positional photometry file + output
 HDF5, sampler geometry, model shape, per-parameter limits / priors / initial
-values / fixing, covariance file, derived-quantity switches) plus --device.
+values / fixing, covariance file, instrument-response mode, checkpoint /
+resume, the --extend-until serving loop, derived-quantity switches) plus
+--device.
 Flags whose features are not ported yet exit non-zero up front with the
 ROADMAP.md item that carries them.
 
@@ -29,12 +31,31 @@ _WAITING = (
     ("loo_exact", "--loo-exact", "A9"), ("ppc", "--ppc", "A9"),
     ("plot_sed", "--plot-sed", "A10"), ("plot_corner", "--plot-corner", "A10"),
     ("plot_chain", "--plot-chain", "A10"), ("plot_ppc", "--plot-ppc", "A10"),
-    ("checkpoint", "--checkpoint", "A4"), ("resume", "--resume", "A4"),
-    ("extend_until", "--extend-until", "A4"),
-    ("responsefile", "--responsefile", "A2"),
-    ("builtin_responses", "--builtin-responses", "A2"),
     ("profile_dir", "--profile-dir", "A8"),
 )
+
+
+def _validate_extend_flags(args):
+    """--extend-until sanity, shared with the batch CLI and checked BEFORE
+    sampling, so a bad flag cannot lose a finished run: split-R-hat needs
+    >= 4 recorded steps per pass, and extend() continues with the
+    production thin, so the extension length must be positive and
+    divisible by it."""
+    thin = max(args.thin, 1)
+    if args.nsteps // thin < 4:
+        raise SystemExit(
+            f"--extend-until needs at least 4 recorded steps per pass; "
+            f"--nsteps {args.nsteps} / --thin {args.thin} records only "
+            f"{args.nsteps // thin}")
+    step = args.extend_step if args.extend_step is not None else args.nsteps
+    if step <= 0:
+        raise SystemExit(f"--extend-step must be positive; got {step}")
+    if step % thin:
+        raise SystemExit(
+            f"--extend-step {step} must be divisible by --thin {thin} "
+            f"(extensions record every thin-th step)")
+    if args.max_steps is not None and args.max_steps <= 0:
+        raise SystemExit("--max-steps must be positive")
 
 
 def build_parser():
@@ -70,9 +91,13 @@ def build_parser():
                    help="stretch-move scale parameter a (default 2)")
     g.add_argument("--nthreads", type=int, default=None,
                    help="accepted for reference compatibility; ignored")
-    g.add_argument("--checkpoint", default=None)
-    g.add_argument("--checkpoint-interval", type=int, default=100)
-    g.add_argument("--resume", action="store_true")
+    g.add_argument("--checkpoint", default=None,
+                   help="HDF5 file to flush chain + sampler state to during "
+                        "the production run")
+    g.add_argument("--checkpoint-interval", type=int, default=100,
+                   help="recorded steps between checkpoint flushes")
+    g.add_argument("--resume", action="store_true",
+                   help="resume an interrupted run from --checkpoint")
     g.add_argument("--sampler-backend", choices=["auto", "torch", "fused"],
                    default="auto",
                    help="'fused' runs each sampling phase as one CUDA "
@@ -88,12 +113,23 @@ def build_parser():
     g.add_argument("--map-starts", type=int, default=8)
     g.add_argument("--init-map", action="store_true")
 
-    g = p.add_argument_group("serving loop")
+    g = p.add_argument_group(
+        "serving loop",
+        "run-until-converged: after the production run, keep extending "
+        "until split-R-hat is below the threshold (same flags as the batch "
+        "CLI)")
     g.add_argument("--extend-until", type=float, default=None,
-                   metavar="RHAT")
-    g.add_argument("--extend-step", type=int, default=None)
-    g.add_argument("--max-steps", type=int, default=None)
-    g.add_argument("--tau-mult", type=float, default=None)
+                   metavar="RHAT",
+                   help="extend production until max split-R-hat < RHAT "
+                        "(e.g. 1.05)")
+    g.add_argument("--extend-step", type=int, default=None,
+                   help="steps per extension (default: --nsteps)")
+    g.add_argument("--max-steps", type=int, default=None,
+                   help="stop extending after this many total production "
+                        "steps (default: 10x --nsteps)")
+    g.add_argument("--tau-mult", type=float, default=None,
+                   help="additionally require recorded chain length >= "
+                        "TAU_MULT x the integrated autocorrelation time")
 
     g = p.add_argument_group("model")
     g.add_argument("--opthin", action="store_true",
@@ -126,10 +162,18 @@ def build_parser():
                    help="FITS extension of the covariance (default 0)")
     g.add_argument("--cov-is-total", action="store_true",
                    help="covariance already includes diag(unc^2)")
-    g.add_argument("--responsefile", default=None)
-    g.add_argument("--responsedir", default=None)
-    g.add_argument("--builtin-responses", action="store_true")
-    g.add_argument("--photon-counter", action="store_true")
+    g.add_argument("--responsefile", default=None,
+                   help="filter list file ('band spec' lines) enabling "
+                        "response-integrated fluxes")
+    g.add_argument("--responsedir", default=None,
+                   help="directory filter files are relative to")
+    g.add_argument("--builtin-responses", action="store_true",
+                   help="resolve the photometry band names against the "
+                        "built-in instrument library (PACS_70/100/160, "
+                        "SPIRE_250/350/500, SCUBA2_450/850, ...) and fit "
+                        "with response-integrated fluxes")
+    g.add_argument("--photon-counter", action="store_true",
+                   help="photon-counting detector convention for responses")
     g.add_argument("--phot-uplim", action="append", default=[],
                    metavar="BAND",
                    help="flag this photometry band (name or 0-based "
@@ -201,6 +245,54 @@ def _uplim_mask(specs, nbands, band_names):
     return mask
 
 
+def _responses(args, band_names):
+    """The ResponseSet of --responsefile, or of --builtin-responses for the
+    photometry's `band_names`; None in point mode."""
+    from mbb_emcee_tpu_torch.response import ResponseSet
+    if args.responsefile is not None:
+        return ResponseSet.from_file(args.responsefile, dir=args.responsedir,
+                                     photon_counter=args.photon_counter)
+    if not args.builtin_responses:
+        return None
+    # an explicit --photon-counter is forwarded; otherwise each band keeps
+    # its instrument's own detector convention
+    kw = {"photon_counter": True} if args.photon_counter else {}
+    return ResponseSet.builtin(band_names, **kw)
+
+
+def _serve_until_converged(fit, args, log):
+    """The --extend-until loop: extend the production run by --extend-step
+    until every free parameter's split-R-hat is below the threshold (and,
+    with --tau-mult, the chain is long enough), or --max-steps production
+    steps are reached. Returns the steps added."""
+    import numpy as np
+    step = args.extend_step or args.nsteps
+    max_steps = args.max_steps or 10 * args.nsteps
+
+    def converged():
+        # one R-hat reduction feeds both the display and the predicate
+        rhat = fit.gelman_rubin()
+        ok = fit.converged(rhat_max=args.extend_until,
+                           tau_mult=args.tau_mult, rhat=rhat)
+        return ok, float(np.max(rhat))
+
+    total = args.nsteps
+    while total < max_steps:
+        ok, rhat = converged()
+        if ok:
+            break
+        log.info(f"  split-R-hat {rhat:.4f} >= {args.extend_until}; "
+                 f"extending by {step}")
+        fit.extend(step, verbose=args.verbose)
+        total += step
+    else:
+        ok, rhat = converged()
+    log.info(f"  serving loop done at {total} production steps: "
+             f"split-R-hat {rhat:.4f} "
+             f"({'converged' if ok else 'max-steps cap hit'})")
+    return total - args.nsteps
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_waiting_flags(args)
@@ -218,18 +310,29 @@ def main(argv=None):
             "--get-lir/--get-dustmass need the source redshift: pass "
             "-z/--redshift (add --lumdist to override the luminosity "
             "distance)")
+    if args.extend_until is not None:
+        _validate_extend_flags(args)
 
     import logging
     from mbb_emcee_tpu_torch.fitter import MBBFitter, default_device
+    from mbb_emcee_tpu_torch.likelihood import Photometry
     from mbb_emcee_tpu_torch.results import MBBResults
     from mbb_emcee_tpu_torch.utils.log import enable_console
 
     log = enable_console(logging.INFO if args.verbose else logging.WARNING)
     device = args.device or default_device()
+    names = (Photometry.from_file(args.photfile).band_names
+             if args.builtin_responses else None)
+    if args.builtin_responses and names is None:
+        raise SystemExit(
+            "--builtin-responses requires a leading band-name column in the "
+            "photometry file ('name wave flux unc' per line)")
+    responses = _responses(args, names)
     fit = MBBFitter(nwalkers=args.nwalkers, photfile=args.photfile,
                     wavenorm=args.wavenorm, noalpha=args.noalpha,
-                    opthin=args.opthin, seed=args.seed, a=args.stretch_a,
-                    device=device, sampler_backend=args.sampler_backend,
+                    opthin=args.opthin, responses=responses, seed=args.seed,
+                    a=args.stretch_a, device=device,
+                    sampler_backend=args.sampler_backend,
                     n_ensembles=args.n_ensembles)
     if args.covfile is not None:
         fit.read_cov(args.covfile, args.covextn, args.cov_is_total)
@@ -255,10 +358,16 @@ def main(argv=None):
              f"steps={args.nsteps}, thin={args.thin}")
     t0 = time.perf_counter()
     fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-            recenter_burn=not args.no_recenter_burn, verbose=args.verbose)
+            recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
+            checkpoint=args.checkpoint,
+            checkpoint_interval=args.checkpoint_interval, resume=args.resume)
+    # actual ensemble updates; a resumed run skips the burn-in
+    total = args.nsteps
+    if not (args.resume and args.checkpoint):
+        total += args.burn if args.no_recenter_burn else 2 * args.burn
+    if args.extend_until is not None:
+        total += _serve_until_converged(fit, args, log)
     secs = time.perf_counter() - t0
-    total = args.nsteps + (args.burn if args.no_recenter_burn
-                           else 2 * args.burn)
     walkers = args.nwalkers * args.n_ensembles
     log.info(f"  fit (burn + production): {total} steps in {secs:.2f}s "
              f"({walkers * total / secs:,.0f} walker-steps/s, "

@@ -22,6 +22,8 @@ import importlib.util
 import sys
 import time
 
+from mbb_emcee_tpu_torch.cli import (
+    _responses, _uplim_mask, _validate_extend_flags)
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 
 # Flags of the JAX package's batch CLI whose features wait, and the
@@ -32,9 +34,6 @@ _WAITING = (
     ("get_evidence", "--get-evidence", "A9"), ("ppc", "--ppc", "A9"),
     ("loo", "--loo", "A9"), ("population", "--population", "A9"),
     ("plot_population", "--plot-population", "A10"),
-    ("checkpoint", "--checkpoint", "A4"), ("resume", "--resume", "A4"),
-    ("responsefile", "--responsefile", "A2"),
-    ("builtin_responses", "--builtin-responses", "A2"),
     ("mesh_devices", "--mesh-devices", "A11"),
     ("profile_dir", "--profile-dir", "A8"),
 )
@@ -75,9 +74,13 @@ def build_parser():
                         "torch multi run; 'auto' (default) is fused on "
                         "cuda, torch on cpu")
     g.add_argument("--mesh-devices", type=int, default=None, metavar="N")
-    g.add_argument("--checkpoint", default=None)
-    g.add_argument("--checkpoint-interval", type=int, default=100)
-    g.add_argument("--resume", action="store_true")
+    g.add_argument("--checkpoint", default=None,
+                   help="HDF5 file to flush the batch's chains + sampler "
+                        "state to during the production run")
+    g.add_argument("--checkpoint-interval", type=int, default=100,
+                   help="recorded steps between checkpoint flushes")
+    g.add_argument("--resume", action="store_true",
+                   help="resume an interrupted batch run from --checkpoint")
     g.add_argument("--hmc", action="store_true")
     g.add_argument("--hmc-leapfrog", type=int, default=16)
     g.add_argument("--hmc-target-accept", type=float, default=0.8)
@@ -132,10 +135,19 @@ def build_parser():
                    help="Gaussian prior")
 
     g = p.add_argument_group("data")
-    g.add_argument("--responsefile", default=None)
-    g.add_argument("--responsedir", default=None)
-    g.add_argument("--builtin-responses", action="store_true")
-    g.add_argument("--photon-counter", action="store_true")
+    g.add_argument("--responsefile", default=None,
+                   help="filter list file ('band spec' lines) enabling "
+                        "response-integrated fluxes (the catalog needs a "
+                        "'bands = ...' header row)")
+    g.add_argument("--responsedir", default=None,
+                   help="directory filter files are relative to")
+    g.add_argument("--builtin-responses", action="store_true",
+                   help="resolve the catalog's band names against the "
+                        "built-in instrument library (PACS_70/100/160, "
+                        "SPIRE_250/350/500, SCUBA2_450/850, ...) and fit "
+                        "with response-integrated fluxes")
+    g.add_argument("--photon-counter", action="store_true",
+                   help="photon-counting detector convention for responses")
     g.add_argument("--phot-uplim", action="append", default=[],
                    metavar="BAND",
                    help="flag this band (name or 0-based index) as an "
@@ -205,27 +217,6 @@ def _refuse_waiting_flags(args):
                 f"(ROADMAP.md, queue A, item {item})")
 
 
-def _validate_extend_flags(args):
-    """--extend-until needs >= 4 recorded steps per pass and an extension
-    length the production thin divides: checked BEFORE sampling, so a bad
-    flag cannot lose a finished run."""
-    thin = max(args.thin, 1)
-    if args.nsteps // thin < 4:
-        raise SystemExit(
-            f"--extend-until needs at least 4 recorded steps per pass; "
-            f"--nsteps {args.nsteps} / --thin {args.thin} records only "
-            f"{args.nsteps // thin}")
-    step = args.extend_step if args.extend_step is not None else args.nsteps
-    if step <= 0:
-        raise SystemExit(f"--extend-step must be positive; got {step}")
-    if step % thin:
-        raise SystemExit(
-            f"--extend-step {step} must be divisible by --thin {thin} "
-            f"(extensions record every thin-th step)")
-    if args.max_steps is not None and args.max_steps <= 0:
-        raise SystemExit("--max-steps must be positive")
-
-
 def _safe_rhat(mf):
     """(S,) max split-R-hat per source, NaN when fewer than 4 steps are
     recorded (the file is still written and the summary printed)."""
@@ -278,10 +269,21 @@ def main(argv=None):
         # before sampling: failing after the run would lose every chunk
         raise SystemExit("--get-lir/--get-dustmass need finite "
                          "redshifts in the catalog's z column")
+    if chunked and (args.checkpoint or args.resume):
+        raise SystemExit(
+            "--chunk-size is not combinable with --checkpoint/--resume "
+            "(chunks are already bounded; checkpoint a single-chunk run "
+            "instead)")
+    if ((args.responsefile is not None or args.builtin_responses)
+            and cat.band_names is None):
+        raise SystemExit(
+            "response mode requires a 'bands = ...' header row in the "
+            "catalog naming each column")
+    responses = _responses(args, cat.band_names)
 
     mf = MultiFitter(nwalkers=args.nwalkers, wavenorm=args.wavenorm,
                      noalpha=args.noalpha, opthin=args.opthin,
-                     seed=args.seed, a=args.stretch_a,
+                     responses=responses, seed=args.seed, a=args.stretch_a,
                      sampler_backend=args.sampler_backend,
                      device=args.device or default_device())
     # With --chunk-size only one C-source tile is bound at a time; the
@@ -296,7 +298,6 @@ def main(argv=None):
     # '<flux' tokens; --phot-uplim bands OR in (broadcasting over sources)
     uplims = cat.uplim_mask()
     if args.phot_uplim:
-        from mbb_emcee_tpu_torch.cli import _uplim_mask
         shared = _uplim_mask(args.phot_uplim, cat.wave.size,
                              cat.band_names)
         uplims = shared if uplims is None else (uplims | shared)
@@ -379,9 +380,13 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
              f"burn={args.burn}, steps={args.nsteps}")
     t0 = time.perf_counter()
     mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-           recenter_burn=not args.no_recenter_burn, verbose=args.verbose)
-    total = args.nsteps + (args.burn if args.no_recenter_burn
-                           else 2 * args.burn)
+           recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
+           checkpoint=args.checkpoint,
+           checkpoint_interval=args.checkpoint_interval, resume=args.resume)
+    # actual ensemble updates; a resumed run skips the burn-in
+    total = args.nsteps
+    if not (args.resume and args.checkpoint):
+        total += args.burn if args.no_recenter_burn else 2 * args.burn
 
     if args.extend_until is not None:
         step = args.extend_step or args.nsteps

@@ -17,8 +17,12 @@
 // bytes: the constants are a few KB and live in shared memory, and each
 // walker reads 5 floats.
 // Design: one thread per walker, every per-band constant staged once per
-// block into shared memory, ln(wavelength) terms precomputed there, and the
-// whole evaluation in registers (a local array only for the nb residuals).
+// block into dynamic shared memory sized at launch for this likelihood's
+// band and node counts (no compile-time cap: a measured filter table of
+// hundreds of rows per band fits as long as the block's bytes stay under
+// the card's opt-in maximum), ln(wavelength) terms precomputed there, the
+// nb residuals of each walker in a shared-memory slot of its own, and the
+// rest of the evaluation in registers.
 
 #pragma once
 
@@ -26,8 +30,6 @@
 #include <stdint.h>
 
 #define MBB_NPARAMS 5
-#define MBB_MAX_NB 32
-#define MBB_MAX_NODES 65
 #define MBB_LNPROB_FLOOR (-1e30f)
 #define MBB_SUPPORT_FLOOR (-1e25f)
 #define MBB_EXP_CUT 25.0f
@@ -40,7 +42,6 @@
 struct MbbConfig {
   int opthin, noalpha, use_chol;
   int nb, nnodes;
-  uint32_t uplim_mask;       // bit b set: band b is a one-sided upper limit
   int nfree;
   int free_idx[MBB_NPARAMS];  // free slot k -> parameter index
   int fmap[MBB_NPARAMS];      // parameter i -> free slot, or -1 if fixed
@@ -52,30 +53,72 @@ struct MbbConfig {
 // Packed constant operand, one fp32 device buffer (offsets in floats):
 //   [0,5) lower  [5,10) upper  [10,15) prior mean  [15,20) prior 1/sigma
 //   [20, 20+nb) flux   then nb*nb whitening (L^-1 or diag 1/unc)
-//   then nb*nnodes wavelengths, then nb*nnodes quadrature weights.
+//   then nb*nnodes wavelengths, then nb*nnodes quadrature weights,
+//   then nb upper-limit flags (1: the band is a one-sided upper limit).
+static __host__ __device__ __forceinline__ int mbb_consts_floats(int nb,
+                                                                 int nnodes) {
+  return 20 + nb * (nb + 2) + 2 * nb * nnodes;
+}
+
+// Bytes of dynamic shared memory one likelihood takes in a block of
+// `nthreads` threads: the staged constants, then one residual slot per band
+// per thread.
+static inline size_t mbb_lik_dyn_bytes(int nb, int nnodes, int nthreads) {
+  return ((size_t)mbb_consts_floats(nb, nnodes) + (size_t)nb * nthreads) *
+         sizeof(float);
+}
+
+// The likelihood's arrays in the block's dynamic shared memory, in the
+// order of the packed buffer (ln-wavelength terms in place of the
+// wavelengths), then the residual slots: band b of thread t at
+// delta[b * blockDim.x + t].
 struct MbbShared {
-  float lo[MBB_NPARAMS], hi[MBB_NPARAMS];
-  float pmean[MBB_NPARAMS], pisig[MBB_NPARAMS];
-  float flux[MBB_MAX_NB];
-  float whiten[MBB_MAX_NB * MBB_MAX_NB];
-  float lxw[MBB_MAX_NB * MBB_MAX_NODES];   // log_c2 - ln(wave)
-  float wts[MBB_MAX_NB * MBB_MAX_NODES];
+  float *lo, *hi, *pmean, *pisig;
+  float* flux;     // [nb]
+  float* whiten;   // [nb * nb]
+  float* lxw;      // [nb * nnodes] log_c2 - ln(wave)
+  float* wts;      // [nb * nnodes]
+  float* uplim;    // [nb]
+  float* delta;    // [nb * blockDim.x]
 };
 
+static __device__ __forceinline__ MbbShared mbb_shared_layout(
+    float* base, const MbbConfig& c) {
+  const int nb = c.nb, nr = c.nb * c.nnodes;
+  MbbShared s;
+  s.lo = base;
+  s.hi = base + 5;
+  s.pmean = base + 10;
+  s.pisig = base + 15;
+  s.flux = base + 20;
+  s.whiten = s.flux + nb;
+  s.lxw = s.whiten + nb * nb;
+  s.wts = s.lxw + nr;
+  s.uplim = s.wts + nr;
+  s.delta = s.uplim + nb;
+  return s;
+}
+
+// First float past the likelihood's region of a block of blockDim.x
+// threads (where the stretch-move kernels' own arrays start).
+static __device__ __forceinline__ float* mbb_shared_end(const MbbShared& s,
+                                                        const MbbConfig& c) {
+  return s.delta + c.nb * blockDim.x;
+}
+
 static inline MbbConfig mbb_read_config(const int* icfg, const float* fcfg) {
-  // icfg: opthin, noalpha, use_chol, nb, nnodes, uplim_mask, nfree,
-  //       free_idx[5];  fcfg: tmpl[5], log_c2, lxn_base
+  // icfg: opthin, noalpha, use_chol, nb, nnodes, nfree, free_idx[5];
+  // fcfg: tmpl[5], log_c2, lxn_base
   MbbConfig c;
   c.opthin = icfg[0];
   c.noalpha = icfg[1];
   c.use_chol = icfg[2];
   c.nb = icfg[3];
   c.nnodes = icfg[4];
-  c.uplim_mask = (uint32_t)icfg[5];
-  c.nfree = icfg[6];
+  c.nfree = icfg[5];
   for (int i = 0; i < MBB_NPARAMS; ++i) c.fmap[i] = -1;
   for (int k = 0; k < MBB_NPARAMS; ++k) {
-    c.free_idx[k] = icfg[7 + k];
+    c.free_idx[k] = icfg[6 + k];
     if (k < c.nfree) c.fmap[c.free_idx[k]] = k;
   }
   for (int i = 0; i < MBB_NPARAMS; ++i) c.tmpl[i] = fcfg[i];
@@ -87,25 +130,13 @@ static inline MbbConfig mbb_read_config(const int* icfg, const float* fcfg) {
 // Cooperative load of the packed constants into shared memory; the caller
 // synchronizes afterwards.
 static __device__ __forceinline__ void mbb_stage_consts(
-    MbbShared& s, const float* __restrict__ consts, const MbbConfig& c) {
-  const int nb = c.nb, nr = c.nb * c.nnodes;
-  const float* wv = consts + 20 + nb + nb * nb;
-  const float* wt = wv + nr;
-  for (int i = threadIdx.x; i < 20 + nb + nb * nb + 2 * nr;
-       i += blockDim.x) {
-    if (i < 5) s.lo[i] = consts[i];
-    else if (i < 10) s.hi[i - 5] = consts[i];
-    else if (i < 15) s.pmean[i - 10] = consts[i];
-    else if (i < 20) s.pisig[i - 15] = consts[i];
-    else if (i < 20 + nb) s.flux[i - 20] = consts[i];
-    else if (i < 20 + nb + nb * nb) s.whiten[i - 20 - nb] = consts[i];
-    else if (i < 20 + nb + nb * nb + nr) {
-      const int k = i - 20 - nb - nb * nb;
-      s.lxw[k] = c.log_c2 - logf(wv[k]);
-    } else {
-      const int k = i - 20 - nb - nb * nb - nr;
-      s.wts[k] = wt[k];
-    }
+    const MbbShared& s, const float* __restrict__ consts,
+    const MbbConfig& c) {
+  const int w0 = 20 + c.nb + c.nb * c.nb, w1 = w0 + c.nb * c.nnodes;
+  const int total = mbb_consts_floats(c.nb, c.nnodes);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const float v = consts[i];
+    s.lo[i] = (i >= w0 && i < w1) ? c.log_c2 - logf(v) : v;
   }
 }
 
@@ -213,7 +244,8 @@ static __device__ __forceinline__ float mbb_lnprob_eval(
   // Band fluxes as sum_k w_k S(node_k) (one unit-weight node per band in
   // point mode), residuals with the one-sided clamp on upper-limit bands
   // BEFORE whitening, then chi^2.
-  float delta[MBB_MAX_NB];
+  float* delta = s.delta + threadIdx.x;     // band b at delta[b * blockDim.x]
+  const int ds = blockDim.x;
   for (int b = 0; b < c.nb; ++b) {
     float model = 0.0f;
     for (int k = 0; k < c.nnodes; ++k) {
@@ -223,17 +255,18 @@ static __device__ __forceinline__ float mbb_lnprob_eval(
       model += s.wts[r] * expf((log_fnorm + ls) - ls_norm);
     }
     float d = model - s.flux[b];
-    if ((c.uplim_mask >> b) & 1u) d = fmaxf(d, 0.0f);
-    delta[b] = d;
+    if (s.uplim[b] != 0.0f) d = fmaxf(d, 0.0f);
+    delta[b * ds] = d;
   }
   float chi2 = 0.0f;
   for (int i = 0; i < c.nb; ++i) {
     float r;
     if (c.use_chol) {
       r = 0.0f;
-      for (int j = 0; j <= i; ++j) r += s.whiten[i * c.nb + j] * delta[j];
+      for (int j = 0; j <= i; ++j)
+        r += s.whiten[i * c.nb + j] * delta[j * ds];
     } else {
-      r = delta[i] * s.whiten[i * c.nb + i];
+      r = delta[i * ds] * s.whiten[i * c.nb + i];
     }
     chi2 += r * r;
   }

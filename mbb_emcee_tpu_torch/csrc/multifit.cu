@@ -13,10 +13,10 @@
 // half updates, one lnprob evaluation deep; see sampler.cu), and the
 // sources are independent. Design: one thread block per source, so the
 // sources fill the card's SMs side by side (at 250 walkers a block is 128
-// threads with ~27 KB of shared memory, so 256 sources are resident at
-// once on 132 SMs); each block stages the shared constants exactly as
-// mbb_stage_consts does, overwrites its MbbShared flux and whitening with
-// its own source's row, and runs mbb_stretch_body (stretch.cuh) with the
+// threads, so 256 sources are resident at once on 132 SMs); each block
+// stages the shared constants exactly as mbb_stage_consts does, overwrites
+// the flux, whitening and upper-limit flags in its shared memory with its
+// own source's row, and runs mbb_stretch_body (stretch.cuh) with the
 // shared per-walker lnprob (lnprob.cuh), so K1, K2 and K3 evaluate one
 // device function. The TPU kernel's record cap and source padding were grid
 // and tile workarounds: here one launch covers the whole run and the grid is
@@ -39,8 +39,8 @@ mbb_multi_stretch_kernel(const float* __restrict__ pos_in,
                          int* __restrict__ nacc_out, int half, int nrec,
                          int thin, float a, unsigned long long seed,
                          unsigned long long step0, MbbConfig c) {
-  __shared__ MbbShared s;
   extern __shared__ float dyn[];
+  const MbbShared s = mbb_shared_layout(dyn, c);
   const int src = blockIdx.x;
   const int nb = c.nb;
   const int nw = 2 * half;
@@ -55,17 +55,12 @@ mbb_multi_stretch_kernel(const float* __restrict__ pos_in,
     for (int i = threadIdx.x; i < nb * nb; i += blockDim.x)
       s.whiten[i] = erow[i];
   } else {
-    for (int i = threadIdx.x; i < nb; i += blockDim.x)
+    // This source's upper-limit bands: a `<` test, not the sign bit, so a
+    // missing band flagged as a limit (-0.0, weight 0) stays two-sided.
+    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
       s.whiten[i * nb + i] = fabsf(erow[i]);
-  }
-  // This source's upper-limit bands: a `<` test, not the sign bit, so a
-  // missing band flagged as a limit (-0.0, weight 0) stays two-sided.
-  MbbConfig cs = c;
-  if (!c.use_chol) {
-    uint32_t mask = 0u;
-    for (int b = 0; b < nb; ++b)
-      if (erow[b] < 0.0f) mask |= 1u << b;
-    cs.uplim_mask = mask;
+      s.uplim[i] = erow[i] < 0.0f ? 1.0f : 0.0f;
+    }
   }
   const size_t ns = (size_t)src;
   mbb_stretch_body(
@@ -74,11 +69,14 @@ mbb_multi_stretch_kernel(const float* __restrict__ pos_in,
                           : uniforms + ns * nrec * 6 * thin * half,
       chain + ns * nrec * nw * nfree, lnpchain + ns * nrec * nw,
       pos_out + ns * nw * nfree, lnp_out + ns * nw, nacc_out + ns * nw,
-      half, nrec, thin, a, seed, step0, (uint32_t)src, cs, s, dyn);
+      half, nrec, thin, a, seed, step0, (uint32_t)src, c, s,
+      mbb_shared_end(s, c));
 }
 
-// Launch `nsources` blocks of round_up(half, 32) threads on `stream`;
-// returns cudaGetLastError() (0 on success). flux is (S, nb); errs is
+// Launch `nsources` blocks of round_up(half, 32) threads on `stream`, each
+// with the likelihood's and the run's dynamic shared memory (the opt-in
+// limit raised to it); returns the first CUDA error (0 on success). flux is
+// (S, nb); errs is
 // (S, nb) signed 1/sigma, or (S, nb, nb) whitening when icfg's use_chol is
 // set; `uniforms` is (S, nrec, 6 * thin, half) or null (Philox mode).
 extern "C" int mbb_multi_stretch_launch(
@@ -90,7 +88,7 @@ extern "C" int mbb_multi_stretch_launch(
     const float* fcfg, void* stream) {
   const MbbConfig c = mbb_read_config(icfg, fcfg);
   const int hp = (half + 31) / 32 * 32;
-  const size_t dyn = mbb_stretch_dyn_bytes(half);
+  const size_t dyn = mbb_run_dyn_bytes(c.nb, c.nnodes, half);
   cudaError_t err = cudaFuncSetAttribute(
       mbb_multi_stretch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);

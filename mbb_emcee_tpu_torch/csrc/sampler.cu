@@ -31,16 +31,18 @@ mbb_stretch_kernel(const float* __restrict__ pos_in,
                    int* __restrict__ nacc_out, int half, int nrec, int thin,
                    float a, unsigned long long seed,
                    unsigned long long step0, MbbConfig c) {
-  __shared__ MbbShared s;
   extern __shared__ float dyn[];
+  const MbbShared s = mbb_shared_layout(dyn, c);
   mbb_stage_consts(s, consts, c);
   mbb_stretch_body(pos_in, nacc_in, uniforms, chain, lnpchain, pos_out,
                    lnp_out, nacc_out, half, nrec, thin, a, seed, step0, 0u,
-                   c, s, dyn);
+                   c, s, mbb_shared_end(s, c));
 }
 
-// Launch one block of round_up(half, 32) threads on `stream`; returns
-// cudaGetLastError() (0 on success). `uniforms` may be null (Philox mode).
+// Launch one block of round_up(half, 32) threads on `stream` with the
+// likelihood's and the run's dynamic shared memory (the opt-in limit raised
+// to it); returns the first CUDA error (0 on success). `uniforms` may be
+// null (Philox mode).
 extern "C" int mbb_stretch_launch(
     const float* pos_in, const int* nacc_in, const float* consts,
     const float* uniforms, float* chain, float* lnpchain, float* pos_out,
@@ -49,7 +51,7 @@ extern "C" int mbb_stretch_launch(
     const float* fcfg, void* stream) {
   const MbbConfig c = mbb_read_config(icfg, fcfg);
   const int hp = (half + 31) / 32 * 32;
-  const size_t dyn = mbb_stretch_dyn_bytes(half);
+  const size_t dyn = mbb_run_dyn_bytes(c.nb, c.nnodes, half);
   cudaError_t err = cudaFuncSetAttribute(
       mbb_stretch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);
@@ -58,4 +60,10 @@ extern "C" int mbb_stretch_launch(
       pos_in, nacc_in, consts, uniforms, chain, lnpchain, pos_out, lnp_out,
       nacc_out, half, nrec, thin, a, seed, step0, c);
   return (int)cudaGetLastError();
+}
+
+// Bytes of shared memory one block of K2 or K3 takes for this likelihood
+// and half-ensemble (the refusal check of the wrappers reads it here).
+extern "C" long long mbb_run_smem_bytes(int nb, int nnodes, int half) {
+  return (long long)mbb_run_dyn_bytes(nb, nnodes, half);
 }

@@ -42,14 +42,25 @@ static __device__ __forceinline__ float mbb_bits_to_uniform(uint32_t b) {
 
 // Bytes of dynamic shared memory mbb_stretch_body needs for `half` walkers
 // per half-ensemble: positions [2][5][hp], lnprob [2][hp], accepts [2][hp].
+// They follow the likelihood's region (mbb_lik_dyn_bytes) in the block.
 static inline size_t mbb_stretch_dyn_bytes(int half) {
   const size_t hp = (size_t)(half + 31) / 32 * 32;
   return hp * (2 * MBB_NPARAMS + 2) * sizeof(float) + hp * 2 * sizeof(int);
 }
 
+// Bytes of dynamic shared memory of one block of K2 or K3 (one ensemble of
+// 2 * half walkers): the likelihood's region for round_up(half, 32)
+// threads, then the run's arrays.
+static inline size_t mbb_run_dyn_bytes(int nb, int nnodes, int half) {
+  return mbb_lik_dyn_bytes(nb, nnodes, (half + 31) / 32 * 32) +
+         mbb_stretch_dyn_bytes(half);
+}
+
 // One ensemble's run by one block of blockDim.x = round_up(half, 32)
 // threads. The caller has written the likelihood constants into `s` (the
-// first barrier here publishes them). The pointers are this ensemble's
+// first barrier here publishes them); `dyn` is the block's shared memory
+// past the likelihood's region (mbb_shared_end). The pointers are this
+// ensemble's
 // slices: pos_in/pos_out (nw, nfree), nacc_in/nacc_out and lnp_out (nw),
 // uniforms (nrec, 6 * thin, half) or null for Philox mode, chain
 // (nrec, nw, nfree), lnpchain (nrec, nw). Philox counter words:

@@ -10,16 +10,20 @@ sampler runs the same protocol.
 Parameters are observer frame: theta = (T/(1+z), beta, lambda0*(1+z),
 alpha, fnorm). Randomness: the walker balls come from a torch.Generator
 seeded with `seed`; the proposals from the Philox stream keyed by a 64-bit
-key derived from the same seed.
+key derived from the same seed. Every launch continues that stream where
+the last one stopped, so a checkpointed run, a resumed run and run(n1) +
+extend(n2) all give the chain of the single run(n1 + n2), bit for bit.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import torch
 
+from mbb_emcee_tpu_torch.checkpoint import production
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES, NPARAMS, HCOK_UM_K
 from mbb_emcee_tpu_torch.models.modified_blackbody import MBBShape
 from mbb_emcee_tpu_torch.likelihood import (
@@ -64,6 +68,9 @@ class MBBFitter(ParamSpaceMixin):
     phase) and merges their chains into one (K * nwalkers)-walker product:
     K x the samples, a cross-ensemble split-R-hat, and independent burn-ins.
     Diagonal uncertainties only.
+    responses: a response.ResponseSet; the model fluxes are then
+    band-integrated over each named band's filter curve (set_data with
+    band_names, or a photometry file with a band-name column).
     """
 
     def __init__(self, nwalkers=250, photfile=None, covfile=None, covextn=0,
@@ -72,8 +79,6 @@ class MBBFitter(ParamSpaceMixin):
                  a=2.0, device=None, sampler_backend="auto", mesh=None,
                  n_ensembles=1):
         del nthreads  # walker parallelism is on the device
-        if responses is not None:
-            raise not_ported("instrument-response mode (responses=)", "A2")
         if mesh is not None:
             raise not_ported("walker sharding over a mesh (mesh=)", "A11")
         if int(n_ensembles) < 1:
@@ -91,6 +96,7 @@ class MBBFitter(ParamSpaceMixin):
         self.shape = MBBShape(opthin=bool(opthin), noalpha=bool(noalpha),
                               wavenorm=float(wavenorm))
         self.redshift = None if redshift is None else float(redshift)
+        self.responses = responses
         self.a = float(a)
         self.seed = int(seed)
 
@@ -186,7 +192,14 @@ class MBBFitter(ParamSpaceMixin):
 
     # -- likelihood and sampler ----------------------------------------------------
     def _response_pack(self):
-        return None
+        """(waves, weights) fp32 (nbands, nnodes) of the response set for
+        the photometry's named bands, or None in point mode."""
+        phot = self._require_data()
+        if self.responses is None:
+            return None
+        if phot.band_names is None:
+            raise ValueError("response mode requires named photometry bands")
+        return self.responses.pack(phot.band_names)
 
     def _resolve_sampler_backend(self):
         if self.sampler_backend != "auto":
@@ -227,15 +240,18 @@ class MBBFitter(ParamSpaceMixin):
         # The packed operands are cached on a content fingerprint: ported
         # upstream code calls this in per-sample loops.
         phot = self._require_data()
+        pack = self._response_pack()
         h = hashlib.sha256(repr(self.shape).encode())
         for arr in (open_spec.lower, open_spec.upper, open_spec.prior_mean,
                     open_spec.prior_isigma, open_spec.uplim_bands,
-                    phot.wave, phot.flux, phot.unc, phot.cov):
+                    phot.wave, phot.flux, phot.unc, phot.cov,
+                    *((None, None) if pack is None else pack)):
             h.update(b"-" if arr is None else np.asarray(arr).tobytes())
         key = h.hexdigest()
         cache = getattr(self, "_call_cache", None)
         if cache is None or cache[0] != key:
             ops = prepare_lnprob_inputs(phot, self.shape, open_spec,
+                                        response_pack=pack,
                                         device=self.device)
             cache = (key, ops)
             self._call_cache = cache
@@ -250,62 +266,52 @@ class MBBFitter(ParamSpaceMixin):
         """Burn-in -> re-center on the best burn-in sample -> re-burn ->
         reset -> production (ref: mbb_fitter.run). Stores the production
         chain on the fitter's device; wrap in MBBResults for analysis.
-        Returns self."""
-        del checkpoint_interval
+
+        With `checkpoint=path` the production run is segmented and the
+        chain and full sampler state are flushed to HDF5 every
+        `checkpoint_interval` recorded steps; `resume=True` continues an
+        interrupted run from that file (skipping the burn-in). Returns
+        self."""
         if init == "map":
             raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
         if init != "auto":
             raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
-        if checkpoint is not None or resume:
-            raise not_ported("checkpoint/resume", "A4")
         if int(thin) < 1:
             raise ValueError(f"thin={thin} must be >= 1")
         if int(nsteps) % int(thin):
             raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+        if resume and not checkpoint:
+            raise ValueError(
+                "resume=True requires checkpoint= (the path the previous "
+                "run flushed state to)")
         self._mf = None       # a fresh run() invalidates any merged state
         if self.n_ensembles > 1:
             if p0 is not None:
                 raise ValueError(
                     "n_ensembles > 1 does not combine with an explicit p0")
             return self._run_ensembles(nburn, nsteps, thin, recenter_burn,
-                                       verbose)
+                                       verbose, checkpoint,
+                                       checkpoint_interval, resume)
+        resuming = bool(checkpoint and resume and os.path.exists(checkpoint))
+        if resuming and p0 is not None:
+            raise ValueError(
+                "p0= combined with an actual resume is ambiguous: the "
+                "checkpointed state would silently win; drop p0 (or the "
+                "checkpoint file) to make the intent explicit")
 
         self._auto_init_fnorm()
         _, free_space, sampler = self.build()
         self.free_space = free_space
         self.thin = int(thin)
-        idx = free_space.free_idx
-        gen = torch.Generator().manual_seed(self.seed)
-        if p0 is None:
-            p0 = make_initial_ball(gen, self._init[idx], self._scatter[idx],
-                                   self.nwalkers, free_space.lower,
-                                   free_space.upper, device=self.device)
-        else:
-            p0 = torch.as_tensor(np.asarray(p0, np.float32),
-                                 device=self.device)
-            if p0.shape[-1] == NPARAMS:
-                p0 = p0[..., torch.as_tensor(idx, device=self.device)]
-        state = sampler.init_state(p0, seed=philox_key(self.seed))
-
-        if nburn > 0:
-            state, bchain, blnp = sampler.run_mcmc(state, nburn)
-            self.burn_chain_free = bchain
-            if recenter_burn:
-                # Re-center the whole ensemble on the best burn-in sample
-                # with a tight ball, then burn again from there; the Philox
-                # stream continues where the burn-in stopped.
-                flat = bchain.reshape(-1, free_space.nfree)
-                best = flat[int(torch.argmax(blnp.reshape(-1)))]
-                p0b = make_initial_ball(gen, best.double().cpu().numpy(),
-                                        self._scatter[idx] * 0.1,
-                                        self.nwalkers, free_space.lower,
-                                        free_space.upper, device=self.device)
-                state = sampler.init_state(p0b, seed=state.seed,
-                                           step=state.step)
-                state = sampler.advance(state, nburn)
-            state = sampler.reset_counters(state)
-
-        state, chain, lnpchain = sampler.run_mcmc(state, nsteps, thin)
+        if resuming:
+            self.burn_chain_free = None
+        state, chain, lnpchain = production(
+            sampler.run_mcmc,
+            lambda: self._burn(sampler, free_space, p0, nburn,
+                               recenter_burn),
+            nsteps, thin, self.device, checkpoint, checkpoint_interval,
+            resuming, None if checkpoint is None
+            else self._checkpoint_meta(nsteps), verbose=verbose)
         self.chain_free = chain
         self.lnprobability = lnpchain
         self.final_state = state
@@ -329,6 +335,61 @@ class MBBFitter(ParamSpaceMixin):
                     f"{n}={r:.3f}" for n, r in zip(names, rhat)))
         return self
 
+    def _burn(self, sampler, free_space, p0, nburn, recenter_burn):
+        """The start state of production: the walker ball (or p0), burn-in,
+        re-center on the best burn-in sample, re-burn, counters reset."""
+        idx = free_space.free_idx
+        gen = torch.Generator().manual_seed(self.seed)
+        if p0 is None:
+            p0 = make_initial_ball(gen, self._init[idx], self._scatter[idx],
+                                   self.nwalkers, free_space.lower,
+                                   free_space.upper, device=self.device)
+        else:
+            p0 = torch.as_tensor(np.asarray(p0, np.float32),
+                                 device=self.device)
+            if p0.shape[-1] == NPARAMS:
+                p0 = p0[..., torch.as_tensor(idx, device=self.device)]
+        state = sampler.init_state(p0, seed=philox_key(self.seed))
+        if nburn > 0:
+            state, bchain, blnp = sampler.run_mcmc(state, nburn)
+            self.burn_chain_free = bchain
+            if recenter_burn:
+                # Re-center the whole ensemble on the best burn-in sample
+                # with a tight ball, then burn again from there; the Philox
+                # stream continues where the burn-in stopped.
+                flat = bchain.reshape(-1, free_space.nfree)
+                best = flat[int(torch.argmax(blnp.reshape(-1)))]
+                p0b = make_initial_ball(gen, best.double().cpu().numpy(),
+                                        self._scatter[idx] * 0.1,
+                                        self.nwalkers, free_space.lower,
+                                        free_space.upper, device=self.device)
+                state = sampler.init_state(p0b, seed=state.seed,
+                                           step=state.step)
+                state = sampler.advance(state, nburn)
+            state = sampler.reset_counters(state)
+        return state
+
+    def _checkpoint_meta(self, nsteps):
+        """The run identity a checkpoint records: geometry, engine, and the
+        fingerprints of the data (response pack included: resuming after a
+        filter-curve swap would splice chains of two band integrations) and
+        of the posterior."""
+        from mbb_emcee_tpu_torch.checkpoint import (
+            PRNG_IMPL, data_fingerprint, new_run_id, spec_fingerprint)
+        phot = self._require_data()
+        pack = self._response_pack()
+        return {"nwalkers": self.nwalkers, "thin": self.thin,
+                "nsteps_target": int(nsteps),
+                "sampler_backend": self._backend_used,
+                "prng_impl": PRNG_IMPL, "seed": self.seed,
+                "data_fingerprint": data_fingerprint(
+                    phot.wave, phot.flux, phot.unc, phot.cov,
+                    *(() if pack is None else pack)),
+                "spec_fingerprint": spec_fingerprint(self._spec,
+                                                     self.shape, self.a),
+                # ties this run's flushes together (see new_run_id)
+                "run_id": new_run_id()}
+
     def run_hmc(self, *args, **kwargs):
         raise not_ported("run_hmc (Hamiltonian Monte Carlo)", "A9")
 
@@ -344,7 +405,9 @@ class MBBFitter(ParamSpaceMixin):
     def compute_loo_exact(self, *args, **kwargs):
         raise not_ported("compute_loo_exact (exact LOO refits)", "A9")
 
-    def _run_ensembles(self, nburn, nsteps, thin, recenter_burn, verbose):
+    def _run_ensembles(self, nburn, nsteps, thin, recenter_burn, verbose,
+                       checkpoint=None, checkpoint_interval=100,
+                       resume=False):
         """K independent ensembles through MultiFitter on replicated data,
         merged into one (nrec, K * nwalkers, nfree) product so every
         downstream consumer (MBBResults, gelman_rubin) sees one wider
@@ -361,7 +424,8 @@ class MBBFitter(ParamSpaceMixin):
         mf = MultiFitter(nwalkers=self.nwalkers,
                          wavenorm=self.shape.wavenorm,
                          noalpha=self.shape.noalpha,
-                         opthin=self.shape.opthin, seed=self.seed, a=self.a,
+                         opthin=self.shape.opthin,
+                         responses=self.responses, seed=self.seed, a=self.a,
                          sampler_backend=self.sampler_backend,
                          device=self.device)
         mf._spec = self._spec
@@ -373,7 +437,9 @@ class MBBFitter(ParamSpaceMixin):
                     np.broadcast_to(phot.unc, (K, phot.nbands)),
                     band_names=phot.band_names)
         mf.run(nburn=nburn, nsteps=nsteps, thin=thin,
-               recenter_burn=recenter_burn, verbose=verbose)
+               recenter_burn=recenter_burn, verbose=verbose,
+               checkpoint=checkpoint,
+               checkpoint_interval=checkpoint_interval, resume=resume)
         self._merge_ensembles(mf)
         self._mf = mf
         self._backend_used = mf._backend_used
@@ -404,15 +470,38 @@ class MBBFitter(ParamSpaceMixin):
             mf.acceptance_fraction).reshape(-1)
 
     def extend(self, nsteps, verbose=False):
-        """Continue the production run (n_ensembles > 1: every ensemble,
-        through MultiFitter.extend, then merged again). The single-ensemble
-        extend waits for ROADMAP.md item A4."""
-        if self._mf is None:
-            if self.n_ensembles > 1:
-                raise RuntimeError("run() has not been called")
-            raise not_ported("extend (continuing a production run)", "A4")
-        self._mf.extend(nsteps, verbose=verbose)
-        self._merge_ensembles(self._mf)
+        """Continue the production run for `nsteps` more updates from the
+        stored final state (no re-burn), appending to the chain -- the
+        run-until-converged loop:
+
+            fit.run(nburn=100, nsteps=500)
+            while (fit.gelman_rubin() > 1.05).any():
+                fit.extend(500)
+
+        The Philox stream continues where the run stopped, so run(n1) +
+        extend(n2) is the chain of run(n1 + n2), bit for bit, on both
+        backends. n_ensembles > 1: every ensemble, through
+        MultiFitter.extend, then merged again."""
+        if self.chain_free is None:
+            raise RuntimeError("run() has not been called")
+        if self._mf is not None:
+            self._mf.extend(nsteps, verbose=verbose)
+            self._merge_ensembles(self._mf)
+            return self
+        if nsteps % self.thin:
+            raise ValueError(
+                f"nsteps={nsteps} not divisible by thin={self.thin}")
+        state, chain, lnp = self.sampler.run_mcmc(
+            self.final_state, int(nsteps), self.thin)
+        self.chain_free = torch.cat([self.chain_free, chain], dim=0)
+        self.lnprobability = torch.cat([self.lnprobability, lnp], dim=0)
+        self.final_state = state
+        self.acceptance_fraction = self.sampler.acceptance_fraction(state)
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            enable_console().info(
+                f"  extended by {nsteps} steps -> "
+                f"{self.chain_free.shape[0]} recorded")
         return self
 
     # -- products --------------------------------------------------------------------

@@ -27,11 +27,14 @@ single-fit stream).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch.batchengine import BatchEngine
+from mbb_emcee_tpu_torch.checkpoint import production
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
 from mbb_emcee_tpu_torch.fitter import (
     DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, default_device, not_ported,
@@ -61,13 +64,13 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     sampler_backend: "fused" (each phase one launch of the multi-source
     kernel; the plain multi run for CPU tensors), "torch" (the plain multi
     run) or "auto" = fused on CUDA, torch on the CPU.
+    responses: a response.ResponseSet for band-integrated model fluxes
+    (set_data with band_names).
     """
 
     def __init__(self, nwalkers=250, wavenorm=500.0, noalpha=False,
                  opthin=False, responses=None, seed=1234, a=2.0, mesh=None,
                  sampler_backend="auto", device=None):
-        if responses is not None:
-            raise not_ported("instrument-response mode (responses=)", "A2")
         if mesh is not None:
             raise not_ported("source sharding over a mesh (mesh=)", "A11")
         if sampler_backend not in ("auto", "torch", "fused"):
@@ -82,6 +85,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                               wavenorm=float(wavenorm))
         self.a = float(a)
         self.seed = int(seed)
+        self.responses = responses
         # the quadrature pack a reloaded file carries (from_h5)
         self._restored_pack = None
         self._spec = LikelihoodSpec.default()
@@ -109,7 +113,11 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
 
     # -- likelihood operands ---------------------------------------------------
     def _response_pack(self):
-        return self._restored_pack
+        if self.responses is None:
+            return self._restored_pack
+        if self.band_names is None:
+            raise ValueError("response mode requires band_names in set_data")
+        return self.responses.pack(self.band_names)
 
     def _model_token(self, spec):
         """Content of everything the batch likelihood is built from besides
@@ -142,14 +150,10 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 and np.array_equal(self._run_data[1], self.unc)
                 and np.array_equal(self._run_data[2], self.wave))
 
-    def _init_centers(self, init="auto"):
+    def _init_centers(self):
         """Per-source initial centers and scatters (S, 5): fnorm from each
         source's flux nearest wavenorm, T from each source's brightest band
         (the batched MBBFitter._auto_init_fnorm)."""
-        if init == "map":
-            raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
-        if init != "auto":
-            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
         S = self.nsources
         centers = np.broadcast_to(self._init, (S, NPARAMS)).copy()
         scatters = np.broadcast_to(self._scatter, (S, NPARAMS)).copy()
@@ -205,24 +209,60 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             resume=False, init="auto"):
         """Burn -> per-source re-center on its best walker -> re-burn ->
         reset -> production, all sources in lockstep; each phase is one
-        sampler call (one K3 launch on CUDA). Returns self."""
-        del checkpoint_interval
+        sampler call (one K3 launch on CUDA).
+
+        With `checkpoint=path` the production run is segmented and the
+        per-source chain blocks and the full batch sampler state are
+        flushed to HDF5 every `checkpoint_interval` recorded steps;
+        `resume=True` continues an interrupted run from that file. Both
+        backends draw the same Philox streams and write the same file, but
+        a resume under the other backend is refused (the chains would
+        agree only to rounding). Returns self."""
         if self.flux is None:
             raise RuntimeError("no data; call set_data")
         if int(thin) < 1:
             raise ValueError(f"thin={thin} must be >= 1")
         if nsteps % thin:
             raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
-        if checkpoint is not None or resume:
-            raise not_ported("checkpoint/resume of a batch run", "A4")
+        if resume and not checkpoint:
+            raise ValueError(
+                "resume=True requires checkpoint= (the path the previous "
+                "run flushed state to); without it the run would silently "
+                "restart from scratch")
+        if init == "map":
+            raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
+        if init != "auto":
+            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
         spec = self._effective_spec()
         samp = self._build_sampler(spec)
         self.free_space = samp.free_space
         self._run_spec = spec       # persisted by writeToHDF5
         self.thin = int(thin)
-        fs = self.free_space
+        state, chain, lnpchain = production(
+            samp.run_mcmc, lambda: self._burn(samp, nburn, recenter_burn),
+            nsteps, thin, self.device, checkpoint, checkpoint_interval,
+            bool(checkpoint and resume and os.path.exists(checkpoint)),
+            None if checkpoint is None else self._checkpoint_meta(nsteps),
+            multi=True, verbose=verbose)
+        self._record(state, chain, lnpchain)
+        self._run_data = (self.flux.copy(), self.unc.copy(),
+                          self.wave.copy())
+        self._post_token = self._posterior_token(spec)
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            af = self.acceptance_fraction
+            enable_console().info(
+                f"MultiFitter ({self._backend_used} on {self.device}): "
+                f"mean acceptance fraction over {self.nsources} sources: "
+                f"{af.mean():.3f} (per-source min {af.mean(1).min():.3f}, "
+                f"max {af.mean(1).max():.3f})")
+        return self
 
-        centers, scatters = self._init_centers(init)
+    def _burn(self, samp, nburn, recenter_burn):
+        """The start state of production: the per-source walker balls,
+        burn-in, per-source re-center, re-burn, counters reset."""
+        fs = self.free_space
+        centers, scatters = self._init_centers()
         cen_f, sca_f = centers[:, fs.free_idx], scatters[:, fs.free_idx]
         gen = torch.Generator().manual_seed(self.seed)
         state = samp.init_state(self._balls(gen, cen_f, sca_f),
@@ -242,21 +282,27 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                                         step=state.step)
                 state = samp.advance(state, nburn)
             state = samp.reset_counters(state)
+        return state
 
-        state, chain, lnpchain = samp.run_mcmc(state, nsteps, thin)
-        self._record(state, chain, lnpchain)
-        self._run_data = (self.flux.copy(), self.unc.copy(),
-                          self.wave.copy())
-        self._post_token = self._posterior_token(spec)
-        if verbose:
-            from mbb_emcee_tpu_torch.utils.log import enable_console
-            af = self.acceptance_fraction
-            enable_console().info(
-                f"MultiFitter ({self._backend_used} on {self.device}): "
-                f"mean acceptance fraction over {self.nsources} sources: "
-                f"{af.mean():.3f} (per-source min {af.mean(1).min():.3f}, "
-                f"max {af.mean(1).max():.3f})")
-        return self
+    def _checkpoint_meta(self, nsteps):
+        """The run identity a batch checkpoint records (see
+        MBBFitter._checkpoint_meta); the band correlation enters the data
+        fingerprint only when set, as in the JAX package."""
+        from mbb_emcee_tpu_torch.checkpoint import (
+            PRNG_IMPL, data_fingerprint, new_run_id, spec_fingerprint)
+        pack = self._response_pack()
+        return {"nwalkers": self.nwalkers, "nsources": self.nsources,
+                "thin": self.thin, "nsteps_target": int(nsteps),
+                "sampler_backend": self._backend_used,
+                "prng_impl": PRNG_IMPL, "seed": self.seed,
+                "data_fingerprint": data_fingerprint(
+                    self.wave, self.flux, self.unc,
+                    *(() if self._band_corr is None
+                      else (self._band_corr,)),
+                    *(() if pack is None else pack)),
+                "spec_fingerprint": spec_fingerprint(self._spec,
+                                                     self.shape, self.a),
+                "run_id": new_run_id()}
 
     def _record(self, state, chain, lnpchain):
         self.final_state = state

@@ -16,6 +16,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -26,10 +27,6 @@ from mbb_emcee_tpu_torch.constants import NPARAMS
 from mbb_emcee_tpu_torch.likelihood import FreeSpace, build_lnprob
 from mbb_emcee_tpu_torch.models.modified_blackbody import LOG_C2
 from mbb_emcee_tpu_torch.ops.build import build_kernels
-
-# Caps of the kernels' shared-memory staging (csrc/lnprob.cuh).
-MAX_BANDS = 32
-MAX_NODES = 65
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +49,44 @@ class LnprobOperands:
         return self.consts.device
 
 
-def response_nodes(wave, response_pack=None):
+def lnprob_smem_bytes(nb, nnodes):
+    """Shared memory one block of the lnprob kernel takes for a likelihood
+    of nb bands x nnodes nodes, as csrc/lnprob.cu computes it (builds the
+    kernels)."""
+    return int(build_kernels().mbb_lnprob_smem_bytes(nb, nnodes))
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin_bytes(index):
+    """The opt-in maximum of shared memory per block of CUDA device `index`
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    limit = build_kernels().mbb_smem_optin(index)
+    if limit <= 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of CUDA "
+                           f"device {index}")
+    return limit
+
+
+def check_smem(nbytes, device, what):
+    """Raise ValueError when a block of `nbytes` of shared memory does not
+    fit the card: the kernels size their shared memory at launch and have
+    no other cap."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    limit = smem_optin_bytes(index)
+    if nbytes > limit:
+        raise ValueError(
+            f"{what} needs {nbytes} bytes of shared memory per block; the "
+            f"card's opt-in maximum per block "
+            f"(cudaDevAttrMaxSharedMemoryPerBlockOptin) is {limit} bytes")
+
+
+def response_nodes(wave, response_pack=None, device="cpu"):
     """The (nbands, nnodes) fp64 wavelength nodes and weights the kernels
     sum over: the response pack, or one unit-weight node per band at the
-    data wavelength; checked against the kernels' shared-memory caps."""
+    data wavelength. On a CUDA device a pack the lnprob kernel's block
+    cannot hold is refused; on the CPU the plain version takes any size."""
     nb = len(wave)
     if response_pack is not None:
         waves = np.asarray(response_pack[0], np.float64)
@@ -67,11 +98,9 @@ def response_nodes(wave, response_pack=None):
     else:
         waves = np.asarray(wave, np.float64)[:, None]
         weights = np.ones((nb, 1))
-    nnodes = waves.shape[1]
-    if nb > MAX_BANDS or nnodes > MAX_NODES:
-        raise ValueError(
-            f"the CUDA kernels take at most {MAX_BANDS} bands and "
-            f"{MAX_NODES} response nodes per band; got {nb} x {nnodes}")
+    if torch.device(device).type == "cuda":
+        check_smem(lnprob_smem_bytes(nb, waves.shape[1]), device,
+                   f"a {nb} x {waves.shape[1]} response pack")
     return waves, weights
 
 
@@ -79,8 +108,8 @@ def pack_constants(shape, spec, free_space, flux, whiten, nodes, use_chol,
                    device):
     """(consts, icfg, fcfg): the packed constant buffer on `device` (layout
     in csrc/lnprob.cuh) and the host configuration arrays, for fluxes
-    `flux` (nb,), whitening `whiten` (nb, nb) and `nodes` = (waves,
-    weights) from response_nodes."""
+    `flux` (nb,), whitening `whiten` (nb, nb), `nodes` = (waves, weights)
+    from response_nodes and the upper-limit flags of spec.uplim_bands."""
     waves, weights = nodes
     nb, nnodes = waves.shape
     # Fixed parameters get a finite window centered on their value: the
@@ -90,20 +119,18 @@ def pack_constants(shape, spec, free_space, flux, whiten, nodes, use_chol,
     fv = np.asarray(spec.fixed_values, np.float64)
     lower = np.where(spec.fixed, fv - 1.0, spec.lower)
     upper = np.where(spec.fixed, fv + 1.0, spec.upper)
+    uplim = np.zeros(nb)
+    if spec.uplim_bands is not None:
+        uplim[np.asarray(spec.uplim_bands, bool)] = 1.0
     packed = np.concatenate([
         lower, upper, spec.prior_mean, spec.prior_isigma,
-        flux, np.ravel(whiten), waves.ravel(), weights.ravel()])
+        flux, np.ravel(whiten), waves.ravel(), weights.ravel(), uplim])
     consts = torch.as_tensor(packed.astype(np.float32), device=device)
 
-    uplim = 0
-    if spec.uplim_bands is not None:
-        for b in np.nonzero(np.asarray(spec.uplim_bands, bool))[0]:
-            uplim |= 1 << int(b)
     free_idx = np.zeros(NPARAMS, np.int64)
     free_idx[:free_space.nfree] = free_space.free_idx
     icfg = np.array([int(shape.opthin), int(shape.noalpha), int(use_chol),
-                     nb, nnodes, uplim, free_space.nfree, *free_idx],
-                    np.int64).astype(np.uint32).view(np.int32)
+                     nb, nnodes, free_space.nfree, *free_idx], np.int32)
     fcfg = np.array([*free_space.template, LOG_C2,
                      LOG_C2 - math.log(shape.wavenorm)], np.float32)
     return consts, icfg, fcfg
@@ -117,7 +144,7 @@ def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
     plain, free_space = build_lnprob(phot, shape, spec,
                                      response_pack=response_pack,
                                      device=device)
-    nodes = response_nodes(phot.wave, response_pack)
+    nodes = response_nodes(phot.wave, response_pack, device)
     use_chol = phot.cov is not None
     whiten = (np.linalg.inv(np.linalg.cholesky(phot.cov)) if use_chol
               else np.diag(1.0 / phot.unc))

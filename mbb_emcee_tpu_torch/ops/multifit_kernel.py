@@ -30,7 +30,8 @@ from mbb_emcee_tpu_torch.likelihood import (
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
     current_stream_handle, pack_constants, response_nodes)
-from mbb_emcee_tpu_torch.ops.sampler_kernel import MAX_WALKERS
+from mbb_emcee_tpu_torch.ops.sampler_kernel import (
+    MAX_WALKERS, check_run_smem)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
@@ -144,8 +145,8 @@ def prepare_multi_inputs(wave, flux, unc, shape, spec, response_pack=None,
     # constants carry zero flux and whitening slots and no mask.
     consts, icfg, fcfg = pack_constants(
         shape, dataclasses.replace(spec, uplim_bands=None), free_space,
-        np.zeros(nb), np.zeros((nb, nb)), response_nodes(wave, response_pack),
-        correlated, device)
+        np.zeros(nb), np.zeros((nb, nb)),
+        response_nodes(wave, response_pack, device), correlated, device)
     return MultiOperands(
         consts=consts, icfg=icfg, fcfg=fcfg, wave=_f32(wave, device),
         flux=_f32(flux, device), errs=_f32(errs, device),
@@ -184,6 +185,8 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
             raise ValueError(
                 f"uniforms must be a contiguous float32 "
                 f"({nsrc}, {nrec}, {6 * thin}, {half}) tensor on {device}")
+    check_run_smem(ops.icfg, half, device,
+                   "the multi-source stretch-move kernel")
     pos = state.pos.to(torch.float32).contiguous()
     nacc = state.naccept.to(torch.int32).contiguous()
     lib = build_kernels()

@@ -22,12 +22,22 @@ import torch
 
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
-    LnprobOperands, current_stream_handle, mbb_lnprob, prepare_lnprob_inputs)
+    LnprobOperands, check_smem, current_stream_handle, mbb_lnprob,
+    prepare_lnprob_inputs)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, SamplerState, _check_run_args, stretch_run_plain)
 
 # One block holds the ensemble: at most 1024 threads, one per walker pair.
 MAX_WALKERS = 2048
+
+
+def check_run_smem(icfg, half, device, what):
+    """Refuse a stretch-move launch whose block (its size as
+    csrc/stretch.cuh's mbb_run_dyn_bytes gives it) does not fit the card's
+    shared memory."""
+    nbytes = build_kernels().mbb_run_smem_bytes(int(icfg[3]), int(icfg[4]),
+                                                int(half))
+    check_smem(int(nbytes), device, what)
 
 
 def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
@@ -60,6 +70,7 @@ def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
             raise ValueError(
                 f"uniforms must be a contiguous float32 "
                 f"({nrec}, {6 * thin}, {half}) tensor on {device}")
+    check_run_smem(ops.icfg, half, device, "the stretch-move kernel")
     lib = build_kernels()
     chain = torch.empty((nrec, nw, nfree), dtype=torch.float32,
                         device=device)

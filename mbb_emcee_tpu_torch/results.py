@@ -29,7 +29,8 @@ from mbb_emcee_tpu_torch import hdf5io
 from mbb_emcee_tpu_torch.fitter import not_ported
 from mbb_emcee_tpu_torch.likelihood import param_index
 from mbb_emcee_tpu_torch.sampler import (
-    autocorrelation_time, split_rhat, split_rhat_rank_normalized)
+    autocorrelation_time, effective_sample_size, split_rhat,
+    split_rhat_rank_normalized)
 
 
 def _percentile_summary(samples, percentile=68.3):
@@ -121,6 +122,24 @@ class MBBResults:
     def flatchain(self):
         return self.chain.reshape(-1, NPARAMS)
 
+    @property
+    def nsteps(self):
+        return self.chain.shape[1]
+
+    @property
+    def data_wave(self):
+        """Photometry wavelengths (um) the fit used (ref: mbb_results data
+        accessors)."""
+        return self.phot.wave
+
+    @property
+    def data_flux(self):
+        return self.phot.flux
+
+    @property
+    def data_flux_unc(self):
+        return self.phot.unc
+
     def parameter_chain(self, param):
         return self.flatchain[:, param_index(param)]
 
@@ -143,6 +162,16 @@ class MBBResults:
         idx = np.unravel_index(np.argmax(self.lnprobability),
                                self.lnprobability.shape)
         return self.chain[idx[0], idx[1]], float(self.lnprobability[idx])
+
+    def best_fit_model(self):
+        """ModifiedBlackbody at the maximum-probability sample; evaluate it
+        at any wavelength for a best-fit SED curve."""
+        from mbb_emcee_tpu_torch.models.modified_blackbody import (
+            ModifiedBlackbody)
+        theta, _ = self.best_fit
+        return ModifiedBlackbody(
+            *[float(v) for v in theta], wavenorm=self.shape.wavenorm,
+            noalpha=self.shape.noalpha, opthin=self.shape.opthin)
 
     def par_cov(self):
         """(names, cov): covariance of the FREE parameters over the
@@ -183,6 +212,12 @@ class MBBResults:
         if rank_normalized:
             return split_rhat_rank_normalized(self._free_chain())
         return split_rhat(self._free_chain())
+
+    def effective_samples(self, kind="bulk"):
+        """Per-free-parameter effective sample size of the stored chain
+        (Vehtari et al. 2021 rank-normalized ESS; kind="bulk" for location
+        summaries, "tail" for the 5%/95% interval endpoints)."""
+        return effective_sample_size(self._free_chain(), kind=kind)
 
     def autocorrelation_time(self):
         """Per-free-parameter integrated autocorrelation time in steps."""
@@ -234,6 +269,10 @@ class MBBResults:
             self.compute_lir()
         return _percentile_summary(self.lir_chain, percentile)
 
+    @property
+    def lir(self):
+        return self.lir_cen()
+
     # -- dust mass ---------------------------------------------------------------------
     def compute_dustmass(self, kappa=2.64, kappa_wave=125.0, thin=1):
         """Posterior of dust mass in M_sun (kappa in m^2/kg at REST
@@ -256,6 +295,10 @@ class MBBResults:
             self.compute_dustmass()
         return _percentile_summary(self.dustmass_chain, percentile)
 
+    @property
+    def dustmass(self):
+        return self.dustmass_cen()
+
     # -- peak wavelength ---------------------------------------------------------------
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
@@ -269,6 +312,10 @@ class MBBResults:
         if self.peaklambda_chain is None:
             self.compute_peaklambda()
         return _percentile_summary(self.peaklambda_chain, percentile)
+
+    @property
+    def peaklambda(self):
+        return self.peaklambda_cen()
 
     # -- persistence -------------------------------------------------------------------
     def writeToHDF5(self, filename):

@@ -170,13 +170,76 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
     (["--init-map"], "A9"), (["--get-evidence"], "A9"), (["--ppc"], "A9"),
     (["--loo"], "A9"), (["--population", "T"], "A9"),
     (["--plot-population", "p.png"], "A10"),
-    (["--checkpoint", "c.h5"], "A4"), (["--resume"], "A4"),
-    (["--responsefile", "r.txt"], "A2"), (["--builtin-responses"], "A2"),
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
                         *FAST, *flags])
+
+
+@pytest.mark.parametrize("mode", ["builtin", "responsefile"])
+def test_batch_cli_response_modes(tmp_path, mode):
+    """--builtin-responses resolves the catalog's 'bands' row against the
+    built-in library; --responsefile reads a 'band spec' list. The batch
+    file carries the JAX package's pack and reloads in both packages."""
+    from mbb_emcee_tpu.response import ResponseSet as JRS
+    names = ["PACS_100", "PACS_160", "SPIRE_250", "SPIRE_350", "SPIRE_500"]
+    if mode == "builtin":
+        flags = ["--builtin-responses"]
+        want = JRS.builtin(names).pack(names)
+    else:
+        (tmp_path / "f.txt").write_text(
+            "PACS_100 gauss:100:30\nPACS_160 builtin:PACS_160:33\n"
+            "SPIRE_250 box:250:70\nSPIRE_350 SPIRE_350\n"
+            "SPIRE_500 delta:500\n")
+        flags = ["--responsefile", str(tmp_path / "f.txt")]
+        want = JRS.from_file(str(tmp_path / "f.txt")).pack(names)
+    out = tmp_path / "resp.h5"
+    assert cli_batch.main([str(_catalog(tmp_path, nsrc=3)), str(out),
+                           *FAST, *flags]) == 0
+    jmf = J.MultiFitter.from_h5(str(out))
+    for got, w in zip(jmf._response_pack(), want):
+        np.testing.assert_array_equal(np.asarray(got, np.float32), w)
+    tmf = T.MultiFitter.from_h5(out, device="cpu")
+    for got, w in zip(tmf._response_pack(), want):
+        np.testing.assert_array_equal(np.asarray(got, np.float32), w)
+    assert np.all(np.isfinite(tmf.par_cen("T")))
+    text = "\n".join(ln for ln in CATALOG.splitlines()
+                     if not ln.startswith("bands"))
+    with pytest.raises(SystemExit, match="bands = "):
+        cli_batch.main([str(_catalog(tmp_path, text)),
+                        str(tmp_path / "o.h5"), *FAST, *flags])
+
+
+def test_batch_cli_checkpoint_and_resume(tmp_path):
+    """--checkpoint flushes the batch run; --resume continues a shorter
+    run to the chains of the uninterrupted one, bit for bit."""
+    cat = str(_catalog(tmp_path, nsrc=3))
+    whole = tmp_path / "whole.h5"
+    assert cli_batch.main([cat, str(whole), *FAST]) == 0
+    ck = tmp_path / "b.ckpt.h5"
+    short = [a if a != "20" else "10" for a in FAST]
+    assert cli_batch.main([cat, str(tmp_path / "a.h5"), *short,
+                           "--checkpoint", str(ck),
+                           "--checkpoint-interval", "5"]) == 0
+    resumed = tmp_path / "resumed.h5"
+    assert cli_batch.main([cat, str(resumed), *FAST, "--checkpoint",
+                           str(ck), "--checkpoint-interval", "5",
+                           "--resume"]) == 0
+    a = T.MultiFitter.from_h5(whole, device="cpu")
+    b = T.MultiFitter.from_h5(resumed, device="cpu")
+    assert b.chain_free.shape == (3, 20, 16, 5)
+    assert torch.equal(a.chain_free, b.chain_free)
+
+
+def test_batch_cli_refuses_chunked_checkpoint(tmp_path, monkeypatch):
+    def no_run(*a, **k):
+        raise AssertionError("sampled before the up-front check")
+    monkeypatch.setattr(T.MultiFitter, "run", no_run)
+    with pytest.raises(SystemExit, match="chunk-size"):
+        cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
+                        *FAST, "--chunk-size", "2", "--checkpoint",
+                        str(tmp_path / "c.h5")])
 
 
 def test_single_cli_n_ensembles(tmp_path, capsys):

@@ -219,7 +219,7 @@ def test_kernel_operands_layout(cov, uplim, pack):
     ops = prepare_lnprob_inputs(phot, MBBShape(noalpha=True), spec, rp)
     c = ops.consts.numpy()
     nb, nn = 5, (rp[0].shape[1] if pack else 1)
-    assert c.size == 20 + nb + nb * nb + 2 * nb * nn
+    assert c.size == 20 + nb + nb * nb + 2 * nb * nn + nb
     lower = np.where(spec.fixed, spec.fixed_values - 1.0, spec.lower)
     upper = np.where(spec.fixed, spec.fixed_values + 1.0, spec.upper)
     np.testing.assert_array_equal(c[:5], lower.astype(np.float32))
@@ -237,10 +237,11 @@ def test_kernel_operands_layout(cov, uplim, pack):
     waves = c[50:50 + nb * nn].reshape(nb, nn)
     np.testing.assert_allclose(waves, rp[0] if pack else WAVE[:, None],
                                rtol=1e-6)
+    np.testing.assert_array_equal(
+        c[-nb:], [0, 1, 0, 0, 1] if uplim else np.zeros(nb))
     ic = ops.icfg
-    assert list(ic[:7]) == [0, 1, int(cov), 5, nn,
-                            (2 | 16) if uplim else 0, 4]
-    assert list(ic[7:11]) == [0, 1, 2, 4]
+    assert list(ic[:6]) == [0, 1, int(cov), 5, nn, 4]
+    assert list(ic[6:10]) == [0, 1, 2, 4]
     assert ops.fcfg[3] == np.float32(3.5)      # fixed alpha in the template
     x = torch.as_tensor(_walkers(ops.free_space.free_idx, n=32))
     assert torch.equal(mbb_lnprob(x, ops), ops.plain(x))

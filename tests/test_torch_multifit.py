@@ -32,11 +32,13 @@ from mbb_emcee_tpu_torch.models.modified_blackbody import (  # noqa: E402
 from mbb_emcee_tpu_torch.ops.multifit_kernel import (  # noqa: E402
     FusedMultiSampler, mbb_multi_stretch_run)
 from mbb_emcee_tpu_torch.ops.philox import stretch_uniforms  # noqa: E402
+from mbb_emcee_tpu_torch.response import ResponseSet  # noqa: E402
 from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler  # noqa: E402
 from mbb_emcee_tpu_torch.sampler import (  # noqa: E402
     make_initial_ball, multi_stretch_run_plain, stretch_run_plain)
 
 WAVE = np.array([100.0, 160.0, 250.0, 350.0, 500.0])
+BANDS = ["PACS_100", "PACS_160", "SPIRE_250", "SPIRE_350", "SPIRE_500"]
 TRUE = np.array([32.0, 1.9, 250.0, 3.5, 45.0])
 F0 = np.array([8.62, 23.3, 41.2, 44.6, 45.0])     # ~ the TRUE greybody
 S, NW = 4, 32
@@ -106,6 +108,8 @@ LNP_CASES = {
     "uplim-per-source": dict(uplim="per_source"),
     "correlated": dict(correlated=True),
     "pack-5x65": dict(pack=True, uplim="per_source"),
+    "builtin-5x65": dict(pack=65),
+    "builtin-5x129": dict(pack=129, uplim="per_source"),
     "thin3": dict(opthin=True, noalpha=True),
     "alpha-fixed-at-0": dict(alpha0=True),
 }
@@ -125,7 +129,11 @@ def test_build_lnprob_data_matches_jax(case):
         jspec.fixed[3], jspec.fixed_values[3] = True, 0.0
     shape_kw = dict(opthin=kw.get("opthin", False),
                     noalpha=kw.get("noalpha", False))
-    pack = _numpy_pack() if kw.get("pack") else None
+    pack = kw.get("pack")
+    if pack is True:
+        pack = _numpy_pack()
+    elif pack:
+        pack = ResponseSet.builtin(BANDS, nnodes=pack).pack(BANDS)
     correlated = kw.get("correlated", False)
     errs = _whiten(unc) if correlated else j_signed_iunc(unc, uplim)
     flux0 = np.where(np.isfinite(unc), flux, 0.0)
@@ -415,10 +423,52 @@ def test_extend_refusals(change):
         mf.extend(3)
 
 
+@pytest.mark.parametrize("nnodes", [65, 129])
+def test_multifitter_response_mode(tmp_path, nnodes):
+    """MultiFitter(responses=...): the pack of the named bands is the JAX
+    package's, runs (plain multi run on the CPU) and extends, persists in
+    the batch file both packages reload, and rides each source's
+    MBBResults view; without band names it is refused."""
+    from mbb_emcee_tpu.response import ResponseSet as JRS
+    flux, unc = _data()
+    mf = T.MultiFitter(nwalkers=NW, device="cpu", seed=3,
+                       responses=ResponseSet.builtin(BANDS, nnodes=nnodes))
+    mf.set_data(WAVE, flux, unc, band_names=BANDS)
+    mf.set_uplim("T", 100.0).set_uplim("beta", 5.0)
+    want = JRS.builtin(BANDS, nnodes=nnodes).pack(BANDS)
+    for got, w in zip(mf._response_pack(), want):
+        np.testing.assert_array_equal(got, w)
+    mf.run(nburn=6, nsteps=8).extend(4)
+    assert mf.chain_free.shape == (S, 12, NW, 5)
+    assert bool(torch.isfinite(mf.lnprobability).all())
+    mf.writeToHDF5(str(tmp_path / "r.h5"))
+    jmf = J.MultiFitter.from_h5(str(tmp_path / "r.h5"))
+    for got, w in zip(jmf._response_pack(), want):
+        np.testing.assert_array_equal(np.asarray(got, np.float32), w)
+    res = mf.results(2)
+    assert res.response_pack[0].shape == (5, nnodes)
+    bad = T.MultiFitter(nwalkers=NW, device="cpu",
+                        responses=ResponseSet.builtin(BANDS))
+    bad.set_data(WAVE, flux, unc)
+    with pytest.raises(ValueError, match="band_names"):
+        bad.run(nburn=2, nsteps=2)
+
+
+def test_multifitter_checkpointed_run(tmp_path):
+    """run(checkpoint=...) flushes the batch run and equals the plain run;
+    resume=True without a checkpoint path is refused."""
+    ck = tmp_path / "m.ckpt.h5"
+    a = _fitter().run(nburn=6, nsteps=8, checkpoint=str(ck),
+                      checkpoint_interval=4)
+    assert ck.is_file()
+    assert torch.equal(a.chain_free, _fitter().run(nburn=6,
+                                                   nsteps=8).chain_free)
+    with pytest.raises(ValueError, match="requires checkpoint"):
+        _fitter().run(nburn=2, nsteps=2, resume=True)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda: T.MultiFitter(responses=object(), device="cpu"), "A2"),
     (lambda: T.MultiFitter(mesh=object(), device="cpu"), "A11"),
-    (lambda: _fitter().run(checkpoint="c.h5"), "A4"),
     (lambda: _fitter().run(init="map"), "A9"),
     (lambda: _fitter().run_pt(), "A9"), (lambda: _fitter().run_hmc(), "A9"),
     (lambda: _fitter().run_map(), "A9"),
