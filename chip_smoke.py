@@ -54,12 +54,24 @@ non-zero without printing a result):
      8000 steps) per config): configs 0, 1, 2, 3 (response mode, K2 with
      the 5 x 65 pack), 5 and 6, every row printed, and config 4's derived
      L_IR, dust mass and peak wavelength with the elementwise L_IR check
-     against the scipy oracle; the kernels' launch counts over the phase.
+     against the scipy oracle; the kernels' launch counts over the phase;
+ 15. K2's layouts (ops/sampler_kernel.py plan_stretch_launch: G lanes per
+     walker in a cluster of C blocks) against the one-thread-per-walker
+     layout (G = 1, C = 1) on shared external uniforms: point mode (configs
+     1, 2, 6) bitwise; config 3's 5 x 65 pack and the 8 x 1000 pack, where
+     a chain may part only on an accept decision within lnprob rounding of
+     its threshold; the planned layout of each case;
+ 16. the plan sweep: K2's device time on every layout G x C in each mode of
+     the planner's table (point mode with and without the Wien merge solve,
+     response mode), each in turns with G = 1, C = 1.
 
-It then prints the kernel table as one JSON line, the nvidia-smi line, and
-as its last line {"ok": true, "device": {...}}. Without a CUDA device it
-exits with code 1 before any phase. A whole run takes about 95 s on one
-H100 (H100 80GB HBM3 at 700 W), the kernels' build included.
+It then prints the kernel table as one JSON line (with each kernel's bound
+and K2's planned layouts), the nvidia-smi line, and as its last line
+{"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
+before any phase. `--phases 3,15` runs the build and those phases alone,
+a rehearsal that prints no kernel table and no result line. A whole run
+takes about 2 minutes on one H100 (H100 80GB HBM3 at 700 W), the kernels'
+build included.
 """
 
 import json
@@ -87,6 +99,72 @@ NWALKERS = 250
 DEVICE = "cuda"
 # The batch cell: bench.py's multisource shape, 256 sources x 250 walkers.
 NSOURCES = 256
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at its 700 W
+# limit): fp32 outside the tensor cores, and device memory.
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operation counts of the bound: a libdevice exp, expm1 or log counts as 20
+# fp32 operations and a division as 10 (their instruction sequences), any
+# other add, multiply, compare, min/max or select as 1.
+OPS_TRANS, OPS_DIV = 20, 10
+
+
+def lnprob_ops(icfg):
+    """fp32 operations of one lnprob of csrc/lnprob.cuh for the likelihood
+    configuration icfg (opthin, noalpha, use_chol, nb, nnodes, ...), counted
+    from its formulas: the same for every walker (out-of-box walkers run the
+    whole chain on clipped values)."""
+    opthin, noalpha, use_chol, nb, nnodes = (int(v) for v in icfg[:5])
+    t, d = OPS_TRANS, OPS_DIV
+    # grey ln S: x, 3u - log_expm1(x) [+ beta u | + log1mexp(tau)]
+    grey = 3 * t + 5 + (2 if opthin else 3 * t + 6)
+    # g and g': x, q, g'_Planck [+ tau, h(tau), clamp, g'] + g
+    slope = 2 * t + d + 7 + (3 if opthin else 2 * t + d + 17)
+    node = 1 + grey + 5 + (t + 4)       # ln x, ln S, Wien select, w e^(..)
+    n = 20 + 2 * t + 2 + t              # box, ln T, ln x0, ln fnorm
+    if not noalpha:                     # bracket, 6 bisections, 2 Newton
+        n += (2 * t + 7) + 6 * (slope + 5) + 2 * (slope + d + 4) + grey
+    n += 1 + grey + 5                   # the normalization point
+    n += nb * nnodes * node + 3 * nb    # band sums, residuals
+    n += nb * (nb + 1) + 2 * nb if use_chol else 3 * nb
+    return n + 20 + 4                   # priors, lnp
+
+
+def stretch_step_ops(philox):
+    """fp32/int32 operations of one walker's proposal and accept test beside
+    its lnprob: the Philox-4x32-10 draw (10 rounds of 2 multiplies, 2
+    high multiplies, 4 xors and 2 key adds; 3 uniform maps) or nothing for
+    external uniforms, z, the partner, the proposal, and ln z, ln u2."""
+    draw = 10 * 10 + 9 if philox else 0
+    return draw + (4 + OPS_DIV) + 3 + 3 * 5 + (2 * OPS_TRANS + 5) + 1
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of ops at the fp32 peak and bytes at
+    the memory peak."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def k1_bound(icfg, n, nfree, nconsts):
+    """K1 on n vectors: n lnprobs; reads theta and the constants, writes n
+    floats."""
+    return bound(n * lnprob_ops(icfg), 4 * (n * nfree + nconsts + n))
+
+
+def k2_bound(icfg, nsrc, nw, nfree, nconsts, nsteps, nrec):
+    """K2 (nsrc = 1) or K3 over nsrc ensembles of nw walkers, Philox mode:
+    the initial lnprob of every walker, then one lnprob and one proposal
+    per walker per step; reads positions, accepts and the constants, writes
+    the chain records and the final state."""
+    ops = nsrc * nw * (lnprob_ops(icfg)
+                       + nsteps * (lnprob_ops(icfg) + stretch_step_ops(True)))
+    nbytes = 4 * (nsrc * nw * (nfree + 1) + nconsts
+                  + nsrc * nrec * nw * (nfree + 1) + nsrc * nw * (nfree + 2))
+    return bound(ops, nbytes)
 
 
 def log(msg):
@@ -502,6 +580,10 @@ def phase_time(card):
     out["k2_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200), 5)
     plain = EnsembleSampler(NWALKERS, samp.ndim, samp.ops.plain, a=samp.a)
     out["k2_plain_ms"] = _cuda_ms(lambda: plain.run_mcmc(state, 200), 1)
+    nconsts = samp.ops.consts.numel()
+    out["k1_bound"] = k1_bound(samp.ops.icfg, NWALKERS, samp.ndim, nconsts)
+    out["k2_bound"] = k2_bound(samp.ops.icfg, 1, NWALKERS, samp.ndim,
+                               nconsts, 200, 200)
     k1_dev = _profiled_device_us(lambda: mbb_lnprob(p0, samp.ops), 50,
                                  "mbb_lnprob_kernel")
     k2_dev = _profiled_device_us(lambda: samp.run_mcmc(state, 200), 3,
@@ -517,6 +599,11 @@ def phase_time(card):
         + ", K2 (200 steps) "
         + ("not measured" if k2_dev is None else f"{k2_dev:.1f} us")
         + f" ({card})")
+    log(f"[6] bounds (fp32 operations at {PEAK_FP32_OPS:.3g}/s or bytes at "
+        f"{PEAK_BYTES:.3g} B/s, the larger): K1 {1e3 * out['k1_bound'][0]:.4g}"
+        f" us ({out['k1_bound'][1]}, {lnprob_ops(samp.ops.icfg)} ops per "
+        f"lnprob), K2 {1e3 * out['k2_bound'][0]:.4g} us "
+        f"({out['k2_bound'][1]})")
     log(f"[6] K2 run, 250 walkers x 200 steps: kernel {out['k2_ms']:.3f} "
         f"ms, plain torch {out['k2_plain_ms']:.1f} ms ({card})")
     log(f"[6] kernel sampler: 1000 steps {t1 * 1e3:.2f} ms, 3000 steps "
@@ -710,17 +797,13 @@ def _replay_record(samp, pos, seed, step, thin):
 
 def _parting_margin(samp, pos, seed, step, replay, s):
     """Where source s parts in a replayed record: the walkers of the first
-    half-step whose K3 and plain positions differ. Each must be the same
-    proposal, accepted on one side and rejected on the other, and its
-    decision must sit within rounding of the threshold: |log ratio - log u|
-    (the plain side's) no more than the lnprob replay tolerance of the two
-    lnprob values the ratio differences. Returns (t, max distance, max
-    tolerance); raises otherwise (a wrong stream, partner or stride)."""
+    half-step whose K3 and plain positions differ, each held to
+    _decision_margin. Returns (t, max distance, max tolerance)."""
     import torch
     from mbb_emcee_tpu_torch.ops.philox import stretch_uniforms
     (ck, _), (cp, lp) = replay
     ck, cp, lp = ck[s], cp[s], lp[s]
-    half, nfree = pos.shape[1] // 2, pos.shape[2]
+    half = pos.shape[1] // 2
     parted = (ck != cp).any(-1)
     if not parted.any():
         raise AssertionError(f"source {s} does not part in its replay")
@@ -732,33 +815,52 @@ def _parting_margin(samp, pos, seed, step, replay, s):
         prev, lnp_prev = pos[s], samp.ops.plain(pos[:, act])[s]
     else:
         prev, lnp_prev = cp[t - 1], lp[t - 1, act]
-    active = prev[act]
-    passive = cp[t, :half] if hb else prev[half:]
     u3 = stretch_uniforms(seed, step + t, 1, half, DEVICE,
                           source=[s])[0, 3 * hb:3 * hb + 3]
-    z = ((samp.a - 1.0) * u3[0] + 1.0) ** 2 / samp.a
+
+    def lnp_of(prop):
+        batch = pos[:, :half].clone()
+        batch[s] = prop
+        return samp.ops.plain(batch)[s]
+    dist, tol = _decision_margin(
+        f"source {s} record step {t}", samp.a, prev[act],
+        cp[t, :half] if hb else prev[half:], u3, lnp_prev, lnp_of,
+        (ck[t, act], cp[t, act]), torch.nonzero(parted[t, act]).flatten())
+    return t, dist, tol
+
+
+def _decision_margin(where, a, active, passive, u3, lnp_prev, lnp_of, sides,
+                     lanes):
+    """The half update of `active` against `passive` on uniform rows u3
+    (z, partner, accept): each side's new position of each parting walker
+    (`lanes`) must be its proposal or its previous position, and the accept
+    decision must sit within rounding of its threshold: |log ratio - log u|
+    (on the plain lnprob `lnp_of` of the proposals) no more than the lnprob
+    replay tolerance of the two lnprob values the ratio differences.
+    Returns (max distance, max tolerance); raises otherwise (a wrong
+    stream, partner or stride)."""
+    import torch
+    half, nfree = active.shape
+    z = ((a - 1.0) * u3[0] + 1.0) ** 2 / a
     j = torch.clamp((u3[1] * half).to(torch.int64), max=half - 1)
     prop = passive[j] + z[:, None] * (active - passive[j])
-    batch = pos[:, :half].clone()
-    batch[s] = prop
-    lnp_prop = samp.ops.plain(batch)[s]
-    lanes = torch.nonzero(parted[t, act]).flatten()
-    for side in (ck[t, act], cp[t, act]):
+    lnp_prop = lnp_of(prop)
+    for side in sides:
         new = side[lanes]
         if not ((new == prop[lanes]).all(-1)
                 | (new == active[lanes]).all(-1)).all():
             raise AssertionError(
-                f"source {s} record step {t}: a parting walker's position "
-                "is neither its proposal nor its previous position")
+                f"{where}: a parting walker's position is neither its "
+                "proposal nor its previous position")
     log_ratio = (nfree - 1) * torch.log(z) + lnp_prop - lnp_prev
     dist = (log_ratio - torch.log(u3[2]))[lanes].abs()
     tol = (2 * K2_LNP_ATOL + K2_RTOL * (lnp_prop.abs() + lnp_prev.abs()))[
         lanes]
     if not (dist <= tol).all():
         raise AssertionError(
-            f"source {s} parts at step {t} on a decision "
-            f"{float(dist.max()):.3g} from its threshold: not a rounding")
-    return t, float(dist.max()), float(tol.max())
+            f"{where}: parts on a decision {float(dist.max()):.3g} from its "
+            "threshold: not a rounding")
+    return float(dist.max()), float(tol.max())
 
 
 def _compare_multi_width(tag, samp, state, got, want, thin):
@@ -964,6 +1066,10 @@ def phase_time_k3(card):
     out["k3_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200, thin=10), 5)
     out["k3_plain_ms"] = _cuda_ms(lambda: multi_stretch_run_plain(
         state, samp.ops.plain, 20, 10, samp.a), 1)
+    out["k3_bound"] = k2_bound(
+        samp.ops.icfg, NSOURCES, NWALKERS, samp.ndim,
+        samp.ops.consts.numel() + samp.ops.flux.numel()
+        + samp.ops.errs.numel(), 200, 20)
     k3_dev = _profiled_device_us(
         lambda: mbb_multi_stretch_run(state, samp.ops, 20, 10, samp.a), 3,
         "mbb_multi_stretch_kernel")
@@ -979,7 +1085,8 @@ def phase_time_k3(card):
         f"{out['k3_plain_ms']:.1f} ms ({card})")
     log("[10] torch.profiler device time per K3 launch (200 steps): "
         + ("not measured" if k3_dev is None else f"{k3_dev:.1f} us")
-        + f" ({card})")
+        + f"; bound {1e3 * out['k3_bound'][0]:.4g} us "
+        f"({out['k3_bound'][1]}) ({card})")
     log(f"[10] K3 sampler: 1000 steps {t1 * 1e3:.2f} ms, 3000 steps "
         f"{t3 * 1e3:.2f} ms (thin 10) -> marginal {rate:,.0f} aggregate "
         f"walker-steps/s, {rate / NSOURCES:,.0f} per source ({card})")
@@ -1210,10 +1317,18 @@ def phase_time_response(card):
     out["k2_resp_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200), 5)
     plain = EnsembleSampler(NWALKERS, samp.ndim, samp.ops.plain, a=samp.a)
     out["k2_resp_plain_ms"] = _cuda_ms(lambda: plain.run_mcmc(state, 200), 1)
+    nconsts = samp.ops.consts.numel()
+    out["k1_resp_bound"] = k1_bound(samp.ops.icfg, NWALKERS, samp.ndim,
+                                    nconsts)
+    out["k2_resp_bound"] = k2_bound(samp.ops.icfg, 1, NWALKERS, samp.ndim,
+                                    nconsts, 200, 200)
     k1_dev = _profiled_device_us(lambda: mbb_lnprob(p0, samp.ops), 50,
                                  "mbb_lnprob_kernel")
     k2_dev = _profiled_device_us(lambda: samp.run_mcmc(state, 200), 3,
                                  "mbb_stretch_kernel")
+    log(f"[13] bounds: K1 {1e3 * out['k1_resp_bound'][0]:.4g} us, K2 "
+        f"{1e3 * out['k2_resp_bound'][0]:.4g} us (operations; "
+        f"{lnprob_ops(samp.ops.icfg)} ops per lnprob) ({card})")
     log(f"[13] K1 response mode, 250 walkers x 5 x 65: kernel "
         f"{out['k1_resp_ms']:.4f} ms, plain torch "
         f"{out['k1_resp_plain_ms']:.4f} ms per call ({card})")
@@ -1326,8 +1441,224 @@ def phase_parity(geom=None):
     return counts
 
 
-def main():
+def _k2_plans(ops, half):
+    """(the planned layout, the G = 1, C = 1 layout) of K2 for `ops`; the
+    planner's shared-memory size must be the kernel library's."""
+    from mbb_emcee_tpu_torch.ops.build import build_kernels
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import smem_optin_bytes
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import (
+        plan_stretch_launch, stretch_plan)
+    nb, nn = int(ops.icfg[3]), int(ops.icfg[4])
+    plan = plan_stretch_launch(nb, nn, half, bool(ops.icfg[1]),
+                               bool(ops.icfg[0]), smem_optin_bytes(0))
+    for p in (plan, stretch_plan(1, 1, nb, nn, half)):
+        lib_bytes = build_kernels().mbb_run_smem_bytes(nb, nn, half,
+                                                       p.threads)
+        if lib_bytes != p.smem_bytes:
+            raise AssertionError(f"planner's {p.smem_bytes} B of shared "
+                                 f"memory != the library's {lib_bytes} B")
+    return plan, stretch_plan(1, 1, nb, nn, half)
+
+
+def _k2_layout_case(name, phot, shape, spec, pack, nrec, thin, bitwise,
+                    mode=None):
+    """K2 on the planned layout (or PLAN_TABLE's `mode` entry) against the
+    G = 1, C = 1 layout on shared external uniforms. bitwise: chains, lnprob, accepts and final positions
+    equal. Otherwise (response packs, whose band sums the layouts add in
+    another order) the chains must be equal up to the record where they
+    part, if they part, with lnprob within K2's replay tolerance there, and
+    a parting walker's accept decision must sit within lnprob rounding of
+    its threshold (_decision_margin; thin must be 1). Returns (plan, max
+    |d lnp| before any parting)."""
+    import numpy as np
     import torch
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import (
+        PLAN_TABLE, FusedSampler, mbb_stretch_run, stretch_plan)
+    samp = FusedSampler(NWALKERS, phot, shape, spec, response_pack=pack,
+                        rng="external", device=DEVICE)
+    state = samp.init_state(_ball(samp.free_space, NWALKERS, 2, DEVICE),
+                            seed=3)
+    half = samp.half
+    plan, old = _k2_plans(samp.ops, half)
+    planned = plan
+    if mode is not None:
+        plan = stretch_plan(*PLAN_TABLE[mode], int(samp.ops.icfg[3]),
+                            int(samp.ops.icfg[4]), half)
+    u = np.random.default_rng(13).uniform(
+        0.001, 0.999, (nrec, 6 * thin, half)).astype(np.float32)
+    u = torch.as_tensor(u, device=DEVICE)
+    (sg, cg, lg), (so, co, lo) = [
+        mbb_stretch_run(state, samp.ops, nrec, thin, samp.a, u, plan=p)
+        for p in (plan, old)]
+    head = (f"[15] K2 {name}, {nrec} records x thin {thin}: plan G={plan.group}"
+            f" lanes x C={plan.cluster} blocks ({plan.walkers_per_block} "
+            f"walkers, {plan.threads} threads, {plan.smem_bytes} B per "
+            f"block) against G=1, C=1")
+    if bitwise:
+        ok = (torch.equal(cg, co) and torch.equal(lg, lo)
+              and torch.equal(sg.naccept, so.naccept)
+              and torch.equal(sg.position, so.position))
+        log(f"{head}: chains, lnprob, accepts and final state bitwise "
+            f"{'equal PASS' if ok else 'DIFFERENT FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 {name}: the layouts differ")
+        return planned, 0.0
+    rec_parted = (cg != co).any(-1).any(-1)
+    t = int(torch.nonzero(rec_parted)[0]) if rec_parted.any() else nrec
+    dl = float((lg[:t] - lo[:t]).abs().max()) if t else 0.0
+    ok_l = torch.allclose(lg[:t], lo[:t], rtol=K2_RTOL, atol=K2_LNP_ATOL)
+    note = "no parting"
+    if t < nrec:
+        hb = int(not (cg[t, :half] != co[t, :half]).any())
+        act = slice(half * hb, half * (hb + 1))
+        prev = state.position if t == 0 else co[t - 1]
+        lnp_prev = (samp.ops.plain(prev[act]) if t == 0
+                    else lo[t - 1, act])
+        lanes = torch.nonzero((cg[t, act] != co[t, act]).any(-1)).flatten()
+        dist, tol = _decision_margin(
+            f"K2 {name} step {t}", samp.a, prev[act],
+            co[t, :half] if hb else prev[half:], u[t, 3 * hb:3 * hb + 3],
+            lnp_prev, samp.ops.plain, (cg[t, act], co[t, act]), lanes)
+        note = (f"parted at step {t} on {len(lanes)} walker(s), |log ratio "
+                f"- log u| {dist:.3g} <= {tol:.3g}")
+        ok_a = True
+    else:
+        ok_a = torch.equal(sg.naccept, so.naccept)
+    ok = ok_l and ok_a and bool(torch.isfinite(lg).all())
+    log(f"{head}: chains bitwise up to step {t}, lnp max |d| {dl:.3g} "
+        f"there, accepts {int(sg.naccept.sum())} vs {int(so.naccept.sum())};"
+        f" {note} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K2 {name}: the layouts disagree")
+    return planned, dl
+
+
+def phase_k2_layouts():
+    """K2 on a grouped cluster layout against the G = 1, C = 1 layout,
+    external uniforms: point mode (configs 1, 2 and 6) on PLAN_TABLE's
+    "point" layout (config 2's plan; configs 1 and 6 fix alpha and are
+    planned on G = 1, C = 1) bitwise over 100 steps; config 3's 5 x 65 pack
+    and the 8 x 1000 pack on their planned layouts over 20 single-step
+    records under _k2_layout_case's parting rule. Returns (the planned
+    layout by case, max |d lnp|)."""
+    phot3, shape3, spec3 = problem(3)
+    _, pack65 = port_response_pack(65)
+    wide, _, _, pack1000 = response_case(WIDE_BANDS, 1000)
+    plans, worst = {}, 0.0
+    for ci in (1, 2, 6):
+        plans[f"config {ci}"], _ = _k2_layout_case(
+            f"config {ci} point mode", *problem(ci), None, 20, 5, True,
+            mode="point")
+    for name, phot, pack in (("config 3 5 x 65", phot3, pack65),
+                             ("8 x 1000", wide, pack1000)):
+        plans[name], dl = _k2_layout_case(name, phot, shape3, spec3, pack,
+                                          20, 1, False)
+        worst = max(worst, dl)
+    log("[15] planned layouts: " + ", ".join(
+        f"{k} G={p.group} x C={p.cluster}" for k, p in plans.items()))
+    for name in ("config 2", "config 3 5 x 65"):
+        p = plans[name]
+        if p.group < 2 or p.cluster < 2:
+            raise AssertionError(f"{name}: K2 not planned as a cluster of "
+                                 f"grouped lanes ({p})")
+    return plans, worst
+
+
+SWEEP_GROUPS = (1, 8, 16, 32)
+SWEEP_CLUSTERS = (1, 2, 4, 8)
+
+
+SWEEP_CASES = (("point", 2), ("point_noalpha_thick", 1),
+               ("point_noalpha_thin", 0), ("response", 3))
+
+
+def phase_plan_sweep(card):
+    """K2's device time per 200-step Philox launch on every layout G x C
+    (SWEEP_GROUPS x SWEEP_CLUSTERS) in each of PLAN_TABLE's modes: point
+    mode with the merge solve (config 2), without it (configs 1 and 0:
+    thick and thin), and response mode (config 3's 5 x 65 pack); each timed
+    in turns with the G = 1, C = 1 layout (old, new, new, old), by CUDA
+    events over back-to-back launches (each launch is milliseconds long, so
+    the host's launch gaps hide behind the device's work; torch.profiler
+    drops its events after some hundred sessions in one process). In point
+    mode every layout's chains must equal the G = 1, C = 1 chains bitwise. Returns {case: {"plan", "us", "old_us", "rows"}}
+    for the planned layout."""
+    import dataclasses
+    import torch
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import (
+        FusedSampler, max_threads, mbb_stretch_run, stretch_plan)
+    _, pack65 = port_response_pack(65)
+    out = {}
+    for mode, ci in SWEEP_CASES:
+        pack, reps = (pack65, 2) if mode == "response" else (None, 3)
+        phot, shape, spec = problem(ci)
+        samp = FusedSampler(NWALKERS, phot, shape, spec, response_pack=pack,
+                            device=DEVICE)
+        state = samp.init_state(_ball(samp.free_space, NWALKERS, 6, DEVICE),
+                                seed=77)
+        plan, old = _k2_plans(samp.ops, samp.half)
+        nb, nn = int(samp.ops.icfg[3]), int(samp.ops.icfg[4])
+
+        def run(p):
+            return mbb_stretch_run(state, samp.ops, 200, 1, samp.a, plan=p)
+
+        def dev(p):
+            return 1e3 * _cuda_ms(lambda: run(p), reps)
+        ref = run(old)
+        rows = []
+        log(f"[16] K2 plan sweep, {mode} mode (config {ci}, {NWALKERS} "
+            f"walkers x 200 steps), us per launch by CUDA events in turns "
+            f"(old, new, new, old) ({card}):")
+        log("[16] | G | C | walkers/block | threads | smem B | new us | "
+            "old us | new/old | chains vs G=1,C=1 |")
+        for g in SWEEP_GROUPS:
+            for c in SWEEP_CLUSTERS:
+                p = stretch_plan(g, c, nb, nn, samp.half)
+                if p.threads > max_threads(g):
+                    log(f"[16] | {g} | {c} | {p.walkers_per_block} | "
+                        f"{p.threads} | - | above the kernel's "
+                        f"{max_threads(g)} threads |")
+                    continue
+                got = run(p)
+                same = (torch.equal(got[1], ref[1])
+                        and torch.equal(got[2], ref[2]))
+                if mode != "response" and not same:
+                    raise AssertionError(f"K2 layout {p} differs from G=1, "
+                                         "C=1 in point mode")
+                t = [dev(old), dev(p), dev(p), dev(old)]
+                new_us, old_us = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                rows.append({"group": g, "cluster": c, "new_us": t[1:3],
+                             "old_us": [t[0], t[3]]})
+                log(f"[16] | {g} | {c} | {p.walkers_per_block} | "
+                    f"{p.threads} | {p.smem_bytes} | {t[1]:.1f}, {t[2]:.1f}"
+                    f" | {t[0]:.1f}, {t[3]:.1f} | {new_us / old_us:.4f} | "
+                    f"{'bitwise' if same else 'parted'} |")
+        best = min(rows, key=lambda r: sum(r["new_us"]))
+        mine = next(r for r in rows if (r["group"], r["cluster"])
+                    == (plan.group, plan.cluster))
+        log(f"[16] {mode} mode: fastest G={best['group']}, "
+            f"C={best['cluster']} ({sum(best['new_us']) / 2:.1f} us); "
+            f"planned G={plan.group}, C={plan.cluster} "
+            f"({sum(mine['new_us']) / 2:.1f} us against "
+            f"{sum(mine['old_us']) / 2:.1f} us on G=1, C=1) ({card})")
+        out[mode] = {"plan": dataclasses.asdict(plan),
+                     "us": sum(mine["new_us"]) / 2,
+                     "old_us": sum(mine["old_us"]) / 2, "rows": rows}
+    return out
+
+
+PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
+          "13", "14", "15", "16")
+
+
+def main(argv=None):
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers to run alone (a "
+                         "rehearsal: no kernel table and no result line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1338,55 +1669,84 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
-    phase_device()
-    phase_build()
-    k1_err = phase_k1()
-    k2_err = phase_k2()
-    phase_determinism()
-    counts = phase_main_path()
-    t = phase_time(card)
-    k3_err = phase_k3()
-    phase_k3_philox()
-    k3_err = max(k3_err, phase_k3_width())
-    k3_by_path = phase_batch_path()
-    t.update(phase_time_k3(card))
-    r1, r2, r3 = phase_response_kernels()
-    ext = phase_extend()
-    t.update(phase_time_response(card))
-    par = phase_parity()
+    steps = [
+        ("0", phase_device), ("1", phase_build), ("2", phase_k1),
+        ("3", phase_k2), ("4", phase_determinism), ("5", phase_main_path),
+        ("6", lambda: phase_time(card)), ("7", phase_k3),
+        ("8", lambda: (phase_k3_philox(), phase_k3_width())[1]),
+        ("9", phase_batch_path), ("10", lambda: phase_time_k3(card)),
+        ("11", phase_response_kernels), ("12", phase_extend),
+        ("13", lambda: phase_time_response(card)), ("14", phase_parity),
+        ("15", phase_k2_layouts), ("16", lambda: phase_plan_sweep(card))]
+    only = None if args.phases is None else set(args.phases.split(","))
+    if only is not None and not only <= set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
+    res = {}
+    for name, fn in steps:
+        if only is None or name in only or name in ("0", "1"):
+            res[name] = fn()
+    if only is not None:
+        log(f"rehearsal of phases {sorted(only, key=int)} done: no kernel "
+            "table, no result line")
+        return 0
+
+    counts, ext, par = res["5"], res["12"], res["14"]
+    t = {**res["6"], **res["10"], **res["13"]}
+    r1, r2, r3 = res["11"]
+    plans, k2_layout_err = res["15"]
+    sweep = res["16"]
     k1_by_path = {"single fit (phase 5)": counts["mbb_lnprob"],
                   "extend (phase 12)": ext["mbb_lnprob"],
                   "parity matrix (phase 14)": par["mbb_lnprob"]}
     k2_by_path = {"single fit (phase 5)": counts["mbb_stretch_run"],
                   "extend (phase 12)": ext["mbb_stretch_run"],
                   "parity matrix (phase 14)": par["mbb_stretch_run"]}
+    k3_by_path = dict(res["9"])
     k3_by_path["extend (phase 12)"] = ext["mbb_multi_stretch_run"]
+    no_library = "no single PyTorch call computes it"
     kernels = [
         {"name": "mbb_lnprob", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/lnprob.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_lnprob.py:248",
          "launches": sum(k1_by_path.values()),
          "launches_by_path": k1_by_path,
-         "max_abs_err": max(k1_err, r1),
+         "max_abs_err": max(res["2"], r1),
          "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"],
+         "bound_ms": t["k1_bound"][0], "bound_us": 1e3 * t["k1_bound"][0],
+         "bound_by": t["k1_bound"][1], "library_ms": None,
+         "library_note": no_library,
          "response_ms": t["k1_resp_ms"],
-         "response_plain_ms": t["k1_resp_plain_ms"]},
+         "response_plain_ms": t["k1_resp_plain_ms"],
+         "response_bound_ms": t["k1_resp_bound"][0]},
         {"name": "mbb_stretch_run", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/sampler.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_sampler.py:63",
          "launches": sum(k2_by_path.values()),
          "launches_by_path": k2_by_path,
-         "max_abs_err": max(k2_err, r2),
+         "max_abs_err": max(res["3"], r2, k2_layout_err),
          "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"],
+         "bound_ms": t["k2_bound"][0], "bound_us": 1e3 * t["k2_bound"][0],
+         "bound_by": t["k2_bound"][1], "library_ms": None,
+         "library_note": no_library,
+         "plan": sweep["point"]["plan"],
+         "sweep_us": sweep["point"]["us"],
+         "sweep_us_g1c1": sweep["point"]["old_us"],
          "response_ms": t["k2_resp_ms"],
-         "response_plain_ms": t["k2_resp_plain_ms"]},
+         "response_plain_ms": t["k2_resp_plain_ms"],
+         "response_bound_ms": t["k2_resp_bound"][0],
+         "response_plan": sweep["response"]["plan"],
+         "response_sweep_us": sweep["response"]["us"],
+         "response_sweep_us_g1c1": sweep["response"]["old_us"]},
         {"name": "mbb_multi_stretch_run", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/multifit.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_multifit.py:203",
          "launches": sum(k3_by_path.values()),
          "launches_by_path": k3_by_path,
-         "max_abs_err": max(k3_err, r3), "ms": t["k3_ms"],
-         "plain_ms": t["k3_plain_ms"]},
+         "max_abs_err": max(res["7"], res["8"], r3), "ms": t["k3_ms"],
+         "plain_ms": t["k3_plain_ms"],
+         "bound_ms": t["k3_bound"][0], "bound_us": 1e3 * t["k3_bound"][0],
+         "bound_by": t["k3_bound"][1], "library_ms": None,
+         "library_note": no_library},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

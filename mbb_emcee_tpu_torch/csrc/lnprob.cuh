@@ -12,18 +12,33 @@
 //
 // Bound: per walker this is a dependent chain of transcendentals (the Wien
 // merge solve alone is 8 slope evaluations of 4 exp/expm1 each, then one
-// ln S per band node and for the normalization), so at the main path's 250
-// walkers it is bound by the latency of the special-function units, not by
-// bytes: the constants are a few KB and live in shared memory, and each
-// walker reads 5 floats.
-// Design: one thread per walker, every per-band constant staged once per
-// block into dynamic shared memory sized at launch for this likelihood's
-// band and node counts (no compile-time cap: a measured filter table of
-// hundreds of rows per band fits as long as the block's bytes stay under
-// the card's opt-in maximum), ln(wavelength) terms precomputed there, the
-// nb residuals of each walker in a shared-memory slot of its own, and the
-// rest of the evaluation in registers.
-
+// ln S per band node and for the normalization): bound by the latency of
+// the dependent fp32 and special-function chain, not by bytes (the
+// constants are a few KB and live in shared memory, each walker reads 5
+// floats) and not by the card's rate (~2,300 fp32 ops per walker in point
+// mode, counting a libdevice exp/expm1/log as 20 and a division as 10).
+// Design: every per-band constant is staged once per block into dynamic
+// shared memory sized at launch for this likelihood's band and node
+// counts (no compile-time cap), ln(wavelength) terms precomputed there,
+// and each thread keeps nb residual (or partial-sum) slots there. Two
+// layouts of one walker's evaluation:
+//   - mbb_lnprob_eval: one thread per walker (K1, K3, and K2's G=1
+//     layout), the whole chain serial in that thread.
+//   - mbb_lnprob_eval_group<G>: G lanes of one warp per walker (K2), to
+//     shorten the chain. The 6 bisections run as 2 rounds of a 7-node tree:
+//     each round forms the 3 levels' midpoints in the bisection's own
+//     operations, evaluates the slope at node j on lane j, and walks the
+//     tree on the signs of g, which is the sequential bracket bit for bit.
+//     The rounds evaluate the slope alone, on every lane alike: a round that
+//     also evaluated ln S at band nodes took about as long as the 6
+//     sequential bisections. A lane's first node (node i on lane i mod G;
+//     node 0 is the normalization point) is evaluated in the Newton steps'
+//     basic block, so its chain overlaps theirs; only the Wien-side select
+//     waits for the merge point. Per-band partial sums combine by
+//     __shfl_xor_sync in a fixed tree order, 4 bands at a time, and every
+//     lane forms the same residuals, chi^2 in band order and prior. With one
+//     node per band (point mode) no sum is reordered, so the result is
+//     bitwise that of mbb_lnprob_eval.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -217,17 +232,58 @@ static __device__ __forceinline__ float mbb_log_s(
   return log_x > u_m ? ls_m - alpha * (log_x - u_m) : base;
 }
 
+// Box check and clip of th[5] against the staged limits.
+static __device__ __forceinline__ void mbb_box(
+    const float th[MBB_NPARAMS], const MbbShared& s, bool* inbox,
+    float v[MBB_NPARAMS]) {
+  bool in = true;
+#pragma unroll
+  for (int i = 0; i < MBB_NPARAMS; ++i) {
+    in = in && (th[i] >= s.lo[i]) && (th[i] <= s.hi[i]);
+    v[i] = fminf(fmaxf(th[i], s.lo[i]), s.hi[i]);
+  }
+  *inbox = in;
+}
+
+// chi^2 of the nb residuals delta[b * ds], whitened by L^-1 or 1/sigma,
+// summed in band order.
+static __device__ __forceinline__ float mbb_chi2(
+    const float* delta, int ds, const MbbConfig& c, const MbbShared& s) {
+  float chi2 = 0.0f;
+  for (int i = 0; i < c.nb; ++i) {
+    float r;
+    if (c.use_chol) {
+      r = 0.0f;
+      for (int j = 0; j <= i; ++j)
+        r += s.whiten[i * c.nb + j] * delta[j * ds];
+    } else {
+      r = delta[i * ds] * s.whiten[i * c.nb + i];
+    }
+    chi2 += r * r;
+  }
+  return chi2;
+}
+
+// lnprob from chi^2, the Gaussian priors, and the floor outside the box.
+static __device__ __forceinline__ float mbb_prior_lnp(
+    const float th[MBB_NPARAMS], bool inbox, float chi2, const MbbShared& s) {
+  float pri = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MBB_NPARAMS; ++i) {
+    const float dp = (th[i] - s.pmean[i]) * s.pisig[i];
+    pri += dp * dp;
+  }
+  const float lnp = -0.5f * chi2 + -0.5f * pri;
+  return inbox ? lnp : MBB_LNPROB_FLOOR;
+}
+
 // Log-probability of one full parameter vector th[5] (free slots filled,
 // fixed slots at their template values).
 static __device__ __forceinline__ float mbb_lnprob_eval(
     const float th[MBB_NPARAMS], const MbbConfig& c, const MbbShared& s) {
-  bool inbox = true;
+  bool inbox;
   float v[MBB_NPARAMS];
-#pragma unroll
-  for (int i = 0; i < MBB_NPARAMS; ++i) {
-    inbox = inbox && (th[i] >= s.lo[i]) && (th[i] <= s.hi[i]);
-    v[i] = fminf(fmaxf(th[i], s.lo[i]), s.hi[i]);
-  }
+  mbb_box(th, s, &inbox, v);
   const float T = v[0], beta = v[1], lam0 = v[2], alpha = v[3];
   const float log_T = logf(T);
   const float log_x0 = (c.log_c2 - logf(lam0)) - log_T;
@@ -258,24 +314,157 @@ static __device__ __forceinline__ float mbb_lnprob_eval(
     if (s.uplim[b] != 0.0f) d = fmaxf(d, 0.0f);
     delta[b * ds] = d;
   }
-  float chi2 = 0.0f;
-  for (int i = 0; i < c.nb; ++i) {
-    float r;
-    if (c.use_chol) {
-      r = 0.0f;
-      for (int j = 0; j <= i; ++j)
-        r += s.whiten[i * c.nb + j] * delta[j * ds];
-    } else {
-      r = delta[i * ds] * s.whiten[i * c.nb + i];
-    }
-    chi2 += r * r;
-  }
-  float pri = 0.0f;
+  return mbb_prior_lnp(th, inbox, mbb_chi2(delta, ds, c, s), s);
+}
+
+// Lane mask of this thread's group of G lanes (G divides 32; a group is G
+// consecutive lanes of one warp).
+template <int G>
+static __device__ __forceinline__ unsigned mbb_group_mask() {
+  if (G == 32) return 0xffffffffu;
+  return ((1u << G) - 1u) << ((threadIdx.x & 31u) & ~(unsigned)(G - 1));
+}
+
+// The normalization point (item 0) or band node i - 1 (item i >= 1).
+static __device__ __forceinline__ float mbb_item_log_x(
+    int i, float log_T, const MbbConfig& c, const MbbShared& s) {
+  return i == 0 ? c.lxn_base - log_T : s.lxw[i - 1] - log_T;
+}
+
+// The Wien-side select of mbb_log_s on an already evaluated grey ln S.
+static __device__ __forceinline__ float mbb_wien_select(
+    float base, float log_x, float alpha, float u_m, float ls_m,
+    const MbbConfig& c) {
+  if (c.noalpha) return base;
+  return log_x > u_m ? ls_m - alpha * (log_x - u_m) : base;
+}
+
+// Log-probability of th[5] evaluated by the G lanes of this thread's group
+// (lane in [0, G); G in {8, 16, 32}); every lane returns it. The thread's
+// nb band slots are s.delta[b * blockDim.x + threadIdx.x]. Items are the
+// normalization point (0) and the nb * nnodes band nodes (1 + r); item i is
+// on lane i mod G. An item's term goes into its band's slot on the lane
+// that evaluated it (in item order), and the slots combine over the group
+// by __shfl_xor_sync in a fixed order.
+template <int G>
+static __device__ __forceinline__ float mbb_lnprob_eval_group(
+    const float th[MBB_NPARAMS], const MbbConfig& c, const MbbShared& s,
+    int lane) {
+  static_assert(G == 8 || G == 16 || G == 32, "G lanes per walker");
+  static_assert(MBB_MERGE_BISECT == 6, "2 rounds of a 3-level tree");
+  const unsigned mask = mbb_group_mask<G>();
+  bool inbox;
+  float v[MBB_NPARAMS];
+  mbb_box(th, s, &inbox, v);
+  const float T = v[0], beta = v[1], lam0 = v[2], alpha = v[3];
+  const float log_T = logf(T);
+  const float log_x0 = (c.log_c2 - logf(lam0)) - log_T;
+  const int nitems = c.nb * c.nnodes + 1;
+  float* slot = s.delta + threadIdx.x;   // band b at slot[b * blockDim.x]
+  const int ds = blockDim.x;
+  for (int b = 0; b < c.nb; ++b) slot[b * ds] = 0.0f;
+
+  // Item i is on lane i mod G. A lane's first item's grey ln S does not
+  // depend on the merge point: it is evaluated beside the Newton steps, in
+  // one basic block, so the two chains overlap.
+  const bool has0 = lane < nitems;
+  const float lx0 = mbb_item_log_x(has0 ? lane : 0, log_T, c, s);
+  float ls0, u_m = 0.0f, ls_m = 0.0f;
+  if (!c.noalpha) {
+    const float lo_arg = fmaxf(2.0f + alpha, 1e-3f);
+    float a = logf(lo_arg);
+    float b = logf(fmaxf((3.0f + alpha) + beta, 1.01f * lo_arg));
 #pragma unroll
-  for (int i = 0; i < MBB_NPARAMS; ++i) {
-    const float dp = (th[i] - s.pmean[i]) * s.pisig[i];
-    pri += dp * dp;
+    for (int round = 0; round < 2; ++round) {
+      // The midpoints of 3 bisection levels in the bisection's own
+      // operations (level 1: n0; level 2: n1, n2; level 3: n3-n6), the
+      // slope at node j on lane j (lanes from 7 repeat node 0).
+      const float n0 = 0.5f * (a + b);
+      const float n1 = 0.5f * (a + n0);
+      const float n2 = 0.5f * (n0 + b);
+      const float n3 = 0.5f * (a + n1);
+      const float n4 = 0.5f * (n1 + n0);
+      const float n5 = 0.5f * (n0 + n2);
+      const float n6 = 0.5f * (n2 + b);
+      const float p = lane == 1 ? n1 : lane == 2 ? n2 : lane == 3 ? n3
+                    : lane == 4 ? n4 : lane == 5 ? n5 : lane == 6 ? n6 : n0;
+      float g, gp;
+      mbb_merge_g_gp(p, beta, log_x0, alpha, c.opthin, &g, &gp);
+      float gt[7];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) gt[j] = __shfl_sync(mask, g, j, G);
+      // Walk the tree as the sequential bisection would: a = m if g > 0.
+      const bool b0 = gt[0] > 0.0f;
+      if (b0) a = n0; else b = n0;
+      const float m2 = b0 ? n2 : n1;
+      const bool b1 = (b0 ? gt[2] : gt[1]) > 0.0f;
+      if (b1) a = m2; else b = m2;
+      const int i3 = 2 * (int)b0 + (int)b1;
+      const float m3 = i3 == 0 ? n3 : i3 == 1 ? n4 : i3 == 2 ? n5 : n6;
+      const float g3 = i3 == 0 ? gt[3] : i3 == 1 ? gt[4]
+                     : i3 == 2 ? gt[5] : gt[6];
+      if (g3 > 0.0f) a = m3; else b = m3;
+    }
+    ls0 = mbb_log_s_grey(lx0, beta, log_x0, c.opthin);
+    float u = 0.5f * (a + b);
+    float g, gp;
+#pragma unroll
+    for (int it = 0; it < MBB_MERGE_NEWTON; ++it) {
+      mbb_merge_g_gp(u, beta, log_x0, alpha, c.opthin, &g, &gp);
+      u = fminf(fmaxf(u - g / fminf(gp, -1e-10f), a), b);
+    }
+    u_m = u;
+    ls_m = mbb_log_s_grey(u_m, beta, log_x0, c.opthin);
+  } else {
+    ls0 = mbb_log_s_grey(lx0, beta, log_x0, c.opthin);
   }
-  const float lnp = -0.5f * chi2 + -0.5f * pri;
-  return inbox ? lnp : MBB_LNPROB_FLOOR;
+  const float sel0 = mbb_wien_select(ls0, lx0, alpha, u_m, ls_m, c);
+  const float ls_norm = __shfl_sync(mask, sel0, 0, G);   // item 0, lane 0
+  const float log_fnorm = logf(v[4]);
+
+  // Band fluxes: each lane adds its items' w_k S(node_k) into its slots.
+  if (has0 && lane >= 1) {
+    const int r = lane - 1;
+    slot[(r / c.nnodes) * ds] +=
+        s.wts[r] * expf((log_fnorm + sel0) - ls_norm);
+  }
+  for (int i = G + lane; i < nitems; i += G) {
+    const int r = i - 1;
+    const float lx = s.lxw[r] - log_T;
+    const float ls = mbb_wien_select(
+        mbb_log_s_grey(lx, beta, log_x0, c.opthin), lx, alpha, u_m, ls_m, c);
+    slot[(r / c.nnodes) * ds] += s.wts[r] * expf((log_fnorm + ls) - ls_norm);
+  }
+  // Combine the group's slots, 4 bands at a time (every lane ends with the
+  // same sums), then the residuals with the one-sided clamp on upper-limit
+  // bands; with diagonal whitening chi^2 is summed here, in band order.
+  float chi2 = 0.0f;
+  for (int b0 = 0; b0 < c.nb; b0 += 4) {
+    float model[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      model[q] = b0 + q < c.nb ? slot[(b0 + q) * ds] : 0.0f;
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        model[q] += __shfl_xor_sync(mask, model[q], off, G);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int b = b0 + q;
+      if (b < c.nb) {
+        float d = model[q] - s.flux[b];
+        if (s.uplim[b] != 0.0f) d = fmaxf(d, 0.0f);
+        if (c.use_chol) {
+          slot[b * ds] = d;
+        } else {
+          const float r = d * s.whiten[b * c.nb + b];
+          chi2 += r * r;
+        }
+      }
+    }
+  }
+  if (c.use_chol) chi2 = mbb_chi2(slot, ds, c, s);
+  return mbb_prior_lnp(th, inbox, chi2, s);
 }

@@ -16,11 +16,12 @@
 // threads, so 256 sources are resident at once on 132 SMs); each block
 // stages the shared constants exactly as mbb_stage_consts does, overwrites
 // the flux, whitening and upper-limit flags in its shared memory with its
-// own source's row, and runs mbb_stretch_body (stretch.cuh) with the
-// shared per-walker lnprob (lnprob.cuh), so K1, K2 and K3 evaluate one
-// device function. The TPU kernel's record cap and source padding were grid
-// and tile workarounds: here one launch covers the whole run and the grid is
-// exactly S blocks. Chains are written straight into (S, nrec, nw, nfree) /
+// own source's row, and runs mbb_stretch_body (stretch.cuh) on K2's G = 1,
+// C = 1 layout (one thread per walker, mbb_lnprob_eval of lnprob.cuh), so
+// K1, K2 and K3 evaluate one device function (K3 at one source is K2 bit
+// for bit in point mode, on any of K2's layouts). The TPU kernel's record
+// cap and source padding were grid and tile workarounds: here one launch
+// covers the whole run and the grid is exactly S blocks. Chains are written straight into (S, nrec, nw, nfree) /
 // (S, nrec, nw) tensors.
 
 #include "stretch.cuh"
@@ -63,13 +64,13 @@ mbb_multi_stretch_kernel(const float* __restrict__ pos_in,
     }
   }
   const size_t ns = (size_t)src;
-  mbb_stretch_body(
+  mbb_stretch_body<1, false>(
       pos_in + ns * nw * nfree, nacc_in + ns * nw,
       uniforms == nullptr ? nullptr
                           : uniforms + ns * nrec * 6 * thin * half,
       chain + ns * nrec * nw * nfree, lnpchain + ns * nrec * nw,
       pos_out + ns * nw * nfree, lnp_out + ns * nw, nacc_out + ns * nw,
-      half, nrec, thin, a, seed, step0, (uint32_t)src, c, s,
+      half, blockDim.x, nrec, thin, a, seed, step0, (uint32_t)src, c, s,
       mbb_shared_end(s, c));
 }
 
@@ -88,7 +89,7 @@ extern "C" int mbb_multi_stretch_launch(
     const float* fcfg, void* stream) {
   const MbbConfig c = mbb_read_config(icfg, fcfg);
   const int hp = (half + 31) / 32 * 32;
-  const size_t dyn = mbb_run_dyn_bytes(c.nb, c.nnodes, half);
+  const size_t dyn = mbb_run_dyn_bytes(c.nb, c.nnodes, half, hp);
   cudaError_t err = cudaFuncSetAttribute(
       mbb_multi_stretch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);

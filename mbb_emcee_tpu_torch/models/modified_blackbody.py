@@ -71,16 +71,21 @@ def _merge_g_and_gp(log_x, beta, log_x0, alpha, opthin: bool):
     return 3.0 + beta * ht - q + alpha, gp
 
 
-def merge_log_x(beta, log_x0, alpha, opthin: bool):
-    """ln x_merge where d ln S / d ln x = -alpha (Wien-side merge point).
-    Finite floors keep the bracket valid for unphysical alpha <= -2 or
+def merge_bracket(beta, alpha):
+    """(lo, hi) in ln x bracketing the merge point: (2 + alpha, 3 + alpha +
+    beta). Finite floors keep it valid for unphysical alpha <= -2 or
     beta < 0 reachable through user-set limits."""
     lo_arg = torch.clamp(2.0 + alpha, min=1e-3)
-    lo = torch.log(lo_arg)
-    hi = torch.log(torch.maximum(3.0 + alpha + beta, 1.01 * lo_arg))
+    return (torch.log(lo_arg),
+            torch.log(torch.maximum(3.0 + alpha + beta, 1.01 * lo_arg)))
+
+
+def merge_log_x(beta, log_x0, alpha, opthin: bool):
+    """ln x_merge where d ln S / d ln x = -alpha (Wien-side merge point)."""
     return bisect_newton_decreasing(
-        lambda u: _merge_g_and_gp(u, beta, log_x0, alpha, opthin), lo, hi,
-        bisect_iters=MERGE_BISECT, newton_iters=MERGE_NEWTON)
+        lambda u: _merge_g_and_gp(u, beta, log_x0, alpha, opthin),
+        *merge_bracket(beta, alpha), bisect_iters=MERGE_BISECT,
+        newton_iters=MERGE_NEWTON)
 
 
 def log_mbb_fnu_params(T, beta, lambda0, alpha, fnorm, wave,

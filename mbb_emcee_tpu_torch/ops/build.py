@@ -110,8 +110,8 @@ def _load(path):
     lib.mbb_lnprob_launch.argtypes = [_P, _P, _P, _I, _P, _P, _P]
     lib.mbb_lnprob_launch.restype = _I
     lib.mbb_stretch_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
-        ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
     lib.mbb_stretch_launch.restype = _I
     lib.mbb_multi_stretch_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -121,7 +121,7 @@ def _load(path):
     lib.mbb_smem_optin.restype = _I
     lib.mbb_lnprob_smem_bytes.argtypes = [_I, _I]
     lib.mbb_lnprob_smem_bytes.restype = ctypes.c_longlong
-    lib.mbb_run_smem_bytes.argtypes = [_I, _I, _I]
+    lib.mbb_run_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.mbb_run_smem_bytes.restype = ctypes.c_longlong
     return lib
 

@@ -185,7 +185,7 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
             raise ValueError(
                 f"uniforms must be a contiguous float32 "
                 f"({nsrc}, {nrec}, {6 * thin}, {half}) tensor on {device}")
-    check_run_smem(ops.icfg, half, device,
+    check_run_smem(ops.icfg, half, -(-half // 32) * 32, device,
                    "the multi-source stretch-move kernel")
     pos = state.pos.to(torch.float32).contiguous()
     nacc = state.naccept.to(torch.int32).contiguous()

@@ -27,12 +27,52 @@ def bisect_newton_decreasing(g_and_gp, lo, hi, bisect_iters=10,
         pos = gm > 0.0
         a = torch.where(pos, m, a)
         b = torch.where(pos, b, m)
+    return _clamped_newton(g_and_gp, a, b, newton_iters)
+
+
+def _clamped_newton(g_and_gp, a, b, iters):
     u = 0.5 * (a + b)
-    for _ in range(newton_iters):
+    for _ in range(iters):
         gu, gpu = g_and_gp(u)
         u = torch.minimum(torch.maximum(
             u - gu / torch.clamp(gpu, max=-1e-10), a), b)
     return u
+
+
+def bisect_tree_newton_decreasing(g_and_gp, lo, hi, rounds=2, levels=3,
+                                  newton_iters=3):
+    """bisect_newton_decreasing with rounds * levels bisections taken as
+    `rounds` rounds of a tree: each round forms the midpoints of `levels`
+    bisection levels at once (2^levels - 1 of them, in heap order, each as
+    0.5 * (lo + hi) of its own bracket, the bisection's own operations),
+    evaluates g at all of them, then walks the tree on the signs of g. The
+    bracket, and so the result, is the sequential solve's bit for bit.
+
+    The plain twin of the merge solve in csrc/lnprob.cuh's
+    mbb_lnprob_eval_group (2 rounds of 3 levels), for tests.
+    """
+    a, b = torch.broadcast_tensors(lo, hi)
+    n = 2 ** levels - 1
+    for _ in range(rounds):
+        los, his, mids = [a], [b], [0.5 * (a + b)]
+        for i in range(1, n):
+            p = (i - 1) // 2
+            # node i's bracket: its parent's left half (odd i: the parent's
+            # g <= 0 sets b = m) or right half (even i: a = m)
+            lo_i, hi_i = (los[p], mids[p]) if i % 2 else (mids[p], his[p])
+            los.append(lo_i)
+            his.append(hi_i)
+            mids.append(0.5 * (lo_i + hi_i))
+        g = torch.stack([g_and_gp(m)[0] for m in mids])
+        mids = torch.stack(mids)
+        node = torch.zeros((1, *a.shape), dtype=torch.int64)
+        for _ in range(levels):
+            m = torch.gather(mids, 0, node)[0]
+            pos = torch.gather(g, 0, node)[0] > 0.0
+            a = torch.where(pos, m, a)
+            b = torch.where(pos, b, m)
+            node = 2 * node + torch.where(pos, 2, 1)
+    return _clamped_newton(g_and_gp, a, b, newton_iters)
 
 
 def golden_max(f, lo, hi, iters=64):

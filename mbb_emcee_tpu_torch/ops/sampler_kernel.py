@@ -11,11 +11,13 @@ sampler.stretch_run_plain, over stretch_half_step_from_uniforms with the
 same uniform layout and the same Philox stream. `mbb_stretch_run` runs the
 plain version for a state on the CPU, and for a CUDA state launches the
 kernel or raises; `mbb_stretch_run.launches` counts kernel launches.
-`FusedSampler` is the sampler surface around it.
+`plan_stretch_launch` picks the kernel's layout (lanes per walker, blocks
+per cluster). `FusedSampler` is the sampler surface around it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -23,38 +25,158 @@ import torch
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
     LnprobOperands, check_smem, current_stream_handle, mbb_lnprob,
-    prepare_lnprob_inputs)
+    prepare_lnprob_inputs, smem_optin_bytes)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, SamplerState, _check_run_args, stretch_run_plain)
 
-# One block holds the ensemble: at most 1024 threads, one per walker pair.
+# The G = 1, C = 1 layout holds the ensemble in one block of at most 1024
+# threads, one per walker pair.
 MAX_WALKERS = 2048
+MAX_THREADS = 1024
+# A grouped layout's block is at most 512 threads, so its kernel may take
+# 128 registers a thread (csrc/sampler.cu's launch bounds).
+MAX_GROUP_THREADS = 512
+GROUPS = (1, 8, 16, 32)       # lanes per walker
+MAX_CLUSTER = 8               # blocks per cluster (the portable maximum)
+# The H100's cudaDevAttrMaxSharedMemoryPerBlockOptin, the planner's default
+# budget off the card.
+H100_SMEM_OPTIN = 232448
+# (lanes per walker, blocks per cluster) per mode: point mode (one node per
+# band) with the Wien merge solve, without it (alpha fixed) for the thick
+# and the optically thin model, and response mode. Chosen from
+# chip_smoke.py's plan sweep (PERF.md).
+PLAN_TABLE = {"point": (8, 8), "point_noalpha_thick": (8, 8),
+              "point_noalpha_thin": (1, 1), "response": (32, 8)}
+# mbb_stretch_launch's code for a cluster the card cannot place.
+ERR_CLUSTER_UNPLACEABLE = -1
 
 
-def check_run_smem(icfg, half, device, what):
-    """Refuse a stretch-move launch whose block (its size as
-    csrc/stretch.cuh's mbb_run_dyn_bytes gives it) does not fit the card's
-    shared memory."""
-    nbytes = build_kernels().mbb_run_smem_bytes(int(icfg[3]), int(icfg[4]),
-                                                int(half))
+@dataclasses.dataclass(frozen=True)
+class StretchPlan:
+    """The stretch-move kernel's layout: `group` lanes of one warp per
+    walker, `cluster` blocks (one thread-block cluster when above 1) of
+    `threads` threads, each owning `walkers_per_block` walkers of each half,
+    and `smem_bytes` of dynamic shared memory per block."""
+    group: int
+    cluster: int
+    walkers_per_block: int
+    threads: int
+    smem_bytes: int
+
+
+def run_smem_bytes(nb, nnodes, half, threads):
+    """Dynamic shared memory of one stretch-move block of `threads` threads:
+    csrc/stretch.cuh's mbb_run_dyn_bytes (the likelihood's constants and one
+    slot per band per thread, then the ensemble's positions, lnprob and
+    accepts at half rounded up to 32), which the kernel library exports as
+    mbb_run_smem_bytes."""
+    consts = 20 + nb * (nb + 2) + 2 * nb * nnodes
+    hp = -(-half // 32) * 32
+    return 4 * (consts + nb * threads) + 56 * hp
+
+
+def max_threads(group):
+    """Threads per block the kernel of `group` lanes per walker takes."""
+    return MAX_THREADS if group == 1 else MAX_GROUP_THREADS
+
+
+def stretch_plan(group, cluster, nb, nnodes, half):
+    """The plan of `group` lanes per walker over `cluster` blocks for an
+    ensemble of 2 * half walkers (G = 1, C = 1: one block of
+    round_up(half, 32) threads, one per walker)."""
+    wpb = -(-half // cluster)
+    threads = -(-(wpb * group) // 32) * 32
+    return StretchPlan(group, cluster, wpb, threads,
+                       run_smem_bytes(nb, nnodes, half, threads))
+
+
+def plan_mode(nnodes, noalpha=False, opthin=False):
+    """PLAN_TABLE's key for a likelihood of nnodes nodes per band and a
+    model with or without the Wien merge solve (noalpha), thick or thin."""
+    if nnodes > 1:
+        return "response"
+    if not noalpha:
+        return "point"
+    return "point_noalpha_thin" if opthin else "point_noalpha_thick"
+
+
+def plan_stretch_launch(nb, nnodes, half, noalpha=False, opthin=False,
+                        smem_limit=H100_SMEM_OPTIN):
+    """The layout for nb bands x nnodes nodes, half walkers per half and a
+    model with (noalpha=False) or without the Wien merge solve, thick or
+    optically thin: PLAN_TABLE's for the mode (swept at 250 walkers), with
+    its lanes per walker halved while the block does not fit (max_threads
+    and `smem_limit` bytes), and the G = 1, C = 1 layout when no grouped
+    one fits."""
+    group, cluster = PLAN_TABLE[plan_mode(nnodes, noalpha, opthin)]
+    while group in GROUPS[1:]:
+        plan = stretch_plan(group, cluster, nb, nnodes, half)
+        if plan.threads <= max_threads(group) \
+                and plan.smem_bytes <= smem_limit:
+            return plan
+        group //= 2
+    return stretch_plan(1, 1, nb, nnodes, half)
+
+
+def check_plan(plan, nb, nnodes, half):
+    """Raise ValueError unless `plan` is a layout the kernel runs for this
+    likelihood and half-ensemble."""
+    if not isinstance(plan, StretchPlan):
+        raise ValueError(f"plan must be a StretchPlan, got {type(plan)}")
+    g, c, wpb, t = (plan.group, plan.cluster, plan.walkers_per_block,
+                    plan.threads)
+    problems = []
+    if g not in GROUPS:
+        problems.append(f"group {g} not in {GROUPS}")
+    if not 1 <= c <= MAX_CLUSTER:
+        problems.append(f"cluster {c} outside 1..{MAX_CLUSTER}")
+    if wpb < 1 or wpb * c < half:
+        problems.append(f"{c} blocks x {wpb} walkers do not hold {half} "
+                        "walkers per half")
+    if t % 32 or t > max_threads(g) or t < wpb * g:
+        problems.append(f"{t} threads is not a multiple of 32 in "
+                        f"[{wpb} walkers x {g} lanes, {max_threads(g)}]")
+    if g == 1 and c == 1 and t != -(-half // 32) * 32:
+        problems.append(f"one block of one thread per walker runs "
+                        f"{-(-half // 32) * 32} threads, not {t}")
+    if plan.smem_bytes != run_smem_bytes(nb, nnodes, half, t):
+        problems.append(f"smem_bytes {plan.smem_bytes} != "
+                        f"{run_smem_bytes(nb, nnodes, half, t)} for {t} "
+                        "threads")
+    if problems:
+        raise ValueError("bad stretch-move plan: " + "; ".join(problems))
+
+
+def check_run_smem(icfg, half, threads, device, what):
+    """Refuse a stretch-move launch whose block of `threads` threads (its
+    size as csrc/stretch.cuh's mbb_run_dyn_bytes gives it) does not fit the
+    card's shared memory."""
+    nbytes = build_kernels().mbb_run_smem_bytes(
+        int(icfg[3]), int(icfg[4]), int(half), int(threads))
     check_smem(int(nbytes), device, what)
 
 
 def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
-                    a=2.0, uniforms=None):
+                    a=2.0, uniforms=None, plan=None):
     """`nrec` records of `thin` stretch-move steps from `state` under the
     likelihood in `ops`. `uniforms` (nrec, 6 * thin, half) fp32 replaces the
-    Philox stream keyed by state.seed at state.step. Returns
-    (state, chain (nrec, nwalkers, nfree), lnpchain (nrec, nwalkers))."""
+    Philox stream keyed by state.seed at state.step. `plan` (a StretchPlan)
+    sets the kernel's layout; None takes plan_stretch_launch's (the plain
+    version on the CPU has none, but a bad plan is refused on every device).
+    Returns (state, chain (nrec, nwalkers, nfree), lnpchain
+    (nrec, nwalkers))."""
     device = state.pos_a.device
     if device != ops.device:
         raise ValueError(f"state on {device}, likelihood operands on "
                          f"{ops.device}")
+    half, nfree = state.pos_a.shape
+    nb, nnodes = int(ops.icfg[3]), int(ops.icfg[4])
+    if plan is not None:
+        check_plan(plan, nb, nnodes, half)
     if device.type == "cpu":
         return stretch_run_plain(state, ops.plain, nrec, thin, a, uniforms)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    half, nfree = state.pos_a.shape
     nw = 2 * half
     if nfree != ops.nfree or tuple(state.pos_b.shape) != (half, nfree):
         raise ValueError("state positions do not match the likelihood's "
@@ -70,7 +192,13 @@ def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
             raise ValueError(
                 f"uniforms must be a contiguous float32 "
                 f"({nrec}, {6 * thin}, {half}) tensor on {device}")
-    check_run_smem(ops.icfg, half, device, "the stretch-move kernel")
+    if plan is None:
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        plan = plan_stretch_launch(nb, nnodes, half, bool(ops.icfg[1]),
+                                   bool(ops.icfg[0]), smem_optin_bytes(index))
+    check_run_smem(ops.icfg, half, plan.threads, device,
+                   "the stretch-move kernel")
     lib = build_kernels()
     chain = torch.empty((nrec, nw, nfree), dtype=torch.float32,
                         device=device)
@@ -83,13 +211,18 @@ def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
             pos.data_ptr(), nacc.data_ptr(), ops.consts.data_ptr(),
             0 if uniforms is None else uniforms.data_ptr(),
             chain.data_ptr(), lnpchain.data_ptr(), pos_out.data_ptr(),
-            lnp_out.data_ptr(), nacc_out.data_ptr(), half, nrec, thin,
+            lnp_out.data_ptr(), nacc_out.data_ptr(), half, plan.group,
+            plan.cluster, plan.walkers_per_block, plan.threads, nrec, thin,
             float(a), state.seed & (2 ** 64 - 1), state.step,
             ops.icfg.ctypes.data, ops.fcfg.ctypes.data,
             current_stream_handle(device))
+    if rc == ERR_CLUSTER_UNPLACEABLE:
+        raise RuntimeError(f"mbb_stretch_run: the card cannot place a "
+                           f"cluster of {plan.cluster} blocks x "
+                           f"{plan.threads} threads ({plan})")
     if rc != 0:
         raise RuntimeError(f"mbb_stretch_run kernel launch failed: CUDA "
-                           f"error {rc}")
+                           f"error {rc} ({plan})")
     mbb_stretch_run.launches += 1
     new_state = SamplerState(
         pos_a=pos_out[:half], pos_b=pos_out[half:],

@@ -229,3 +229,38 @@ def test_kernels_match_plain_versions_on_the_card():
     want = multi_stretch_run_plain(mstate, multi.ops.plain, 3, 2, 2.0, u3)
     torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=1e-5)
     assert torch.equal(got[0].naccept, want[0].naccept)
+
+
+@pytest.mark.cuda
+def test_stretch_layouts_agree_on_the_card():
+    """On a CUDA machine: K2 on its planned layout (lanes per walker in a
+    thread-block cluster) and on every other layout of the planner's sweep
+    against the one-thread-per-walker layout, point mode, Philox stream:
+    bitwise; and the planner's shared-memory size is the library's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import (
+        max_threads, plan_stretch_launch, stretch_plan)
+    phot, shape, spec = _problem()
+    samp = FusedSampler(250, phot, shape, spec, device="cuda")
+    p0 = make_initial_ball(torch.Generator().manual_seed(1),
+                           [30.0, 1.8, 250.0, 3.5, 23.0],
+                           [2.0, 0.1, 20.0, 0.3, 1.0], 250,
+                           samp.free_space.lower, samp.free_space.upper,
+                           device="cuda")
+    state = samp.init_state(p0, seed=9)
+    plan = plan_stretch_launch(5, 1, 125)
+    assert plan.group > 1 and plan.cluster > 1
+    want = mbb_stretch_run(state, samp.ops, 10, 3,
+                           plan=stretch_plan(1, 1, 5, 1, 125))
+    for g in (1, 8, 16, 32):
+        for c in (1, 2, 4, 8):
+            p = stretch_plan(g, c, 5, 1, 125)
+            if p.threads > max_threads(g):
+                continue
+            assert build.build_kernels().mbb_run_smem_bytes(
+                5, 1, 125, p.threads) == p.smem_bytes
+            got = mbb_stretch_run(state, samp.ops, 10, 3, plan=p)
+            assert torch.equal(got[1], want[1]), p
+            assert torch.equal(got[2], want[2]), p
+            assert torch.equal(got[0].naccept, want[0].naccept), p
