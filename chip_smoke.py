@@ -9,7 +9,9 @@ non-zero without printing a result):
 
   0. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      nvcc path;
-  1. build: compile the kernels of mbb_emcee_tpu_torch/csrc with nvcc;
+  1. build: compile the kernels of mbb_emcee_tpu_torch/csrc with nvcc, and
+     require 0 spill bytes in the ptxas report of every K3 layout (each one
+     the planner may pick);
   2. K1 (lnprob kernel) against its plain torch version on the card, 4096
      parameter vectors (about 10% out of the box) for seven likelihoods;
   3. K2 (stretch-move kernel) against its plain replay on the card, on
@@ -36,7 +38,8 @@ non-zero without printing a result):
      recorded fp64 oracle moments, and MultiFitter at 256 sources x 250
      walkers x 5 bands (full model) with summaries and derived posteriors;
  10. time: K3's aggregate walker-steps/s at 256 x 250 x 5 against the plain
-     multi run on the card;
+     multi run on the card, in point mode and in response mode (config 3's
+     5 x 65 pack), each with its bound;
  11. response mode: K1 against its plain version on BASELINE config 3's
      5 x 65 built-in pack, a 5 x 129 pack, an 8 x 400 pack (above the old
      2080-float staging cap) and an 8 x 1000 pack (above 48 KB of shared
@@ -63,10 +66,23 @@ non-zero without printing a result):
      its threshold; the planned layout of each case;
  16. the plan sweep: K2's device time on every layout G x C in each mode of
      the planner's table (point mode with and without the Wien merge solve,
-     response mode), each in turns with G = 1, C = 1.
+     response mode), each in turns with G = 1, C = 1;
+ 17. K3's layouts (ops/multifit_kernel.py plan_multi_launch: G lanes per
+     walker in one block per source, or a cluster of C blocks per source)
+     against G = 1, C = 1 on shared external uniforms at 1, 4 and 256
+     sources: point mode (configs 1 and 2 with per-source upper limits and
+     a missing band, config 6's band correlation) bitwise; config 3's
+     5 x 65 and 5 x 129 packs where a chain may part only on an accept
+     decision within lnprob rounding of its threshold; the planned layout
+     of each case against the plain multi run under that rule; K3 at one
+     source on every layout against K2, bitwise;
+ 18. the K3 sweep: K3's device time on every layout the planner may pick,
+     at 4, 16, 32, 64, 256 and 1024 sources, in each mode of its table, each
+     in turns with G = 1, C = 1, beside how many sources of it the card
+     runs at once.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
-and K2's planned layouts), the nvidia-smi line, and as its last line
+and K2's and K3's planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
 before any phase. `--phases 3,15` runs the build and those phases alone,
 a rehearsal that prints no kernel table and no result line. A whole run
@@ -272,13 +288,35 @@ def phase_device():
 
 
 def phase_build():
-    from mbb_emcee_tpu_torch.ops.build import build_kernels, build_log
+    """Build the kernels, print nvcc's register and spill report, and
+    require 0 spill bytes on every K3 layout (MULTI_LAYOUTS: the planner may
+    pick each of them). Returns the report's rows of the K3
+    instantiations."""
+    from mbb_emcee_tpu_torch.ops.build import (
+        build_kernels, build_log, ptxas_report)
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import MULTI_LAYOUTS
     t0 = time.time()
     build_kernels()
     log(f"[1] build: {time.time() - t0:.1f} s")
     for line in (build_log() or "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[1]   {line.strip()}")
+    rows = [r for r in ptxas_report(build_log() or "")
+            if r["kernel"] == "mbb_multi_stretch_kernel"]
+    for r in rows:
+        log(f"[1] K3 G={r['group']} {'cluster' if r['cluster'] else 'block'}"
+            f": {r['registers']} registers, {r['spill_stores']} B spill "
+            f"stores, {r['spill_loads']} B spill loads")
+    have = {(r["group"], r["cluster"]): r for r in rows}
+    planned = sorted(MULTI_LAYOUTS)
+    bad = [lay for lay in planned if lay not in have
+           or have[lay]["spill_stores"] or have[lay]["spill_loads"]]
+    log(f"[1] K3 layouts {planned}: 0 spill bytes "
+        f"{'PASS' if not bad else 'FAIL ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"K3 layouts {bad} spill or are missing from "
+                             "the ptxas report")
+    return rows
 
 
 def phase_k1():
@@ -1092,6 +1130,47 @@ def phase_time_k3(card):
         f"walker-steps/s, {rate / NSOURCES:,.0f} per source ({card})")
     log(f"[10] plain torch multi run: {rate_plain:,.0f} aggregate "
         f"walker-steps/s over 200 steps ({card})")
+
+    # response mode at the batch cell's width: config 3's model on its
+    # 5 x 65 pack, per-source fluxes
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+    flux, unc = sweep_data(3, NSOURCES, seed=3001)
+    _, shape, spec = problem(3)
+    samp = FusedMultiSampler(NWALKERS, vp.WAVE, flux, unc, shape, spec,
+                             response_pack=port_response_pack(65)[1],
+                             device=DEVICE)
+    state = samp.init_state(_multi_ball(samp.free_space, NSOURCES, 40),
+                            seed=77)
+    out["k3_resp_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200, thin=10),
+                                 3)
+    out["k3_resp_plain_ms"] = _cuda_ms(lambda: multi_stretch_run_plain(
+        state, samp.ops.plain, 20, 10, samp.a), 1)
+    out["k3_resp_bound"] = k2_bound(
+        samp.ops.icfg, NSOURCES, NWALKERS, samp.ndim,
+        samp.ops.consts.numel() + samp.ops.flux.numel()
+        + samp.ops.errs.numel(), 200, 20)
+    t1 = min(_host_s(lambda: samp.run_mcmc(state, 1000, thin=10))
+             for _ in range(2))
+    t3 = min(_host_s(lambda: samp.run_mcmc(state, 3000, thin=10))
+             for _ in range(2))
+    out["k3_resp_rate"] = walkers * 2000 / (t3 - t1)
+    out["k3_rate"] = rate
+    log(f"[10] K3 response mode, {NSOURCES} sources x {NWALKERS} walkers x "
+        f"5 bands x 65 nodes x 200 steps: kernel {out['k3_resp_ms']:.3f} ms "
+        f"(CUDA events), plain torch multi run "
+        f"{out['k3_resp_plain_ms']:.1f} ms; bound "
+        f"{1e3 * out['k3_resp_bound'][0]:.4g} us "
+        f"({out['k3_resp_bound'][1]}; {lnprob_ops(samp.ops.icfg)} ops per "
+        f"lnprob) ({card})")
+    log(f"[10] K3 response sampler: 1000 steps {t1 * 1e3:.2f} ms, 3000 "
+        f"steps {t3 * 1e3:.2f} ms (thin 10) -> marginal "
+        f"{out['k3_resp_rate']:,.0f} aggregate walker-steps/s, "
+        f"{out['k3_resp_rate'] / NSOURCES:,.0f} per source; point mode "
+        f"{rate:,.0f} ({card})")
+    if not np.isfinite(out["k3_resp_rate"]) or out["k3_resp_rate"] <= 0:
+        raise AssertionError("K3 response-mode rate not measured")
     return out
 
 
@@ -1647,9 +1726,355 @@ def phase_plan_sweep(card):
     return out
 
 
-PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14", "15", "16")
+def _k3_layouts(nb, nn, half, nsrc, sm_count):
+    """K3's layouts for `nsrc` sources of 2 * half walkers: G in
+    MULTI_GROUPS in one block, and G in MULTI_CLUSTER_GROUPS x C in
+    SWEEP_CLUSTERS[1:] where S x C fits the card's SMs; those within the
+    kernel's threads. The planner's shared-memory size must be the
+    library's."""
+    from mbb_emcee_tpu_torch.ops.build import build_kernels
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import (
+        MULTI_CLUSTER_GROUPS, MULTI_GROUPS, MULTI_LAYOUTS)
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import stretch_plan
+    out = [stretch_plan(g, 1, nb, nn, half) for g in MULTI_GROUPS]
+    out += [stretch_plan(g, c, nb, nn, half) for g in MULTI_CLUSTER_GROUPS
+            for c in SWEEP_CLUSTERS[1:] if nsrc * c <= sm_count]
+    out = [p for p in out
+           if p.threads <= MULTI_LAYOUTS[(p.group, p.cluster > 1)]]
+    for p in out:
+        lib_bytes = build_kernels().mbb_run_smem_bytes(nb, nn, half,
+                                                       p.threads)
+        if lib_bytes != p.smem_bytes:
+            raise AssertionError(f"planner's {p.smem_bytes} B of shared "
+                                 f"memory != the library's {lib_bytes} B")
+    return out
 
+
+def _layout(p):
+    return f"G={p.group} x C={p.cluster}"
+
+
+def _k3_parting(where, samp, state, u, got, want):
+    """Two K3-shaped runs of single-step records (thin 1) on external
+    uniforms u (S, nrec, 6, half), `got` against `want` (another layout,
+    or the plain multi run): every source bitwise up to the record where
+    it parts, if it parts, with lnprob within K2's replay tolerance there
+    and accepts equal if it never parts; a parting walker's accept decision
+    must sit within lnprob rounding of its threshold (_decision_margin, on
+    the plain lnprob). Returns (sources parted, max |d lnp| before any
+    parting, notes)."""
+    import torch
+    (sg, cg, lg), (sw, cw, lw) = got, want
+    half = state.pos.shape[1] // 2
+    nrec = cg.shape[1]
+    rec_parted = (cg != cw).any(-1).any(-1)              # (S, nrec)
+    parted, dl, notes = 0, 0.0, []
+    for s in range(cg.shape[0]):
+        hit = torch.nonzero(rec_parted[s])
+        t = int(hit[0]) if len(hit) else nrec
+        if t:
+            dl = max(dl, float((lg[s, :t] - lw[s, :t]).abs().max()))
+            if not torch.allclose(lg[s, :t], lw[s, :t], rtol=K2_RTOL,
+                                  atol=K2_LNP_ATOL):
+                raise AssertionError(f"{where}: source {s} lnprob off before"
+                                     " any parting")
+        if t == nrec:
+            if not torch.equal(sg.naccept[s], sw.naccept[s]):
+                raise AssertionError(f"{where}: source {s} accepts differ")
+            continue
+        parted += 1
+        hb = int(not (cg[s, t, :half] != cw[s, t, :half]).any())
+        act = slice(half * hb, half * (hb + 1))
+        prev = state.pos[s] if t == 0 else cw[s, t - 1]
+        lnp_prev = (samp.ops.plain(state.pos[:, act])[s] if t == 0
+                    else lw[s, t - 1, act])
+
+        def lnp_of(prop, s=s):
+            batch = state.pos[:, :half].clone()
+            batch[s] = prop
+            return samp.ops.plain(batch)[s]
+        lanes = torch.nonzero((cg[s, t, act] != cw[s, t, act]).any(-1))
+        dist, tol = _decision_margin(
+            f"{where} source {s} step {t}", samp.a, prev[act],
+            cw[s, t, :half] if hb else prev[half:],
+            u[s, t, 3 * hb:3 * hb + 3], lnp_prev, lnp_of,
+            (cg[s, t, act], cw[s, t, act]), lanes.flatten())
+        notes.append(f"source {s} step {t}: {dist:.3g} <= {tol:.3g}")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{where}: lnprob not finite")
+    return parted, dl, notes
+
+
+def k3_cases():
+    """Phase 17's likelihood cases: (name, bitwise, builder), where
+    builder(S) gives FusedMultiSampler keyword arguments for S sources:
+    configs 1 and 2 with per-source upper limits and a missing band,
+    config 6's band correlation (whitening; upper limits do not compose
+    with it) with a missing band, all in point mode (bitwise across
+    layouts); config 3's 5 x 65 and 5 x 129 packs with per-source fluxes
+    (response mode: the band sums' order differs across layouts)."""
+    import dataclasses
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+
+    def point(ci, correlated):
+        def make(nsrc):
+            flux, unc = sweep_data(ci, nsrc, seed=100 + ci, missing_every=3)
+            _, shape, spec = problem(ci)
+            kw = dict(flux=flux, unc=unc, shape=shape)
+            if correlated:
+                mf = batch_fitter(flux, unc)
+                mf.set_band_correlation(vp.CAL_CORR)
+                kw.update(spec=dataclasses.replace(spec, uplim_bands=None),
+                          whiten=mf._whiten_operand())
+            else:
+                ul = np.zeros((nsrc, 5), bool)
+                ul[::3, 4] = True
+                ul[1::5, 3] = True
+                ul[1::3, 0] = True      # a limit on a missing band
+                kw.update(spec=dataclasses.replace(spec, uplim_bands=ul))
+            return kw
+        return make
+
+    def response(nn):
+        def make(nsrc):
+            flux, unc = sweep_data(3, nsrc, seed=300)
+            _, shape, spec = problem(3)
+            return dict(flux=flux, unc=unc, shape=shape, spec=spec,
+                        response_pack=port_response_pack(nn)[1])
+        return make
+    return [("config 1 uplims + missing band", True, point(1, False)),
+            ("config 2 uplims + missing band", True, point(2, False)),
+            ("config 6 band correlation + missing band", True,
+             point(6, True)),
+            ("config 3 5 x 65", False, response(65)),
+            ("config 3 5 x 129", False, response(129))]
+
+
+def sweep_data(ci, nsrc, seed, missing_every=0):
+    """Config ci's mock photometry for `nsrc` sources: one noise draw from
+    numpy seed `seed`, each source's fluxes scaled by a factor in
+    [0.8, 1.2] from the same seed, band 0 missing (NaN) in every
+    `missing_every`-th source. Returns (flux, unc) (S, 5)."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    f, unc, _ = vp.mock_data(vp.CONFIGS[ci], seed=seed)
+    scale = np.random.default_rng(seed).uniform(0.8, 1.2, (nsrc, 1))
+    flux, unc = f[None] * scale, unc[None] * scale
+    if missing_every:
+        flux[1::missing_every, 0] = np.nan
+        unc[1::missing_every, 0] = np.nan
+    return flux, unc
+
+
+K3_CHECK_SOURCES = (1, 4, 256)
+
+
+def phase_k3_layouts():
+    """K3 on every layout the planner may pick (_k3_layouts) against the
+    G = 1, C = 1 layout on shared external uniforms, at S in
+    K3_CHECK_SOURCES, per k3_cases case: point mode bitwise (chains,
+    lnprob, accepts, final state); response mode under _k3_parting's rule.
+    The planned layout of each case against the plain multi run under the
+    same rule. Then K3 at one source on every layout against K2 on its
+    planned layout, Philox mode: bitwise. Returns (the planned layout by
+    case and S, max |d lnp| before any parting)."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import (
+        FusedMultiSampler, device_sm_count, mbb_multi_stretch_run,
+        plan_multi_on_card)
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import (
+        FusedSampler, stretch_plan)
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    sms = device_sm_count(0)
+    plans, worst = {}, 0.0
+    for name, bitwise, make in k3_cases():
+        nrec, thin = 12, 1
+        for nsrc in K3_CHECK_SOURCES:
+            samp = FusedMultiSampler(NWALKERS, vp.WAVE, rng="external",
+                                     device=DEVICE, **make(nsrc))
+            state = samp.init_state(
+                _multi_ball(samp.free_space, nsrc, 70), seed=3)
+            half = samp.half
+            nb, nn = int(samp.ops.icfg[3]), int(samp.ops.icfg[4])
+            u = np.random.default_rng(17).uniform(
+                0.001, 0.999, (nsrc, nrec, 6 * thin, half))
+            u = torch.as_tensor(u.astype(np.float32), device=DEVICE)
+
+            def run(p):
+                return mbb_multi_stretch_run(state, samp.ops, nrec, thin,
+                                             samp.a, u, plan=p)
+            ref = run(stretch_plan(1, 1, nb, nn, half))
+            planned = plan_multi_on_card(
+                nb, nn, half, nsrc, bool(samp.ops.icfg[1]),
+                bool(samp.ops.icfg[0]), DEVICE)
+            plans[f"{name}, S={nsrc}"] = planned
+            rows = []
+            for p in _k3_layouts(nb, nn, half, nsrc, sms):
+                got = run(p)
+                if bitwise:
+                    same = all(torch.equal(x, y) for x, y in (
+                        (got[1], ref[1]), (got[2], ref[2]),
+                        (got[0].naccept, ref[0].naccept),
+                        (got[0].pos, ref[0].pos)))
+                    rows.append(f"{_layout(p)} "
+                                f"{'bitwise' if same else 'DIFFERENT'}")
+                    if not same:
+                        log(f"[17] K3 {name}, S={nsrc}: " + "; ".join(rows)
+                            + " FAIL")
+                        raise AssertionError(f"K3 {name}: {p} differs from "
+                                             "G=1, C=1 in point mode")
+                else:
+                    n, dl, _ = _k3_parting(f"K3 {name} {_layout(p)}", samp,
+                                           state, u, got, ref)
+                    worst = max(worst, dl)
+                    rows.append(f"{_layout(p)} {nsrc - n}/{nsrc} bitwise")
+            log(f"[17] K3 {name}, {nsrc} source(s) x {NWALKERS} walkers, "
+                f"{nrec} records x thin {thin}, against G=1, C=1: "
+                + "; ".join(rows) + " PASS")
+            # the planned layout (the wrapper's own choice) against plain
+            got = mbb_multi_stretch_run(state, samp.ops, nrec, thin, samp.a,
+                                        u)
+            want = multi_stretch_run_plain(state, samp.ops.plain, nrec, thin,
+                                           samp.a, u)
+            n, dl, notes = _k3_parting(f"K3 {name} planned", samp, state, u,
+                                       got, want)
+            worst = max(worst, dl)
+            log(f"[17] K3 {name}, S={nsrc}: planned {_layout(planned)} "
+                f"against the plain multi run: {nsrc - n}/{nsrc} bitwise, "
+                f"lnp max |d| {dl:.3g} before any parting"
+                + (" (" + "; ".join(notes) + ")" if notes else "")
+                + " PASS")
+
+    # one source on every layout against K2, Philox mode
+    for ci in (1, 2):
+        phot, shape, spec = problem(ci)
+        single = FusedSampler(NWALKERS, phot, shape, spec, device=DEVICE)
+        one = FusedMultiSampler(NWALKERS, vp.WAVE, phot.flux[None],
+                                phot.unc[None], shape, spec, device=DEVICE)
+        p0 = _ball(single.free_space, NWALKERS, 4, DEVICE)
+        a = single.run_mcmc(single.init_state(p0, seed=77), 200, thin=10)
+        st = one.init_state(p0[None], seed=77)
+        rows = []
+        for p in _k3_layouts(5, 1, one.half, 1, sms):
+            b = mbb_multi_stretch_run(st, one.ops, 20, 10, one.a, plan=p)
+            same = (torch.equal(a[1], b[1][0]) and torch.equal(a[2], b[2][0])
+                    and torch.equal(a[0].naccept, b[0].naccept[0])
+                    and torch.equal(a[0].position, b[0].pos[0]))
+            rows.append(f"{_layout(p)} {'bitwise' if same else 'DIFFERENT'}")
+            if not same:
+                log(f"[17] config {ci}: " + "; ".join(rows) + " FAIL")
+                raise AssertionError(f"K3 at S=1 on {p} differs from K2")
+        log(f"[17] K3 at one source against K2 (config {ci}, Philox, 200 "
+            f"steps): " + "; ".join(rows) + " PASS")
+    return plans, worst
+
+
+
+K3_SWEEP_SOURCES = (4, 16, 32, 64, 256, 1024)
+
+
+def phase_k3_sweep(card):
+    """K3's device time per 200-step Philox launch (20 records x thin 10)
+    on every layout the planner may pick (_k3_layouts) at S in
+    K3_SWEEP_SOURCES, in each of MULTI_PLAN_TABLE's modes (SWEEP_CASES'
+    configs; response mode on config 3's 5 x 65 pack), each timed in turns
+    with G = 1, C = 1 (old, new, new, old) by CUDA events over back-to-back
+    launches; few repetitions (one at 1024 sources, which places the
+    crossover to one thread per walker). Each row also shows how many
+    sources of its layout the card runs at once (card_resident, the
+    planner's one-wave test: for a cluster, with a block per SM). In point mode every layout's chains must
+    equal G = 1, C = 1's bitwise. Returns {"mode S": {"plan", "us",
+    "old_us", "bound_us", "rows"}} for the planned layout (the bound of
+    k2_bound for the cell's S sources)."""
+    import dataclasses
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import (
+        FusedMultiSampler, card_resident, device_sm_count,
+        mbb_multi_stretch_run, plan_multi_on_card)
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import stretch_plan
+    sms = device_sm_count(0)
+    _, pack65 = port_response_pack(65)
+    out = {}
+    for mode, ci in SWEEP_CASES:
+        resp = mode == "response"
+        for nsrc in K3_SWEEP_SOURCES:
+            reps = 1 if nsrc > 2 * sms else 2
+            flux, unc = sweep_data(ci, nsrc, seed=400 + ci)
+            _, shape, spec = problem(ci)
+            samp = FusedMultiSampler(NWALKERS, vp.WAVE, flux, unc, shape,
+                                     spec, response_pack=pack65 if resp
+                                     else None, device=DEVICE)
+            p0 = _ball(samp.free_space, NWALKERS, 6, DEVICE)
+            state = samp.init_state(
+                torch.stack([p0.roll(s, 0) for s in range(nsrc)]), seed=77)
+            half = samp.half
+            nb, nn = int(samp.ops.icfg[3]), int(samp.ops.icfg[4])
+            plan = plan_multi_on_card(nb, nn, half, nsrc,
+                                      bool(samp.ops.icfg[1]),
+                                      bool(samp.ops.icfg[0]), DEVICE)
+            resident = card_resident(0, nb, nn, half)
+            old = stretch_plan(1, 1, nb, nn, half)
+            bnd = k2_bound(samp.ops.icfg, nsrc, NWALKERS, samp.ndim,
+                           samp.ops.consts.numel() + samp.ops.flux.numel()
+                           + samp.ops.errs.numel(), 200, 20)
+
+            def run(p):
+                return mbb_multi_stretch_run(state, samp.ops, 20, 10, samp.a,
+                                             plan=p)
+
+            def dev(p):
+                return 1e3 * _cuda_ms(lambda: run(p), reps)
+            ref = run(old)
+            rows = []
+            log(f"[18] K3 sweep, {mode} mode (config {ci}), {nsrc} sources "
+                f"x {NWALKERS} walkers x 200 steps, us per launch by CUDA "
+                f"events in turns (old, new, new, old) ({card}):")
+            log("[18] | G | C | walkers/block | threads | smem B | sources "
+                "at once | new us | old us | new/old | chains vs G=1,C=1 |")
+            for p in _k3_layouts(nb, nn, half, nsrc, sms):
+                got = run(p)
+                same = (torch.equal(got[1], ref[1])
+                        and torch.equal(got[2], ref[2]))
+                if not resp and not same:
+                    raise AssertionError(f"K3 layout {p} differs from G=1, "
+                                         "C=1 in point mode")
+                del got
+                t = [dev(old), dev(p), dev(p), dev(old)]
+                new_us, old_us = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                res = resident(p)
+                rows.append({"group": p.group, "cluster": p.cluster,
+                             "resident": res, "new_us": t[1:3],
+                             "old_us": [t[0], t[3]]})
+                log(f"[18] | {p.group} | {p.cluster} | "
+                    f"{p.walkers_per_block} | {p.threads} | {p.smem_bytes} | "
+                    f"{res} | "
+                    f"{t[1]:.1f}, {t[2]:.1f} | {t[0]:.1f}, {t[3]:.1f} | "
+                    f"{new_us / old_us:.4f} | "
+                    f"{'bitwise' if same else 'parted'} |")
+            best = min(rows, key=lambda r: sum(r["new_us"]))
+            mine = next(r for r in rows if (r["group"], r["cluster"])
+                        == (plan.group, plan.cluster))
+            log(f"[18] {mode} mode, S={nsrc}: fastest G={best['group']}, "
+                f"C={best['cluster']} ({sum(best['new_us']) / 2:.1f} us); "
+                f"planned {_layout(plan)} ({sum(mine['new_us']) / 2:.1f} us "
+                f"against {sum(mine['old_us']) / 2:.1f} us on G=1, C=1); "
+                f"bound {1e3 * bnd[0]:.4g} us ({bnd[1]}) ({card})")
+            out[f"{mode} {nsrc}"] = {
+                "plan": dataclasses.asdict(plan),
+                "us": sum(mine["new_us"]) / 2,
+                "old_us": sum(mine["old_us"]) / 2, "bound_us": 1e3 * bnd[0],
+                "rows": rows}
+            del ref, samp, state
+    return out
+
+
+PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
+          "13", "14", "15", "16", "17", "18")
 
 def main(argv=None):
     import argparse
@@ -1669,6 +2094,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
+    t0 = time.time()
     steps = [
         ("0", phase_device), ("1", phase_build), ("2", phase_k1),
         ("3", phase_k2), ("4", phase_determinism), ("5", phase_main_path),
@@ -1677,7 +2103,8 @@ def main(argv=None):
         ("9", phase_batch_path), ("10", lambda: phase_time_k3(card)),
         ("11", phase_response_kernels), ("12", phase_extend),
         ("13", lambda: phase_time_response(card)), ("14", phase_parity),
-        ("15", phase_k2_layouts), ("16", lambda: phase_plan_sweep(card))]
+        ("15", phase_k2_layouts), ("16", lambda: phase_plan_sweep(card)),
+        ("17", phase_k3_layouts), ("18", lambda: phase_k3_sweep(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -1695,6 +2122,8 @@ def main(argv=None):
     r1, r2, r3 = res["11"]
     plans, k2_layout_err = res["15"]
     sweep = res["16"]
+    k3_plans, k3_layout_err = res["17"]
+    k3_sweep = res["18"]
     k1_by_path = {"single fit (phase 5)": counts["mbb_lnprob"],
                   "extend (phase 12)": ext["mbb_lnprob"],
                   "parity matrix (phase 14)": par["mbb_lnprob"]}
@@ -1742,12 +2171,43 @@ def main(argv=None):
          "replaces": "mbb_emcee_tpu/ops/pallas_multifit.py:203",
          "launches": sum(k3_by_path.values()),
          "launches_by_path": k3_by_path,
-         "max_abs_err": max(res["7"], res["8"], r3), "ms": t["k3_ms"],
-         "plain_ms": t["k3_plain_ms"],
+         "max_abs_err": max(res["7"], res["8"], r3, k3_layout_err),
+         "ms": t["k3_ms"], "plain_ms": t["k3_plain_ms"],
          "bound_ms": t["k3_bound"][0], "bound_us": 1e3 * t["k3_bound"][0],
          "bound_by": t["k3_bound"][1], "library_ms": None,
-         "library_note": no_library},
+         "library_note": no_library,
+         "rate": t["k3_rate"],
+         "plan": k3_sweep[f"point {NSOURCES}"]["plan"],
+         "sweep_us": k3_sweep[f"point {NSOURCES}"]["us"],
+         "sweep_us_g1c1": k3_sweep[f"point {NSOURCES}"]["old_us"],
+         "plan_4_sources": k3_sweep["point 4"]["plan"],
+         "sweep_us_4_sources": k3_sweep["point 4"]["us"],
+         "sweep_us_4_sources_g1c1": k3_sweep["point 4"]["old_us"],
+         "bound_us_4_sources": k3_sweep["point 4"]["bound_us"],
+         "response_ms": t["k3_resp_ms"],
+         "response_plain_ms": t["k3_resp_plain_ms"],
+         "response_bound_ms": t["k3_resp_bound"][0],
+         "response_rate": t["k3_resp_rate"],
+         "response_plan": k3_sweep[f"response {NSOURCES}"]["plan"],
+         "response_sweep_us": k3_sweep[f"response {NSOURCES}"]["us"],
+         "response_sweep_us_g1c1": k3_sweep[f"response {NSOURCES}"]["old_us"],
+         "response_plan_4_sources": k3_sweep["response 4"]["plan"],
+         "response_sweep_us_4_sources": k3_sweep["response 4"]["us"],
+         "response_sweep_us_4_sources_g1c1":
+             k3_sweep["response 4"]["old_us"],
+         "response_bound_us_4_sources": k3_sweep["response 4"]["bound_us"],
+         "planned_layouts": {k: f"G={p.group} x C={p.cluster}"
+                             for k, p in k3_plans.items()},
+         "sweep_cells": {k: {"plan": f"G={v['plan']['group']} x "
+                                     f"C={v['plan']['cluster']}",
+                             "us": v["us"], "us_g1c1": v["old_us"],
+                             "bound_us": v["bound_us"]}
+                         for k, v in k3_sweep.items()},
+         "ptxas": [{k: r[k] for k in ("group", "cluster", "registers",
+                                      "spill_stores", "spill_loads")}
+                   for r in res["1"]]},
     ]
+    log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

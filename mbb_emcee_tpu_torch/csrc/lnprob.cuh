@@ -22,13 +22,15 @@
 // counts (no compile-time cap), ln(wavelength) terms precomputed there,
 // and each thread keeps nb residual (or partial-sum) slots there. Two
 // layouts of one walker's evaluation:
-//   - mbb_lnprob_eval: one thread per walker (K1, K3, and K2's G=1
-//     layout), the whole chain serial in that thread.
-//   - mbb_lnprob_eval_group<G>: G lanes of one warp per walker (K2), to
-//     shorten the chain. The 6 bisections run as 2 rounds of a 7-node tree:
-//     each round forms the 3 levels' midpoints in the bisection's own
-//     operations, evaluates the slope at node j on lane j, and walks the
-//     tree on the signs of g, which is the sequential bracket bit for bit.
+//   - mbb_lnprob_eval: one thread per walker (K1, and K2's and K3's G=1
+//     layouts), the whole chain serial in that thread.
+//   - mbb_lnprob_eval_group<G>: G lanes of one warp per walker (K2, K3), to
+//     shorten the chain. From 8 lanes the 6 bisections run as 2 rounds of a
+//     7-node tree: each round forms the 3 levels' midpoints in the
+//     bisection's own operations, evaluates the slope at node j on lane j,
+//     and walks the tree on the signs of g, which is the sequential bracket
+//     bit for bit. On 4 lanes (K3's one-wave layout, where registers allow
+//     no more lanes) they run as 3 rounds of a 3-node tree.
 //     The rounds evaluate the slope alone, on every lane alike: a round that
 //     also evaluated ln S at band nodes took about as long as the 6
 //     sequential bisections. A lane's first node (node i on lane i mod G;
@@ -339,19 +341,28 @@ static __device__ __forceinline__ float mbb_wien_select(
   return log_x > u_m ? ls_m - alpha * (log_x - u_m) : base;
 }
 
+// Levels of the merge solve's bisection tree on G lanes: 3 (7 nodes, 2
+// rounds) from 8 lanes, 2 (3 nodes, 3 rounds) on 4.
+template <int G>
+struct MbbMergeTree {
+  static constexpr int levels = G >= 8 ? 3 : 2;
+  static constexpr int rounds = MBB_MERGE_BISECT / levels;
+};
+
 // Log-probability of th[5] evaluated by the G lanes of this thread's group
-// (lane in [0, G); G in {8, 16, 32}); every lane returns it. The thread's
-// nb band slots are s.delta[b * blockDim.x + threadIdx.x]. Items are the
-// normalization point (0) and the nb * nnodes band nodes (1 + r); item i is
-// on lane i mod G. An item's term goes into its band's slot on the lane
-// that evaluated it (in item order), and the slots combine over the group
-// by __shfl_xor_sync in a fixed order.
+// (lane in [0, G); G in {4, 8, 16, 32}); every lane returns it. The
+// thread's nb band slots are s.delta[b * blockDim.x + threadIdx.x]. Items
+// are the normalization point (0) and the nb * nnodes band nodes (1 + r);
+// item i is on lane i mod G. An item's term goes into its band's slot on
+// the lane that evaluated it (in item order), and the slots combine over
+// the group by __shfl_xor_sync in a fixed order.
 template <int G>
 static __device__ __forceinline__ float mbb_lnprob_eval_group(
     const float th[MBB_NPARAMS], const MbbConfig& c, const MbbShared& s,
     int lane) {
-  static_assert(G == 8 || G == 16 || G == 32, "G lanes per walker");
-  static_assert(MBB_MERGE_BISECT == 6, "2 rounds of a 3-level tree");
+  static_assert(G == 4 || G == 8 || G == 16 || G == 32, "G lanes per walker");
+  static_assert(MBB_MERGE_BISECT == 6, "6 bisections: 2 x 3 or 3 x 2");
+  constexpr int kLevels = MbbMergeTree<G>::levels;
   const unsigned mask = mbb_group_mask<G>();
   bool inbox;
   float v[MBB_NPARAMS];
@@ -375,13 +386,27 @@ static __device__ __forceinline__ float mbb_lnprob_eval_group(
     float a = logf(lo_arg);
     float b = logf(fmaxf((3.0f + alpha) + beta, 1.01f * lo_arg));
 #pragma unroll
-    for (int round = 0; round < 2; ++round) {
-      // The midpoints of 3 bisection levels in the bisection's own
+    for (int round = 0; round < MbbMergeTree<G>::rounds; ++round) {
+      // The midpoints of kLevels bisection levels in the bisection's own
       // operations (level 1: n0; level 2: n1, n2; level 3: n3-n6), the
-      // slope at node j on lane j (lanes from 7 repeat node 0).
+      // slope at node j on lane j (lanes past the last node repeat node 0).
       const float n0 = 0.5f * (a + b);
       const float n1 = 0.5f * (a + n0);
       const float n2 = 0.5f * (n0 + b);
+      if constexpr (kLevels == 2) {
+        const float p = lane == 1 ? n1 : lane == 2 ? n2 : n0;
+        float g, gp;
+        mbb_merge_g_gp(p, beta, log_x0, alpha, c.opthin, &g, &gp);
+        float gt[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) gt[j] = __shfl_sync(mask, g, j, G);
+        const bool b0 = gt[0] > 0.0f;
+        if (b0) a = n0; else b = n0;
+        const float m2 = b0 ? n2 : n1;
+        const bool b1 = (b0 ? gt[2] : gt[1]) > 0.0f;
+        if (b1) a = m2; else b = m2;
+        continue;
+      }
       const float n3 = 0.5f * (a + n1);
       const float n4 = 0.5f * (n1 + n0);
       const float n5 = 0.5f * (n0 + n2);

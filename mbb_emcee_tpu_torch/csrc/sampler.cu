@@ -71,9 +71,6 @@ static MbbStretchKernel mbb_stretch_kernel_for(int group) {
   }
 }
 
-// Returned when the card cannot hold one cluster of the plan.
-#define MBB_ERR_CLUSTER_UNPLACEABLE (-1)
-
 // Launch the run on `stream` under the plan (group lanes per walker,
 // `cluster` blocks of `threads` threads, `wpb` walkers of each half per
 // block) with the likelihood's and the run's dynamic shared memory (the

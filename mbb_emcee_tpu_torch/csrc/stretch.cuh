@@ -14,10 +14,12 @@
 // latency of one lnprob twice plus the barriers; bytes and the card's
 // arithmetic rate are far from binding.
 // Design: mbb_stretch_body<G, CLUSTER> runs the ensemble on a layout the
-// caller picks (ops/sampler_kernel.py plan_stretch_launch):
+// caller picks (K2: ops/sampler_kernel.py plan_stretch_launch; K3, one
+// ensemble per source: ops/multifit_kernel.py plan_multi_launch):
 //   - G lanes of one warp per walker (G = 1: one thread per walker, the
-//     lnprob of mbb_lnprob_eval; G in {8, 16, 32}: mbb_lnprob_eval_group),
-//     so a walker's lnprob latency is split over its lanes;
+//     lnprob of mbb_lnprob_eval; G in {4, 8, 16, 32}:
+//     mbb_lnprob_eval_group), so a walker's lnprob latency is split over
+//     its lanes;
 //   - CLUSTER: the ensemble spread over the C blocks of a thread-block
 //     cluster (Hopper), each block owning a slice of each half's walkers
 //     on its own SM. Every block keeps a mirror of both halves' positions
@@ -39,6 +41,10 @@
 #include <cooperative_groups.h>
 
 #include "lnprob.cuh"
+
+// What the K2 and K3 launches return when the card cannot hold one cluster
+// of the plan (cudaOccupancyMaxActiveClusters finds no room).
+#define MBB_ERR_CLUSTER_UNPLACEABLE (-1)
 
 static __device__ __forceinline__ uint4 mbb_philox4x32_10(uint4 ctr,
                                                           uint2 key) {
@@ -75,7 +81,7 @@ static inline size_t mbb_stretch_dyn_bytes(int half) {
 
 // Bytes of dynamic shared memory of one block of K2 or K3 of `threads`
 // threads (one ensemble of 2 * half walkers): the likelihood's region for
-// those threads, then the run's arrays. K3 and K2's G=1, C=1 layout run
+// those threads, then the run's arrays. The G=1, C=1 layout of either runs
 // round_up(half, 32) threads.
 static inline size_t mbb_run_dyn_bytes(int nb, int nnodes, int half,
                                        int threads) {
@@ -175,7 +181,7 @@ static __device__ __forceinline__ void mbb_publish(
 }
 
 // Write walker k's state of half h from this block's mirror into chain
-// record r, one value per lane (G = 1: all by the one thread).
+// record r: value i (the 5 parameters, then lnprob) by lane i mod G.
 template <int G>
 static __device__ __forceinline__ void mbb_write_record(
     float* __restrict__ chain, float* __restrict__ lnpchain,
@@ -185,18 +191,19 @@ static __device__ __forceinline__ void mbb_write_record(
 #pragma unroll
   for (int i = 0; i < MBB_NPARAMS; ++i) {
     const int f = c.fmap[i];
-    if ((G == 1 || lane == i) && f >= 0)
+    if (lane == i % G && f >= 0)
       chain[((size_t)r * nw + w) * c.nfree + f] =
           pos[(h * MBB_NPARAMS + i) * hp + k];
   }
-  if (G == 1 || lane == MBB_NPARAMS)
+  if (lane == MBB_NPARAMS % G)
     lnpchain[(size_t)r * nw + w] = lnp[h * hp + k];
 }
 
-// One ensemble's run. Thread t of block `rank` is lane t % G of walker
-// k = rank * wpb + t / G of each half (wpb walkers per block; K3 and K2's
-// G=1, C=1 layout: rank 0, wpb = blockDim.x = round_up(half, 32), which
-// the launches must keep); a group with k >= half idles. The cluster's
+// One ensemble's run. Thread t of block `rank` (the block's rank in its
+// cluster, 0 without one) is lane t % G of walker k = rank * wpb + t / G of
+// each half, for wpb walkers per block that the launch plans (one block:
+// wpb >= half; the G=1, C=1 layout: wpb = blockDim.x = round_up(half, 32),
+// which the launches must keep); a group with k >= half idles. The cluster's
 // first barrier also makes sure every block runs before any writes into
 // another's mirror, and its last one that none leaves while another still
 // writes into it. The caller has written the likelihood constants
@@ -206,7 +213,8 @@ static __device__ __forceinline__ void mbb_write_record(
 // and lnp_out (nw), uniforms (nrec, 6 * thin, half) or null for Philox
 // mode, chain (nrec, nw, nfree), lnpchain (nrec, nw). Philox counter words:
 // (step low 32 bits, h + 2 * source, walker k, step high 32 bits) under the
-// 64-bit `seed`, so source 0 draws the single-ensemble stream.
+// 64-bit `seed`, so source 0 draws the single-ensemble stream, and every
+// layout of K3 draws the same streams.
 template <int G, bool CLUSTER>
 static __device__ __forceinline__ void mbb_stretch_body(
     const float* __restrict__ pos_in, const int* __restrict__ nacc_in,

@@ -6,7 +6,8 @@ objects into one shared library with a plain C interface, at first use,
 into build/mbb_emcee_tpu_torch/<hash>/ beside the package (the hash covers
 the sources and the flags, so an edited kernel is rebuilt), and loads it
 with ctypes. The compiler's register and spill report is kept beside the
-library in build.log. Nothing is compiled when the package is imported.
+library in build.log (`ptxas_report` reads it per kernel instantiation).
+Nothing is compiled when the package is imported.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -114,9 +116,12 @@ def _load(path):
         ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
     lib.mbb_stretch_launch.restype = _I
     lib.mbb_multi_stretch_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _P, _P, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I, _I, ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _P, _P,
+        _P]
     lib.mbb_multi_stretch_launch.restype = _I
+    lib.mbb_multi_resident.argtypes = [_I] * 7
+    lib.mbb_multi_resident.restype = _I
     lib.mbb_smem_optin.argtypes = [_I]
     lib.mbb_smem_optin.restype = _I
     lib.mbb_lnprob_smem_bytes.argtypes = [_I, _I]
@@ -131,3 +136,44 @@ def build_log():
     None before the first build."""
     log = library_path().parent / "build.log"
     return log.read_text() if log.is_file() else None
+
+
+# A stretch-move kernel's entry name as nvcc mangles it, with its template
+# arguments (lanes per walker, cluster): mbb_stretch_kernel<8, true> is
+# _Z18mbb_stretch_kernelILi8ELb1EEv...
+_ENTRY = re.compile(r"_Z\d+(mbb_\w*?_kernel)(?:ILi(\d+)ELb([01])EEv)?")
+
+
+def ptxas_report(log):
+    """Registers and spill bytes of every kernel entry in nvcc's -Xptxas -v
+    output `log`: a list of {"kernel", "group", "cluster", "registers",
+    "spill_stores", "spill_loads"} (group and cluster None for an entry
+    that is not a template of them)."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            e = _ENTRY.match(m.group(1))
+            if e is None:
+                cur = None
+            elif cur is None or cur["mangled"] != m.group(1):
+                cur = {"mangled": m.group(1), "kernel": e.group(1),
+                       "group": None if e.group(2) is None
+                       else int(e.group(2)),
+                       "cluster": None if e.group(3) is None
+                       else e.group(3) == "1",
+                       "registers": None, "spill_stores": None,
+                       "spill_loads": None}
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return [{k: v for k, v in r.items() if k != "mangled"} for r in rows]

@@ -5,8 +5,10 @@ Replaces the TPU kernel mbb_emcee_tpu/ops/pallas_multifit.py
 ::_make_multi_kernel (:203-343; lnprob _make_multi_lnp :69-166), which
 FusedMultiPallasSampler._make_run (:597-720) launches. The CUDA source is
 csrc/multifit.cu (its header notes what bounds it and how it is laid out):
-one thread block per source running the single-ensemble run loop of
-csrc/stretch.cuh on the shared per-walker lnprob of csrc/lnprob.cuh.
+the single-ensemble run loop of csrc/stretch.cuh on the shared per-walker
+lnprob of csrc/lnprob.cuh, once per source, on a layout that
+`plan_multi_launch` picks per mode and per catalog size (G lanes per walker
+in one block per source, or a thread-block cluster of C blocks per source).
 
 The plain PyTorch version is sampler.multi_stretch_run_plain over
 likelihood.build_lnprob_data, with the same uniform layout and the same
@@ -29,12 +31,138 @@ from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, build_lnprob_data, signed_iunc)
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
-    current_stream_handle, pack_constants, response_nodes)
+    current_stream_handle, pack_constants, response_nodes, smem_optin_bytes)
 from mbb_emcee_tpu_torch.ops.sampler_kernel import (
-    MAX_WALKERS, check_run_smem)
+    ERR_CLUSTER_UNPLACEABLE, H100_SMEM_OPTIN, MAX_WALKERS, check_plan,
+    check_run_smem, max_threads, plan_mode, stretch_plan)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
+
+# K3's layouts (csrc/multifit.cu): G lanes per walker in one block per
+# source, or in a thread-block cluster of C blocks per source.
+MULTI_GROUPS = (1, 4)
+MULTI_CLUSTER_GROUPS = (8, 16, 32)
+# (lanes per walker, in a cluster) -> the most threads a block of it takes
+# (the kernels' launch bounds, K2's per group).
+MULTI_LAYOUTS = {
+    **{(g, False): max_threads(g) for g in MULTI_GROUPS},
+    **{(g, True): max_threads(g) for g in MULTI_CLUSTER_GROUPS}}
+# Blocks per SM a layout's launch bounds keep registers for (1 if not
+# listed): G = 4 is bounded to 64 registers so two blocks of 512 threads
+# share an SM.
+MULTI_MIN_BLOCKS = {(4, False): 2}
+# Per mode (ops/sampler_kernel.py plan_mode), K3's layouts (G, C) in order
+# of preference; each is taken only where the whole catalog runs at once
+# (one wave, a cluster's blocks each on an SM of its own), one thread per
+# walker for any catalog. Chosen from chip_smoke.py's K3 sweep at 4-1024
+# sources (PERF.md): K2's clusters while the card places every source's C
+# blocks on C SMs, the largest cluster first (on an H100 up to 15 sources
+# on 8 SMs, 30 on 4, 66 on 2); lanes per walker in one block repeat each
+# walker's serial work on every lane, so they pay only where the band
+# items are many (response mode: G = 4 at 256 sources 0.75 of one thread
+# per walker; in point mode it ran 1.53x there); point mode gains under 3%
+# from 2-block clusters (within two calls' spread), and the thin model with
+# alpha fixed nothing from any layout.
+MULTI_PLAN_TABLE = {
+    "point": ((8, 8), (8, 4), (1, 1)),
+    "point_noalpha_thick": ((8, 8), (8, 4), (1, 1)),
+    "point_noalpha_thin": ((1, 1),),
+    "response": ((32, 8), (16, 4), (8, 2), (4, 1), (1, 1)),
+}
+# The H100 SXM's streaming multiprocessors and per-SM limits (compute
+# capability 9.0): the planner's model of what the card runs at once, off
+# the card. Each block reserves 1 KB of the SM's 228 KB of shared memory.
+H100_SMS = 132
+H100_SM_THREADS, H100_SM_BLOCKS, H100_SM_REGISTERS = 2048, 32, 65536
+H100_SM_SMEM, H100_BLOCK_SMEM_RESERVED = 233472, 1024
+
+
+def h100_resident(plan, sm_count=H100_SMS):
+    """How many sources of `plan` an H100 of `sm_count` SMs runs at once:
+    for a cluster of C blocks each on an SM of its own, sm_count // C (an
+    upper bound: the card's GPCs may split fewer groups of C SMs off); for
+    one block per source, CUDA's occupancy rules (threads, blocks,
+    registers at the layout's launch bounds, 65,536 over its threads times
+    MULTI_MIN_BLOCKS, and shared memory per SM) times sm_count. The
+    planner's stand-in off the card for mbb_multi_resident."""
+    if plan.cluster > 1:
+        return sm_count // plan.cluster
+    layout = (plan.group, False)
+    regs = H100_SM_REGISTERS // (MULTI_LAYOUTS[layout]
+                                 * MULTI_MIN_BLOCKS.get(layout, 1))
+    per_sm = min(H100_SM_THREADS // plan.threads, H100_SM_BLOCKS,
+                 H100_SM_REGISTERS // (regs * plan.threads),
+                 H100_SM_SMEM // (plan.smem_bytes + H100_BLOCK_SMEM_RESERVED))
+    return sm_count * per_sm
+
+
+def plan_multi_launch(nb, nnodes, half, nsources, noalpha=False,
+                      opthin=False, sm_count=H100_SMS,
+                      smem_limit=H100_SMEM_OPTIN, resident=None):
+    """K3's layout for `nsources` sources of 2 * half walkers on nb bands x
+    nnodes nodes, a model with (noalpha=False) or without the Wien merge
+    solve, thick or optically thin, on a card of `sm_count` SMs: the first
+    of MULTI_PLAN_TABLE's layouts for the mode (swept at 250 walkers) whose
+    block fits (MULTI_LAYOUTS' threads, `smem_limit` bytes) and whose whole
+    catalog runs at once, `resident(plan)` >= nsources. A cluster's lanes
+    per walker are halved down to 8 while it does not fit. One thread per
+    walker otherwise. `resident` is how many sources of a plan the card
+    runs at once, a cluster's blocks each on its own SM (card_resident on
+    the card; h100_resident's model by default)."""
+    if resident is None:
+        def resident(plan):
+            return h100_resident(plan, sm_count)
+    for group, cluster in MULTI_PLAN_TABLE[plan_mode(nnodes, noalpha,
+                                                     opthin)]:
+        groups = [g for g in MULTI_CLUSTER_GROUPS[::-1] if g <= group] \
+            if cluster > 1 else [group]
+        for g in groups:
+            plan = stretch_plan(g, cluster, nb, nnodes, half)
+            if plan.threads <= MULTI_LAYOUTS[(g, cluster > 1)] \
+                    and plan.smem_bytes <= smem_limit \
+                    and ((g, cluster) == (1, 1)
+                         or resident(plan) >= nsources):
+                return plan
+    return stretch_plan(1, 1, nb, nnodes, half)
+
+
+def device_sm_count(device):
+    """The SMs of CUDA device `device` (multi_processor_count)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def card_resident(device, nb, nnodes, half):
+    """plan_multi_launch's `resident` from CUDA device `device` itself: the
+    library's mbb_multi_resident (CUDA's occupancy calculator on the kernel
+    as built: a cluster plan's clusters with a block per SM, or the plan's
+    blocks with its shared memory for nb bands x nnodes nodes and 2 * half
+    walkers)."""
+    lib = build_kernels()
+
+    def resident(plan):
+        with torch.cuda.device(device):
+            n = lib.mbb_multi_resident(nb, nnodes, half, plan.group,
+                                       plan.cluster, plan.walkers_per_block,
+                                       plan.threads)
+        if n < 0:
+            raise RuntimeError(f"mbb_multi_resident failed: CUDA error {-n}"
+                               f" ({plan})")
+        return n
+    return resident
+
+
+def plan_multi_on_card(nb, nnodes, half, nsources, noalpha, opthin, device):
+    """plan_multi_launch for CUDA device `device` (an index or a
+    torch.device): its SMs, its shared-memory limit per block and its own
+    residency counts."""
+    device = torch.device("cuda", device) if isinstance(device, int) \
+        else torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return plan_multi_launch(nb, nnodes, half, nsources, noalpha, opthin,
+                             device_sm_count(index), smem_optin_bytes(index),
+                             card_resident(index, nb, nnodes, half))
 
 
 def _sanitize_missing_flux(flux, unc):
@@ -154,23 +282,29 @@ def prepare_multi_inputs(wave, flux, unc, shape, spec, response_pack=None,
 
 
 def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
-                          nrec, thin, a=2.0, uniforms=None):
+                          nrec, thin, a=2.0, uniforms=None, plan=None):
     """`nrec` records of `thin` stretch-move steps for every source from
     `state` under the batch likelihood in `ops`. `uniforms`
     (S, nrec, 6 * thin, half) fp32 replaces the per-source Philox streams
-    keyed by state.seed at state.step. Returns (state,
-    chain (S, nrec, nwalkers, nfree), lnpchain (S, nrec, nwalkers))."""
+    keyed by state.seed at state.step. `plan` (a StretchPlan of one of
+    MULTI_LAYOUTS) sets the kernel's layout; None takes plan_multi_on_card's
+    for the card (the plain version on the CPU has none, but a bad plan is
+    refused on every device). Returns (state, chain
+    (S, nrec, nwalkers, nfree), lnpchain (S, nrec, nwalkers))."""
     device = state.pos.device
     if device != ops.device:
         raise ValueError(f"state on {device}, likelihood operands on "
                          f"{ops.device}")
+    nsrc, nw, nfree = state.pos.shape
+    half = nw // 2
+    nb, nnodes = int(ops.icfg[3]), int(ops.icfg[4])
+    if plan is not None:
+        check_plan(plan, nb, nnodes, half, MULTI_LAYOUTS)
     if device.type == "cpu":
         return multi_stretch_run_plain(state, ops.plain, nrec, thin, a,
                                        uniforms)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    nsrc, nw, nfree = state.pos.shape
-    half = nw // 2
     if nsrc != ops.nsources or nfree != ops.nfree or nw % 2:
         raise ValueError(
             f"state positions {tuple(state.pos.shape)} do not match the "
@@ -185,7 +319,10 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
             raise ValueError(
                 f"uniforms must be a contiguous float32 "
                 f"({nsrc}, {nrec}, {6 * thin}, {half}) tensor on {device}")
-    check_run_smem(ops.icfg, half, -(-half // 32) * 32, device,
+    if plan is None:
+        plan = plan_multi_on_card(nb, nnodes, half, nsrc, bool(ops.icfg[1]),
+                                  bool(ops.icfg[0]), device)
+    check_run_smem(ops.icfg, half, plan.threads, device,
                    "the multi-source stretch-move kernel")
     pos = state.pos.to(torch.float32).contiguous()
     nacc = state.naccept.to(torch.int32).contiguous()
@@ -204,13 +341,18 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
             ops.flux.data_ptr(), ops.errs.data_ptr(),
             0 if uniforms is None else uniforms.data_ptr(),
             chain.data_ptr(), lnpchain.data_ptr(), pos_out.data_ptr(),
-            lnp_out.data_ptr(), nacc_out.data_ptr(), nsrc, half, nrec, thin,
+            lnp_out.data_ptr(), nacc_out.data_ptr(), nsrc, half, plan.group,
+            plan.cluster, plan.walkers_per_block, plan.threads, nrec, thin,
             float(a), state.seed & (2 ** 64 - 1), state.step,
             ops.icfg.ctypes.data, ops.fcfg.ctypes.data,
             current_stream_handle(device))
+    if rc == ERR_CLUSTER_UNPLACEABLE:
+        raise RuntimeError(f"mbb_multi_stretch_run: the card cannot place a "
+                           f"cluster of {plan.cluster} blocks x "
+                           f"{plan.threads} threads ({plan})")
     if rc != 0:
         raise RuntimeError(f"mbb_multi_stretch_run kernel launch failed: "
-                           f"CUDA error {rc}")
+                           f"CUDA error {rc} ({plan})")
     mbb_multi_stretch_run.launches += 1
     new_state = MultiSamplerState(
         pos=pos_out, lnp=lnp_out, naccept=nacc_out,

@@ -118,24 +118,39 @@ def plan_stretch_launch(nb, nnodes, half, noalpha=False, opthin=False,
     return stretch_plan(1, 1, nb, nnodes, half)
 
 
-def check_plan(plan, nb, nnodes, half):
+# K2's layouts: (lanes per walker, in a cluster) -> the most threads a
+# block of it takes (csrc/sampler.cu instantiates every group with and
+# without a cluster).
+STRETCH_LAYOUTS = {(g, cl): max_threads(g) for g in GROUPS
+                   for cl in (False, True)}
+
+
+def check_plan(plan, nb, nnodes, half, layouts=STRETCH_LAYOUTS):
     """Raise ValueError unless `plan` is a layout the kernel runs for this
-    likelihood and half-ensemble."""
+    likelihood and half-ensemble. `layouts` maps (lanes per walker, in a
+    cluster) to the most threads a block of that layout takes, for every
+    layout the kernel instantiates: K2's STRETCH_LAYOUTS by default (K3
+    passes ops/multifit_kernel.py's MULTI_LAYOUTS)."""
     if not isinstance(plan, StretchPlan):
         raise ValueError(f"plan must be a StretchPlan, got {type(plan)}")
+    groups = tuple(sorted({g for g, _ in layouts}))
     g, c, wpb, t = (plan.group, plan.cluster, plan.walkers_per_block,
                     plan.threads)
     problems = []
-    if g not in GROUPS:
-        problems.append(f"group {g} not in {GROUPS}")
+    if g not in groups:
+        problems.append(f"group {g} not in {groups}")
+    elif (g, c > 1) not in layouts:
+        problems.append(f"group {g} runs only "
+                        + ("in one block" if c > 1 else "in a cluster"))
     if not 1 <= c <= MAX_CLUSTER:
         problems.append(f"cluster {c} outside 1..{MAX_CLUSTER}")
     if wpb < 1 or wpb * c < half:
         problems.append(f"{c} blocks x {wpb} walkers do not hold {half} "
                         "walkers per half")
-    if t % 32 or t > max_threads(g) or t < wpb * g:
+    limit = layouts.get((g, c > 1), MAX_THREADS)
+    if t % 32 or t > limit or t < wpb * g:
         problems.append(f"{t} threads is not a multiple of 32 in "
-                        f"[{wpb} walkers x {g} lanes, {max_threads(g)}]")
+                        f"[{wpb} walkers x {g} lanes, {limit}]")
     if g == 1 and c == 1 and t != -(-half // 32) * 32:
         problems.append(f"one block of one thread per walker runs "
                         f"{-(-half // 32) * 32} threads, not {t}")

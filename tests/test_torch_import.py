@@ -264,3 +264,47 @@ def test_stretch_layouts_agree_on_the_card():
             assert torch.equal(got[1], want[1]), p
             assert torch.equal(got[2], want[2]), p
             assert torch.equal(got[0].naccept, want[0].naccept), p
+
+
+@pytest.mark.cuda
+def test_multi_layouts_agree_on_the_card():
+    """On a CUDA machine: K3 on every layout of its planner's table
+    (MULTI_PLAN_TABLE, every mode) and the layout it plans on this card for
+    4 and for 256 sources against one thread per walker (G = 1, C = 1),
+    point mode with per-source upper limits and a missing band, Philox
+    streams: chains, lnprob and accepts bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import (
+        MULTI_PLAN_TABLE, device_sm_count, mbb_multi_stretch_run,
+        plan_multi_on_card)
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import stretch_plan
+    phot, shape, spec = _problem()
+    layouts = {lay for lays in MULTI_PLAN_TABLE.values() for lay in lays}
+    sms = device_sm_count(0)
+    for nsrc in (4, 256):
+        flux = FLUX[None] * np.linspace(0.8, 1.2, nsrc)[:, None]
+        unc = 0.05 * flux
+        flux[1::3, 0] = unc[1::3, 0] = np.nan
+        ul = np.zeros((nsrc, 5), bool)
+        ul[::4, 4] = True
+        multi = FusedMultiSampler(250, WAVE, flux, unc, shape,
+                                  dataclasses.replace(spec, uplim_bands=ul),
+                                  device="cuda")
+        p0 = make_initial_ball(torch.Generator().manual_seed(1),
+                               [30.0, 1.8, 250.0, 3.5, 23.0],
+                               [2.0, 0.1, 20.0, 0.3, 1.0], 250,
+                               multi.free_space.lower, multi.free_space.upper,
+                               device="cuda")
+        state = multi.init_state(
+            torch.stack([p0.roll(s, 0) for s in range(nsrc)]), seed=9)
+        want = mbb_multi_stretch_run(state, multi.ops, 10, 3,
+                                     plan=stretch_plan(1, 1, 5, 1, 125))
+        plans = {plan_multi_on_card(5, 1, 125, nsrc, False, False, 0)}
+        plans |= {stretch_plan(g, c, 5, 1, 125) for g, c in layouts
+                  if nsrc * c <= sms}
+        for p in plans:
+            got = mbb_multi_stretch_run(state, multi.ops, 10, 3, plan=p)
+            assert torch.equal(got[1], want[1]), p
+            assert torch.equal(got[2], want[2]), p
+            assert torch.equal(got[0].naccept, want[0].naccept), p

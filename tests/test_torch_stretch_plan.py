@@ -1,8 +1,10 @@
 """The stretch-move kernel's layout planner and the tree form of its merge
 solve: plan_stretch_launch's layouts fit the kernel's limits, a bad plan
 is refused before anything runs, and the merge solve taken as 2 rounds of
-a 7-node tree (how the kernel's lanes run it) is the sequential bisection
-bit for bit and agrees with the JAX package's solve."""
+a 7-node tree (how the kernels' lanes run it from 8 lanes per walker),
+as 3 rounds of a 3-node tree (4 lanes) and as 6 single steps (2 lanes) is
+the sequential bisection bit for bit and agrees with the JAX package's
+solve."""
 
 import dataclasses
 
@@ -51,12 +53,22 @@ def _tree_merge_log_x(beta, log_x0, alpha, opthin, rounds=2, levels=3,
         newton_iters=newton_iters)
 
 
-@pytest.mark.parametrize("opthin", [True, False], ids=["thin", "thick"])
-def test_tree_merge_solve_is_the_sequential_one_bitwise(opthin):
+# Tree shapes (rounds, levels): the kernels' 2 x 3 (K2's and K3's cluster
+# layouts, 8-32 lanes per walker) and 3 x 2 (K3's 4 lanes), and 6 x 1, the
+# sequential bisection itself; the 2 x 3 cases keep their first ids.
+TREE_SHAPES = pytest.mark.parametrize("opthin,rounds,levels", [
+    (True, 2, 3), (False, 2, 3), (True, 3, 2), (False, 3, 2), (True, 6, 1),
+    (False, 6, 1)], ids=["thin", "thick", "thin-3x2", "thick-3x2",
+                         "thin-6x1", "thick-6x1"])
+
+
+@TREE_SHAPES
+def test_tree_merge_solve_is_the_sequential_one_bitwise(opthin, rounds,
+                                                        levels):
     beta, log_x0, alpha = (torch.as_tensor(v) for v in _merge_inputs(
         1 + opthin))
     seq = merge_log_x(beta, log_x0, alpha, opthin)
-    tree = _tree_merge_log_x(beta, log_x0, alpha, opthin)
+    tree = _tree_merge_log_x(beta, log_x0, alpha, opthin, rounds, levels)
     assert seq.dtype == torch.float32
     assert torch.equal(seq, tree)
 
@@ -73,16 +85,18 @@ def test_tree_bisection_any_shape_is_the_sequential_one(rounds, levels):
     assert torch.equal(want, got)
 
 
-@pytest.mark.parametrize("opthin", [True, False], ids=["thin", "thick"])
-def test_tree_merge_solve_matches_jax(opthin):
+@TREE_SHAPES
+def test_tree_merge_solve_matches_jax(opthin, rounds, levels):
     """Against mbb_emcee_tpu's merge_log_x on the same fp32 inputs, within
-    tests/test_torch_model.py's atol on log quantities (5e-5)."""
+    tests/test_torch_model.py's atol on log quantities (5e-5), for each
+    tree shape the kernels run."""
     beta, log_x0, alpha = _merge_inputs(11 + opthin)
     want = np.asarray(jax.jit(lambda b, x, a: j_merge_log_x(
         b, x, a, opthin))(jnp.asarray(beta), jnp.asarray(log_x0),
                           jnp.asarray(alpha)))
     got = _tree_merge_log_x(
-        *(torch.as_tensor(v) for v in (beta, log_x0, alpha)), opthin).numpy()
+        *(torch.as_tensor(v) for v in (beta, log_x0, alpha)), opthin, rounds,
+        levels).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
 
 
