@@ -11,7 +11,7 @@ non-zero without printing a result):
      nvcc path;
   1. build: compile the kernels of mbb_emcee_tpu_torch/csrc with nvcc, and
      require 0 spill bytes in the ptxas report of every K3 layout (each one
-     the planner may pick);
+     the planner may pick) and of every K1 instantiation;
   2. K1 (lnprob kernel) against its plain torch version on the card, 4096
      parameter vectors (about 10% out of the box) for seven likelihoods;
   3. K2 (stretch-move kernel) against its plain replay on the card, on
@@ -36,7 +36,10 @@ non-zero without printing a result):
      taken over each entry point's run (3 launches each, no plain run):
      MBBFitter(n_ensembles=4) on the parity sentinel's config 1 against the
      recorded fp64 oracle moments, and MultiFitter at 256 sources x 250
-     walkers x 5 bands (full model) with summaries and derived posteriors;
+     walkers x 5 bands (full model) with summaries and derived posteriors,
+     each derived quantity timed on its first and its second call (host
+     clock and CUDA events; with --profile-derived the device's busy time
+     too) and the chunks it is cut into;
  10. time: K3's aggregate walker-steps/s at 256 x 250 x 5 against the plain
      multi run on the card, in point mode and in response mode (config 3's
      5 x 65 pack), each with its bound;
@@ -79,14 +82,30 @@ non-zero without printing a result):
  18. the K3 sweep: K3's device time on every layout the planner may pick,
      at 4, 16, 32, 64, 256 and 1024 sources, in each mode of its table, each
      in turns with G = 1, C = 1, beside how many sources of it the card
-     runs at once.
+     runs at once;
+ 19. K1's layouts (ops/lnprob_kernel.py plan_lnprob_launch: G lanes per
+     vector, blocks of a few warps looping over tiles) against one thread
+     per vector in blocks of 128 and against the plain version, on 4096
+     vectors and on 1, 31, 33 and 250: point mode (configs 0, 1, 2, 5, 6)
+     bitwise, the 5 x 65, 5 x 129, 8 x 400 and 8 x 1000 packs within K1's
+     tolerance, floors identical; the planned layout at every batch size of
+     the sweep; and response mode with correlated band errors (config 3's
+     5 x 65 pack under config 5's covariance) on K1's layouts, K2's replay
+     and K3 with that band correlation, each against its plain version;
+ 20. the K1 sweep: K1's device time on every layout at 250, 4,096, 62,500
+     and 1,048,576 vectors in each mode of the planner's table, each in
+     turns with one thread per vector in blocks of 128, beside its bound at
+     that batch size; then the host's time per mbb_lnprob call and per
+     MBBFitter.__call__ beside the device's.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
-and K2's and K3's planned layouts), the nvidia-smi line, and as its last line
+and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
 before any phase. `--phases 3,15` runs the build and those phases alone,
-a rehearsal that prints no kernel table and no result line. A whole run
-takes about 2 minutes on one H100 (H100 80GB HBM3 at 700 W), the kernels'
+a rehearsal that prints no kernel table and no result line;
+`--profile-derived` adds torch.profiler's device busy time to the derived
+posteriors' timings of phases 9 and 14 (about a minute more). A whole run
+takes about 2.5 minutes on one H100 (H100 80GB HBM3 at 700 W), the kernels'
 build included.
 """
 
@@ -290,10 +309,12 @@ def phase_device():
 def phase_build():
     """Build the kernels, print nvcc's register and spill report, and
     require 0 spill bytes on every K3 layout (MULTI_LAYOUTS: the planner may
-    pick each of them). Returns the report's rows of the K3
-    instantiations."""
+    pick each of them) and on every K1 instantiation (LNPROB_GROUPS, with a
+    block per tile and looping).
+    Returns the report's rows of the K3 and of the K1 instantiations."""
     from mbb_emcee_tpu_torch.ops.build import (
         build_kernels, build_log, ptxas_report)
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import LNPROB_GROUPS
     from mbb_emcee_tpu_torch.ops.multifit_kernel import MULTI_LAYOUTS
     t0 = time.time()
     build_kernels()
@@ -316,7 +337,23 @@ def phase_build():
     if bad:
         raise AssertionError(f"K3 layouts {bad} spill or are missing from "
                              "the ptxas report")
-    return rows
+    k1_kernels = ("mbb_lnprob_kernel", "mbb_lnprob_loop_kernel")
+    k1_rows = [r for r in ptxas_report(build_log() or "")
+               if r["kernel"] in k1_kernels]
+    for r in k1_rows:
+        log(f"[1] K1 {r['kernel']} G={r['group']}: {r['registers']} "
+            f"registers, {r['spill_stores']} B spill stores, "
+            f"{r['spill_loads']} B spill loads")
+    have = {(r["kernel"], r["group"]): r for r in k1_rows}
+    bad = [(k, g) for k in k1_kernels for g in LNPROB_GROUPS
+           if (k, g) not in have or have[(k, g)]["spill_stores"]
+           or have[(k, g)]["spill_loads"]]
+    log(f"[1] K1 instantiations G in {LNPROB_GROUPS}, a block per tile and "
+        f"looping: 0 spill bytes {'PASS' if not bad else 'FAIL ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"K1 instantiations {bad} spill or are missing "
+                             "from the ptxas report")
+    return rows, k1_rows
 
 
 def phase_k1():
@@ -599,6 +636,74 @@ def _host_s(fn):
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def _profiled_busy_ms(fn):
+    """(result of fn(), milliseconds the device was busy during it): the
+    sum of the device time of every kernel and copy of one call under
+    torch.profiler tracing the device alone (tracing the host's operators
+    too multiplied the host's time of a call of many small launches), or
+    None when the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        total += getattr(evt, "self_device_time_total", 0.0)
+    return out, (total / 1e3 if total > 0 else None)
+
+
+# --profile-derived: time_derived also takes each derived posterior's device
+# busy time from torch.profiler, in a third call. Off by default: the trace
+# multiplies the host's time of these calls of many small launches (a call
+# of 1.8 s took 12 s under it on an H100's machine).
+PROFILE_DERIVED = False
+
+
+def time_derived(tag, obj, card, **kw):
+    """Time obj.compute_lir, compute_dustmass and compute_peaklambda(**kw),
+    each on its first and its second call: the host clock (synchronized)
+    and CUDA events around the call (the span on the device's timeline,
+    host gaps included); with PROFILE_DERIVED also the device's busy time
+    inside a third call, from torch.profiler, beside that call's host time.
+    Returns ({name: chain}, {name: {"first", "second": {"host_ms",
+    "events_ms"}, "profiled": {"host_ms", "busy_ms"}}})."""
+    import torch
+    chains, times = {}, {}
+    for name in ("lir", "dustmass", "peaklambda"):
+        fn = getattr(obj, f"compute_{name}")
+        times[name] = {}
+        for call in ("first", "second"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            chains[name] = fn(**kw)
+            end.record()
+            torch.cuda.synchronize()
+            times[name][call] = {
+                "host_ms": 1e3 * (time.perf_counter() - t0),
+                "events_ms": start.elapsed_time(end)}
+        t = times[name]
+        line = (f"[{tag}] compute_{name}: first call host "
+                f"{t['first']['host_ms']:.1f} ms, CUDA events "
+                f"{t['first']['events_ms']:.1f} ms; second call host "
+                f"{t['second']['host_ms']:.1f} ms, CUDA events "
+                f"{t['second']['events_ms']:.1f} ms")
+        if PROFILE_DERIVED:
+            t0 = time.perf_counter()
+            _, busy = _profiled_busy_ms(lambda: fn(**kw))
+            t["profiled"] = {"host_ms": 1e3 * (time.perf_counter() - t0),
+                             "busy_ms": busy}
+            line += ("; a third call under torch.profiler: device busy "
+                     + ("not measured" if busy is None else f"{busy:.2f} ms")
+                     + f" of {t['profiled']['host_ms']:.1f} ms on the host")
+        log(f"{line} ({card})")
+    return chains, times
 
 
 def phase_time(card):
@@ -998,9 +1103,11 @@ def _k3_counts(path, reset=False):
     return n
 
 
-def phase_batch_path():
+def phase_batch_path(card):
     """The batch path through the user's entry points, with K3's launch
-    count taken over each entry point's run. Returns the counts."""
+    count taken over each entry point's run; the batch's derived posteriors
+    timed per quantity and call (time_derived) with the chunks each takes.
+    Returns (the counts, the derived posteriors' times)."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MBBFitter
@@ -1068,10 +1175,23 @@ def phase_batch_path():
     shape_ok = tuple(mf.chain_free.shape) == (NSOURCES, 250, NWALKERS, 5)
     cen = {p: mf.par_cen(p) for p in mf.free_param_names}
     rhat = mf.gelman_rubin()
+    # count the chunks MultiFitter._chunked_samples cuts each quantity into
+    chunks, chunked = [], mf._chunked_samples
+
+    def counting(fn, samples, inner_elems):
+        def counted(part):
+            chunks[-1] += 1
+            return fn(part)
+        chunks.append(0)
+        return chunked(counted, samples, inner_elems)
+    mf._chunked_samples = counting
     t2 = time.time()
-    derived = {"lir": mf.compute_lir(), "dustmass": mf.compute_dustmass(),
-               "peaklambda": mf.compute_peaklambda()}
+    derived, derived_times = time_derived("9", mf, card)
     t_derived = time.time() - t2
+    del mf._chunked_samples
+    log(f"[9] chunks per call of _chunked_samples (lir, dustmass, "
+        f"peaklambda; every call): {chunks}")
+    derived_times["chunks"] = chunks
     finite = (shape_ok and all(np.isfinite(c).all() for c in cen.values())
               and np.isfinite(rhat).all()
               and all(np.isfinite(d).all() and d.shape == (
@@ -1080,7 +1200,7 @@ def phase_batch_path():
     log(f"[9] MultiFitter {NSOURCES} sources x {NWALKERS} walkers x 5 bands "
         f"(band 0 missing in {len(range(1, NSOURCES, 16))} sources), run("
         f"nburn=50, nsteps=250) {t_run:.2f} s, derived posteriors "
-        f"{t_derived:.2f} s (host clock, first calls included)")
+        f"{t_derived:.2f} s (host clock, every timed call of the three)")
     log(f"[9]   acceptance per source {af.min():.3f}..{af.max():.3f}; "
         f"split-R-hat max {rhat.max():.3f}; T median of medians "
         f"{np.median(cen['T'][:, 0]):.4g}; lir_cen[0] "
@@ -1090,7 +1210,7 @@ def phase_batch_path():
         f"{'PASS' if finite else 'FAIL'}")
     if not finite:
         raise AssertionError("batch summaries or posteriors not finite")
-    return by_path
+    return by_path, derived_times
 
 
 def phase_time_k3(card):
@@ -1424,7 +1544,7 @@ def phase_time_response(card):
     return out
 
 
-def phase_parity(geom=None):
+def phase_parity(card, geom=None):
     """The <=1% contract (max(1%, 3 sigma_MC)) of the recorded fp64 oracle
     moments at their FULL geometry (or `geom`, for a rehearsal), through
     MBBFitter.run on the card, as tools/validate_tpu_parity.py's run_config
@@ -1479,9 +1599,14 @@ def phase_parity(geom=None):
     fit = port_fit(2, flux, unc, None, seed=900, nburn=geom.nburn_jax,
                    nsteps=geom.nstep_jax)
     res = MBBResults(fit=fit, redshift=vp.DERIVED_Z)
+    log(f"[14] config 4: MBBResults derived posteriors of one fit, "
+        f"{fit.chain_free.shape[0] * NWALKERS} samples at thin "
+        f"{vp.DERIVED_THIN}:")
+    chains4, derived_times = time_derived("14", res, card,
+                                          thin=vp.DERIVED_THIN)
     ok4 = True
     for kind in vp.DERIVED_KINDS:
-        cj = getattr(res, f"compute_{kind}")(thin=vp.DERIVED_THIN)
+        cj = chains4[kind]
         qj = np.percentile(cj, [15.85, 50.0, 84.15])
         qo = np.asarray(entry["quantiles"][kind])
         dmed = abs(qj[1] - qo[1]) / qo[1]
@@ -1517,7 +1642,7 @@ def phase_parity(geom=None):
             or counts["plain_sampler_runs"] != 0:
         raise AssertionError("the parity fits did not run through K1 and K2 "
                              "alone")
-    return counts
+    return counts, derived_times
 
 
 def _k2_plans(ops, half):
@@ -2073,8 +2198,409 @@ def phase_k3_sweep(card):
     return out
 
 
+K1_SWEEP_N = (250, 4096, 62500, 1048576)
+K1_CHECK_N = (1, 31, 33, 250, 4096)
+
+
+K1_LOOP_BLOCKS_PER_SM = 8
+
+
+def _k1_layouts(ops, n, threads=None):
+    """(K1's layouts for n vectors of the likelihood in `ops`, the layout
+    they are held against): G in LNPROB_GROUPS in the planner's block
+    (fit_threads; or in blocks of every size in `threads`, each shrunk to
+    the card's shared memory) with a block per tile; where that is more
+    blocks than K1_LOOP_BLOCKS_PER_SM per SM, also on that many blocks
+    looping over the tiles (a resident wave that stages once per block);
+    and one thread per vector in blocks of 128 with a block per tile, the
+    kernel's only layout before it had a planner. The planner's
+    shared-memory size must be the library's."""
+    from mbb_emcee_tpu_torch.ops.build import build_kernels
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+        LNPROB_BLOCK_THREADS, LNPROB_GROUPS, device_sm_count, fit_threads,
+        lnprob_plan, smem_optin_bytes)
+    nb, nn = int(ops.icfg[3]), int(ops.icfg[4])
+    wave = K1_LOOP_BLOCKS_PER_SM * device_sm_count(0)
+    out = []
+    for t in threads or (LNPROB_BLOCK_THREADS,):
+        t = fit_threads(nb, nn, smem_optin_bytes(0), t)
+        for g in LNPROB_GROUPS:
+            for p in (lnprob_plan(g, t, n, nb, nn),
+                      lnprob_plan(g, t, n, nb, nn, wave)):
+                if p not in out:
+                    out.append(p)
+    old = lnprob_plan(1, 128, n, nb, nn)
+    for p in out + [old]:
+        lib_bytes = build_kernels().mbb_lnprob_smem_bytes(nb, nn, p.threads)
+        if lib_bytes != p.smem_bytes:
+            raise AssertionError(f"planner's {p.smem_bytes} B of shared "
+                                 f"memory != the library's {lib_bytes} B")
+    return out, old
+
+
+def _k1_name(p):
+    return f"G={p.group} x {p.threads} threads x {p.blocks} blocks"
+
+
+def _k1_planned(ops, n):
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import plan_lnprob_on_card
+    return plan_lnprob_on_card(int(ops.icfg[3]), int(ops.icfg[4]), n,
+                               bool(ops.icfg[1]), bool(ops.icfg[0]), 0)
+
+
+def _k1_layout_case(name, ops, x, bitwise, plain=True, plans=None,
+                    ref_scale=1):
+    """K1 on `plans` (every layout of _k1_layouts and the planned one by
+    default) for the vectors x against one thread per vector in blocks of
+    128: bitwise, or (response packs, whose band sums the lanes add in
+    another order) within `ref_scale` times K1's tolerance with the floored
+    vectors the same and exactly at the floor; and, with `plain`, each
+    against the plain version within K1's tolerance. Returns the max abs
+    difference from the plain version (from the old layout without it)."""
+    import torch
+    from mbb_emcee_tpu_torch.likelihood import LNPROB_FLOOR
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+    n = x.shape[0]
+    layouts, old = _k1_layouts(ops, n)
+    planned = _k1_planned(ops, n)
+    if plans is None:
+        plans = layouts + ([] if planned in layouts else [planned])
+    ref = mbb_lnprob(x, ops, plan=old)
+    want = ops.plain(x) if plain else ref
+    floor = want <= LNPROB_FLOOR / 2
+    worst, rows = 0.0, []
+    for p in plans:
+        got = mbb_lnprob(x, ops, plan=p)
+        if bitwise:
+            ok = torch.equal(got, ref)
+        else:
+            ok = (torch.equal(got <= LNPROB_FLOOR / 2, ref <= LNPROB_FLOOR
+                              / 2)
+                  and torch.allclose(got, ref, rtol=ref_scale * K1_RTOL,
+                                     atol=ref_scale * K1_ATOL))
+        ok = ok and torch.equal(got <= LNPROB_FLOOR / 2, floor) \
+            and bool((got[floor] == LNPROB_FLOOR).all()) \
+            and torch.allclose(got[~floor], want[~floor], rtol=K1_RTOL,
+                               atol=K1_ATOL)
+        d = float((got[~floor] - want[~floor]).abs().max()) \
+            if (~floor).any() else 0.0
+        worst = max(worst, d)
+        rows.append(f"{_k1_name(p)}"
+                    + (" (planned)" if p == planned else "")
+                    + f" {'ok' if ok else 'DIFFERENT'}")
+        if not ok:
+            log(f"[19] K1 {name}, n={n}: " + "; ".join(rows) + " FAIL")
+            raise AssertionError(f"K1 {name}: {p} disagrees with one thread "
+                                 "per vector or with the plain version")
+    log(f"[19] K1 {name}, n={n} ({int(floor.sum())} floored): "
+        + ("bitwise" if bitwise else f"within rtol {ref_scale * K1_RTOL:g}")
+        + " against G=1 x 128 threads"
+        + (f", max |d| {worst:.3g} against plain" if plain else "")
+        + ": " + "; ".join(rows) + " PASS")
+    return worst
+
+
+def sweep_ops(mode, ci):
+    """K1's operands of sweep case (mode, config ci): point mode, or config
+    3 on its 5 x 65 pack."""
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import prepare_lnprob_inputs
+    pack = port_response_pack(65)[1] if mode == "response" else None
+    return prepare_lnprob_inputs(*problem(ci), pack, device=DEVICE)
+
+
+def phase_response_cov():
+    """Response mode with correlated band errors, which no other phase
+    runs: config 3's model on its 5 x 65 pack with config 5's band
+    covariance. K1 on every layout against the plain version; K2's
+    external-uniforms replay against its plain run; K3 (5 sources, that
+    band correlation as per-source whitening) against the plain multi run.
+    Returns the max abs differences (K1, K2, K3)."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.likelihood import Photometry
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import prepare_lnprob_inputs
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
+    from mbb_emcee_tpu_torch.sampler import multi_stretch_run_plain
+
+    phot3, shape3, spec3 = problem(3)
+    _, _, cov = vp.mock_data(vp.CONFIGS[5])
+    phot = Photometry(phot3.wave, phot3.flux, phot3.unc, cov=cov)
+    _, pack65 = port_response_pack(65)
+    ops = prepare_lnprob_inputs(phot, shape3, spec3, pack65, device=DEVICE)
+    if not ops.icfg[2] or ops.icfg[4] != 65:
+        raise AssertionError("not a response-mode likelihood with a "
+                             "covariance")
+    x = torch.as_tensor(thetas(ops.free_space)[0], device=DEVICE)
+    k1 = max(_k1_layout_case("config 3 5 x 65 + config 5 covariance", ops,
+                             x[:n].contiguous(), False) for n in (250, 4096))
+    log(f"[19] K2 replay, config 3 on the 5 x 65 pack with config 5's "
+        f"covariance: {NWALKERS} walkers, 3 records x thin 2")
+    k2 = _k2_replay("19", phot, shape3, spec3, pack65)
+
+    nsrc = 5
+    flux, unc = sweep_data(3, nsrc, seed=300)
+    mf = batch_fitter(flux, unc)
+    mf.set_band_correlation(vp.CAL_CORR)
+    samp = FusedMultiSampler(NWALKERS, vp.WAVE, flux, unc, shape3, spec3,
+                             response_pack=pack65,
+                             whiten=mf._whiten_operand(), rng="external",
+                             device=DEVICE)
+    state = samp.init_state(_multi_ball(samp.free_space, nsrc, 60), seed=3)
+    nrec, thin = 3, 2
+    u = np.random.default_rng(12).uniform(
+        0.001, 0.999, (nsrc, nrec, 6 * thin, samp.half))
+    u = torch.as_tensor(u.astype(np.float32), device=DEVICE)
+    got = samp.run_mcmc(state, nrec * thin, thin, uniforms=u)
+    want = multi_stretch_run_plain(state, samp.ops.plain, nrec, thin,
+                                   samp.a, u)
+    log(f"[19] K3 on the 5 x 65 pack with the band correlation: {nsrc} "
+        f"sources x {NWALKERS} walkers, {nrec} records x thin {thin}")
+    return k1, k2, _compare_multi("19", got, want)
+
+
+def phase_k1_layouts():
+    """K1 on every layout (_k1_layouts) and on its planned one against one
+    thread per vector in blocks of 128 and against the plain version, at
+    K1_CHECK_N vectors (partly filled groups, warps and blocks included):
+    point mode (configs 0, 1, 2, 5, 6) bitwise; the 5 x 65, 5 x 129,
+    8 x 400 and 8 x 1000 packs within K1's tolerance of the plain version,
+    and of one thread per vector too, but for the 8-band packs: there one
+    thread's serial sum of 400 or 1000 terms is itself up to a whole
+    tolerance from the plain version (the lanes' shorter sums are nearer),
+    so two layouts, each within the tolerance of plain, are held to twice
+    it of each other. The planned layout at
+    every batch size of the sweep in each of its modes, against one thread
+    per vector. Then phase_response_cov. Returns (the planned layout by
+    case and n, max abs difference from plain, phase_response_cov's
+    differences)."""
+    import torch
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import prepare_lnprob_inputs
+    phot3, shape3, spec3 = problem(3)
+    cases = [(f"config {ci}", True, 1, prepare_lnprob_inputs(
+        *problem(ci), None, device=DEVICE)) for ci in (0, 1, 2, 5, 6)]
+    cases += [(f"config 3 5 x {nn}", False, 1, prepare_lnprob_inputs(
+        phot3, shape3, spec3, port_response_pack(nn)[1], device=DEVICE))
+        for nn in (65, 129)]
+    for nn in (400, 1000):
+        phot, _, _, pack = response_case(WIDE_BANDS, nn)
+        cases.append((f"8 x {nn}", False, 2, prepare_lnprob_inputs(
+            phot, shape3, spec3, pack, device=DEVICE)))
+    plans, worst = {}, 0.0
+    for name, bitwise, scale, ops in cases:
+        x = torch.as_tensor(thetas(ops.free_space)[0], device=DEVICE)
+        for n in K1_CHECK_N:
+            worst = max(worst, _k1_layout_case(name, ops, x[:n].contiguous(),
+                                               bitwise, ref_scale=scale))
+            plans[f"{name}, n={n}"] = _k1_planned(ops, n)
+    for mode, ci in SWEEP_CASES:
+        ops = sweep_ops(mode, ci)
+        x = torch.as_tensor(thetas(ops.free_space, n=K1_SWEEP_N[-1])[0],
+                            device=DEVICE)
+        for n in K1_SWEEP_N:
+            p = _k1_planned(ops, n)
+            _k1_layout_case(f"sweep case {mode} (config {ci})", ops,
+                            x[:n].contiguous(), mode != "response",
+                            plain=False, plans=[p])
+            plans[f"{mode}, n={n}"] = p
+    log("[19] planned layouts: " + ", ".join(
+        f"{k}: {_k1_name(p)}" for k, p in plans.items()
+        if k.split(",")[0] in dict(SWEEP_CASES)))
+    return plans, worst, phase_response_cov()
+
+
+def _graph_us(fn, reps):
+    """Microseconds of device time per call of fn() over `reps` calls
+    captured into one CUDA graph and replayed (after a warm-up replay)
+    between two CUDA events: back-to-back launches with no host in between,
+    so a kernel of a few microseconds is timed by the device and not by the
+    host's launch rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return 1e3 * start.elapsed_time(end) / reps
+    return timed
+
+
+def k1_probe(card, sizes=K1_SWEEP_N):
+    """K1 as a caller meets it, through mbb_lnprob(x, ops) alone: the
+    kernel's device time per launch (_graph_us, the sweep's clock; a
+    package whose launch cannot be captured into a CUDA graph is timed by
+    torch.profiler) at each of `sizes`
+    vectors in each sweep case, and at 250 vectors the host's time per
+    mbb_lnprob call (a loop of calls, synchronized at its end) and per
+    MBBFitter.__call__ (which also copies the vector in and the value out),
+    in point mode (config 2) and response mode (config 3, 5 x 65). Returns
+    {"device_us": {"mode n": us}, "host_us": {...}}."""
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MBBFitter
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+    out = {"device_us": {}, "host_us": {}}
+    for mode, ci in SWEEP_CASES:
+        ops = sweep_ops(mode, ci)
+        xs = torch.as_tensor(thetas(ops.free_space, n=max(sizes))[0],
+                             device=DEVICE)
+        for n in sizes:
+            x = xs[:n].contiguous()
+            reps = 5 if n > 100000 else 100
+            try:
+                timed = _graph_us(lambda: mbb_lnprob(x, ops), reps)
+                us, clock = min(timed(), timed()), "CUDA graph and events"
+            except RuntimeError as err:
+                log(f"[probe] graph capture failed ({str(err)[:80]})")
+                torch.cuda.synchronize()
+                us = _profiled_device_us(lambda: mbb_lnprob(x, ops), reps,
+                                         "mbb_lnprob_kernel")
+                clock = "torch.profiler"
+            out["device_us"][f"{mode} {n}"] = us
+            log(f"[probe] K1 {mode} mode (config {ci}), n={n}: "
+                + ("not measured" if us is None else f"{us:.2f} us")
+                + f" device time per launch ({clock}) ({card})")
+        if mode in ("point", "response"):
+            x = xs[:NWALKERS].contiguous()
+            calls = 2000
+            mbb_lnprob(x, ops)
+
+            def loop():
+                for _ in range(calls):
+                    mbb_lnprob(x, ops)
+            host = min(_host_s(loop) for _ in range(3)) / calls * 1e6
+            out["host_us"][f"mbb_lnprob {mode}"] = host
+            log(f"[probe] host time per mbb_lnprob call, {mode} mode, "
+                f"{NWALKERS} vectors: {host:.2f} us over {calls} calls "
+                f"({card})")
+    # what every such call pays whatever the wrapper does: the output's
+    # allocation and the current stream's handle
+    calls = 2000
+    for what, fn in (
+            ("torch.empty(250) on the card",
+             lambda: torch.empty(NWALKERS, dtype=torch.float32,
+                                 device=DEVICE)),
+            ("torch.cuda.current_stream().cuda_stream",
+             lambda: torch.cuda.current_stream().cuda_stream)):
+        def loop():
+            for _ in range(calls):
+                fn()
+        host = min(_host_s(loop) for _ in range(3)) / calls * 1e6
+        out["host_us"][what] = host
+        log(f"[probe] host time per {what}: {host:.2f} us over {calls} "
+            f"calls ({card})")
+    for mode, ci in (("point", 2), ("response", 3)):
+        cfg = vp.CONFIGS[ci]
+        flux, unc, cov = vp.mock_data(cfg)
+        fit = MBBFitter(nwalkers=NWALKERS, opthin=cfg["opthin"],
+                        noalpha=cfg["noalpha"], device=DEVICE,
+                        responses=port_response_pack()[0]
+                        if cfg["response"] else None)
+        fit.set_data(vp.WAVE, flux, unc, cov=cov,
+                     band_names=vp.BANDS if cfg["response"] else None)
+        fit(vp.TRUE)
+        calls = 500
+
+        def loop():
+            for _ in range(calls):
+                fit(vp.TRUE)
+        host = min(_host_s(loop) for _ in range(3)) / calls * 1e6
+        out["host_us"][f"MBBFitter.__call__ {mode}"] = host
+        log(f"[probe] host time per MBBFitter.__call__, {mode} mode "
+            f"(config {ci}): {host:.2f} us over {calls} calls ({card})")
+    return out
+
+
+def phase_k1_sweep(card, threads=None, sizes=K1_SWEEP_N):
+    """K1's device time per launch on every layout (_k1_layouts) at
+    `sizes` vectors in each of LNPROB_PLAN_TABLE's modes (SWEEP_CASES'
+    configs; response mode on config 3's 5 x 65 pack), each timed in turns
+    with one thread per vector in blocks of 128 (old, new, new, old) by
+    CUDA events around a CUDA graph of back-to-back launches (_graph_us),
+    beside K1's bound at that batch size. In point mode every layout must
+    equal the old one bitwise. Then k1_probe. Returns ({"mode n": {"plan",
+    "us", "old_us", "bound_us", "rows"}} for the planned layout, k1_probe's
+    result)."""
+    import dataclasses
+    import torch
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+    out = {}
+    for mode, ci in SWEEP_CASES:
+        ops = sweep_ops(mode, ci)
+        xs = torch.as_tensor(thetas(ops.free_space, n=max(sizes))[0],
+                             device=DEVICE)
+        for n in sizes:
+            x = xs[:n].contiguous()
+            layouts, old = _k1_layouts(ops, n, threads)
+            planned = _k1_planned(ops, n)
+            bnd = k1_bound(ops.icfg, n, ops.nfree, ops.consts.numel())
+            ref = mbb_lnprob(x, ops, plan=old)
+            est = _cuda_ms(lambda: mbb_lnprob(x, ops, plan=old), 3)
+            reps = int(min(max(8.0 / max(est, 1e-3), 4), 200))
+            t_old = _graph_us(lambda: mbb_lnprob(x, ops, plan=old), reps)
+            rows = []
+            log(f"[20] K1 sweep, {mode} mode (config {ci}), n={n}: us per "
+                f"launch by CUDA events over a graph of {reps} launches, in "
+                f"turns (old, new, new, old); bound {1e3 * bnd[0]:.4g} us "
+                f"({bnd[1]}) ({card}):")
+            log("[20] | G | threads | blocks | smem B | new us | old us | "
+                "new/old | bound/new | vs G=1 x 128 |")
+            for p in layouts:
+                got = mbb_lnprob(x, ops, plan=p)
+                same = torch.equal(got, ref)
+                if mode != "response" and not same:
+                    raise AssertionError(f"K1 layout {p} differs from one "
+                                         "thread per vector in point mode")
+                t_new = _graph_us(lambda: mbb_lnprob(x, ops, plan=p), reps)
+                t = [t_old(), t_new(), t_new(), t_old()]
+                new_us, old_us = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                rows.append({"group": p.group, "threads": p.threads,
+                             "blocks": p.blocks, "new_us": t[1:3],
+                             "old_us": [t[0], t[3]]})
+                log(f"[20] | {p.group} | {p.threads} | {p.blocks} | "
+                    f"{p.smem_bytes} | {t[1]:.2f}, {t[2]:.2f} | {t[0]:.2f}, "
+                    f"{t[3]:.2f} | {new_us / old_us:.4f} | "
+                    f"{1e3 * bnd[0] / new_us:.4f} | "
+                    f"{'bitwise' if same else 'within tolerance'}"
+                    f"{' (planned)' if p == planned else ''} |")
+                del t_new, got
+            best = min(rows, key=lambda r: sum(r["new_us"]))
+            mine = [r for r in rows if (r["group"], r["threads"],
+                                        r["blocks"]) == (
+                planned.group, planned.threads, planned.blocks)]
+            if not mine:
+                raise AssertionError(f"the planned layout {planned} is not "
+                                     "in the sweep")
+            us = sum(mine[0]["new_us"]) / 2
+            old_us = sum(mine[0]["old_us"]) / 2
+            log(f"[20] {mode} mode, n={n}: fastest G={best['group']} x "
+                f"{best['threads']} threads ({sum(best['new_us']) / 2:.2f} "
+                f"us); planned {_k1_name(planned)} ({us:.2f} us against "
+                f"{old_us:.2f} us on G=1 x 128 threads, "
+                f"{100 * 1e3 * bnd[0] / us:.3g}% of the bound's rate) "
+                f"({card})")
+            out[f"{mode} {n}"] = {
+                "plan": dataclasses.asdict(planned), "us": us,
+                "old_us": old_us, "bound_us": 1e3 * bnd[0],
+                "share_of_bound": 1e3 * bnd[0] / us, "rows": rows}
+            del t_old, ref
+    return out, k1_probe(card)
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14", "15", "16", "17", "18")
+          "13", "14", "15", "16", "17", "18", "19", "20")
+
 
 def main(argv=None):
     import argparse
@@ -2083,7 +2609,13 @@ def main(argv=None):
     ap.add_argument("--phases", default=None,
                     help="comma-separated phase numbers to run alone (a "
                          "rehearsal: no kernel table and no result line)")
+    ap.add_argument("--profile-derived", action="store_true",
+                    help="phases 9 and 14 also take each derived "
+                         "posterior's device busy time from torch.profiler "
+                         "(adds about a minute)")
     args = ap.parse_args(argv)
+    global PROFILE_DERIVED
+    PROFILE_DERIVED = args.profile_derived
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2100,24 +2632,29 @@ def main(argv=None):
         ("3", phase_k2), ("4", phase_determinism), ("5", phase_main_path),
         ("6", lambda: phase_time(card)), ("7", phase_k3),
         ("8", lambda: (phase_k3_philox(), phase_k3_width())[1]),
-        ("9", phase_batch_path), ("10", lambda: phase_time_k3(card)),
+        ("9", lambda: phase_batch_path(card)),
+        ("10", lambda: phase_time_k3(card)),
         ("11", phase_response_kernels), ("12", phase_extend),
-        ("13", lambda: phase_time_response(card)), ("14", phase_parity),
+        ("13", lambda: phase_time_response(card)),
+        ("14", lambda: phase_parity(card)),
         ("15", phase_k2_layouts), ("16", lambda: phase_plan_sweep(card)),
-        ("17", phase_k3_layouts), ("18", lambda: phase_k3_sweep(card))]
+        ("17", phase_k3_layouts), ("18", lambda: phase_k3_sweep(card)),
+        ("19", phase_k1_layouts), ("20", lambda: phase_k1_sweep(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
     res = {}
     for name, fn in steps:
         if only is None or name in only or name in ("0", "1"):
+            t_phase = time.time()
             res[name] = fn()
+            log(f"phase {name}: {time.time() - t_phase:.1f} s")
     if only is not None:
         log(f"rehearsal of phases {sorted(only, key=int)} done: no kernel "
             "table, no result line")
         return 0
 
-    counts, ext, par = res["5"], res["12"], res["14"]
+    counts, ext, (par, derived_single) = res["5"], res["12"], res["14"]
     t = {**res["6"], **res["10"], **res["13"]}
     r1, r2, r3 = res["11"]
     plans, k2_layout_err = res["15"]
@@ -2130,8 +2667,11 @@ def main(argv=None):
     k2_by_path = {"single fit (phase 5)": counts["mbb_stretch_run"],
                   "extend (phase 12)": ext["mbb_stretch_run"],
                   "parity matrix (phase 14)": par["mbb_stretch_run"]}
-    k3_by_path = dict(res["9"])
+    k3_by_path = dict(res["9"][0])
+    k1_plans, k1_layout_err, (rc1, rc2, rc3) = res["19"]
+    k1_sweep, k1_host = res["20"]
     k3_by_path["extend (phase 12)"] = ext["mbb_multi_stretch_run"]
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
         {"name": "mbb_lnprob", "route": "cuda",
@@ -2139,20 +2679,31 @@ def main(argv=None):
          "replaces": "mbb_emcee_tpu/ops/pallas_lnprob.py:248",
          "launches": sum(k1_by_path.values()),
          "launches_by_path": k1_by_path,
-         "max_abs_err": max(res["2"], r1),
+         "max_abs_err": max(res["2"], r1, k1_layout_err, rc1),
          "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"],
          "bound_ms": t["k1_bound"][0], "bound_us": 1e3 * t["k1_bound"][0],
          "bound_by": t["k1_bound"][1], "library_ms": None,
          "library_note": no_library,
          "response_ms": t["k1_resp_ms"],
          "response_plain_ms": t["k1_resp_plain_ms"],
-         "response_bound_ms": t["k1_resp_bound"][0]},
+         "response_bound_ms": t["k1_resp_bound"][0],
+         "plans": {k: _k1_name(p) for k, p in k1_plans.items()
+                   if k.split(",")[0] in dict(SWEEP_CASES)},
+         "sweep_cells": {k: {"plan": _k1_name(LnprobPlan(**v["plan"])),
+                             "us": v["us"], "us_g1_128": v["old_us"],
+                             "bound_us": v["bound_us"],
+                             "share_of_bound": v["share_of_bound"]}
+                         for k, v in k1_sweep.items()},
+         "probe": k1_host,
+         "ptxas": [{k: r[k] for k in ("kernel", "group", "registers",
+                                      "spill_stores", "spill_loads")}
+                   for r in res["1"][1]]},
         {"name": "mbb_stretch_run", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/sampler.cu",
          "replaces": "mbb_emcee_tpu/ops/pallas_sampler.py:63",
          "launches": sum(k2_by_path.values()),
          "launches_by_path": k2_by_path,
-         "max_abs_err": max(res["3"], r2, k2_layout_err),
+         "max_abs_err": max(res["3"], r2, k2_layout_err, rc2),
          "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"],
          "bound_ms": t["k2_bound"][0], "bound_us": 1e3 * t["k2_bound"][0],
          "bound_by": t["k2_bound"][1], "library_ms": None,
@@ -2171,7 +2722,7 @@ def main(argv=None):
          "replaces": "mbb_emcee_tpu/ops/pallas_multifit.py:203",
          "launches": sum(k3_by_path.values()),
          "launches_by_path": k3_by_path,
-         "max_abs_err": max(res["7"], res["8"], r3, k3_layout_err),
+         "max_abs_err": max(res["7"], res["8"], r3, k3_layout_err, rc3),
          "ms": t["k3_ms"], "plain_ms": t["k3_plain_ms"],
          "bound_ms": t["k3_bound"][0], "bound_us": 1e3 * t["k3_bound"][0],
          "bound_by": t["k3_bound"][1], "library_ms": None,
@@ -2205,8 +2756,11 @@ def main(argv=None):
                          for k, v in k3_sweep.items()},
          "ptxas": [{k: r[k] for k in ("group", "cluster", "registers",
                                       "spill_stores", "spill_loads")}
-                   for r in res["1"]]},
+                   for r in res["1"][0]]},
     ]
+    log("derived posteriors (the next thing to shorten): " + json.dumps(
+        {"batch 256 x 62500 samples": res["9"][1],
+         "single fit, config 4": derived_single}))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,16 +21,16 @@
 // shared memory sized at launch for this likelihood's band and node
 // counts (no compile-time cap), ln(wavelength) terms precomputed there,
 // and each thread keeps nb residual (or partial-sum) slots there. Two
-// layouts of one walker's evaluation:
-//   - mbb_lnprob_eval: one thread per walker (K1, and K2's and K3's G=1
-//     layouts), the whole chain serial in that thread.
-//   - mbb_lnprob_eval_group<G>: G lanes of one warp per walker (K2, K3), to
-//     shorten the chain. From 8 lanes the 6 bisections run as 2 rounds of a
+// layouts of one walker's evaluation, each used by K1, K2 and K3:
+//   - mbb_lnprob_eval: one thread per walker (the G=1 layouts), the whole
+//     chain serial in that thread.
+//   - mbb_lnprob_eval_group<G>: G lanes of one warp per walker, to shorten
+//     the chain. From 8 lanes the 6 bisections run as 2 rounds of a
 //     7-node tree: each round forms the 3 levels' midpoints in the
 //     bisection's own operations, evaluates the slope at node j on lane j,
 //     and walks the tree on the signs of g, which is the sequential bracket
 //     bit for bit. On 4 lanes (K3's one-wave layout, where registers allow
-//     no more lanes) they run as 3 rounds of a 3-node tree.
+//     no more lanes, and K1's) they run as 3 rounds of a 3-node tree.
 //     The rounds evaluate the slope alone, on every lane alike: a round that
 //     also evaluated ln S at band nodes took about as long as the 6
 //     sequential bisections. A lane's first node (node i on lane i mod G;

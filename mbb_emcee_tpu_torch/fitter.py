@@ -17,7 +17,6 @@ extend(n2) all give the chain of the single run(n1 + n2), bit for bit.
 
 from __future__ import annotations
 
-import hashlib
 import os
 
 import numpy as np
@@ -225,38 +224,48 @@ class MBBFitter(ParamSpaceMixin):
                                   a=self.a)
         return lnprob, free_space, sampler
 
+    def _call_key(self, phot):
+        """What MBBFitter.__call__'s cached operands depend on, cheap to
+        form and compare: the model shape, the contents of the spec's
+        limits, priors and upper-limit mask and of the photometry (a few
+        floats per band), and each band's Response, which compares by
+        identity (a compiled filter is not edited in place; a new or
+        rebuilt response set holds new ones)."""
+        spec = self._spec
+        bands = None
+        if self.responses is not None:
+            if phot.band_names is None:
+                raise ValueError(
+                    "response mode requires named photometry bands")
+            bands = tuple(self.responses[n] for n in phot.band_names)
+        small = (spec.lower, spec.upper, spec.prior_mean, spec.prior_isigma,
+                 spec.uplim_bands, phot.wave, phot.flux, phot.unc, phot.cov)
+        return (self.shape, bands, tuple(
+            None if a is None else np.asarray(a).tobytes() for a in small))
+
     def __call__(self, params):
         """lnprob at a FULL 5-parameter vector (ref: mbb_fitter.__call__);
         the box and priors apply, fixed parameters take the given values.
         On CUDA this is one launch of the lnprob kernel."""
         from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
             prepare_lnprob_inputs, mbb_lnprob)
-        params = np.asarray(params, dtype=np.float64)
+        params = np.asarray(params, dtype=np.float32)
         if params.shape != (NPARAMS,):
             raise ValueError(f"expected {NPARAMS}-vector")
-        open_spec = _replace(self._effective_spec(),
-                             fixed=np.zeros(NPARAMS, bool),
-                             fixed_values=np.zeros(NPARAMS))
-        # The packed operands are cached on a content fingerprint: ported
-        # upstream code calls this in per-sample loops.
-        phot = self._require_data()
-        pack = self._response_pack()
-        h = hashlib.sha256(repr(self.shape).encode())
-        for arr in (open_spec.lower, open_spec.upper, open_spec.prior_mean,
-                    open_spec.prior_isigma, open_spec.uplim_bands,
-                    phot.wave, phot.flux, phot.unc, phot.cov,
-                    *((None, None) if pack is None else pack)):
-            h.update(b"-" if arr is None else np.asarray(arr).tobytes())
-        key = h.hexdigest()
+        # The packed operands are cached: ported upstream code calls this
+        # in per-sample loops, so the key must cost less than the launch.
+        key = self._call_key(self._require_data())
         cache = getattr(self, "_call_cache", None)
         if cache is None or cache[0] != key:
-            ops = prepare_lnprob_inputs(phot, self.shape, open_spec,
-                                        response_pack=pack,
+            open_spec = _replace(self._effective_spec(),
+                                 fixed=np.zeros(NPARAMS, bool),
+                                 fixed_values=np.zeros(NPARAMS))
+            ops = prepare_lnprob_inputs(self.phot, self.shape, open_spec,
+                                        response_pack=self._response_pack(),
                                         device=self.device)
             cache = (key, ops)
             self._call_cache = cache
-        x = torch.as_tensor(params.astype(np.float32)[None, :],
-                            device=self.device)
+        x = torch.from_numpy(params[None, :]).to(self.device)
         return float(mbb_lnprob(x, cache[1])[0])
 
     # -- the run -------------------------------------------------------------------

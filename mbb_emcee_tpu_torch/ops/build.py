@@ -109,7 +109,8 @@ def build_kernels():
 
 def _load(path):
     lib = ctypes.CDLL(path)
-    lib.mbb_lnprob_launch.argtypes = [_P, _P, _P, _I, _P, _P, _P]
+    lib.mbb_lnprob_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                      _P]
     lib.mbb_lnprob_launch.restype = _I
     lib.mbb_stretch_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -124,7 +125,7 @@ def _load(path):
     lib.mbb_multi_resident.restype = _I
     lib.mbb_smem_optin.argtypes = [_I]
     lib.mbb_smem_optin.restype = _I
-    lib.mbb_lnprob_smem_bytes.argtypes = [_I, _I]
+    lib.mbb_lnprob_smem_bytes.argtypes = [_I, _I, _I]
     lib.mbb_lnprob_smem_bytes.restype = ctypes.c_longlong
     lib.mbb_run_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.mbb_run_smem_bytes.restype = ctypes.c_longlong
@@ -138,17 +139,20 @@ def build_log():
     return log.read_text() if log.is_file() else None
 
 
-# A stretch-move kernel's entry name as nvcc mangles it, with its template
-# arguments (lanes per walker, cluster): mbb_stretch_kernel<8, true> is
-# _Z18mbb_stretch_kernelILi8ELb1EEv...
-_ENTRY = re.compile(r"_Z\d+(mbb_\w*?_kernel)(?:ILi(\d+)ELb([01])EEv)?")
+# A kernel's entry name as nvcc mangles it, with its template arguments
+# (lanes per walker, and for the stretch-move kernels cluster):
+# mbb_stretch_kernel<8, true> is _Z18mbb_stretch_kernelILi8ELb1EEv...,
+# mbb_lnprob_kernel<8> is _Z17mbb_lnprob_kernelILi8EEv...
+_ENTRY = re.compile(
+    r"_Z\d+(mbb_\w*?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?Ev)?")
 
 
 def ptxas_report(log):
     """Registers and spill bytes of every kernel entry in nvcc's -Xptxas -v
     output `log`: a list of {"kernel", "group", "cluster", "registers",
     "spill_stores", "spill_loads"} (group and cluster None for an entry
-    that is not a template of them)."""
+    that is not a template of them; the lnprob kernel has a group and no
+    cluster)."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "

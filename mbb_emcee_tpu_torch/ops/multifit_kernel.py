@@ -31,10 +31,11 @@ from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, build_lnprob_data, signed_iunc)
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
-    current_stream_handle, pack_constants, response_nodes, smem_optin_bytes)
+    H100_SMEM_OPTIN, H100_SMS, current_stream_handle, device_sm_count,
+    pack_constants, plan_mode, response_nodes, smem_optin_bytes)
 from mbb_emcee_tpu_torch.ops.sampler_kernel import (
-    ERR_CLUSTER_UNPLACEABLE, H100_SMEM_OPTIN, MAX_WALKERS, check_plan,
-    check_run_smem, max_threads, plan_mode, stretch_plan)
+    ERR_CLUSTER_UNPLACEABLE, MAX_WALKERS, check_plan, check_run_smem,
+    max_threads, stretch_plan)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
@@ -70,10 +71,10 @@ MULTI_PLAN_TABLE = {
     "point_noalpha_thin": ((1, 1),),
     "response": ((32, 8), (16, 4), (8, 2), (4, 1), (1, 1)),
 }
-# The H100 SXM's streaming multiprocessors and per-SM limits (compute
-# capability 9.0): the planner's model of what the card runs at once, off
-# the card. Each block reserves 1 KB of the SM's 228 KB of shared memory.
-H100_SMS = 132
+# The H100 SXM's per-SM limits (compute capability 9.0), beside
+# ops/lnprob_kernel.py's H100_SMS: the planner's model of what the card
+# runs at once, off the card. Each block reserves 1 KB of the SM's 228 KB
+# of shared memory.
 H100_SM_THREADS, H100_SM_BLOCKS, H100_SM_REGISTERS = 2048, 32, 65536
 H100_SM_SMEM, H100_BLOCK_SMEM_RESERVED = 233472, 1024
 
@@ -125,11 +126,6 @@ def plan_multi_launch(nb, nnodes, half, nsources, noalpha=False,
                          or resident(plan) >= nsources):
                 return plan
     return stretch_plan(1, 1, nb, nnodes, half)
-
-
-def device_sm_count(device):
-    """The SMs of CUDA device `device` (multi_processor_count)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def card_resident(device, nb, nnodes, half):

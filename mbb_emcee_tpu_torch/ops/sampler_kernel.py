@@ -24,8 +24,8 @@ import torch
 
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
-    LnprobOperands, check_smem, current_stream_handle, mbb_lnprob,
-    prepare_lnprob_inputs, smem_optin_bytes)
+    H100_SMEM_OPTIN, LnprobOperands, check_smem, current_stream_handle,
+    mbb_lnprob, plan_mode, prepare_lnprob_inputs, smem_optin_bytes)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, SamplerState, _check_run_args, stretch_run_plain)
 
@@ -38,9 +38,6 @@ MAX_THREADS = 1024
 MAX_GROUP_THREADS = 512
 GROUPS = (1, 8, 16, 32)       # lanes per walker
 MAX_CLUSTER = 8               # blocks per cluster (the portable maximum)
-# The H100's cudaDevAttrMaxSharedMemoryPerBlockOptin, the planner's default
-# budget off the card.
-H100_SMEM_OPTIN = 232448
 # (lanes per walker, blocks per cluster) per mode: point mode (one node per
 # band) with the Wien merge solve, without it (alpha fixed) for the thick
 # and the optically thin model, and response mode. Chosen from
@@ -88,16 +85,6 @@ def stretch_plan(group, cluster, nb, nnodes, half):
     threads = -(-(wpb * group) // 32) * 32
     return StretchPlan(group, cluster, wpb, threads,
                        run_smem_bytes(nb, nnodes, half, threads))
-
-
-def plan_mode(nnodes, noalpha=False, opthin=False):
-    """PLAN_TABLE's key for a likelihood of nnodes nodes per band and a
-    model with or without the Wien merge solve (noalpha), thick or thin."""
-    if nnodes > 1:
-        return "response"
-    if not noalpha:
-        return "point"
-    return "point_noalpha_thin" if opthin else "point_noalpha_thick"
 
 
 def plan_stretch_launch(nb, nnodes, half, noalpha=False, opthin=False,

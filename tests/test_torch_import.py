@@ -232,6 +232,54 @@ def test_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
+def test_lnprob_layouts_agree_on_the_card():
+    """On a CUDA machine: K1 on every lanes-per-vector layout, in blocks of
+    one to eight warps, with a block per tile and with blocks that loop
+    over the tiles, against one thread per vector in blocks of 128: bitwise
+    in point mode at 1, 33, 250 and 4096 vectors, within tolerance on a
+    5 x 65 response pack; the planned layout agrees with the plain version;
+    the planner's shared-memory size is the library's; a layout the kernel
+    lacks is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mbb_emcee_tpu_torch import ResponseSet
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+        LNPROB_GROUPS, lnprob_plan, plan_lnprob_on_card,
+        prepare_lnprob_inputs)
+    phot, shape, spec = _problem()
+    names = ["PACS_100", "PACS_160", "SPIRE_250", "SPIRE_350", "SPIRE_500"]
+    pack = ResponseSet.builtin(names, nnodes=65).pack(names)
+    rng = np.random.default_rng(8)
+    xs = torch.as_tensor((np.array([30.0, 1.8, 250.0, 3.5, 23.0])[None]
+                          * rng.uniform(0.7, 1.3, (4096, 5))).astype(
+        np.float32), device="cuda")
+    for rp, nn in ((None, 1), (pack, 65)):
+        ops = prepare_lnprob_inputs(phot, shape, spec, rp, device="cuda")
+        for n in (1, 33, 250, 4096):
+            x = xs[:n].contiguous()
+            want = mbb_lnprob(x, ops, plan=lnprob_plan(1, 128, n, 5, nn))
+            planned = plan_lnprob_on_card(5, nn, n, False, False, 0)
+            torch.testing.assert_close(mbb_lnprob(x, ops), ops.plain(x),
+                                       rtol=1e-5, atol=1e-4)
+            assert planned.group > 1
+            for g in LNPROB_GROUPS:
+                for t in (32, 128, 256):
+                    for max_blocks in (None, 3):
+                        p = lnprob_plan(g, t, n, 5, nn, max_blocks)
+                        assert build.build_kernels().mbb_lnprob_smem_bytes(
+                            5, nn, t) == p.smem_bytes
+                        got = mbb_lnprob(x, ops, plan=p)
+                        if rp is None:
+                            assert torch.equal(got, want), p
+                        else:
+                            torch.testing.assert_close(got, want, rtol=1e-5,
+                                                       atol=1e-4)
+    with pytest.raises(ValueError, match="group 2"):
+        mbb_lnprob(xs, ops, plan=dataclasses.replace(
+            lnprob_plan(4, 128, 4096, 5, 65), group=2))
+
+
+@pytest.mark.cuda
 def test_stretch_layouts_agree_on_the_card():
     """On a CUDA machine: K2 on its planned layout (lanes per walker in a
     thread-block cluster) and on every other layout of the planner's sweep

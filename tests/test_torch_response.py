@@ -246,6 +246,56 @@ def test_fitter_call_in_response_mode_matches_jax(nnodes):
     assert tfit._response_pack()[0].shape == (5, nnodes)
 
 
+def test_response_mode_with_a_covariance_matches_jax():
+    """Response mode x correlated band errors: config 3's model on its
+    5 x 65 pack with config 5's band covariance, 8 seeded parameter
+    vectors through the JAX lnprob and the port's (the plain version, and
+    the kernel wrapper on a CPU tensor), and through both fitters'
+    __call__."""
+    cfg = vp.CONFIGS[3]
+    flux, unc, _ = vp.mock_data(cfg)
+    _, _, cov = vp.mock_data(vp.CONFIGS[5])
+    assert cov is not None and cov.shape == (5, 5)
+    assert np.abs(cov - np.diag(np.diag(cov))).max() > 0
+    pack = ResponseSet.builtin(vp.BANDS, nnodes=65).pack(vp.BANDS)
+    spec = T.LikelihoodSpec.default()
+    jspec = J.LikelihoodSpec.default()
+    for sp in (spec, jspec):
+        sp.upper[0], sp.upper[1] = vp.UPPER[0], vp.UPPER[1]
+        sp.fixed[2], sp.fixed_values[2] = True, vp.TRUE[2]
+        sp.fixed[3], sp.fixed_values[3] = True, vp.TRUE[3]
+    shape = MBBShape(opthin=True, noalpha=True)
+    ops = prepare_lnprob_inputs(
+        Photometry(vp.WAVE, flux, unc, cov=cov, band_names=list(vp.BANDS)),
+        shape, spec, pack)
+    assert ops.icfg[2] == 1 and tuple(ops.icfg[3:5]) == (5, 65)
+    jfn, jfree = J.build_lnprob(
+        J.Photometry(vp.WAVE, flux, unc, cov=cov, band_names=list(vp.BANDS)),
+        JShape(opthin=True, noalpha=True), jspec, response_pack=pack)
+    free = ops.free_space.free_idx
+    assert list(free) == list(jfree.free_idx) == [0, 1, 4]
+    th = (vp.TRUE[free][None] * np.random.default_rng(35).uniform(
+        0.8, 1.2, (8, free.size))).astype(np.float32)
+    want = np.asarray(jax.vmap(jfn)(jnp.asarray(th)))
+    assert np.all(np.isfinite(want)) and np.all(want > -1e29)
+    x = torch.as_tensor(th)
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+    np.testing.assert_allclose(ops.plain(x).numpy(), want, rtol=2e-5)
+    np.testing.assert_allclose(mbb_lnprob(x, ops).numpy(), want, rtol=2e-5)
+    # the covariance matters: the diagonal likelihood gives other values
+    diag = prepare_lnprob_inputs(
+        Photometry(vp.WAVE, flux, unc, band_names=list(vp.BANDS)), shape,
+        spec, pack)
+    assert not np.allclose(diag.plain(x).numpy(), want, rtol=1e-3)
+    tfit, jfit = _config3_fits(65)
+    for fit in (tfit, jfit):
+        fit.set_data(vp.WAVE, flux, unc, cov=cov, band_names=vp.BANDS)
+    for row in th:
+        theta = vp.TRUE.copy()
+        theta[free] = row
+        np.testing.assert_allclose(tfit(theta), jfit(theta), rtol=2e-5)
+
+
 def test_response_mode_needs_band_names():
     fit = T.MBBFitter(nwalkers=16, device="cpu",
                       responses=ResponseSet.builtin(vp.BANDS))
