@@ -96,16 +96,29 @@ non-zero without printing a result):
      and 1,048,576 vectors in each mode of the planner's table, each in
      turns with one thread per vector in blocks of 128, beside its bound at
      that batch size; then the host's time per mbb_lnprob call and per
-     MBBFitter.__call__ beside the device's.
+     MBBFitter.__call__ beside the device's;
+ 21. MAP and model checking through the user's entry points: fit_map on
+     the card at config 2 and in response mode (config 3's 5 x 65 pack),
+     each mode held against the same call on the CPU (1e-2 Laplace sigma,
+     lnp 1e-3), and map_importance's 2048 Laplace draws through K1 (1
+     launch each); fit_map then run(init="map", MAP_SEEDED_BURN, 250) on
+     K2 (3 launches each) against the sentinel's configs 1 and 6 as phase 5
+     holds its fits; MultiFitter at 256 sources x 250 walkers x 5 bands:
+     run_map (8 starts), map_importance, run(init="map") on K3 (3
+     launches), then posterior_predictive and compute_loo over 256 x
+     62,500 samples, each timed on its first and second call; and
+     compute_loo_exact at config 1 on K3 (3 launches) against PSIS-LOO
+     (0.3 nats where k-hat <= 0.7). No plain sampler run on any of these
+     paths; every time beside the nvidia-smi line.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` runs the build and those phases alone,
-a rehearsal that prints no kernel table and no result line;
+before any phase. `--phases 3,15` (or `21`) runs the build and those
+phases alone, a rehearsal that prints no kernel table and no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
 posteriors' timings of phases 9 and 14 (about a minute more). A whole run
-takes about 2.5 minutes on one H100 (H100 80GB HBM3 at 700 W), the kernels'
+takes about 3 minutes on one H100 (H100 80GB HBM3 at 700 W), the kernels'
 build included.
 """
 
@@ -466,9 +479,10 @@ def use_repo_tests_package():
     sys.modules["tests"] = pkg
 
 
-def port_fit(ci, flux, unc, cov, seed, nburn, nsteps):
-    """One port MBBFitter run of parity config `ci`, set up as
-    tools/validate_tpu_parity.py's jax_fit sets up the JAX fitter."""
+def port_fitter(ci, flux, unc, cov, seed, device=None):
+    """A port MBBFitter of parity config `ci` on `device` (default DEVICE),
+    set up as tools/validate_tpu_parity.py's jax_fit sets up the JAX
+    fitter."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MBBFitter
@@ -480,7 +494,7 @@ def port_fit(ci, flux, unc, cov, seed, nburn, nsteps):
         band_names = vp.BANDS
     fit = MBBFitter(nwalkers=NWALKERS, seed=seed, opthin=cfg["opthin"],
                     noalpha=cfg["noalpha"], responses=responses,
-                    device=DEVICE)
+                    device=device or DEVICE)
     fit.set_data(vp.WAVE, flux, unc, cov=cov, band_names=band_names)
     fit.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
     ub = cfg.get("uplim_band")
@@ -492,6 +506,13 @@ def port_fit(ci, flux, unc, cov, seed, nburn, nsteps):
         fit.set_gaussian_prior(pi, mean, sig)
     for i in range(5):
         fit.set_param_init(i, vp.TRUE[i])
+    return fit
+
+
+def port_fit(ci, flux, unc, cov, seed, nburn, nsteps):
+    """One port MBBFitter run of parity config `ci` (port_fitter) on the
+    kernel sampler."""
+    fit = port_fitter(ci, flux, unc, cov, seed)
     fit.run(nburn=nburn, nsteps=nsteps)
     if type(fit.sampler).__name__ != "FusedSampler":
         raise AssertionError("the fitter did not select the kernel sampler")
@@ -2598,8 +2619,265 @@ def phase_k1_sweep(card, threads=None, sizes=K1_SWEEP_N):
     return out, k1_probe(card)
 
 
+def _timed(fn):
+    """(fn(), host seconds), the card synchronized on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _path_counts(path, kernel, want):
+    """Read the counts just after entry point `path` (zeroed just before
+    it) and require `want` launches of `kernel` and no plain sampler run.
+    Returns the launch count."""
+    c = _counts()
+    n = c[kernel]
+    plain = c["plain_sampler_runs"] + c["plain_multi_runs"]
+    ok = n == want and plain == 0
+    log(f"[21] {path}: {n} {kernel} launches (want {want}), {plain} plain "
+        f"sampler runs {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{path} did not run through {kernel} alone")
+    return n
+
+
+def _recording_k1():
+    """A context in which every mbb_lnprob call made through the module's
+    attribute is recorded as (x, ops, output copy) in the list it yields.
+    The wrapper counts its launches on the module's name, which is the
+    recorder meanwhile: the recorder starts from the wrapper's count and
+    hands it back, so the counts are the wrapper's own."""
+    import contextlib
+    from mbb_emcee_tpu_torch.ops import lnprob_kernel
+
+    @contextlib.contextmanager
+    def ctx():
+        orig, seen = lnprob_kernel.mbb_lnprob, []
+
+        def rec(x, ops, *args, **kwargs):
+            out = orig(x, ops, *args, **kwargs)
+            seen.append((x, ops, out.clone()))
+            return out
+        rec.launches = orig.launches
+        lnprob_kernel.mbb_lnprob = rec
+        try:
+            yield seen
+        finally:
+            lnprob_kernel.mbb_lnprob = orig
+            orig.launches = rec.launches
+    return ctx()
+
+
+def _map_modes(ci, card, times, by_path):
+    """fit_map on the card and on the CPU (same seed, same starts), the
+    modes held together; then map_importance's 2048 draws through K1, whose
+    output on them is held against the plain version as phase 19 holds
+    it."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.likelihood import LNPROB_FLOOR
+    cfg = vp.CONFIGS[ci]
+    label = cfg["label"]
+    flux, unc, cov = vp.mock_data(cfg)
+    fits, r = {}, {}
+    for dev in (DEVICE, "cpu"):
+        fits[dev] = port_fitter(ci, flux, unc, cov, seed=31, device=dev)
+        r[dev], times[f"fit_map {label} {dev}"] = _timed(fits[dev].fit_map)
+    g, c = r[DEVICE], r["cpu"]
+    dx = float(np.max(np.abs(g.x - c.x) / np.maximum(c.sigma, 1e-12)))
+    ok = dx < 1e-2 and abs(g.lnprob - c.lnprob) < 1e-3 \
+        and g.interior == c.interior and np.all(np.isfinite(g.sigma))
+    log(f"[21] {label}: fit_map (8 starts, 150 Adam + 12 Newton steps) on "
+        f"the card {times[f'fit_map {label} {DEVICE}']:.2f} s, on the CPU "
+        f"{times[f'fit_map {label} cpu']:.2f} s (host clock); mode "
+        f"{np.array2string(g.x, precision=5)}, |dx| max {dx:.2e} Laplace "
+        f"sigma (tol 1e-2), dlnp {g.lnprob - c.lnprob:.2e} (tol 1e-3), "
+        f"interior {g.interior} {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"{label}: the card's MAP mode is not the "
+                             "CPU's")
+    path = f"map_importance {label}"
+    _counts(reset=True)
+    with _recording_k1() as seen:
+        (x, logw, ess), t = _timed(
+            lambda: fits[DEVICE].map_importance(2048))
+    by_path[path] = _path_counts(path, "mbb_lnprob", 1)
+    times[path] = t
+    xk, ops, got = seen[0]
+    want = ops.plain(xk)
+    floor = want <= LNPROB_FLOOR / 2
+    k1_ok = (xk.shape == (2048, g.x.size)
+             and torch.equal(got <= LNPROB_FLOOR / 2, floor)
+             and bool((got[floor] == LNPROB_FLOOR).all())
+             and torch.allclose(got[~floor], want[~floor], rtol=K1_RTOL,
+                                atol=K1_ATOL))
+    dk1 = float((got[~floor] - want[~floor]).abs().max()) \
+        if (~floor).any() else 0.0
+    cen = fits[DEVICE].map_par_cen("T")
+    ok = k1_ok and x.shape == (2048, g.x.size) and np.isfinite(cen[0]) \
+        and 0.0 <= ess <= 2048.0
+    log(f"[21] {path}: 2048 Laplace draws through K1 in {1e3 * t:.1f} ms "
+        f"(host clock), ess {ess:.1f}, T {cen[0]:.4g} +{cen[1]:.3g} "
+        f"-{cen[2]:.3g}; K1 on those draws against the plain version: "
+        f"{int(floor.sum())} floored, max |d| {dk1:.3g} (rtol {K1_RTOL:g}, "
+        f"atol {K1_ATOL:g}) {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"{path}: bad importance sample")
+
+
+# Burn-in of the MAP-seeded sentinel fits. The protocol re-centers the
+# ensemble on its best burn-in sample in a ball of 0.1x the default scatter
+# after the first burn, so the MAP ball's spread does not survive into the
+# re-burn: at nburn=50 config 6's widths came out 8-18% narrow (CPU
+# rehearsal, 250 walkers x 250 steps, 2 fits), at 200 within 5%.
+MAP_SEEDED_BURN = 200
+
+
+def _map_seeded_sentinel(ci, card, times, by_path):
+    """SENTINEL.k_jax x (fit_map, run(init="map", MAP_SEEDED_BURN, 250)) of
+    sentinel config `ci` on K2, held against its recorded fp64 oracle
+    moments as phase 5 holds its fits."""
+    from tools import validate_tpu_parity as vp
+    with open(vp.SENTINEL_PATH) as fh:
+        reference = json.load(fh)["configs"][str(ci)]
+    cfg = vp.CONFIGS[ci]
+    label = cfg["label"]
+    free = vp.free_indices(cfg)
+    flux, unc, cov = vp.mock_data(cfg)
+    meds, wids, ses = [], [], []
+    for j in range(vp.SENTINEL.k_jax):
+        fit = port_fitter(ci, flux, unc, cov, seed=2000 + 17 * j)
+        _, t_map = _timed(fit.fit_map)
+        path = f"run(init='map') {label} #{j}"
+        _counts(reset=True)
+        _, t = _timed(lambda: fit.run(nburn=MAP_SEEDED_BURN, nsteps=250,
+                                      init="map"))
+        by_path[path] = _path_counts(path, "mbb_stretch_run", 3)
+        times[f"fit_map {label} #{j}"], times[path] = t_map, t
+        flat = fit.chain.reshape(-1, 5)
+        m, w = vp.stats(flat, free)
+        meds.append(m)
+        wids.append(w)
+        ses.append(tau_se(fit.chain_free.double().cpu().numpy(), flat, free))
+        log(f"[21] {label} #{j}: fit_map {t_map:.2f} s, run(init='map', "
+            f"nburn={MAP_SEEDED_BURN}, nsteps=250) {t:.2f} s (host clock, "
+            f"{card})")
+    mj, wj, sjm, sjw = vp.aggregate(meds, wids, ses)
+    ok, lines = vp.check_sentinel(
+        {"medians": mj, "widths": wj, "se_medians": sjm, "se_widths": sjw},
+        reference)
+    log(f"[21] {label}: MAP-seeded fits x {NWALKERS} walkers against the "
+        f"recorded fp64 oracle moments:")
+    for line in lines:
+        log(f"[21]   {line}")
+    if not ok:
+        raise AssertionError(f"{label}: MAP-seeded posterior off the "
+                             "recorded oracle moments")
+    return fit
+
+
+def _timed_twice(tag, fn, card, times):
+    """fn() on its first and its second call, host clock with the card
+    synchronized. Returns the second call's result."""
+    for call in ("first", "second"):
+        out, t = _timed(fn)
+        times[f"{tag} {call}"] = t
+    log(f"[21] {tag}: first call {times[f'{tag} first']:.2f} s, second call "
+        f"{times[f'{tag} second']:.2f} s (host clock, {card})")
+    return out
+
+
+def phase_map_checks(card):
+    """MAP triage and model checking on the card through the user's entry
+    points (see the module docstring, phase 21). Returns (launches by
+    kernel and path, seconds by step)."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MBBResults
+
+    times = {}
+    k1, k2, k3 = {}, {}, {}
+    t0 = time.time()
+    for ci in (2, 3):
+        _map_modes(ci, card, times, k1)
+    fit1 = None
+    for ci in vp.SENTINEL_CONFIGS:
+        fit = _map_seeded_sentinel(ci, card, times, k2)
+        fit1 = fit if ci == vp.SENTINEL_CONFIG else fit1
+
+    # the batch cell: 256 sources x 250 walkers x 5 bands
+    flux, unc = batch_data(NSOURCES, seed=3000, missing_every=16)
+    mf = batch_fitter(flux, unc, seed=4321)
+    _, times["run_map"] = _timed(mf.run_map)
+    ess, times["map_importance batch"] = _timed(mf.map_importance)
+    cen = mf.map_cen("T")
+    ok = (np.all(np.isfinite(mf.map_lnprob)) and np.all(np.isfinite(cen))
+          and ess.shape == (NSOURCES,) and np.all(np.isfinite(ess)))
+    log(f"[21] MultiFitter {NSOURCES} sources: run_map (8 starts each, "
+        f"{8 * NSOURCES} optimizer rows) {times['run_map']:.2f} s, "
+        f"map_importance (512 draws per source, plain torch) "
+        f"{times['map_importance batch']:.2f} s (host clock); "
+        f"{int(mf.map_interior.sum())} interior modes, median ess "
+        f"{np.median(ess):.1f} {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("run_map / map_importance not finite")
+    path = f"MultiFitter.run(init='map') {NSOURCES}x{NWALKERS}"
+    _counts(reset=True)
+    _, times[path] = _timed(lambda: mf.run(nburn=50, nsteps=250, init="map"))
+    k3[path] = _path_counts(path, "mbb_multi_stretch_run", 3)
+    af = mf.acceptance_fraction.mean(axis=1)
+    log(f"[21] {path}: {times[path]:.2f} s (host clock), acceptance per "
+        f"source {af.min():.3f}..{af.max():.3f} ({card})")
+    n = NSOURCES * 250 * NWALKERS
+    ppc = _timed_twice(f"posterior_predictive {NSOURCES} x "
+                       f"{250 * NWALKERS}", mf.posterior_predictive, card,
+                       times)
+    loo = _timed_twice(f"compute_loo {NSOURCES} x {250 * NWALKERS}",
+                       mf.compute_loo, card, times)
+    ok = (ppc.chi2_obs.shape == (NSOURCES, 250 * NWALKERS)
+          and np.all(np.isfinite(ppc.p_value))
+          and np.all(np.isfinite(loo.elpd_loo))
+          and np.all(loo.n_points == 5 - (np.arange(NSOURCES) % 16 == 1)))
+    log(f"[21] {n:,} samples: PPC median p {np.median(ppc.p_value):.3f}, "
+        f"{int((ppc.p_value < 0.01).sum())} sources with p < 0.01, mean "
+        f"chi2_rep {ppc.chi2_rep.mean():.3f} (ndata 4-5); total elpd_loo "
+        f"{np.sum(loo.elpd_loo):.2f}, {int((loo.n_bad_k > 0).sum())} "
+        f"sources with k-hat > 0.7 {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("batch PPC / LOO not finite or misshapen")
+
+    # exact leave-one-band-out refits at config 1, against PSIS-LOO
+    res = MBBResults(fit=fit1)
+    psis = res.compute_loo()
+    path = "compute_loo_exact config1 thick4"
+    _counts(reset=True)
+    exact, times[path] = _timed(fit1.compute_loo_exact)
+    k3[path] = _path_counts(path, "mbb_multi_stretch_run", 3)
+    good = psis.pareto_k <= 0.7
+    diff = np.abs(exact.pointwise_loo - psis.pointwise_loo)
+    ok = (np.all(np.isfinite(exact.pointwise_loo))
+          and np.all(np.isfinite(exact.se_mc))
+          and np.array_equal(exact.point_index, psis.point_index)
+          and np.all(diff[good] < 0.3))
+    log(f"[21] {path}: {exact.pointwise_loo.size} refits x "
+        f"{exact.nsamples} samples in {times[path]:.2f} s (host clock); "
+        f"exact {np.array2string(exact.pointwise_loo, precision=3)}, PSIS "
+        f"{np.array2string(psis.pointwise_loo, precision=3)}, k-hat "
+        f"{np.array2string(psis.pareto_k, precision=2)}; |exact - PSIS| <= "
+        f"0.3 where k-hat <= 0.7 {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("exact LOO refits disagree with PSIS-LOO")
+    log(f"[21] phase 21: {time.time() - t0:.1f} s")
+    return {"mbb_lnprob": k1, "mbb_stretch_run": k2,
+            "mbb_multi_stretch_run": k3}, times
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14", "15", "16", "17", "18", "19", "20")
+          "13", "14", "15", "16", "17", "18", "19", "20", "21")
 
 
 def main(argv=None):
@@ -2639,7 +2917,8 @@ def main(argv=None):
         ("14", lambda: phase_parity(card)),
         ("15", phase_k2_layouts), ("16", lambda: phase_plan_sweep(card)),
         ("17", phase_k3_layouts), ("18", lambda: phase_k3_sweep(card)),
-        ("19", phase_k1_layouts), ("20", lambda: phase_k1_sweep(card))]
+        ("19", phase_k1_layouts), ("20", lambda: phase_k1_sweep(card)),
+        ("21", lambda: phase_map_checks(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -2671,6 +2950,12 @@ def main(argv=None):
     k1_plans, k1_layout_err, (rc1, rc2, rc3) = res["19"]
     k1_sweep, k1_host = res["20"]
     k3_by_path["extend (phase 12)"] = ext["mbb_multi_stretch_run"]
+    map_paths, map_times = res["21"]
+    for by_path, name in ((k1_by_path, "mbb_lnprob"),
+                          (k2_by_path, "mbb_stretch_run"),
+                          (k3_by_path, "mbb_multi_stretch_run")):
+        by_path.update({f"{k} (phase 21)": v
+                        for k, v in map_paths[name].items()})
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -2761,6 +3046,8 @@ def main(argv=None):
     log("derived posteriors (the next thing to shorten): " + json.dumps(
         {"batch 256 x 62500 samples": res["9"][1],
          "single fit, config 4": derived_single}))
+    log(f"MAP and model checking, host seconds ({card}): "
+        + json.dumps(map_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

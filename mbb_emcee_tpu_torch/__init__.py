@@ -26,6 +26,12 @@ MBBFitter(n_ensembles > 1), on a CUDA device one launch of the
 multi-source stretch-move kernel per sampling phase
 (ops/multifit_kernel.py, csrc/multifit.cu).
 
+Triage and model checking: MAP + Laplace fits (MBBFitter.fit_map,
+MultiFitter.run_map; mapfit.py) with Laplace importance sampling and
+MAP-seeded walker balls (run(init="map")), posterior-predictive checks,
+WAIC / PSIS-LOO and exact leave-one-band-out refits (modelcheck.py), and
+prior reweighting of a finished chain (reweight.py).
+
 The kernels are built with nvcc at first use (ops/build.py). Importing the
 package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
 read or written.
@@ -42,10 +48,16 @@ from mbb_emcee_tpu_torch.sampler import EnsembleSampler, SamplerState
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
 from mbb_emcee_tpu_torch.fitter import MBBFitter
-from mbb_emcee_tpu_torch.results import MBBResults
+from mbb_emcee_tpu_torch.results import MBBResults, PPCResult
 from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
-from mbb_emcee_tpu_torch.multifit import MultiFitter
+from mbb_emcee_tpu_torch.multifit import MultiFitter, PPCBatchResult
 from mbb_emcee_tpu_torch.response import Response, ResponseSet
+from mbb_emcee_tpu_torch.mapfit import MAPResult
+from mbb_emcee_tpu_torch.modelcheck import (
+    LooResult, LooBatchResult, LooComparison, compare_loo)
+from mbb_emcee_tpu_torch.reweight import (
+    reweight_prior, reweight_prior_batch, ReweightResult,
+    ReweightBatchResult)
 
 __version__ = "0.1.0"
 
@@ -56,5 +68,8 @@ __all__ = [
     "LikelihoodSpec", "Photometry", "build_lnprob",
     "EnsembleSampler", "SamplerState", "FusedSampler", "build_kernels",
     "MBBFitter", "MBBResults", "FusedMultiSampler", "MultiFitter",
-    "Response", "ResponseSet", "__version__",
+    "Response", "ResponseSet", "MAPResult", "PPCResult", "PPCBatchResult",
+    "LooResult", "LooBatchResult", "LooComparison", "compare_loo",
+    "reweight_prior", "reweight_prior_batch", "ReweightResult",
+    "ReweightBatchResult", "__version__",
 ]

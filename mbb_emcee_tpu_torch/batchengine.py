@@ -385,3 +385,319 @@ class BatchEngine:
         out = [fn(samples[:, i:i + chunk]).double().cpu().numpy()
                for i in range(0, N, chunk)]
         return np.concatenate(out, axis=1)
+
+    # -- MAP + Laplace triage ---------------------------------------------------
+    def run_map(self, nstarts=8, n_adam=150, n_newton=12, adam_lr=0.1,
+                verbose=False):
+        """Batched MAP + Laplace quick fits (mapfit.py): S sources x
+        `nstarts` starts, each a fixed-iteration Adam-then-damped-Newton
+        optimizer, as one batched torch computation on the per-source
+        plain likelihood on the fitter's device. Stores per source
+
+            map_params   (S, 5) full-space MAP points
+            map_lnprob   (S,)   posterior log-density at the mode
+            map_cov      (S, nfree, nfree) Laplace covariance
+            map_sigma    (S, nfree) sqrt(diag)
+            map_interior (S,) bool: mode safely inside the box (False: the
+                         Laplace error bars are not trustworthy; run the
+                         MCMC for that source)
+            map_grad_norm (S,)
+
+        and returns self. map_cen(param) gives (S, 2) value +/- sigma."""
+        from mbb_emcee_tpu_torch.mapfit import (
+            map_fit, laplace_cov_host, interior_mask)
+        if self.flux is None:
+            raise RuntimeError("no data; call set_data")
+        spec = self._effective_spec()
+        ops = self._lnprob_operands(spec)
+        free_space = ops.free_space
+        self.free_space = free_space
+        # the spec THIS fit ran under: writeToHDF5 persists it
+        self._run_spec = spec
+        if not (np.all(np.isfinite(free_space.lower))
+                and np.all(np.isfinite(free_space.upper))):
+            raise ValueError(
+                "MAP fitting requires finite box bounds on every free "
+                "parameter (the defaults are finite)")
+        idx = free_space.free_idx
+        cen, sca = self._init_centers()
+        x0 = self._balls(torch.Generator().manual_seed(self.seed),
+                         cen[:, idx], sca[:, idx], int(nstarts))
+        x_map, lnp_map, H, gn = map_fit(ops.plain, free_space.lower,
+                                        free_space.upper, x0, n_adam,
+                                        n_newton, adam_lr)
+        self.map_params = free_space.expand(x_map)
+        self.map_lnprob = lnp_map
+        self.map_cov, h_ok = laplace_cov_host(H)
+        self.map_sigma = np.sqrt(np.maximum(
+            np.diagonal(self.map_cov, axis1=1, axis2=2), 0.0))
+        # a non-finite Hessian is never trustworthy, whatever sigma says
+        self.map_interior = h_ok & interior_mask(
+            x_map, self.map_sigma, free_space.lower, free_space.upper)
+        self.map_grad_norm = gn
+        self._record_map(spec)
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            n_bad = int((~self.map_interior).sum())
+            enable_console().info(
+                f"MAP triage over {self.nsources} sources x {nstarts} "
+                f"starts on {self.device}: lnprob in "
+                f"[{self.map_lnprob.min():.1f}, {self.map_lnprob.max():.1f}]"
+                f"; {n_bad} modes at the box edge (Laplace suspect -- run "
+                f"the MCMC for those)")
+        return self
+
+    def map_importance(self, nsamples=512, seed=None, verbose=False):
+        """Laplace importance sampling after run_map(): `nsamples` draws
+        per source from each Laplace Gaussian, the true posterior evaluated
+        in one batched call on the fitter's device, importance weights
+        w = p/q with q in closed form from the standard-normal draws.
+        Stores map_samples (S, N, nfree), map_logw (S, N) and map_ess (S,)
+        and returns map_ess: ess/N near 1 says the posterior is
+        Gaussian-like and map_par_cen's summaries hold; a small ess says
+        run the MCMC for that source."""
+        from mbb_emcee_tpu_torch.likelihood import SUPPORT_FLOOR
+        if getattr(self, "map_params", None) is None:
+            raise RuntimeError("run_map() has not been called")
+        self._require_map_fresh("map_importance()")
+        ops = self._lnprob_operands(self._effective_spec())
+        free_space = ops.free_space
+        S = self.nsources
+        d = free_space.nfree
+        N = int(nsamples)
+        # host fp64 proposal pieces: Cholesky factors and log-normalizers
+        L = np.linalg.cholesky(self.map_cov)            # (S, d, d)
+        logdet = np.sum(np.log(np.diagonal(L, axis1=1, axis2=2)), axis=1)
+        mu = self.map_params[:, free_space.free_idx]    # (S, d)
+        gen = torch.Generator().manual_seed(
+            self.seed if seed is None else int(seed))
+        eps = torch.randn((S, N, d), generator=gen, dtype=torch.float32)
+        dev = self.device
+        eps_d = eps.to(dev)
+        # x = mu + L eps per draw, written out (no matmul: no TF32)
+        Lt = torch.as_tensor(L.astype(np.float32), device=dev)
+        x = (torch.as_tensor(mu.astype(np.float32), device=dev)[:, None, :]
+             + torch.sum(eps_d[:, :, None, :] * Lt[:, None, :, :], dim=-1))
+        lnp = ops.plain(x).double().cpu().numpy()       # (S, N)
+        lnq = (-0.5 * np.sum(eps.double().numpy() ** 2, axis=2)
+               - logdet[:, None] - 0.5 * d * np.log(2.0 * np.pi))
+        # Out-of-box draws sit at the finite floor, which absorbs lnq in
+        # fp64: unmasked, an all-out-of-box source would get uniform
+        # weights and a perfect ess = N. Mask them to -inf.
+        logw = np.where(lnp > SUPPORT_FLOOR, lnp - lnq, -np.inf)
+        mx = logw.max(axis=1, keepdims=True)
+        any_in = np.isfinite(mx[:, 0])
+        logw = np.where(any_in[:, None], logw - np.where(
+            np.isfinite(mx), mx, 0.0), -np.inf)
+        w = np.exp(logw)
+        w_sum = w.sum(axis=1, keepdims=True)
+        ess = np.where(
+            any_in,
+            (w_sum[:, 0] ** 2) / np.maximum((w * w).sum(axis=1), 1e-300),
+            0.0)
+        self.map_samples = x.double().cpu().numpy()
+        self.map_logw = logw
+        self.map_ess = ess
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            frac = ess / N
+            enable_console().info(
+                f"Laplace importance sampling: N={N}/source, ess/N median "
+                f"{np.median(frac):.2f} (min {frac.min():.2f}); "
+                f"{int((frac < 0.2).sum())} sources below 0.2 -- run the "
+                f"MCMC for those")
+        return ess
+
+    def map_par_cen(self, param, percentile=68.3):
+        """(S, 3) weighted (median, +err, -err) from the importance-refined
+        Laplace posterior (map_importance first). Fixed parameters report
+        zero errors; a source with no draw in the box reports its MAP
+        point with NaN errors."""
+        if getattr(self, "map_samples", None) is None:
+            raise RuntimeError("map_importance() has not been called")
+        i = param_index(param)
+        free_idx = list(self.free_space.free_idx)
+        if i not in free_idx:
+            vals = self.map_params[:, i]
+            return np.column_stack([vals, np.zeros_like(vals),
+                                    np.zeros_like(vals)])
+        col = self.map_samples[:, :, free_idx.index(i)]   # (S, N)
+        w = np.exp(self.map_logw)
+        p = float(percentile)
+        qs = np.array([50.0 - p / 2, 50.0, 50.0 + p / 2]) / 100.0
+        out = np.empty((self.nsources, 3))
+        for s in range(self.nsources):
+            order = np.argsort(col[s])
+            cw = np.cumsum(w[s][order])
+            if cw[-1] <= 0.0:
+                out[s] = (self.map_params[s, i], np.nan, np.nan)
+                continue
+            cw /= cw[-1]
+            lo, mid, hi = np.interp(qs, cw, col[s][order])
+            out[s] = (mid, hi - mid, mid - lo)
+        return out
+
+    def map_cen(self, param):
+        """(S, 2) MAP value +/- Laplace sigma for `param` (sigma = 0 for
+        fixed parameters)."""
+        if getattr(self, "map_params", None) is None:
+            raise RuntimeError("run_map() has not been called")
+        i = param_index(param)
+        vals = self.map_params[:, i]
+        free_idx = list(self.free_space.free_idx)
+        sig = (self.map_sigma[:, free_idx.index(i)]
+               if i in free_idx else np.zeros(self.nsources))
+        return np.column_stack([vals, sig])
+
+    # -- posterior-predictive QA + LOO ------------------------------------------
+    def _detected(self, what):
+        """(signed iunc (S, nb), detected mask (S, nb)): a source with no
+        detected (non-missing, non-upper-limit) band is refused."""
+        iunc = self._iunc_operand()          # signed: <0 uplim, 0 missing
+        inc = iunc > 0
+        if np.any(~inc.any(axis=1)):
+            bad = int(np.argwhere(~inc.any(axis=1))[0, 0])
+            raise RuntimeError(
+                f"{what}: source {bad} has no detected (non-missing, "
+                f"non-upper-limit) band")
+        return iunc, inc
+
+    def _sample_chunk(self, nb_inner):
+        """Samples per pass of a (S, chunk, ...) computation whose
+        per-sample fan-out is `nb_inner` (about 64M elements each)."""
+        return max(1, (64 << 20) // max(self.nsources * nb_inner, 1))
+
+    def posterior_predictive(self, thin=1, seed=0):
+        """Batched posterior-predictive goodness of fit over the catalog.
+
+        For every source s and thinned chain sample t, the whitened
+        chi-square of the observed photometry T_obs is compared with that
+        of photometry replicated from the fitted error model, T_rep =
+        |eps|^2, all (S x nsamples) pairs batched on the chain's device.
+        Missing bands and upper-limit slots are excluded from the
+        statistic and the replication (band_p NaN there); with a band
+        correlation the per-source whitening is the exact marginal over
+        each source's observed bands, and replication draws through its
+        inverse. The normal draws come from a torch.Generator on the
+        chain's device seeded with `seed`. Returns a PPCBatchResult."""
+        from mbb_emcee_tpu_torch.multifit import PPCBatchResult
+        self._require_run()
+        iunc, inc = self._detected("posterior_predictive")
+        S, nb = inc.shape
+        ndata = inc.sum(axis=1).astype(np.int64)
+        dev = self.chain_free.device
+        y_h = np.where(inc, np.nan_to_num(self.flux), 0.0)
+
+        def t32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        y = t32(y_h)[:, None, :]
+        y64 = torch.as_tensor(y_h, device=dev)[:, None, :]
+        mask = t32(inc)[:, None, :]
+        fluxes = self._band_flux_eval()
+        if self._band_corr is None:
+            a = t32(np.where(inc, iunc, 0.0))[:, None, :]
+            with np.errstate(divide="ignore"):
+                b = t32(np.where(inc, 1.0 / np.where(inc, iunc, 1.0),
+                                 0.0))[:, None, :]
+
+            def whiten(r):
+                return r * a
+
+            def color(e):
+                return b * e
+        else:
+            # the exact marginal whitening (zero rows/cols at missing
+            # slots) and its inverse on the observed block, host fp64
+            W = self._whiten_operand()
+            Lm = np.zeros_like(W)
+            for s in range(S):
+                p = inc[s]
+                Lm[s][np.ix_(p, p)] = np.linalg.inv(W[s][np.ix_(p, p)])
+            Wt, Lt = t32(W)[:, None], t32(Lm)[:, None]
+
+            def whiten(r):
+                return torch.sum(Wt * (r * mask)[:, :, None, :], dim=-1)
+
+            def color(e):
+                return torch.sum(Lt * e[:, :, None, :], dim=-1)
+
+        samples = self._thinned(thin)
+        N = int(samples.shape[1])
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        pack = self._response_pack()
+        inner = nb * (pack[0].shape[1] if pack is not None else 1)
+        if self._band_corr is not None:
+            inner = max(inner, nb * nb)
+        chunk = self._sample_chunk(inner)
+        co, cr = [], []
+        above = torch.zeros((S, nb), dtype=torch.int64, device=dev)
+        for i in range(0, N, chunk):
+            m = fluxes(samples[:, i:i + chunk])          # (S, c, nb)
+            d = whiten(m - y)
+            eps = torch.randn(m.shape, generator=gen, device=dev) * mask
+            co.append(torch.sum(d * d, dim=-1))
+            cr.append(torch.sum(eps * eps, dim=-1))
+            above += torch.sum((m + color(eps)).double() >= y64, dim=1)
+        chi2_obs = torch.cat(co, dim=1).double().cpu().numpy()
+        chi2_rep = torch.cat(cr, dim=1).double().cpu().numpy()
+        band_p = np.where(inc, above.cpu().numpy() / N, np.nan)
+        return PPCBatchResult(
+            p_value=np.mean(chi2_rep >= chi2_obs, axis=1),
+            band_p=band_p, chi2_obs=chi2_obs, chi2_rep=chi2_rep,
+            ndata=ndata, nfree=self.free_space.nfree, nsamples=N,
+            excluded=~inc)
+
+    def compute_loo(self, thin=1):
+        """Batched WAIC + PSIS-LOO over the catalog (modelcheck.py): the
+        (S x nsamples x nb) pointwise log-likelihood is computed in
+        sample-axis chunks on the chain's device; the PSIS tail smoothing
+        runs host-side in fp64 per source and band. Missing bands and
+        upper limits are excluded (NaN in the pointwise arrays); with a
+        band correlation the pointwise factors are the exact conditional
+        predictive densities p(y_i | y_-i, theta) through each source's
+        marginal precision. Returns (and stores as .loo_result) a
+        modelcheck.LooBatchResult."""
+        from mbb_emcee_tpu_torch import modelcheck
+        self._require_run()
+        iunc, inc = self._detected("compute_loo")
+        S, nb = inc.shape
+        dev = self.chain_free.device
+
+        def t32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        y = t32(np.where(inc, np.nan_to_num(self.flux), 0.0))[:, None, :]
+        fluxes = self._band_flux_eval()
+        if self._band_corr is None:
+            lam_diag = np.where(inc, iunc, np.nan) ** 2      # 1/sigma^2
+            op = t32(np.where(inc, iunc, 0.0))[:, None, :]
+
+            def one(th):
+                d = (fluxes(th) - y) * op
+                return -0.5 * d * d
+            inner = nb
+        else:
+            # Lambda_s = W_s^T W_s (exact marginal precision; zero rows and
+            # columns at missing slots), fp64 host like the whitener
+            W = self._whiten_operand()
+            lam_diag = np.where(inc, np.einsum("skb,skb->sb", W, W), np.nan)
+            idg = t32(np.where(inc, 1.0 / np.where(inc, lam_diag, 1.0),
+                               0.0))[:, None, :]
+            Wt = t32(W)[:, None]                         # (S, 1, k, b)
+
+            def one(th):
+                d = fluxes(th) - y                       # (S, c, b)
+                r = torch.sum(Wt * d[:, :, None, :], dim=-1)       # W d
+                g = torch.sum(Wt * r[:, :, :, None], dim=-2)       # W^T r
+                return -0.5 * g * g * idg
+            inner = nb * nb
+        pack = self._response_pack()
+        inner = max(inner, nb * (pack[0].shape[1] if pack is not None
+                                 else 1))
+        q = self._chunked_samples(one, self._thinned(thin), inner)
+        with np.errstate(invalid="ignore"):
+            lnnorm = 0.5 * (np.log(lam_diag) - np.log(2.0 * np.pi))
+        self.loo_result = modelcheck.loo_batch_from_loglik(
+            q + lnnorm[:, None, :], inc)
+        return self.loo_result

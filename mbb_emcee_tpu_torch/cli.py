@@ -3,8 +3,9 @@
 The flags of mbb_emcee_tpu/cli.py (positional photometry file + output
 HDF5, sampler geometry, model shape, per-parameter limits / priors / initial
 values / fixing, covariance file, instrument-response mode, checkpoint /
-resume, the --extend-until serving loop, derived-quantity switches) plus
---device.
+resume, the --extend-until serving loop, derived-quantity switches, MAP
+triage (--map, --init-map) and model checking (--ppc, --loo, --loo-exact))
+plus --device (default cuda; --device cpu runs the plain torch path).
 Flags whose features are not ported yet exit non-zero up front with the
 ROADMAP.md item that carries them.
 
@@ -25,10 +26,8 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
 # queue-A item that carries each.
 _WAITING = (
-    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"), ("map", "--map", "A9"),
-    ("init_map", "--init-map", "A9"),
-    ("get_evidence", "--get-evidence", "A9"), ("loo", "--loo", "A9"),
-    ("loo_exact", "--loo-exact", "A9"), ("ppc", "--ppc", "A9"),
+    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"),
+    ("get_evidence", "--get-evidence", "A9"),
     ("plot_sed", "--plot-sed", "A10"), ("plot_corner", "--plot-corner", "A10"),
     ("plot_chain", "--plot-chain", "A10"), ("plot_ppc", "--plot-ppc", "A10"),
     ("profile_dir", "--profile-dir", "A8"),
@@ -67,9 +66,9 @@ def build_parser():
     p.add_argument("photfile", help="text photometry: '[band] wave_um "
                                     "flux_mJy unc_mJy' per line")
     p.add_argument("outfile", help="output HDF5 file")
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="where to fit (default: cuda if available, else "
-                        "cpu)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to fit (default: cuda; --device cpu runs the "
+                        "plain torch path on the CPU)")
 
     g = p.add_argument_group("sampler")
     g.add_argument("-w", "--nwalkers", type=int, default=250)
@@ -109,9 +108,15 @@ def build_parser():
     g.add_argument("--pt", action="store_true")
     g.add_argument("--pt-rungs", type=int, default=12)
     g.add_argument("--pt-beta-min", type=float, default=None)
-    g.add_argument("--map", action="store_true")
-    g.add_argument("--map-starts", type=int, default=8)
-    g.add_argument("--init-map", action="store_true")
+    g.add_argument("--map", action="store_true",
+                   help="MAP + Laplace triage only (seconds, no MCMC): "
+                        "prints the mode and its error bars and writes a "
+                        "MAPFit-only HDF5 file")
+    g.add_argument("--map-starts", type=int, default=8,
+                   help="optimizer starts for --map / --init-map")
+    g.add_argument("--init-map", action="store_true",
+                   help="seed the walker ball at the MAP mode with ~2 "
+                        "Laplace-sigma scatter (triage-then-refine)")
 
     g = p.add_argument_group(
         "serving loop",
@@ -197,9 +202,14 @@ def build_parser():
     g.add_argument("--get-peaklambda", action="store_true")
     g.add_argument("--derived-thin", type=int, default=1,
                    help="thin factor for derived-quantity chains")
-    g.add_argument("--ppc", action="store_true")
-    g.add_argument("--loo", action="store_true")
-    g.add_argument("--loo-exact", action="store_true")
+    g.add_argument("--ppc", action="store_true",
+                   help="posterior-predictive goodness-of-fit check")
+    g.add_argument("--loo", action="store_true",
+                   help="WAIC + PSIS-LOO predictive assessment (stored in "
+                        "the output file)")
+    g.add_argument("--loo-exact", action="store_true",
+                   help="--loo, then refit without each band whose PSIS "
+                        "k-hat exceeds 0.7 (diagonal errors only)")
     g.add_argument("--get-evidence", action="store_true")
     g.add_argument("--nlive", type=int, default=512)
 
@@ -293,9 +303,105 @@ def _serve_until_converged(fit, args, log):
     return total - args.nsteps
 
 
+def _validate_triage_flags(args):
+    """--map / --init-map / --loo-exact combinations, refused before
+    anything runs (the JAX CLI's rules)."""
+    if args.loo_exact and args.covfile is not None:
+        raise SystemExit(
+            "--loo-exact refits run through the batched likelihood "
+            "(diagonal uncertainties only); with --covfile use --loo, whose "
+            "pointwise factors are already the exact conditional predictive "
+            "densities under the covariance")
+    if args.map:
+        if (args.checkpoint or args.resume or args.extend_until is not None
+                or args.init_map):
+            raise SystemExit("--map is a triage mode; drop --checkpoint/"
+                             "--resume/--extend-until/--init-map")
+        if (args.get_lir or args.get_dustmass or args.get_peaklambda
+                or args.loo or args.loo_exact or args.ppc):
+            raise SystemExit("derived-quantity posteriors, --ppc and --loo "
+                             "need chains; run without --map for them")
+    if args.init_map and (args.resume or args.n_ensembles > 1):
+        raise SystemExit("--init-map seeds the stretch-move walker ball of a "
+                         "single ensemble; drop --resume/--n-ensembles")
+
+
+def _map_and_write(fit, args):
+    """--map: MAP + Laplace triage, printed, and a MAPFit-only HDF5 file
+    (the JAX CLI's layout, as the batch CLI's --map output)."""
+    from mbb_emcee_tpu_torch import hdf5io
+    t0 = time.perf_counter()
+    r = fit.fit_map(nstarts=args.map_starts, verbose=args.verbose)
+    for n, v, sg in zip(fit.free_param_names, r.x, r.sigma):
+        print(f"  {n:8s} {v:.5g} +/- {sg:.3g}  (MAP, Laplace)")
+    print(f"  lnprob   {r.lnprob:.3f}   ({time.perf_counter() - t0:.1f}s "
+          f"host clock, {args.map_starts} starts)"
+          + ("" if r.interior else
+             "\n  note: mode near a box bound -- Laplace error bars are "
+             "not trustworthy; run the full MCMC"))
+    hdf5io.write_map_file(
+        args.outfile, fit.shape, fit.phot.wave, fit.phot.flux, fit.phot.unc,
+        (fit.free_space.expand(r.x), r.lnprob, r.cov, r.sigma, r.interior,
+         r.grad_norm))
+    return 0
+
+
+def _report_checks(res, args):
+    """--ppc / --loo lines after the fit; returns the LooResult (or None)
+    for --loo-exact."""
+    import math
+    if args.ppc:
+        ppc = res.posterior_predictive(thin=args.derived_thin)
+        labels = (ppc.band_names if ppc.band_names is not None
+                  else [f"{w:.0f}um" for w in res.data_wave])
+        bands = "  ".join(
+            f"{n}:{p:.3f}" if math.isfinite(p) else f"{n}:uplim"
+            for n, p in zip(labels, ppc.band_p))
+        print(f"posterior predictive p = {ppc.p_value:.3f} "
+              f"(ndata={ppc.ndata}, nfree={ppc.nfree}); "
+              f"band tail probs: {bands}")
+    if not (args.loo or args.loo_exact):
+        return None
+    loo = res.compute_loo(thin=args.derived_thin)
+    print(f"elpd_loo = {loo.elpd_loo:.3f} +/- {loo.se_elpd_loo:.3f} "
+          f"(p_loo={loo.p_loo:.2f}); elpd_waic = {loo.elpd_waic:.3f} "
+          f"+/- {loo.se_elpd_waic:.3f}; max Pareto k-hat = "
+          f"{float(max(loo.pareto_k)):.2f}"
+          + (f"  [{loo.n_bad_k} band(s) with k>0.7: unreliable]"
+             if loo.n_bad_k else ""))
+    return loo
+
+
+def _exact_loo(fit, loo, args):
+    """--loo-exact: refit without each band PSIS-LOO flagged (k-hat >
+    0.7), after the output file is written."""
+    from mbb_emcee_tpu_torch.modelcheck import PARETO_K_WARN
+    bad = loo.pareto_k > PARETO_K_WARN
+    if not bad.any():
+        print(f"exact LOO refits: nothing flagged (all k-hat <= "
+              f"{PARETO_K_WARN})")
+        return
+    flagged = loo.point_index[bad]
+    exact = fit.compute_loo_exact(bands=[int(b) for b in flagged],
+                                  nburn=args.burn, nsteps=args.nsteps,
+                                  thin=args.derived_thin)
+    labels = (exact.band_names if exact.band_names is not None
+              else [f"band{i}" for i in exact.point_index])
+    terms = "  ".join(
+        f"{n}: {v:.3f}+/-{sg:.3f} (psis {p:.3f})"
+        for n, v, sg, p in zip(labels, exact.pointwise_loo, exact.se_mc,
+                               loo.pointwise_loo[bad]))
+    print(f"exact LOO refits for {flagged.size} flagged band(s): {terms}")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_waiting_flags(args)
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    try:
+        resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(str(err)) from None
     if importlib.util.find_spec("h5py") is None:
         raise SystemExit("writing the HDF5 output file needs h5py, which is "
                          "not installed")
@@ -304,6 +410,7 @@ def main(argv=None):
             "--n-ensembles runs through the batched likelihood, which "
             "supports diagonal uncertainties only; drop --covfile or "
             "--n-ensembles")
+    _validate_triage_flags(args)
     if (args.get_lir or args.get_dustmass) and args.redshift is None:
         # before sampling: failing after the run would lose the fit
         raise SystemExit(
@@ -314,13 +421,12 @@ def main(argv=None):
         _validate_extend_flags(args)
 
     import logging
-    from mbb_emcee_tpu_torch.fitter import MBBFitter, default_device
+    from mbb_emcee_tpu_torch.fitter import MBBFitter
     from mbb_emcee_tpu_torch.likelihood import Photometry
     from mbb_emcee_tpu_torch.results import MBBResults
     from mbb_emcee_tpu_torch.utils.log import enable_console
 
     log = enable_console(logging.INFO if args.verbose else logging.WARNING)
-    device = args.device or default_device()
     names = (Photometry.from_file(args.photfile).band_names
              if args.builtin_responses else None)
     if args.builtin_responses and names is None:
@@ -331,7 +437,7 @@ def main(argv=None):
     fit = MBBFitter(nwalkers=args.nwalkers, photfile=args.photfile,
                     wavenorm=args.wavenorm, noalpha=args.noalpha,
                     opthin=args.opthin, responses=responses, seed=args.seed,
-                    a=args.stretch_a, device=device,
+                    a=args.stretch_a, device=args.device,
                     sampler_backend=args.sampler_backend,
                     n_ensembles=args.n_ensembles)
     if args.covfile is not None:
@@ -354,13 +460,18 @@ def main(argv=None):
         fit.set_gaussian_prior(param, float(m), float(s))
 
     log.info(f"Device: {fit.device}")
+    if args.map:
+        return _map_and_write(fit, args)
     log.info(f"Running fit: {args.nwalkers} walkers, burn={args.burn}, "
              f"steps={args.nsteps}, thin={args.thin}")
     t0 = time.perf_counter()
+    if args.init_map:
+        fit.fit_map(nstarts=args.map_starts, verbose=args.verbose)
     fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
             recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
             checkpoint=args.checkpoint,
-            checkpoint_interval=args.checkpoint_interval, resume=args.resume)
+            checkpoint_interval=args.checkpoint_interval, resume=args.resume,
+            init="map" if args.init_map else "auto")
     # actual ensemble updates; a resumed run skips the burn-in
     total = args.nsteps
     if not (args.resume and args.checkpoint):
@@ -383,8 +494,12 @@ def main(argv=None):
                              thin=args.derived_thin)
     if args.get_peaklambda:
         res.compute_peaklambda(thin=args.derived_thin)
+    loo = _report_checks(res, args)
+    # the chain is on disk before the optional exact-LOO refits run
     res.writeToHDF5(args.outfile)
     print(res)
+    if args.loo_exact:
+        _exact_loo(fit, loo, args)
     return 0
 
 

@@ -10,9 +10,10 @@ Usage example:
     run_mbb_emcee_tpu_torch_batch catalog.txt batch.h5 -b 150 -n 1000 \
         --get-lir --get-peaklambda --summary --device cuda
 
-The flags are the JAX batch CLI's plus --device. Flags whose features are
-not ported yet exit non-zero up front with the ROADMAP.md item that carries
-them.
+The flags are the JAX batch CLI's (MAP triage --map / --init-map and the
+--ppc / --loo checks included) plus --device (default cuda; --device cpu
+runs the plain torch path). Flags whose features are not ported yet exit
+non-zero up front with the ROADMAP.md item that carries them.
 """
 
 from __future__ import annotations
@@ -29,10 +30,9 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's batch CLI whose features wait, and the
 # ROADMAP.md queue-A item that carries each.
 _WAITING = (
-    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"), ("map", "--map", "A9"),
-    ("init_map", "--init-map", "A9"),
-    ("get_evidence", "--get-evidence", "A9"), ("ppc", "--ppc", "A9"),
-    ("loo", "--loo", "A9"), ("population", "--population", "A9"),
+    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"),
+    ("get_evidence", "--get-evidence", "A9"),
+    ("population", "--population", "A9"),
     ("plot_population", "--plot-population", "A10"),
     ("mesh_devices", "--mesh-devices", "A11"),
     ("profile_dir", "--profile-dir", "A8"),
@@ -49,9 +49,9 @@ def build_parser():
                                    "'name z flux unc [flux unc ...]' rows")
     p.add_argument("outfile", help="output HDF5 file (whole batch; reload "
                                    "with MultiFitter.from_h5)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="where to fit (default: cuda if available, else "
-                        "cpu)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to fit (default: cuda; --device cpu runs the "
+                        "plain torch path on the CPU)")
 
     g = p.add_argument_group("sampler")
     g.add_argument("-w", "--nwalkers", type=int, default=250)
@@ -87,9 +87,15 @@ def build_parser():
     g.add_argument("--pt", action="store_true")
     g.add_argument("--pt-rungs", type=int, default=12)
     g.add_argument("--pt-beta-min", type=float, default=None)
-    g.add_argument("--map", action="store_true")
-    g.add_argument("--map-starts", type=int, default=8)
-    g.add_argument("--init-map", action="store_true")
+    g.add_argument("--map", action="store_true",
+                   help="MAP + Laplace triage of every source only (no "
+                        "MCMC): per-source table and a MAPFit-only HDF5 "
+                        "file")
+    g.add_argument("--map-starts", type=int, default=8,
+                   help="optimizer starts per source for --map / --init-map")
+    g.add_argument("--init-map", action="store_true",
+                   help="seed each source's walker ball at its MAP mode "
+                        "with ~2 Laplace-sigma scatter")
 
     g = p.add_argument_group(
         "serving loop",
@@ -181,8 +187,11 @@ def build_parser():
     g.add_argument("--derived-thin", type=int, default=1,
                    help="thin factor for derived-quantity chains")
     g.add_argument("--get-evidence", action="store_true")
-    g.add_argument("--ppc", action="store_true")
-    g.add_argument("--loo", action="store_true")
+    g.add_argument("--ppc", action="store_true",
+                   help="per-source posterior-predictive p-values")
+    g.add_argument("--loo", action="store_true",
+                   help="per-source WAIC + PSIS-LOO (stored in the batch "
+                        "file)")
     g.add_argument("--nlive", type=int, default=512)
 
     g = p.add_argument_group("population")
@@ -248,13 +257,17 @@ def _summary_table(mf, offset=0):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_waiting_flags(args)
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    try:
+        resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(str(err)) from None
     if importlib.util.find_spec("h5py") is None:
         raise SystemExit("writing the HDF5 output file needs h5py, which is "
                          "not installed")
 
     import logging
     from mbb_emcee_tpu_torch.catalog import read_catalog
-    from mbb_emcee_tpu_torch.fitter import default_device
     from mbb_emcee_tpu_torch.multifit import MultiFitter
     from mbb_emcee_tpu_torch.utils.log import enable_console
 
@@ -263,6 +276,20 @@ def main(argv=None):
     if C is not None and C <= 0:
         raise SystemExit("--chunk-size must be positive")
     chunked = C is not None and C < cat.nsources
+    if args.map:
+        if args.extend_until is not None or args.init_map:
+            raise SystemExit("--map is a triage mode; drop --extend-until/"
+                             "--init-map")
+        if args.checkpoint or args.resume:
+            raise SystemExit("--map runs in seconds; checkpointing does not "
+                             "apply")
+        if (args.get_lir or args.get_dustmass or args.get_peaklambda
+                or args.ppc or args.loo):
+            raise SystemExit("derived-quantity posteriors, --ppc and --loo "
+                             "need chains; run without --map for them")
+    if args.init_map and args.resume:
+        raise SystemExit("--init-map seeds the stretch-move walker ball; "
+                         "drop --resume")
     if args.extend_until is not None:
         _validate_extend_flags(args)
     if (args.get_lir or args.get_dustmass) and not cat.has_redshifts:
@@ -285,7 +312,7 @@ def main(argv=None):
                      noalpha=args.noalpha, opthin=args.opthin,
                      responses=responses, seed=args.seed, a=args.stretch_a,
                      sampler_backend=args.sampler_backend,
-                     device=args.device or default_device())
+                     device=args.device)
     # With --chunk-size only one C-source tile is bound at a time; the
     # first now, so data-dependent setters (the band correlation) work.
     first = slice(0, C) if chunked else slice(None)
@@ -328,16 +355,19 @@ def main(argv=None):
 
     log = enable_console(logging.INFO if args.verbose else logging.WARNING)
     log.info(f"Device: {mf.device}")
+    serve, what = ((_map_and_write, "MAP-triaged") if args.map
+                   else (_fit_and_write, "served"))
     if not chunked:
-        return _fit_and_write(mf, args, log, args.outfile)
-    return _serve_chunked(mf, cat, args, log, uplims, C)
+        return serve(mf, args, log, args.outfile)
+    return _serve_chunked(mf, cat, args, log, uplims, C, serve, what)
 
 
-def _serve_chunked(mf, cat, args, log, uplims, C):
+def _serve_chunked(mf, cat, args, log, uplims, C, serve_fn, what):
     """Fixed C-source tiles, so every chunk keeps the batch shape and reuses
     the sampler (the data are runtime operands). The final chunk OVERLAPS
-    the previous one instead of padding, so every part holds real
-    sources."""
+    the previous one instead of padding, so every part holds real sources.
+    `serve_fn(mf, args, log, outfile, offset)` fits whatever is bound (the
+    MCMC or the MAP triage) and writes one part file."""
     import os
 
     import numpy as np
@@ -364,11 +394,63 @@ def _serve_chunked(mf, cat, args, log, uplims, C):
         part = f"{base}.part{ci:03d}{ext or '.h5'}"
         log.info(f"chunk {ci + 1}/{len(starts)}: sources "
                  f"{s0}..{s0 + C - 1} -> {part}")
-        _fit_and_write(mf, args, log, part, offset=s0)
-    print(f"{cat.nsources} sources served in {len(starts)} chunks of {C} "
+        serve_fn(mf, args, log, part, offset=s0)
+    print(f"{cat.nsources} sources {what} in {len(starts)} chunks of {C} "
           f"(fixed batch shape; final chunk overlaps its predecessor) "
           f"-> {base}.part*{ext or '.h5'}")
     return 0
+
+
+def _map_and_write(mf, args, log, outfile, offset=0):
+    """MAP-triage the bound batch, write `outfile` (a MAPFit-only HDF5
+    file) and print the per-source table; `offset` shifts the printed
+    indices to catalog positions (chunks)."""
+    t0 = time.perf_counter()
+    mf.run_map(nstarts=args.map_starts, verbose=args.verbose)
+    dt = time.perf_counter() - t0
+    mf.write_map_h5(outfile)
+    names = mf.free_param_names
+    cols = {p: mf.map_cen(p) for p in names}   # (S, 2) each
+    lines = ["#   source            "
+             + "".join(f"{p:>20}" for p in names) + "      lnp  flag"]
+    srcnames = (mf.source_names
+                or [f"src{i + offset}" for i in range(mf.nsources)])
+    for i, nm in enumerate(srcnames):
+        cells = "".join(
+            f"{cols[p][i, 0]:>12.4g} +-{cols[p][i, 1]:<.2g}".rjust(20)
+            for p in names)
+        flag = "" if mf.map_interior[i] else "edge"
+        lines.append(f"{i + offset:>3} {nm:<16}{cells}"
+                     f"{mf.map_lnprob[i]:>9.2f}  {flag}")
+    print("\n".join(lines))
+    n_edge = int((~mf.map_interior).sum())
+    print(f"{mf.nsources} sources MAP-fit in {dt:.1f}s (host clock, "
+          f"{args.map_starts} starts each); {n_edge} flagged 'edge' (run the "
+          f"MCMC for those); written to {outfile}")
+    return 0
+
+
+def _report_checks(mf, args, offset):
+    """--ppc / --loo lines after the batch fit."""
+    import numpy as np
+    if args.ppc:
+        ppc = mf.posterior_predictive(thin=args.derived_thin)
+        flagged = np.where(ppc.p_value < 0.01)[0]
+        names = mf.source_names
+        print(f"posterior predictive: median p "
+              f"{np.median(ppc.p_value):.3f} over {mf.nsources} sources; "
+              f"{flagged.size} with p < 0.01"
+              + ("" if not flagged.size else ": " + ", ".join(
+                  (names[i] if names is not None else f"src{i + offset}")
+                  + f"={ppc.p_value[i]:.4f}" for i in flagged[:20])
+                  + (" ..." if flagged.size > 20 else "")))
+    if args.loo:
+        loo = mf.compute_loo(thin=args.derived_thin)
+        bad = np.where(loo.n_bad_k > 0)[0]
+        print(f"PSIS-LOO: total elpd_loo {np.sum(loo.elpd_loo):.2f} over "
+              f"{mf.nsources} sources (total p_loo "
+              f"{np.sum(loo.p_loo):.1f}); {bad.size} source(s) with "
+              f"unreliable tail fits (k-hat > 0.7)")
 
 
 def _fit_and_write(mf, args, log, outfile, offset=0):
@@ -379,10 +461,13 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
     log.info(f"Batch fit: {mf.nsources} sources x {args.nwalkers} walkers, "
              f"burn={args.burn}, steps={args.nsteps}")
     t0 = time.perf_counter()
+    if args.init_map:
+        mf.run_map(nstarts=args.map_starts, verbose=args.verbose)
     mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
            recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
            checkpoint=args.checkpoint,
-           checkpoint_interval=args.checkpoint_interval, resume=args.resume)
+           checkpoint_interval=args.checkpoint_interval, resume=args.resume,
+           init="map" if args.init_map else "auto")
     # actual ensemble updates; a resumed run skips the burn-in
     total = args.nsteps
     if not (args.resume and args.checkpoint):
@@ -432,6 +517,7 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
                             cosmology=args.cosmology)
     if args.get_peaklambda:
         mf.compute_peaklambda(thin=args.derived_thin)
+    _report_checks(mf, args, offset)
 
     mf.writeToHDF5(outfile, thin=args.store_thin)
     if args.summary:

@@ -26,7 +26,7 @@ from mbb_emcee_tpu_torch.checkpoint import production
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES, NPARAMS, HCOK_UM_K
 from mbb_emcee_tpu_torch.models.modified_blackbody import MBBShape
 from mbb_emcee_tpu_torch.likelihood import (
-    Photometry, LikelihoodSpec, build_lnprob)
+    Photometry, LikelihoodSpec, build_lnprob, param_index)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, make_initial_ball, autocorrelation_time, split_rhat)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
@@ -45,7 +45,26 @@ def not_ported(feature, item):
 
 
 def default_device():
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The device a fitter runs on when the caller names none: the card.
+    Nothing falls back to the CPU: the plain torch path there is a test and
+    rehearsal path, and a caller asks for it by name."""
+    return "cuda"
+
+
+def resolve_device(device):
+    """torch.device of a `device` argument (None: the card). A CUDA device,
+    named or defaulted, with no usable CUDA device raises at once instead
+    of failing later inside torch or running the plain torch path on the
+    CPU unasked."""
+    device = torch.device(default_device() if device is None else device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu; got {device!r}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is "
+            "False); pass device=\"cpu\" (library) or --device cpu "
+            "(command line) to run the plain torch path on the CPU")
+    return device
 
 
 def philox_key(seed):
@@ -59,7 +78,9 @@ def philox_key(seed):
 class MBBFitter(ParamSpaceMixin):
     """Single-source modified-blackbody fit (the reference's mbb_fitter).
 
-    device: "cuda" or "cpu" (default: cuda when available).
+    device: "cuda" (the default) or "cpu"; with no device named and no
+    CUDA device available the constructor raises (pass device="cpu" for the
+    plain torch path on the CPU).
     sampler_backend: "fused" (the whole run as one kernel launch), "torch"
     (the plain torch sampler) or "auto" = fused on CUDA, torch on the CPU.
     n_ensembles > 1 runs K independent ensembles of this fit through the
@@ -87,9 +108,7 @@ class MBBFitter(ParamSpaceMixin):
         if sampler_backend not in ("auto", "torch", "fused"):
             raise ValueError(
                 "sampler_backend must be 'auto', 'torch' or 'fused'")
-        self.device = torch.device(device or default_device())
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"device must be cuda or cpu; got {device!r}")
+        self.device = resolve_device(device)
         self.sampler_backend = sampler_backend
         self.nwalkers = int(nwalkers)
         self.shape = MBBShape(opthin=bool(opthin), noalpha=bool(noalpha),
@@ -279,12 +298,19 @@ class MBBFitter(ParamSpaceMixin):
         With `checkpoint=path` the production run is segmented and the
         chain and full sampler state are flushed to HDF5 every
         `checkpoint_interval` recorded steps; `resume=True` continues an
-        interrupted run from that file (skipping the burn-in). Returns
-        self."""
-        if init == "map":
-            raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
-        if init != "auto":
+        interrupted run from that file (skipping the burn-in).
+
+        init="map" seeds the walker ball at the fit_map() mode with ~2
+        Laplace-sigma scatter (the triage-then-refine workflow, as
+        MultiFitter.run(init="map")); it needs fit_map() on this data
+        first. Returns self."""
+        if init not in ("auto", "map"):
             raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
+        if init == "map":
+            if p0 is not None:
+                raise ValueError("init='map' conflicts with an explicit p0")
+            if self.n_ensembles == 1:
+                self._require_map_fresh("run(init='map')")
         if int(thin) < 1:
             raise ValueError(f"thin={thin} must be >= 1")
         if int(nsteps) % int(thin):
@@ -298,6 +324,11 @@ class MBBFitter(ParamSpaceMixin):
             if p0 is not None:
                 raise ValueError(
                     "n_ensembles > 1 does not combine with an explicit p0")
+            if init == "map":
+                raise ValueError(
+                    "init='map' does not combine with n_ensembles > 1; use "
+                    "MultiFitter.run(init='map') for batched "
+                    "triage-then-refine")
             return self._run_ensembles(nburn, nsteps, thin, recenter_burn,
                                        verbose, checkpoint,
                                        checkpoint_interval, resume)
@@ -306,6 +337,11 @@ class MBBFitter(ParamSpaceMixin):
             raise ValueError(
                 "p0= combined with an actual resume is ambiguous: the "
                 "checkpointed state would silently win; drop p0 (or the "
+                "checkpoint file) to make the intent explicit")
+        if resuming and init == "map":
+            raise ValueError(
+                "init='map' combined with an actual resume is ambiguous: the "
+                "checkpointed state would silently win; drop init= (or the "
                 "checkpoint file) to make the intent explicit")
 
         self._auto_init_fnorm()
@@ -317,7 +353,7 @@ class MBBFitter(ParamSpaceMixin):
         state, chain, lnpchain = production(
             sampler.run_mcmc,
             lambda: self._burn(sampler, free_space, p0, nburn,
-                               recenter_burn),
+                               recenter_burn, init),
             nsteps, thin, self.device, checkpoint, checkpoint_interval,
             resuming, None if checkpoint is None
             else self._checkpoint_meta(nsteps), verbose=verbose)
@@ -344,13 +380,30 @@ class MBBFitter(ParamSpaceMixin):
                     f"{n}={r:.3f}" for n, r in zip(names, rhat)))
         return self
 
-    def _burn(self, sampler, free_space, p0, nburn, recenter_burn):
+    def _map_ball(self, free_space):
+        """(center, scatter) of the init="map" walker ball: the MAP mode
+        with 2 Laplace sigmas of scatter, capped at 10x the default scatter
+        (huge floored-Laplace sigmas of a degenerate mode would throw
+        walkers across the whole box; MultiFitter's rule)."""
+        r = self.map_result
+        if r.x.size != free_space.nfree:
+            raise RuntimeError(
+                "the parameter space changed since fit_map() (fixed/freed "
+                "parameters); re-run fit_map before init='map'")
+        base = self._scatter[free_space.free_idx]
+        return (np.asarray(r.x, np.float64),
+                np.minimum(np.clip(2.0 * r.sigma, 1e-6, None), base * 10.0))
+
+    def _burn(self, sampler, free_space, p0, nburn, recenter_burn,
+              init="auto"):
         """The start state of production: the walker ball (or p0), burn-in,
         re-center on the best burn-in sample, re-burn, counters reset."""
         idx = free_space.free_idx
         gen = torch.Generator().manual_seed(self.seed)
         if p0 is None:
-            p0 = make_initial_ball(gen, self._init[idx], self._scatter[idx],
+            center, scatter = (self._map_ball(free_space) if init == "map"
+                               else (self._init[idx], self._scatter[idx]))
+            p0 = make_initial_ball(gen, center, scatter,
                                    self.nwalkers, free_space.lower,
                                    free_space.upper, device=self.device)
         else:
@@ -405,14 +458,262 @@ class MBBFitter(ParamSpaceMixin):
     def run_pt(self, *args, **kwargs):
         raise not_ported("run_pt (parallel tempering)", "A9")
 
-    def fit_map(self, *args, **kwargs):
-        raise not_ported("fit_map (MAP + Laplace triage)", "A9")
-
     def compute_evidence(self, *args, **kwargs):
         raise not_ported("compute_evidence (nested sampling)", "A9")
 
-    def compute_loo_exact(self, *args, **kwargs):
-        raise not_ported("compute_loo_exact (exact LOO refits)", "A9")
+    # -- MAP + Laplace triage ------------------------------------------------------
+    def _posterior_key(self):
+        """What stored MAP results bind to: the effective parameter space,
+        the photometry and the response pack (content hashes)."""
+        from mbb_emcee_tpu_torch.checkpoint import (
+            data_fingerprint, spec_fingerprint)
+        phot = self._require_data()
+        pack = self._response_pack()
+        return (spec_fingerprint(self._effective_spec(), self.shape, self.a),
+                data_fingerprint(phot.wave, phot.flux, phot.unc, phot.cov),
+                None if pack is None else data_fingerprint(*pack))
+
+    def _require_map_fresh(self, what):
+        """Refuse to consume stored MAP results after the posterior or the
+        data changed underneath them: the same nfree does not mean the same
+        free parameters, and a prior, limit or upper-limit edit moves the
+        posterior while leaving the stored mode in place."""
+        if getattr(self, "map_result", None) is None:
+            raise RuntimeError(f"{what} requires fit_map() on this data "
+                               f"first")
+        if getattr(self, "_map_token", None) != self._posterior_key():
+            raise RuntimeError(
+                f"{what}: the stored MAP fit is for a different posterior "
+                f"-- the parameter space (priors / limits / fixed / uplim "
+                f"mask), data, or responses changed since fit_map(); re-run "
+                f"fit_map() first")
+
+    def fit_map(self, nstarts=8, n_adam=150, n_newton=12, adam_lr=0.1,
+                verbose=False):
+        """MAP point + Laplace error bars (mapfit.py): `nstarts` starts
+        through a fixed-iteration Adam-then-damped-Newton optimizer on the
+        plain torch likelihood on the fitter's device, then the inverse
+        Hessian at the mode. Returns a MAPResult (free-parameter space;
+        also stored as self.map_result); interior=False means the mode
+        sits within ~2 Laplace sigmas of a box bound and the Gaussian error
+        bars should not be trusted -- run the MCMC."""
+        from mbb_emcee_tpu_torch.mapfit import (
+            MAPResult, map_fit, laplace_cov_host, interior_mask)
+
+        self._auto_init_fnorm()
+        spec = self._effective_spec()
+        lnprob, free_space = build_lnprob(
+            self._require_data(), self.shape, spec,
+            response_pack=self._response_pack(), device=self.device)
+        if not (np.all(np.isfinite(free_space.lower))
+                and np.all(np.isfinite(free_space.upper))):
+            raise ValueError(
+                "MAP fitting requires finite box bounds on every free "
+                "parameter (the defaults are finite)")
+        idx = free_space.free_idx
+        x0 = make_initial_ball(torch.Generator().manual_seed(self.seed),
+                               self._init[idx], self._scatter[idx],
+                               int(nstarts), free_space.lower,
+                               free_space.upper, device=self.device)
+        x_map, lnp_map, H, gn = map_fit(lnprob, free_space.lower,
+                                        free_space.upper, x0, n_adam,
+                                        n_newton, adam_lr)
+        cov, h_ok = laplace_cov_host(H)
+        sigma = np.sqrt(np.maximum(np.diag(cov), 0.0))
+        interior = bool(h_ok) and bool(interior_mask(
+            x_map, sigma, free_space.lower, free_space.upper))
+        self.map_result = MAPResult(
+            x=x_map, lnprob=float(lnp_map), cov=cov, sigma=sigma,
+            interior=interior, grad_norm=float(gn))
+        self._map_token = self._posterior_key()
+        self.free_space = free_space
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            parts = [f"{PARAM_NAMES[i]}={v:.4g}+/-{s:.3g}"
+                     for i, v, s in zip(idx, x_map, sigma)]
+            enable_console().info(
+                f"MAP fit ({nstarts} starts): " + ", ".join(parts)
+                + f"; lnprob={float(lnp_map):.2f}"
+                + ("" if interior else
+                   " [mode near a box bound -- Laplace suspect]"))
+        return self.map_result
+
+    def map_importance(self, nsamples=2048, seed=None):
+        """Laplace importance sampling after fit_map(): weighted
+        true-posterior summaries without MCMC. The N draws from the Laplace
+        Gaussian are evaluated by the fitter's batched lnprob (one launch of
+        the lnprob kernel on CUDA). Returns (samples (N, nfree), logw (N,),
+        ess), also stored as self.map_is; ess/N near 1 certifies the
+        Gaussian approximation, a small ess says run the MCMC."""
+        from mbb_emcee_tpu_torch.likelihood import SUPPORT_FLOOR
+        from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+            prepare_lnprob_inputs, mbb_lnprob)
+        self._require_map_fresh("map_importance")
+        r = self.map_result
+        ops = prepare_lnprob_inputs(self._require_data(), self.shape,
+                                    self._effective_spec(),
+                                    response_pack=self._response_pack(),
+                                    device=self.device)
+        d = ops.nfree
+        N = int(nsamples)
+        L = np.linalg.cholesky(r.cov)
+        logdet = float(np.sum(np.log(np.diag(L))))
+        gen = torch.Generator().manual_seed(
+            self.seed if seed is None else int(seed))
+        eps = torch.randn((N, d), generator=gen,
+                          dtype=torch.float32).double().numpy()
+        x = r.x[None, :] + eps @ L.T
+        lnp = mbb_lnprob(torch.as_tensor(x.astype(np.float32),
+                                         device=self.device), ops)
+        lnp = lnp.double().cpu().numpy()
+        lnq = (-0.5 * np.sum(eps ** 2, axis=1) - logdet
+               - 0.5 * d * np.log(2.0 * np.pi))
+        # out-of-box draws sit at the finite floor, which would absorb lnq
+        # in fp64 and fake uniform weights: mask them to -inf
+        logw = np.where(lnp > SUPPORT_FLOOR, lnp - lnq, -np.inf)
+        mx = logw.max()
+        if not np.isfinite(mx):
+            self.map_is = (x, logw, 0.0)
+            return self.map_is
+        logw = logw - mx
+        w = np.exp(logw)
+        ess = float(w.sum() ** 2 / np.maximum((w * w).sum(), 1e-300))
+        self.map_is = (x, logw, ess)
+        return self.map_is
+
+    def map_par_cen(self, param, percentile=68.3):
+        """(median, +err, -err) from the importance-refined Laplace
+        posterior (map_importance first). Fixed parameters report zero
+        errors; an ess = 0 result reports the MAP point with NaN errors."""
+        if getattr(self, "map_is", None) is None:
+            raise RuntimeError("map_importance() has not been called")
+        i = param_index(param)
+        r = self.map_result
+        free_idx = list(self.free_space.free_idx)
+        if i not in free_idx:
+            # the value the fit held fixed, not the current spec's
+            return np.array([float(self.free_space.template[i]), 0.0, 0.0])
+        x, logw, _ = self.map_is
+        col = x[:, free_idx.index(i)]
+        w = np.exp(logw)
+        if w.sum() <= 0.0:
+            return np.array([r.x[free_idx.index(i)], np.nan, np.nan])
+        order = np.argsort(col)
+        cw = np.cumsum(w[order])
+        cw /= cw[-1]
+        p = float(percentile)
+        qs = np.array([50.0 - p / 2, 50.0, 50.0 + p / 2]) / 100.0
+        lo, mid, hi = np.interp(qs, cw, col[order])
+        return np.array([mid, hi - mid, mid - lo])
+
+    def compute_loo_exact(self, bands=None, nburn=100, nsteps=400,
+                          thin=1, seed=None, verbose=False):
+        """Exact leave-one-band-out elpd by refitting without each band: the
+        estimand PSIS-LOO (MBBResults.compute_loo) approximates, for the
+        bands whose k-hat it flags. All K refits run as one batch: a
+        MultiFitter whose K sources are copies of this photometry, copy i
+        with band i missing, sharing this fitter's box, priors, fixed
+        parameters, initialization and responses (on CUDA one launch of
+        the multi-source kernel per sampling phase).
+
+        bands: names or indices to assess (default: every band that is not
+        an upper limit). Diagonal errors only. Returns a
+        modelcheck.ExactLooResult."""
+        from mbb_emcee_tpu_torch import derived
+        from mbb_emcee_tpu_torch.modelcheck import (
+            ExactLooResult, gaussian_pointwise_constants)
+        from mbb_emcee_tpu_torch.multifit import MultiFitter
+
+        phot = self._require_data()
+        if phot.cov is not None:
+            raise ValueError(
+                "compute_loo_exact supports diagonal errors only (the "
+                "batched refit tier has no covariance mode); use "
+                "MBBResults.compute_loo -- its pointwise factors are "
+                "already the exact conditional predictive densities "
+                "under the covariance")
+        nb = phot.nbands
+        spec = self._spec
+        uplim = (np.zeros(nb, bool) if spec.uplim_bands is None
+                 else np.asarray(spec.uplim_bands, bool))
+
+        def _band_idx(b):
+            if isinstance(b, (int, np.integer)):
+                i = int(b)
+                if not 0 <= i < nb:
+                    raise ValueError(f"band index {i} out of range")
+                return i
+            if phot.band_names is None:
+                raise ValueError(f"band {b!r} given by name but the "
+                                 f"photometry has no band names")
+            return list(phot.band_names).index(b)
+
+        if bands is None:
+            idx = [i for i in range(nb) if not uplim[i]]
+        else:
+            idx = [_band_idx(b) for b in bands]
+            bad = [i for i in idx if uplim[i]]
+            if bad:
+                raise ValueError(
+                    f"bands {bad} are photometric upper limits; a censored "
+                    f"band has no pointwise density to assess")
+        idx = np.asarray(idx, np.int64)
+        K = idx.size
+        if K == 0:
+            raise ValueError("no bands to assess")
+
+        # K ragged copies: copy j misses band idx[j]
+        flux_b = np.tile(phot.flux, (K, 1))
+        unc_b = np.tile(phot.unc, (K, 1))
+        flux_b[np.arange(K), idx] = np.nan
+        unc_b[np.arange(K), idx] = np.nan
+        mf = MultiFitter(nwalkers=self.nwalkers,
+                         wavenorm=self.shape.wavenorm,
+                         noalpha=self.shape.noalpha,
+                         opthin=self.shape.opthin,
+                         responses=self.responses, a=self.a,
+                         sampler_backend=self.sampler_backend,
+                         seed=self.seed if seed is None else int(seed),
+                         device=self.device)
+        mf._spec = _replace(spec)
+        mf._init = self._init.copy()
+        mf._scatter = self._scatter.copy()
+        mf._user_init = self._user_init.copy()
+        mf._user_scatter = self._user_scatter.copy()
+        mf.set_data(phot.wave, flux_b, unc_b, band_names=phot.band_names)
+        mf.run(nburn=int(nburn), nsteps=int(nsteps), verbose=verbose)
+
+        # ln p(y_i | theta) over each refit's own chain: a one-hot pick of
+        # the held-out band's pointwise term, batched over copies x samples
+        isig, _, _, lnnorm = gaussian_pointwise_constants(unc_det=phot.unc)
+        dev = mf.device
+        isig, lnnorm, y = (torch.as_tensor(np.asarray(a, np.float32),
+                                           device=dev)
+                           for a in (isig, lnnorm, phot.flux))
+        sel = torch.zeros((K, nb), dtype=torch.float32, device=dev)
+        sel[torch.arange(K, device=dev), torch.as_tensor(idx, device=dev)] = 1
+        fluxes = derived.band_flux_eval(self.shape, phot.wave,
+                                        self._response_pack())
+
+        def one(th):
+            r = (fluxes(th) - y) * isig
+            return torch.sum(sel[:, None, :] * (lnnorm - 0.5 * r * r),
+                             dim=-1)
+
+        samples = mf._thinned(thin)                     # (K, N, 5)
+        n = int(samples.shape[1])
+        lnp = mf._chunked_samples(one, samples, nb * (
+            1 if self.responses is None else
+            self._response_pack()[0].shape[1]))         # (K, N)
+        m = lnp.max(axis=1, keepdims=True)
+        p = np.exp(lnp - m)
+        mean_p = p.mean(axis=1)
+        elpd = np.log(mean_p) + m[:, 0]
+        se_mc = p.std(axis=1, ddof=1) / (np.sqrt(n) * mean_p)
+        names = (None if phot.band_names is None
+                 else [phot.band_names[i] for i in idx])
+        return ExactLooResult(pointwise_loo=elpd, se_mc=se_mc,
+                              point_index=idx, nsamples=n, band_names=names)
 
     def _run_ensembles(self, nburn, nsteps, thin, recenter_burn, verbose,
                        checkpoint=None, checkpoint_interval=100,

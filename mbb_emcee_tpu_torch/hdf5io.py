@@ -12,9 +12,16 @@ other. h5py is imported inside the functions: only HDF5 I/O needs it.
     /ParamConfig/{Lower,Upper,Fixed,FixedValues,PriorMean,PriorInvSigma,
                   Initial[,PhotUpperLimits]}
     /LIR, /DustMass, /PeakLambda  (optional derived chains, attrs = meta)
+    /LOO  (optional WAIC + PSIS-LOO summaries, modelcheck.write_loo_group)
 
 Groups the JAX package writes for surfaces this package does not have yet
-(/Evidence, /PTEvidence, /LOO) are left unread.
+(/Evidence, /PTEvidence) are left unread.
+
+A MAP-triage file (the --map flows of both CLIs; no chains) holds the model
+shape attrs, /Wave, /Flux, /Unc and
+    /MAPFit/{Params,LnProb,Cov,Sigma,Interior,GradNorm}
+(one row per source in the batch layout), which the batch results file
+also carries after MultiFitter.run_map().
 """
 
 from __future__ import annotations
@@ -32,6 +39,38 @@ def is_native_results_file(h5file):
     import h5py
     with h5py.File(h5file, "r") as f:
         return "nwalkers" in f.attrs and "ParamConfig" in f
+
+
+MAP_FIELDS = ("Params", "LnProb", "Cov", "Sigma", "Interior", "GradNorm")
+
+
+def write_map_group(f, params, lnprob, cov, sigma, interior, grad_norm):
+    """The /MAPFit group of an open h5py file, in MAP_FIELDS' order."""
+    g = f.create_group("MAPFit")
+    for name, data in zip(MAP_FIELDS, (params, lnprob, cov, sigma, interior,
+                                       grad_norm)):
+        g.create_dataset(name, data=data)
+
+
+def write_map_file(filename, shape, wave, flux, unc, fields, attrs=None,
+                   datasets=None):
+    """A MAP-triage file: the model shape, the photometry, any extra root
+    `attrs` and `datasets` (dicts), and /MAPFit from `fields`
+    (write_map_group's arguments)."""
+    import h5py
+    with h5py.File(filename, "w") as f:
+        for k, v in (attrs or {}).items():
+            f.attrs[k] = v
+        f.attrs["wavenorm"] = shape.wavenorm
+        f.attrs["opthin"] = shape.opthin
+        f.attrs["noalpha"] = shape.noalpha
+        f.create_dataset("Wave", data=wave)
+        f.create_dataset("Flux", data=flux)
+        f.create_dataset("Unc", data=unc)
+        for k, v in (datasets or {}).items():
+            f.create_dataset(k, data=v)
+        write_map_group(f, *fields)
+    return filename
 
 
 def write_results(filename, res):
@@ -106,6 +145,9 @@ def _write_results(f, res):
                                   compression="gzip", compression_opts=4)
             for k, v in (meta or {}).items():
                 ds.attrs[k] = v
+    if res.loo_result is not None:
+        from mbb_emcee_tpu_torch.modelcheck import write_loo_group
+        write_loo_group(f, res.loo_result)
 
 
 def read_results(filename):
@@ -178,4 +220,7 @@ def _read_results(f):
             out[attr] = np.asarray(f[name])
             if meta_attr:
                 out[meta_attr] = dict(f[name].attrs)
+    if "LOO" in f:
+        from mbb_emcee_tpu_torch.modelcheck import read_loo_group
+        out["loo_result"] = read_loo_group(f["LOO"])
     return out

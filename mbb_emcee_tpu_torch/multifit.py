@@ -27,18 +27,19 @@ single-fit stream).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from mbb_emcee_tpu_torch import derived
+from mbb_emcee_tpu_torch import derived, hdf5io
 from mbb_emcee_tpu_torch.batchengine import BatchEngine
 from mbb_emcee_tpu_torch.checkpoint import production
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
 from mbb_emcee_tpu_torch.fitter import (
-    DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, default_device, not_ported,
-    philox_key)
+    DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, not_ported,
+    philox_key, resolve_device)
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, Photometry)
 from mbb_emcee_tpu_torch.models.modified_blackbody import (
@@ -46,6 +47,32 @@ from mbb_emcee_tpu_torch.models.modified_blackbody import (
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
 from mbb_emcee_tpu_torch.results import _percentile_summary
 from mbb_emcee_tpu_torch.sampler import make_initial_ball
+
+
+@dataclasses.dataclass
+class PPCBatchResult:
+    """Batched posterior-predictive check (MultiFitter.posterior_predictive).
+
+    Per-source p-values are ~uniform on (0,1) under a well-specified model;
+    in a well-calibrated S-source catalog roughly S/100 sources show
+    p < 0.01 by chance -- flag outliers in the p histogram, not every small
+    value. `band_p` localizes which band misfits for a flagged source
+    (entries near 0 or 1)."""
+    p_value: np.ndarray     # (S,) P[T_rep >= T_obs] per source
+    band_p: np.ndarray      # (S, nb) tail prob; NaN at excluded slots
+    chi2_obs: np.ndarray    # (S, nsamples) whitened chi-sq of observed data
+    chi2_rep: np.ndarray    # (S, nsamples) chi-sq of replicated data
+    ndata: np.ndarray       # (S,) bands entering each source's statistic
+    nfree: int              # free parameters (dof ref: ndata - nfree)
+    nsamples: int           # thinned samples per source
+    excluded: np.ndarray    # (S, nb) bool: missing or upper-limit slots
+
+    def __repr__(self):
+        p = self.p_value
+        return (f"PPCBatchResult(S={p.size}, nsamples={self.nsamples}, "
+                f"p<0.01: {int((p < 0.01).sum())}, "
+                f"p>0.99: {int((p > 0.99).sum())}, "
+                f"median p={np.median(p):.3f})")
 
 
 class MultiFitter(BatchEngine, ParamSpaceMixin):
@@ -60,7 +87,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         mf.compute_lir(redshifts)                  # (S, nsamp)
         res3 = mf.results(3, redshift=z3)          # full MBBResults view
 
-    device: "cuda" or "cpu" (default: cuda when available).
+    device: "cuda" (the default) or "cpu"; with no device named and no
+    CUDA device available the constructor raises (pass device="cpu").
     sampler_backend: "fused" (each phase one launch of the multi-source
     kernel; the plain multi run for CPU tensors), "torch" (the plain multi
     run) or "auto" = fused on CUDA, torch on the CPU.
@@ -76,9 +104,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         if sampler_backend not in ("auto", "torch", "fused"):
             raise ValueError(
                 "sampler_backend must be 'auto', 'torch' or 'fused'")
-        self.device = torch.device(device or default_device())
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"device must be cuda or cpu; got {device!r}")
+        self.device = resolve_device(device)
         self.sampler_backend = sampler_backend
         self.nwalkers = int(nwalkers)
         self.shape = MBBShape(opthin=bool(opthin), noalpha=bool(noalpha),
@@ -110,6 +136,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         self.lir_chain = None       # (S, nsamp), compute_lir()
         self.dustmass_chain = None  # (S, nsamp), compute_dustmass()
         self.peaklambda_chain = None  # (S, nsamp), compute_peaklambda()
+        self.loo_result = None      # LooBatchResult, compute_loo()
+        self.map_params = None      # (S, 5), run_map()
 
     # -- likelihood operands ---------------------------------------------------
     def _response_pack(self):
@@ -150,11 +178,29 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 and np.array_equal(self._run_data[1], self.unc)
                 and np.array_equal(self._run_data[2], self.wave))
 
-    def _init_centers(self):
+    def _init_centers(self, init="auto"):
         """Per-source initial centers and scatters (S, 5): fnorm from each
         source's flux nearest wavenorm, T from each source's brightest band
-        (the batched MBBFitter._auto_init_fnorm)."""
+        (the batched MBBFitter._auto_init_fnorm).
+
+        init="map" seeds each source's walker ball at its own MAP point
+        with ~2 Laplace-sigma scatter (run_map first), capped at 10x the
+        default scatter: the ensemble starts in the typical set, so short
+        burns suffice."""
+        if init not in ("auto", "map"):
+            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
         S = self.nsources
+        if init == "map":
+            if getattr(self, "map_params", None) is None:
+                raise RuntimeError(
+                    "init='map' requires run_map() on this data first")
+            self._require_map_fresh("init='map'")
+            centers = self.map_params.copy()
+            scatters = np.broadcast_to(self._scatter, (S, NPARAMS)).copy()
+            idx = self.free_space.free_idx
+            sig = np.clip(2.0 * self.map_sigma, 1e-6, None)
+            scatters[:, idx] = np.minimum(sig, scatters[:, idx] * 10.0)
+            return centers, scatters
         centers = np.broadcast_to(self._init, (S, NPARAMS)).copy()
         scatters = np.broadcast_to(self._scatter, (S, NPARAMS)).copy()
         if not self._user_init[4]:
@@ -180,6 +226,49 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             return self.sampler_backend
         return "fused" if self.device.type == "cuda" else "torch"
 
+    def _lnprob_operands(self, spec):
+        """The batch likelihood on this data (kernel operands with the plain
+        version beside them, ops.plain: (S, n, nfree) -> (S, n))."""
+        from mbb_emcee_tpu_torch.ops.multifit_kernel import (
+            prepare_multi_inputs)
+        return prepare_multi_inputs(
+            self.wave, self.flux, self.unc, self.shape, spec,
+            self._response_pack(),
+            None if self._band_corr is None else self._whiten_operand(),
+            self.device)
+
+    def _band_flux_eval(self):
+        return derived.band_flux_eval(self.shape, self.wave,
+                                      self._response_pack())
+
+    def _map_key(self, spec):
+        """What stored MAP results bind to besides the data: the model and
+        parameter space, the upper-limit mask and the band correlation."""
+        return (self._model_token(spec), self.nsources,
+                None if spec.uplim_bands is None
+                else np.asarray(spec.uplim_bands).tobytes(),
+                None if self._band_corr is None
+                else self._band_corr.tobytes())
+
+    def _record_map(self, spec):
+        self._map_token = self._map_key(spec)
+        self._map_data = (self.flux.copy(), self.unc.copy(),
+                          self.wave.copy())
+
+    def _require_map_fresh(self, what):
+        """Refuse stored MAP results after the posterior or the data changed
+        (the same nfree does not mean the same free parameters)."""
+        data = getattr(self, "_map_data", None)
+        if (getattr(self, "_map_token", None)
+                != self._map_key(self._effective_spec())
+                or data is None
+                or not (np.array_equal(data[0], self.flux)
+                        and np.array_equal(data[1], self.unc)
+                        and np.array_equal(data[2], self.wave))):
+            raise RuntimeError(
+                f"{what}: the stored MAP results are for a different batch "
+                f"/ parameter space / error model; re-run run_map() first")
+
     def _build_sampler(self, spec):
         """A new batch sampler for `spec` on this data (building one packs a
         few hundred constants; the kernel library is built once per
@@ -195,12 +284,13 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         self._backend_used = backend
         return self._sampler
 
-    def _balls(self, gen, centers, scatters):
-        """(S, nwalkers, nfree) walker balls, one per source in source
-        order from the CPU generator `gen`, reflected at the box."""
+    def _balls(self, gen, centers, scatters, n=None):
+        """(S, n, nfree) balls (n = nwalkers by default), one per source in
+        source order from the CPU generator `gen`, reflected at the box."""
         fs = self.free_space
+        n = self.nwalkers if n is None else int(n)
         return torch.stack([
-            make_initial_ball(gen, c, s, self.nwalkers, fs.lower, fs.upper)
+            make_initial_ball(gen, c, s, n, fs.lower, fs.upper)
             for c, s in zip(centers, scatters)]).to(self.device)
 
     # -- the batched run -------------------------------------------------------
@@ -209,7 +299,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             resume=False, init="auto"):
         """Burn -> per-source re-center on its best walker -> re-burn ->
         reset -> production, all sources in lockstep; each phase is one
-        sampler call (one K3 launch on CUDA).
+        sampler call (one K3 launch on CUDA). init="map" seeds each
+        source's walker ball at its run_map() mode (_init_centers).
 
         With `checkpoint=path` the production run is segmented and the
         per-source chain blocks and the full batch sampler state are
@@ -229,17 +320,16 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 "resume=True requires checkpoint= (the path the previous "
                 "run flushed state to); without it the run would silently "
                 "restart from scratch")
-        if init == "map":
-            raise not_ported("init='map' (MAP-seeded walker balls)", "A9")
-        if init != "auto":
-            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
+        # before the sampler replaces free_space: init="map" reads run_map's
+        centers = self._init_centers(init)
         spec = self._effective_spec()
         samp = self._build_sampler(spec)
         self.free_space = samp.free_space
         self._run_spec = spec       # persisted by writeToHDF5
         self.thin = int(thin)
         state, chain, lnpchain = production(
-            samp.run_mcmc, lambda: self._burn(samp, nburn, recenter_burn),
+            samp.run_mcmc,
+            lambda: self._burn(samp, nburn, recenter_burn, centers),
             nsteps, thin, self.device, checkpoint, checkpoint_interval,
             bool(checkpoint and resume and os.path.exists(checkpoint)),
             None if checkpoint is None else self._checkpoint_meta(nsteps),
@@ -258,11 +348,12 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 f"max {af.mean(1).max():.3f})")
         return self
 
-    def _burn(self, samp, nburn, recenter_burn):
-        """The start state of production: the per-source walker balls,
-        burn-in, per-source re-center, re-burn, counters reset."""
+    def _burn(self, samp, nburn, recenter_burn, init_centers):
+        """The start state of production: the per-source walker balls
+        around `init_centers` ((S, 5) centers and scatters), burn-in,
+        per-source re-center, re-burn, counters reset."""
         fs = self.free_space
-        centers, scatters = self._init_centers()
+        centers, scatters = init_centers
         cen_f, sca_f = centers[:, fs.free_idx], scatters[:, fs.free_idx]
         gen = torch.Generator().manual_seed(self.seed)
         state = samp.init_state(self._balls(gen, cen_f, sca_f),
@@ -350,17 +441,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     def run_hmc(self, *args, **kwargs):
         raise not_ported("run_hmc (Hamiltonian Monte Carlo)", "A9")
 
-    def run_map(self, *args, **kwargs):
-        raise not_ported("run_map (MAP + Laplace triage)", "A9")
-
     def compute_evidence(self, *args, **kwargs):
         raise not_ported("compute_evidence (nested sampling)", "A9")
-
-    def posterior_predictive(self, *args, **kwargs):
-        raise not_ported("posterior_predictive (PPC)", "A9")
-
-    def compute_loo(self, *args, **kwargs):
-        raise not_ported("compute_loo (WAIC + PSIS-LOO)", "A9")
 
     # -- batched derived quantities --------------------------------------------
     def _params(self, th):
@@ -515,7 +597,35 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 sp.create_dataset("uplim_bands", data=spec.uplim_bands)
             if self._band_corr is not None:
                 sp.create_dataset("band_correlation", data=self._band_corr)
+            if self.loo_result is not None:
+                from mbb_emcee_tpu_torch.modelcheck import (
+                    write_loo_batch_group)
+                write_loo_batch_group(f, self.loo_result)
+            if self.map_params is not None:
+                hdf5io.write_map_group(f, *self._map_fields())
         return filename
+
+    def _map_fields(self):
+        return (self.map_params, self.map_lnprob, self.map_cov,
+                self.map_sigma, self.map_interior, self.map_grad_norm)
+
+    def write_map_h5(self, filename):
+        """Persist a MAP-only triage result (no chains; the --map CLI flow):
+        data, configuration and the MAPFit group, in the JAX package's
+        layout. Reload the arrays with h5py; this is a triage artifact, not
+        a from_h5 input."""
+        if self.map_params is None:
+            raise RuntimeError("run_map() has not been called")
+        extra = {}
+        if self.source_names is not None:
+            extra["SourceNames"] = np.array(
+                [n.encode() for n in self.source_names])
+        if self.redshifts is not None:
+            extra["Redshifts"] = self.redshifts
+        return hdf5io.write_map_file(
+            filename, self.shape, self.wave, self.flux, self.unc,
+            self._map_fields(), attrs={"nwalkers": self.nwalkers},
+            datasets=extra)
 
     @classmethod
     def from_h5(cls, filename, device=None):
@@ -568,6 +678,20 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 device=mf.device)
             mf.acceptance_fraction = np.asarray(f["AcceptanceFraction"])
             mf.thin = int(f.attrs["thin"])
+            if "MAPFit" in f:
+                g = f["MAPFit"]
+                mf.map_params = np.asarray(g["Params"], np.float64)
+                mf.map_lnprob = np.asarray(g["LnProb"], np.float64)
+                mf.map_cov = np.asarray(g["Cov"], np.float64)
+                mf.map_sigma = np.asarray(g["Sigma"], np.float64)
+                mf.map_interior = np.asarray(g["Interior"], bool)
+                mf.map_grad_norm = np.asarray(g["GradNorm"], np.float64)
+                # the restored results bind to the restored spec and data
+                mf._record_map(mf._effective_spec())
+            if "LOO" in f:
+                from mbb_emcee_tpu_torch.modelcheck import (
+                    read_loo_batch_group)
+                mf.loo_result = read_loo_batch_group(f["LOO"])
         return mf
 
     # -- single-source views ---------------------------------------------------

@@ -18,6 +18,8 @@ device part per sample times an fp64 host prefactor.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -26,7 +28,7 @@ from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch import hdf5io
-from mbb_emcee_tpu_torch.fitter import not_ported
+from mbb_emcee_tpu_torch.fitter import not_ported, resolve_device
 from mbb_emcee_tpu_torch.likelihood import param_index
 from mbb_emcee_tpu_torch.sampler import (
     autocorrelation_time, effective_sample_size, split_rhat,
@@ -42,15 +44,47 @@ def _percentile_summary(samples, percentile=68.3):
     return np.array([mid, hi - mid, mid - lo])
 
 
+@dataclasses.dataclass
+class PPCResult:
+    """Posterior-predictive check (MBBResults.posterior_predictive).
+
+    `p_value` is ~uniform on (0,1) when the model describes the data;
+    values below ~0.01 flag misfit, values above ~0.99 overestimated
+    errors. `band_p` localizes which band misfits (entries near 0 or 1)."""
+    p_value: float          # P[T_rep >= T_obs] over the thinned chain
+    band_p: np.ndarray      # (nb,) tail prob per band; NaN when excluded
+    chi2_obs: np.ndarray    # (nsamples,) whitened chi-sq of the observed data
+    chi2_rep: np.ndarray    # (nsamples,) chi-sq of replicated data
+    ndata: int              # detected bands entering the statistic
+    nfree: int              # free parameters (dof reference: ndata - nfree)
+    nsamples: int           # thinned chain samples used
+    uplim_bands: np.ndarray  # (nb,) bool; True bands excluded from chi-sq
+    band_names: list | None = None
+
+    def __repr__(self):
+        labels = (self.band_names if self.band_names is not None
+                  else [f"band{i}" for i in range(self.band_p.size)])
+        flagged = [f"{n}={p:.3f}" for n, p in zip(labels, self.band_p)
+                   if np.isfinite(p) and (p < 0.01 or p > 0.99)]
+        extra = ("; suspect bands: " + ", ".join(flagged)) if flagged else ""
+        return (f"PPCResult(p_value={self.p_value:.3f}, "
+                f"ndata={self.ndata}, nfree={self.nfree}, "
+                f"nsamples={self.nsamples}{extra})")
+
+
 class MBBResults:
     """Analysis of a finished fit (fit=...) or a reload of a persisted one
     (h5file=...), mirroring the reference's dual constructor. Derived
-    quantities are computed on the fit's device (the CPU for a file)."""
+    quantities, posterior-predictive checks and LOO are computed on
+    `device`: by default the fit's device, and the card for a file (with no
+    CUDA device a reload raises unless device="cpu" is named)."""
 
     def __init__(self, fit=None, h5file=None, redshift=None,
-                 cosmology=None, lumdist=None):
+                 cosmology=None, lumdist=None, device=None):
         if (fit is None) == (h5file is None):
             raise ValueError("give exactly one of fit= or h5file=")
+        self.device = (fit.device if fit is not None and device is None
+                       else resolve_device(device))
         self.redshift = None if redshift is None else float(redshift)
         # None means "not specified": WMAP9 unless a file carries its own;
         # an explicit argument always wins over stored metadata.
@@ -67,6 +101,7 @@ class MBBResults:
         self.dustmass_chain = None
         self.dustmass_meta = None
         self.peaklambda_chain = None
+        self.loo_result = None
 
         if fit is not None:
             self._from_fit(fit)
@@ -89,7 +124,6 @@ class MBBResults:
         self.thin = fit.thin
         self.nwalkers = int(self.chain.shape[0])
         self.response_pack = fit._response_pack()
-        self.device = fit.device
 
     def _from_h5(self, h5file):
         explicit_z, explicit_dl = self.redshift, self.lumdist
@@ -115,7 +149,6 @@ class MBBResults:
             self.cosmology_name = None
         else:
             self._cosmo, self.cosmology_name = chosen_cosmo, chosen_name
-        self.device = torch.device("cpu")
 
     # -- basic summaries -----------------------------------------------------------
     @property
@@ -181,10 +214,12 @@ class MBBResults:
         cov = np.atleast_2d(np.cov(self.flatchain[:, idx].T))
         return names, cov
 
+    def _thinned(self, thin):
+        return self.flatchain[::max(int(thin), 1)]
+
     def _samples(self, thin):
         """Thinned flat chain as an fp32 tensor on the results' device."""
-        flat = self.flatchain[::max(int(thin), 1)]
-        return torch.as_tensor(np.asarray(flat, np.float32),
+        return torch.as_tensor(np.asarray(self._thinned(thin), np.float32),
                                device=self.device)
 
     def sed_percentiles(self, waves, percentile=68.3, thin=1):
@@ -223,11 +258,123 @@ class MBBResults:
         """Per-free-parameter integrated autocorrelation time in steps."""
         return autocorrelation_time(self._free_chain())
 
-    def posterior_predictive(self, *args, **kwargs):
-        raise not_ported("posterior_predictive (PPC)", "A9")
+    # -- goodness of fit -------------------------------------------------------------
+    def _detected(self, what):
+        """Indices of the bands with a proper pointwise density: present
+        (finite flux and uncertainty; a batch source view carries missing
+        bands as an infinite uncertainty) and not an upper limit."""
+        spec = self.param_spec
+        y = np.asarray(self.phot.flux, np.float64)
+        unc = np.asarray(self.phot.unc, np.float64)
+        uplim = (np.zeros(y.size, bool) if spec.uplim_bands is None
+                 else np.asarray(spec.uplim_bands, bool))
+        present = np.isfinite(y) & np.isfinite(unc) & (unc > 0)
+        det_idx = np.where(present & ~uplim)[0]
+        if det_idx.size == 0:
+            raise RuntimeError(f"{what} needs at least one detected "
+                               "(non-upper-limit) band")
+        return det_idx, uplim
 
-    def compute_loo(self, *args, **kwargs):
-        raise not_ported("compute_loo (WAIC + PSIS-LOO)", "A9")
+    def posterior_predictive(self, thin=1, seed=0):
+        """Posterior-predictive goodness-of-fit check (chi-square
+        discrepancy). For each thinned chain sample theta_t, with model band
+        fluxes m_t (band-integrated in response mode, as the fitted
+        likelihood saw them):
+
+            T_obs(t) = |W (m_t - y_obs)|^2
+            y_rep(t) = m_t + L eps_t,  eps_t ~ N(0, I)
+            T_rep(t) = |eps_t|^2
+
+        with L the Cholesky factor of the fit's error model restricted to
+        the detected bands and W = L^-1 the likelihood's whitening. p_value
+        = P[T_rep >= T_obs] is ~uniform under a well-specified model;
+        band_p[b] = P[y_rep,b >= y_obs,b] localizes a misfit band.
+        Upper-limit and missing bands are excluded (band_p NaN). One
+        batched torch call over the thinned chain on the results' device;
+        the normal draws come from a torch.Generator there seeded with
+        `seed`. Returns a PPCResult."""
+        det_idx, uplim = self._detected("posterior_predictive")
+        ndet = int(det_idx.size)
+        y = np.asarray(self.phot.flux, np.float64)
+        dev = self.device
+
+        def t32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        if self.phot.cov is not None:
+            chol = np.linalg.cholesky(np.asarray(self.phot.cov, np.float64)
+                                      [np.ix_(det_idx, det_idx)])
+            whiten, lmat = t32(np.linalg.inv(chol)), t32(chol)
+
+            def white(d):
+                return torch.sum(whiten * d[:, None, :], dim=-1)
+
+            def color(e):
+                return torch.sum(lmat * e[:, None, :], dim=-1)
+        else:
+            sig = np.asarray(self.phot.unc, np.float64)[det_idx]
+            isig, sig32 = t32(1.0 / sig), t32(sig)
+
+            def white(d):
+                return d * isig
+
+            def color(e):
+                return sig32 * e
+
+        fluxes = derived.band_flux_eval(self.shape, self.phot.wave,
+                                        self.response_pack)
+        det_t = torch.as_tensor(det_idx, device=dev)
+        y_det = t32(y[det_idx])
+        samples = self._samples(thin)
+        n = int(samples.shape[0])
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        co, cr, yr = [], [], []
+        for i in range(0, n, derived.CHUNK):
+            m = fluxes(samples[i:i + derived.CHUNK])[:, det_t]
+            r = white(m - y_det)
+            eps = torch.randn(m.shape, generator=gen, device=dev)
+            co.append(torch.sum(r * r, dim=-1))
+            cr.append(torch.sum(eps * eps, dim=-1))
+            yr.append(m + color(eps))
+        chi2_obs, chi2_rep, y_rep = (torch.cat(c).double().cpu().numpy()
+                                     for c in (co, cr, yr))
+        band_p = np.full(y.size, np.nan)
+        band_p[det_idx] = np.mean(y_rep >= y[det_idx][None, :], axis=0)
+        return PPCResult(
+            p_value=float(np.mean(chi2_rep >= chi2_obs)),
+            band_p=band_p, chi2_obs=chi2_obs, chi2_rep=chi2_rep,
+            ndata=ndet, nfree=len(self.param_spec.free_indices),
+            nsamples=n, uplim_bands=uplim,
+            band_names=(list(self.phot.band_names)
+                        if self.phot.band_names is not None else None))
+
+    def compute_loo(self, thin=1):
+        """WAIC + PSIS-LOO predictive assessment over the stored chain
+        (modelcheck.py): elpd_loo, its WAIC twin and the per-band Pareto
+        k-hat reliability diagnostic. The (nsamples x nbands) pointwise
+        log-likelihood matrix is one batched torch computation over the
+        thinned chain (band-integrated in response mode); the PSIS tail
+        smoothing runs host-side in fp64. With a full error covariance the
+        pointwise factors are the exact conditional predictive densities
+        p(y_i | y_-i, theta). Upper-limit and missing bands are excluded.
+        Returns (and stores as .loo_result) a modelcheck.LooResult."""
+        from mbb_emcee_tpu_torch import modelcheck
+        det_idx, _ = self._detected("compute_loo")
+        fluxes = derived.band_flux_eval(self.shape, self.phot.wave,
+                                        self.response_pack)
+        unc = np.asarray(self.phot.unc, np.float64)
+        cov_det = (None if self.phot.cov is None
+                   else np.asarray(self.phot.cov, np.float64)[
+                       np.ix_(det_idx, det_idx)])
+        loglik = modelcheck.pointwise_loglik_matrix(
+            fluxes, self._samples(thin), self.phot.flux, det_idx,
+            unc_det=None if cov_det is not None else unc[det_idx],
+            cov_det=cov_det)
+        names = (None if self.phot.band_names is None
+                 else [self.phot.band_names[i] for i in det_idx])
+        self.loo_result = modelcheck.loo_from_loglik(
+            loglik, point_index=det_idx, band_names=names)
+        return self.loo_result
 
     def plot_sed(self, **kw):
         raise not_ported("plotting", "A10")

@@ -1,0 +1,82 @@
+"""The port runs on the card unless the caller asks for the CPU: with no
+CUDA device and no device named (or the card named), MBBFitter(),
+MultiFitter(), MultiFitter.from_h5, MBBResults(h5file=) and both CLIs fail
+at once with a message naming the CPU switch, and nothing falls back to the
+CPU silently."""
+
+import numpy as np
+import pytest
+import torch
+
+import mbb_emcee_tpu_torch as T
+from mbb_emcee_tpu_torch import cli, cli_batch
+from mbb_emcee_tpu_torch.fitter import default_device
+
+WAVE = np.array([100.0, 160.0, 250.0, 350.0, 500.0])
+FLUX = np.array([8.6, 23.3, 41.2, 44.6, 45.0])
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_the_card():
+    assert default_device() == "cuda"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: T.MBBFitter(), lambda: T.MultiFitter(),
+    lambda: T.MBBFitter(nwalkers=16, n_ensembles=2),
+    lambda: T.MBBFitter(device="cuda"), lambda: T.MultiFitter(device="cuda")])
+def test_constructors_refuse_without_a_card(no_card, make):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+
+
+def test_cpu_by_name_still_runs_without_a_card(no_card):
+    fit = T.MBBFitter(nwalkers=16, device="cpu")
+    fit.set_data(WAVE, FLUX, 0.05 * FLUX)
+    fit.run(nburn=2, nsteps=4)
+    assert fit.device.type == "cpu" and fit.chain.shape == (16, 4, 5)
+
+
+def test_from_h5_refuses_without_a_card(no_card, tmp_path):
+    mf = T.MultiFitter(nwalkers=16, device="cpu")
+    mf.set_data(WAVE, FLUX[None, :], 0.05 * FLUX[None, :])
+    mf.run(nburn=2, nsteps=4)
+    path = mf.writeToHDF5(str(tmp_path / "b.h5"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T.MultiFitter.from_h5(path)
+    assert T.MultiFitter.from_h5(path, device="cpu").chain.shape[0] == 1
+
+
+def test_results_reload_refuses_without_a_card(no_card, tmp_path):
+    fit = T.MBBFitter(nwalkers=16, device="cpu")
+    fit.set_data(WAVE, FLUX, 0.05 * FLUX)
+    fit.run(nburn=2, nsteps=4)
+    path = str(tmp_path / "f.h5")
+    T.MBBResults(fit=fit).writeToHDF5(path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T.MBBResults(h5file=path)
+    back = T.MBBResults(h5file=path, device="cpu")
+    assert back.device.type == "cpu"
+    assert back.posterior_predictive(thin=1).chi2_obs.shape == (16 * 4,)
+
+
+def test_clis_refuse_without_a_card(no_card, tmp_path, monkeypatch):
+    def never(*a, **k):
+        raise AssertionError("a fitter was built before the device check")
+    monkeypatch.setattr(T.MBBFitter, "__init__", never)
+    monkeypatch.setattr(T.MultiFitter, "__init__", never)
+    phot = tmp_path / "p.txt"
+    phot.write_text("".join(f"{w} {f} {0.05 * f}\n"
+                            for w, f in zip(WAVE, FLUX)))
+    cat = tmp_path / "c.txt"
+    cat.write_text("wave = " + " ".join(f"{w:g}" for w in WAVE) + "\nS0 1.0 "
+                   + " ".join(f"{f} {0.05 * f}" for f in FLUX) + "\n")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main([str(phot), str(tmp_path / "o.h5")])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli_batch.main([str(cat), str(tmp_path / "o.h5")])
+    assert not (tmp_path / "o.h5").exists()

@@ -115,7 +115,11 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
 @pytest.mark.parametrize("device,backend,want", [
     ("cpu", "auto", "torch"), ("cuda", "auto", "fused"),
     ("cpu", "fused", "fused"), ("cuda", "torch", "torch")])
-def test_auto_backend_follows_the_device(device, backend, want):
+def test_auto_backend_follows_the_device(device, backend, want,
+                                        monkeypatch):
+    # the choice follows the device's type alone; a CUDA device is refused
+    # at construction without a card, so let the check see one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     fit = MBBFitter(device=device, sampler_backend=backend)
     assert fit._resolve_sampler_backend() == want
 
@@ -165,10 +169,8 @@ def test_no_refusal_names_a2_or_a4():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda f: f.run(init="map"), "A9"),
     (lambda f: f.run_hmc(), "A9"), (lambda f: f.run_pt(), "A9"),
-    (lambda f: f.fit_map(), "A9"), (lambda f: f.compute_evidence(), "A9"),
-    (lambda f: f.compute_loo_exact(), "A9")])
+    (lambda f: f.compute_evidence(), "A9")])
 def test_fitter_refuses_unported_surfaces(call, item):
     fit = MBBFitter(nwalkers=16, device="cpu")
     fit.set_data(WAVE, FLUX, 0.05 * FLUX)

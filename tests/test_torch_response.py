@@ -6,6 +6,7 @@ through MBBFitter and the plain K2 replay with a pack, packs above the
 kernels' old fixed staging, config 3's mock data built without jax, and a
 response-mode HDF5 file crossing between the packages."""
 
+import functools
 import os
 
 import numpy as np
@@ -395,8 +396,9 @@ def test_response_mode_hdf5_crosses_both_ways(tmp_path):
     jres = J.MBBResults(fit=jfit, redshift=2.0)
     tres.writeToHDF5(str(tmp_path / "t.h5"))
     jres.writeToHDF5(str(tmp_path / "j.h5"))
-    for written, loader, src in (("t.h5", J.MBBResults, tres),
-                                 ("j.h5", T.MBBResults, jres)):
+    for written, loader, src in (
+            ("t.h5", J.MBBResults, tres),
+            ("j.h5", functools.partial(T.MBBResults, device="cpu"), jres)):
         back = loader(h5file=str(tmp_path / written))
         for a, b in zip(back.response_pack, src.response_pack):
             np.testing.assert_array_equal(np.asarray(a, np.float32),
@@ -404,6 +406,6 @@ def test_response_mode_hdf5_crosses_both_ways(tmp_path):
         np.testing.assert_array_equal(back.chain, np.asarray(
             src.chain, np.float32))
         assert back.phot.band_names == list(vp.BANDS)
-    tback = T.MBBResults(h5file=str(tmp_path / "j.h5"))
+    tback = T.MBBResults(h5file=str(tmp_path / "j.h5"), device="cpu")
     np.testing.assert_allclose(tback.compute_lir(thin=4),
                                jres.compute_lir(thin=4), rtol=1e-5)
