@@ -109,17 +109,34 @@ non-zero without printing a result):
      62,500 samples, each timed on its first and second call; and
      compute_loo_exact at config 1 on K3 (3 launches) against PSIS-LOO
      (0.3 nats where k-hat <= 0.7). No plain sampler run on any of these
-     paths; every time beside the nvidia-smi line.
+     paths; every time beside the nvidia-smi line;
+ 22. HMC and parallel tempering through the user's entry points, at config
+     2 (250 walkers x 5 bands): MBBFitter.run_pt() at its defaults on K1
+     (2 launches per tempered step + 1 per ladder start, counted; no plain
+     run), replayed by the plain likelihood on the card on the same Philox
+     draws (positions bitwise up to the step where a decision within 1e-4
+     of its threshold falls the other way), its cold chain against K2's
+     run(200, 1000) on the same data (medians and 68% widths within
+     max(1%, 3 sigma_MC)) and its stepping-stone lnZ against the CPU's
+     run_pt(nsteps=200) on the same draws over their first 199 records
+     (3x the combined batch-means error); run_hmc(100 + 200 x 8 leapfrog
+     steps) against the same K2 fit (max(2%, 3 sigma_MC)), its time per
+     gradient, and one short call under torch.profiler for the kernels per
+     leapfrog step;
+     MultiFitter.run_pt(12 rungs, 100 + 200) and run_hmc(50 + 100 x 4) at
+     16 of the batch cell's sources, each whole and in production segments
+     of 50 records through the checkpoint= path (its flush replaced by a
+     recorder: the card's machine has no h5py), chains bitwise equal.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`) runs the build and those
+before any phase. `--phases 3,15` (or `21`, `22`) runs the build and those
 phases alone, a rehearsal that prints no kernel table and no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
 posteriors' timings of phases 9 and 14 (about a minute more). A whole run
-takes about 3 minutes on one H100 (H100 80GB HBM3 at 700 W), the kernels'
-build included.
+takes about 5-6 minutes on one H100 (H100 80GB HBM3 at 700 W), the
+kernels' build included.
 """
 
 import json
@@ -2876,8 +2893,419 @@ def phase_map_checks(card):
             "mbb_multi_stretch_run": k3}, times
 
 
+# Phase 22's depths. run_pt runs at its defaults (12 rungs, beta_min="auto",
+# 300 burn + 1000 steps); run_hmc is cut from its defaults (500 warmup +
+# 1000 steps x 16 leapfrog steps) and the defaults' time is worked out from
+# the measured time per gradient: plain torch there takes ~14 ms per
+# gradient on an H100 (~910 kernels per leapfrog step), so 200 + 400 x 8
+# took 68 s and the batch tier's 100 + 200 x 8 37 s a call. The single fit
+# is cut to half (its posterior check needs the 8-step trajectories: at 4
+# steps and 100 + 200 alpha's median sat outside 3 sigma_MC in a CPU
+# rehearsal), the batch tier, which has no posterior check, to a quarter.
+HMC_DEPTH = {"nwarmup": 100, "nsteps": 200, "n_leapfrog": 8}
+HMC_PROFILE_DEPTH = {"nwarmup": 2, "nsteps": 4, "n_leapfrog": 8}
+# The CPU's run_pt for the evidence check: the card's call with a shorter
+# production (the CPU took 39.5 s for the whole default call on the card's
+# host). The stepping-stone estimate moves with the production's length (at
+# config 2, 200 records gave 3.5 nats more than 1000 in a CPU rehearsal at
+# 250 walkers, on the same draws) and its naive error ignores the
+# autocorrelation (0.0106 against 0.70 from batch means), so the check holds
+# the CPU's first PT_CPU_NSTEPS records against the card's, each estimate's
+# error from batch means of its own records (PT_BATCHES batches).
+PT_CPU_NSTEPS = 200
+PT_BATCHES = 10
+# The batch tiers at 16 of the batch cell's sources (full width), once whole
+# and once in production segments of TIER_SEGMENT records.
+TIER_SOURCES = 16
+TIER_SEGMENT = 50
+PT_BATCH = {"nrungs": 12, "nburn": 100, "nsteps": 200}
+HMC_BATCH = {"nwarmup": 50, "nsteps": 100, "n_leapfrog": 4}
+# An accept or swap decision whose log-uniform sits this close to its
+# threshold may fall either way between K1 and the plain likelihood.
+PT_MARGIN = 1e-4
+
+
+def _recording_pt_steps():
+    """A context in which every tempered step the run loops make through
+    tempering.pt_step_from_uniforms is recorded as (state before the step,
+    betas) in the list it yields (the states are not modified in place, so
+    no copy is needed)."""
+    import contextlib
+    from mbb_emcee_tpu_torch import tempering
+
+    @contextlib.contextmanager
+    def ctx():
+        orig, seen = tempering.pt_step_from_uniforms, []
+
+        def rec(state, lnprob_batch, betas, *args, **kwargs):
+            seen.append((state, betas))
+            return orig(state, lnprob_batch, betas, *args, **kwargs)
+        tempering.pt_step_from_uniforms = rec
+        try:
+            yield seen
+        finally:
+            tempering.pt_step_from_uniforms = orig
+    return ctx()
+
+
+def _pt_decisions(state, lnprob, betas, a):
+    """The accept decisions of one tempered step from `state` on its own
+    draws, each with its margin log(u) - threshold: [(accepts, margins)]
+    for half A, half B and the swaps of the step's parity, in the order the
+    step takes them."""
+    import torch
+    from mbb_emcee_tpu_torch import tempering
+    from mbb_emcee_tpu_torch.likelihood import SUPPORT_FLOOR
+    from mbb_emcee_tpu_torch.ops.philox import pt_uniforms
+    K, W, d = state.pos.shape
+    half = W // 2
+    u, us = pt_uniforms(state.seed, state.step, 1, K, W, state.pos.device)
+    u, us = u[0], us[0]
+    pos, lnp = state.pos, state.lnp.clone()
+    groups, new = [], []
+    for act in (slice(0, half), slice(half, W)):
+        u3 = u[..., act]
+        passive = pos[:, half:] if act.start == 0 else new[0]
+        active, lnp_a = pos[:, act], lnp[:, act]
+        z = ((a - 1.0) * u3[0] + 1.0) ** 2 / a
+        j = torch.clamp((u3[1] * half).to(torch.int64), max=half - 1)
+        partners = torch.take_along_dim(passive, j[..., None], dim=-2)
+        prop = partners + z[..., None] * (active - partners)
+        lp = lnprob(prop.reshape(-1, d)).reshape(K, half)
+        ratio = (d - 1) * torch.log(z) + betas[:, None] * (lp - lnp_a)
+        ok = (torch.log(u3[2]) < ratio) & (lp > SUPPORT_FLOOR)
+        marg = torch.where(lp > SUPPORT_FLOOR, torch.log(u3[2]) - ratio,
+                           torch.full_like(ratio, torch.inf))
+        groups.append((ok.reshape(-1), marg.reshape(-1)))
+        new.append(torch.where(ok[..., None], prop, active))
+        lnp[:, act] = torch.where(ok, lp, lnp_a)
+    _, _, ok_s, pair_on = tempering._swap(torch.cat(new, dim=1), lnp, betas,
+                                          us, state.nsteps)
+    thr = (betas[:-1] - betas[1:])[:, None] * (lnp[1:] - lnp[:-1])
+    groups.append((ok_s[pair_on].reshape(-1),
+                   (torch.log(us) - thr)[pair_on].reshape(-1)))
+    return groups
+
+
+def _pt_replay(tag, got, want, chains, lnprob_k1, lnprob_plain, a):
+    """Compare two tempered runs' recorded steps (phase 22): positions
+    bitwise up to the first step where they part (the cold chains' last
+    record stands for the state after the last step), lnprob within K1's
+    tolerance meanwhile. Where they part, the first group of decisions
+    (half A, half B, swaps) taken differently must have every such decision
+    within PT_MARGIN of its threshold on both sides. Returns (parting step
+    or None, steps compared, the largest such margin)."""
+    import torch
+    n = min(len(got), len(want))
+    part = None
+    for i in range(1, n):
+        sg, sw = got[i][0], want[i][0]
+        if not torch.equal(sg.pos, sw.pos):
+            part = i - 1
+            break
+        if not torch.allclose(sg.lnp, sw.lnp, rtol=K1_RTOL, atol=K1_ATOL):
+            raise AssertionError(f"[{tag}] lnprob of the K1 and plain runs "
+                                 f"part at step {i} with equal positions")
+    if part is None and not torch.equal(*chains):
+        part = n - 1
+    if part is None:
+        if len(got) != len(want):
+            raise AssertionError(f"[{tag}] the runs took {len(got)} and "
+                                 f"{len(want)} steps")
+        log(f"[22] {tag}: K1 run and plain replay bitwise over all {n} "
+            "tempered steps PASS")
+        return None, n, 0.0
+    (sg, bg), (sw, bw) = got[part], want[part]
+    worst, nd = float("inf"), 0
+    for (ag, mg), (aw, mw) in zip(_pt_decisions(sg, lnprob_k1, bg, a),
+                                  _pt_decisions(sw, lnprob_plain, bw, a)):
+        diff = ag != aw
+        if diff.any():
+            nd = int(diff.sum())
+            worst = float(torch.maximum(mg[diff].abs(),
+                                        mw[diff].abs()).max())
+            break
+    ok = worst < PT_MARGIN
+    log(f"[22] {tag}: K1 run and plain replay bitwise for {part} of {n} "
+        f"tempered steps; at step {part} {nd} decision(s) fell differently, "
+        f"each within {worst:.3g} of its threshold (limit {PT_MARGIN:g}) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] K1 and plain runs part on a "
+                             "decision away from its threshold")
+    return part, n, worst
+
+
+def _ss_batch_means(steps, nprod, nrec):
+    """(lnZ, its batch-means standard error) from the stepping-stone sums of
+    the first nrec - 1 records of a recorded tempered run's production of
+    nprod records (each step's recorded state is the record of the step
+    before; the last record has none): lnZ over those records, and the
+    spread of PT_BATCHES batches' lnZ over sqrt(PT_BATCHES)."""
+    import numpy as np
+    from mbb_emcee_tpu_torch.tempering import SSStats
+    first = len(steps) - nprod + 1
+    recs = steps[first:first + nrec - 1]
+    b = recs[0][1].double().cpu().numpy()
+    lnp = np.stack([st.lnp.double().cpu().numpy() for st, _ in recs])
+    v = (b[:-1] - b[1:])[None, :, None] * lnp[:, 1:, :]     # (R, K-1, W)
+
+    def logz(blk):
+        m = blk.max(axis=(0, 2))
+        e = np.exp(blk - m[None, :, None])
+        return SSStats(m, e.sum(axis=(0, 2)), (e * e).sum(axis=(0, 2)),
+                       float(e.shape[0] * e.shape[2])).logz()[0]
+
+    parts = [logz(blk) for blk in np.array_split(v, PT_BATCHES)]
+    return float(logz(v)), float(np.std(parts, ddof=1)
+                                 / np.sqrt(PT_BATCHES))
+
+
+def _posterior_vs(tag, fit, ref, rel, free):
+    """Medians and 68% widths of `fit` against the K2 fit `ref`, each within
+    max(rel, 3 sigma_MC) (sigma_MC of both runs, from their measured
+    autocorrelation times)."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    rows, ok_all = [], True
+    stats = []
+    for f in (fit, ref):
+        flat = f.chain.reshape(-1, 5)
+        m, w = vp.stats(flat, free)
+        sm, sw = tau_se(f.chain_free.double().cpu().numpy(), flat, free)
+        stats.append((m, w, sm, sw))
+    (m1, w1, s1m, s1w), (m2, w2, s2m, s2w) = stats
+    for k, pi in enumerate(free):
+        tm = max(rel * abs(m2[k]), 3 * np.hypot(s1m[k], s2m[k]))
+        tw = max(rel * w2[k], 3 * np.hypot(s1w[k], s2w[k]))
+        ok = abs(m1[k] - m2[k]) <= tm and abs(w1[k] - w2[k]) <= tw
+        ok_all &= ok
+        rows.append(f"p{pi} median {m1[k]:.5g} vs {m2[k]:.5g} (tol {tm:.3g}), "
+                    f"width {w1[k]:.4g} vs {w2[k]:.4g} (tol {tw:.3g}) "
+                    f"{'PASS' if ok else 'FAIL'}")
+    log(f"[22] {tag} against K2 run(200, 1000), max({100 * rel:g}%, 3 "
+        "sigma_MC):")
+    for r in rows:
+        log(f"[22]   {r}")
+    if not ok_all:
+        raise AssertionError(f"{tag}: posterior off the K2 fit's")
+
+
+def _profiled_launches(fn):
+    """(device kernels, host cudaLaunchKernel calls) of one call of fn()
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = host = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
+        elif e.key.startswith("cudaLaunchKernel"):
+            host += e.count
+    return kernels, host
+
+
+def _tier_segments(tag, run, flushes):
+    """run(checkpoint, interval) whole and in production segments of
+    TIER_SEGMENT records through the checkpoint= path, the flush replaced by
+    a recorder (the card's machine has no h5py). Returns (whole, segmented,
+    seconds of each)."""
+    from mbb_emcee_tpu_torch import checkpoint
+    whole, t_whole = _timed(lambda: run(None, 100))
+    orig = checkpoint.save_tier_checkpoint
+    seen = []
+    checkpoint.save_tier_checkpoint = lambda path, tier, *a, **k: \
+        seen.append(tier)
+    try:
+        seg, t_seg = _timed(lambda: run(
+            os.path.join(REPO, "build", "phase22-never-written.h5"),
+            TIER_SEGMENT))
+    finally:
+        checkpoint.save_tier_checkpoint = orig
+    import torch
+    same = (torch.equal(whole.chain_free, seg.chain_free)
+            and torch.equal(whole.lnprobability, seg.lnprobability))
+    ok = same and len(seen) == flushes
+    log(f"[22] {tag}: whole {t_whole:.2f} s, in {len(seen)} production "
+        f"segments of {TIER_SEGMENT} records (want {flushes}) {t_seg:.2f} s "
+        f"(host clock); chains bitwise "
+        f"{'equal PASS' if ok else 'DIFFERENT FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: segmented production is not the "
+                             "whole run")
+    return whole, t_whole, t_seg
+
+
+def phase_tiers(card):
+    """HMC and parallel tempering through the user's entry points (see the
+    module docstring, phase 22). Returns (K1 launches of run_pt, seconds
+    and counts by step)."""
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import tempering
+    from mbb_emcee_tpu_torch.fitter import philox_key
+
+    t0 = time.time()
+    out = {}
+    cfg = vp.CONFIGS[2]
+    free = vp.free_indices(cfg)
+    flux, unc, cov = vp.mock_data(cfg)
+    ref = port_fitter(2, flux, unc, cov, seed=2201)
+    _, out["K2 run(200, 1000)"] = _timed(lambda: ref.run(nburn=200,
+                                                         nsteps=1000))
+
+    # -- single-fit PT at its defaults on K1, and its plain replay
+    fit = port_fitter(2, flux, unc, cov, seed=2202)
+    _counts(reset=True)
+    with _recording_pt_steps() as got:
+        _, t_pt = _timed(fit.run_pt)
+    c = _counts()
+    res = fit.pt_result
+    K = res.betas.size
+    nburn2 = max(300 // 2, 50)
+    steps = 300 + nburn2 + 1000
+    want = 2 * steps + (1 if K == 12 else 2)
+    plain = c["plain_sampler_runs"] + c["plain_multi_runs"]
+    ok = c["mbb_lnprob"] == want and plain == 0 and len(got) == steps
+    log(f"[22] run_pt() at its defaults: {K} rungs x {NWALKERS} walkers, "
+        f"{steps} tempered steps in {t_pt:.2f} s (host clock); "
+        f"{c['mbb_lnprob']} K1 launches of {K * NWALKERS // 2} vectors "
+        f"each (want 2 per step + {want - 2 * steps} init = {want}), "
+        f"{plain} plain runs {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("run_pt did not run through K1 alone")
+    out["run_pt"], out["run_pt K1 launches"] = t_pt, c["mbb_lnprob"]
+    out["run_pt rungs"] = K
+    lnprob_plain, _, x0 = fit._tier_setup("", None, None, plain=True)
+    from mbb_emcee_tpu_torch.ops import lnprob_kernel
+    ops = lnprob_kernel.prepare_lnprob_inputs(
+        fit.phot, fit.shape, fit._effective_spec(), device=DEVICE)
+    _counts(reset=True)
+    with _recording_pt_steps() as plain_steps:
+        rp, t_plain = _timed(lambda: tempering.pt_sample(
+            lnprob_plain, x0, philox_key(fit.seed), nburn=300, nsteps=1000,
+            a=fit.a))
+    if _counts()["mbb_lnprob"] != 0:
+        raise AssertionError("the plain replay launched K1")
+    out["run_pt plain replay"] = t_plain
+    part, n, margin = _pt_replay(
+        "run_pt", got, plain_steps, (fit.chain_free[-1], rp.chain[-1]),
+        lambda x: lnprob_kernel.mbb_lnprob(x.contiguous(), ops),
+        lnprob_plain, fit.a)
+    out["run_pt parting step"] = part
+    lz_rec, se = _ss_batch_means(got, 1000, 1000)
+    lz_pre, se_pre = _ss_batch_means(got, 1000, PT_CPU_NSTEPS)
+    del got, plain_steps
+    _posterior_vs("run_pt cold chain", fit, ref, 0.01, free)
+    cpu = port_fitter(2, flux, unc, cov, seed=2202, device="cpu")
+    with _recording_pt_steps() as cpu_steps:
+        _, t_cpu = _timed(lambda: cpu.run_pt(nsteps=PT_CPU_NSTEPS))
+    lc_rec, se_cpu = _ss_batch_means(cpu_steps, PT_CPU_NSTEPS, PT_CPU_NSTEPS)
+    del cpu_steps
+    (lz, dz), (lc, dc) = fit.logz_pt, cpu.logz_pt
+    tol = 3 * np.hypot(se_pre, se_cpu)
+    ok = (abs(lz_pre - lc_rec) <= tol and abs(lz_rec - lz) < 3 * se
+          and abs(lc_rec - lc) < 3 * se_cpu and np.isfinite(fit.logz_ti[0]))
+    log(f"[22] logz_pt {lz:.4f} on the card (naive error {dz:.4f}, batch "
+        f"means {se:.4f}; {lz_rec:.4f} from records 1-999), {lc:.4f} on the "
+        f"CPU (run_pt(nsteps={PT_CPU_NSTEPS}), {t_cpu:.1f} s; naive "
+        f"{dc:.4f}, batch means {se_cpu:.4f}); records 1-"
+        f"{PT_CPU_NSTEPS - 1}: card {lz_pre:.4f}, CPU {lc_rec:.4f}, |d| "
+        f"{abs(lz_pre - lc_rec):.4f} <= 3 x combined batch-means error "
+        f"{tol:.4f}; logz_ti {fit.logz_ti[0]:.3f}, replay logz "
+        f"{rp.logz:.4f} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("run_pt's evidence on the card is not the "
+                             "CPU's")
+    out["logz_pt"] = {"card": [lz, dz, se], "cpu": [lc, dc, se_cpu],
+                      "card first records": [lz_pre, se_pre],
+                      "cpu records": [lc_rec, se_cpu]}
+
+    # -- single-fit HMC (plain likelihood under torch.autograd)
+    hfit = port_fitter(2, flux, unc, cov, seed=2203)
+    _counts(reset=True)
+    _, t_hmc = _timed(lambda: hfit.run_hmc(**HMC_DEPTH))
+    c = _counts()
+    grads = 1 + (HMC_DEPTH["nwarmup"] + HMC_DEPTH["nsteps"]) \
+        * HMC_DEPTH["n_leapfrog"]
+    us_grad = 1e6 * t_hmc / grads
+    log(f"[22] run_hmc({HMC_DEPTH}): {t_hmc:.2f} s (host clock), "
+        f"{grads} gradient evaluations, {us_grad:.0f} us each; acceptance "
+        f"{hfit.acceptance_fraction.mean():.3f}, step size "
+        f"{hfit.hmc_result.step_size:.4g}; K1 launches {c['mbb_lnprob']} "
+        f"({card})")
+    _posterior_vs("run_hmc", hfit, ref, 0.02, free)
+    prof = port_fitter(2, flux, unc, cov, seed=2204)
+    kernels, host = _profiled_launches(
+        lambda: prof.run_hmc(**HMC_PROFILE_DEPTH))
+    leap = (HMC_PROFILE_DEPTH["nwarmup"] + HMC_PROFILE_DEPTH["nsteps"]) \
+        * HMC_PROFILE_DEPTH["n_leapfrog"]
+    default_grads = 1 + (500 + 1000) * 16
+    log(f"[22] run_hmc({HMC_PROFILE_DEPTH}) under torch.profiler: "
+        f"{kernels} device kernels, {host} cudaLaunchKernel calls, "
+        f"{kernels / leap:.1f} kernels per leapfrog step ({leap} steps, "
+        f"{leap + 1} gradients); run_hmc() at its defaults ({default_grads} "
+        f"gradients) would take ~{default_grads * us_grad / 1e6:.0f} s at "
+        f"the measured {us_grad:.0f} us per gradient ({card})")
+    out.update({"run_hmc": t_hmc, "run_hmc us per gradient": us_grad,
+                "run_hmc kernels per leapfrog step": kernels / leap,
+                "run_hmc profiled kernels": kernels,
+                "run_hmc profiled launch calls": host,
+                "run_hmc defaults s (worked out)":
+                    default_grads * us_grad / 1e6})
+
+    # -- the batch tiers at TIER_SOURCES of the batch cell's sources
+    bflux, bunc = batch_data(TIER_SOURCES, seed=3000, missing_every=16)
+
+    def run_pt(ck, interval):
+        mf = batch_fitter(bflux, bunc, seed=4322)
+        return mf.run_pt(**PT_BATCH, checkpoint=ck,
+                         checkpoint_interval=interval)
+
+    def run_hmc(ck, interval):
+        mf = batch_fitter(bflux, bunc, seed=4323)
+        return mf.run_hmc(**HMC_BATCH, checkpoint=ck,
+                          checkpoint_interval=interval)
+
+    _counts(reset=True)
+    mp, t1, t2 = _tier_segments(
+        f"MultiFitter.run_pt({PT_BATCH}) x {TIER_SOURCES} sources", run_pt,
+        PT_BATCH["nsteps"] // TIER_SEGMENT)
+    mh, t3, t4 = _tier_segments(
+        f"MultiFitter.run_hmc({HMC_BATCH}) x {TIER_SOURCES} sources",
+        run_hmc, HMC_BATCH["nsteps"] // TIER_SEGMENT)
+    c = _counts()
+    ok = (np.all(np.isfinite(mp.logz_pt[0]))
+          and np.all(np.isfinite(mp.par_cen("T")))
+          and np.all(np.isfinite(mh.par_cen("T")))
+          and np.all(mh.hmc_step_size > 0) and c["mbb_lnprob"] == 0
+          and c["mbb_multi_stretch_run"] == 0)
+    log(f"[22] batch PT: {mp.pt_betas.shape[1]} rungs, lnZ "
+        f"{mp.logz_pt[0].min():.2f}..{mp.logz_pt[0].max():.2f}, cold "
+        f"acceptance {mp.acceptance_fraction.mean():.3f}; batch HMC: "
+        f"acceptance {mh.acceptance_fraction.mean():.3f}, step sizes "
+        f"{mh.hmc_step_size.min():.3g}..{mh.hmc_step_size.max():.3g}; no "
+        f"kernel launched (plain batch likelihood) "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("batch PT / HMC results not finite")
+    out.update({"MultiFitter.run_pt whole": t1,
+                "MultiFitter.run_pt segmented": t2,
+                "MultiFitter.run_pt rungs": int(mp.pt_betas.shape[1]),
+                "MultiFitter.run_hmc whole": t3,
+                "MultiFitter.run_hmc segmented": t4})
+    log(f"[22] phase 22: {time.time() - t0:.1f} s")
+    return out["run_pt K1 launches"], out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14", "15", "16", "17", "18", "19", "20", "21")
+          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22")
 
 
 def main(argv=None):
@@ -2918,7 +3346,8 @@ def main(argv=None):
         ("15", phase_k2_layouts), ("16", lambda: phase_plan_sweep(card)),
         ("17", phase_k3_layouts), ("18", lambda: phase_k3_sweep(card)),
         ("19", phase_k1_layouts), ("20", lambda: phase_k1_sweep(card)),
-        ("21", lambda: phase_map_checks(card))]
+        ("21", lambda: phase_map_checks(card)),
+        ("22", lambda: phase_tiers(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -2951,6 +3380,8 @@ def main(argv=None):
     k1_sweep, k1_host = res["20"]
     k3_by_path["extend (phase 12)"] = ext["mbb_multi_stretch_run"]
     map_paths, map_times = res["21"]
+    pt_launches, tier_times = res["22"]
+    k1_by_path["run_pt (phase 22)"] = pt_launches
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -3048,6 +3479,8 @@ def main(argv=None):
          "single fit, config 4": derived_single}))
     log(f"MAP and model checking, host seconds ({card}): "
         + json.dumps(map_times))
+    log(f"HMC and PT, host seconds and counts ({card}): "
+        + json.dumps(tier_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -32,6 +32,12 @@ MAP-seeded walker balls (run(init="map")), posterior-predictive checks,
 WAIC / PSIS-LOO and exact leave-one-band-out refits (modelcheck.py), and
 prior reweighting of a finished chain (reweight.py).
 
+The inference tiers beside the stretch move: Hamiltonian MC (hmc.py;
+MBBFitter.run_hmc, MultiFitter.run_hmc) with torch.autograd forces, and
+parallel tempering with stepping-stone evidence (tempering.py;
+MBBFitter.run_pt on the lnprob kernel, MultiFitter.run_pt), whose batch
+runs checkpoint through checkpoint.save_tier_checkpoint.
+
 The kernels are built with nvcc at first use (ops/build.py). Importing the
 package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
 read or written.
@@ -53,6 +59,9 @@ from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
 from mbb_emcee_tpu_torch.multifit import MultiFitter, PPCBatchResult
 from mbb_emcee_tpu_torch.response import Response, ResponseSet
 from mbb_emcee_tpu_torch.mapfit import MAPResult
+from mbb_emcee_tpu_torch.hmc import hmc_sample, HMCResult
+from mbb_emcee_tpu_torch.tempering import (
+    pt_sample, PTResult, ParallelTemperingSampler, geometric_ladder)
 from mbb_emcee_tpu_torch.modelcheck import (
     LooResult, LooBatchResult, LooComparison, compare_loo)
 from mbb_emcee_tpu_torch.reweight import (
@@ -69,6 +78,8 @@ __all__ = [
     "EnsembleSampler", "SamplerState", "FusedSampler", "build_kernels",
     "MBBFitter", "MBBResults", "FusedMultiSampler", "MultiFitter",
     "Response", "ResponseSet", "MAPResult", "PPCResult", "PPCBatchResult",
+    "hmc_sample", "HMCResult", "pt_sample", "PTResult",
+    "ParallelTemperingSampler", "geometric_ladder",
     "LooResult", "LooBatchResult", "LooComparison", "compare_loo",
     "reweight_prior", "reweight_prior_batch", "ReweightResult",
     "ReweightBatchResult", "__version__",

@@ -15,6 +15,8 @@ cross to the host for a summary.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -385,6 +387,388 @@ class BatchEngine:
         out = [fn(samples[:, i:i + chunk]).double().cpu().numpy()
                for i in range(0, N, chunk)]
         return np.concatenate(out, axis=1)
+
+    # -- PT and HMC tiers -------------------------------------------------------
+    def _engine_record_nonextendable(self, kind):
+        """Post-run bookkeeping for tiers whose chains extend() does not
+        continue (PT / HMC; their checkpoint= makes them resumable): drop
+        the stretch-move continuation state, so extend() refuses, and the
+        other tier's results."""
+        self.final_state = None
+        self._sampler = None
+        if kind != "pt":
+            self.logz_pt = self.logz_ti = None
+            self.swap_fraction = self.pt_betas = None
+        if kind != "hmc":
+            self.hmc_step_size = self.hmc_mass = None
+
+    def _engine_posterior_fp(self, spec):
+        """Short content hash of the posterior a PT / HMC run samples (data,
+        band correlation, response pack, parameter space), stored in its
+        checkpoint and re-checked on resume: resuming another posterior
+        would splice chains silently."""
+        from mbb_emcee_tpu_torch.checkpoint import (
+            data_fingerprint, spec_fingerprint)
+        pack = self._response_pack()
+        return data_fingerprint(
+            self.wave, self.flux, self.unc,
+            *(() if self._band_corr is None else (self._band_corr,)),
+            *(() if pack is None else pack),
+            np.asarray([spec_fingerprint(spec, self.shape, self.a)]))
+
+    def _tier_ck_meta(self, spec, extra):
+        """The run identity a PT / HMC checkpoint records: geometry, seed,
+        stretch scale, posterior, and the tier's own settings (`extra`)."""
+        return {"nwalkers": self.nwalkers, "nsources": self.nsources,
+                "thin": int(self.thin), "seed": int(self.seed),
+                "a": float(self.a),
+                "posterior_fp": self._engine_posterior_fp(spec), **extra}
+
+    def _tier_ck_check(self, meta, spec, expect, path):
+        """Refuse a checkpoint of another generator, geometry, seed,
+        posterior or tier setting (`expect`)."""
+        from mbb_emcee_tpu_torch.checkpoint import (
+            PRNG_IMPL, check_resume_meta)
+        check_resume_meta(meta, self._tier_ck_meta(
+            spec, dict(expect, prng_impl=PRNG_IMPL)), path)
+
+    def _tier_resume(self, checkpoint, tier, spec, expect, nrec, thin):
+        """(state arrays, aux arrays, chain blocks, lnp blocks, records
+        done, run_id) of a PT / HMC checkpoint after the resume checks."""
+        from mbb_emcee_tpu_torch.checkpoint import load_tier_checkpoint
+        st, aux, chain, lnp, meta = load_tier_checkpoint(checkpoint, tier)
+        self._tier_ck_check(meta, spec, expect, checkpoint)
+        done = 0 if chain is None else chain.shape[1]
+        if done > nrec:
+            raise ValueError(
+                f"checkpoint already holds {done} records; this run "
+                f"targets only {nrec} -- resume with nsteps >= "
+                f"{done * thin}")
+        run_id = meta.get("run_id")
+        run_id = run_id.decode() if isinstance(run_id, bytes) else run_id
+        return (st, aux, [] if chain is None else [chain],
+                [] if lnp is None else [lnp], done, run_id)
+
+    def _tier_checks(self, nsteps, thin, resume, checkpoint):
+        if self.flux is None:
+            raise RuntimeError("no data; call set_data")
+        if int(thin) < 1:
+            raise ValueError(f"thin={thin} must be >= 1")
+        if nsteps % thin:
+            raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+        if int(nsteps) // int(thin) <= 0:
+            raise ValueError(
+                f"nsteps={nsteps} yields zero recorded steps at "
+                f"thin={thin}")
+        if resume and not checkpoint:
+            raise ValueError(
+                "resume=True requires checkpoint= (the path the previous "
+                "run flushed state to)")
+
+    @staticmethod
+    def _tier_chain(blocks, device):
+        """One (S, nrec, ...) tensor on `device` from record blocks (device
+        tensors, or host arrays when the run was checkpointed)."""
+        if all(isinstance(b, torch.Tensor) for b in blocks):
+            return torch.cat(blocks, dim=1)
+        return torch.as_tensor(np.concatenate(
+            [b.cpu().numpy() if isinstance(b, torch.Tensor) else b
+             for b in blocks], axis=1), device=device)
+
+    def run_pt(self, nrungs=12, beta_min="auto", nburn=300, nsteps=1000,
+               thin=1, verbose=False, checkpoint=None,
+               checkpoint_interval=100, resume=False):
+        """Batched parallel tempering (tempering.py): every source gets K
+        temperature rungs x W walkers, all (S, K, W) advancing in lockstep
+        on the batch likelihood's plain version on the fitter's device (no
+        kernel takes per-source operands for an arbitrary set of vectors;
+        the JAX package's batch PT runs its XLA likelihood the same way).
+
+        Three phases: a SCOUT burn on a shared coarse ladder; a main BURN on
+        the (with beta_min="auto") per-source adapted ladders
+        (tempering.auto_ladder_batch; one rung count K for the batch),
+        seeded rung by nearest rung from the scout state; and PRODUCTION
+        segments carrying the tempered state and the stepping-stone
+        accumulators (merged per segment, tempering.pt_segment).
+
+        With `checkpoint=path` production is segmented every
+        `checkpoint_interval` records and the tempered state, ladders and
+        evidence accumulators are flushed (checkpoint.save_tier_checkpoint);
+        `resume=True` continues an interrupted run from that file toward
+        the same nsteps target, the chain bit for bit the uninterrupted
+        run's (a kill during scout or burn restarts those phases).
+
+        The recorded chain is each source's cold rung, so chain_free,
+        lnprobability and acceptance_fraction have run()'s shapes and every
+        batched summary works unchanged. Per source: self.logz_pt = (lnZ
+        (S,), err (S,)) by stepping stone, self.logz_ti by thermodynamic
+        integration, self.swap_fraction (S, K-1), self.pt_betas (S, K).
+        extend() does not apply."""
+        from mbb_emcee_tpu_torch.fitter import philox_key
+        from mbb_emcee_tpu_torch.tempering import (
+            PTState, SSStats, _SUPPORT_FLOOR, auto_ladder_batch,
+            geometric_ladder, init_pt_state, nearest_rungs, pt_advance,
+            pt_segment, reset_counters, thermodynamic_logz)
+
+        self._tier_checks(nsteps, thin, resume, checkpoint)
+        if self.nwalkers % 2:
+            raise ValueError("nwalkers must be even")
+        spec = self._effective_spec()
+        ops = self._lnprob_operands(spec)
+        lnprob = ops.plain
+        free_space = ops.free_space
+        self.free_space = free_space
+        self._run_spec = spec       # persisted by writeToHDF5
+        self.thin = int(thin)
+        S, W, d = self.nsources, self.nwalkers, free_space.nfree
+        dev = self.device
+        a = self.a
+        nrec = int(nsteps) // int(thin)
+        adapt = beta_min == "auto"
+        K1 = int(nrungs)
+        sources = torch.arange(S, device=dev)
+        resuming = bool(checkpoint and resume and os.path.exists(checkpoint))
+        interval = max(1, int(checkpoint_interval))
+        expect = {"nrungs": K1, "nburn": int(nburn)}
+        run_id = None
+        if resuming:
+            st, aux, chain_blocks, lnp_blocks, done, run_id = \
+                self._tier_resume(checkpoint, "pt", spec, expect, nrec,
+                                  int(thin))
+            betas_b = np.asarray(aux["betas"], np.float64)
+            state = PTState(
+                **{k: torch.as_tensor(st[k], device=dev) for k in (
+                    "pos", "lnp", "naccept", "nswap", "nswap_prop")},
+                nsteps=int(st["nsteps"]), seed=int(st["seed"]),
+                step=int(st["step"]))
+            ss = SSStats(aux["ss_m"], aux["ss_s1"], aux["ss_s2"],
+                         float(aux["ss_n"]))
+            lnp_sum = np.asarray(aux["acc"], np.float64)
+        else:
+            cen, sca = self._init_centers()
+            idx = free_space.free_idx
+            p0 = self._balls(torch.Generator().manual_seed(self.seed),
+                             cen[:, idx], sca[:, idx])
+            # -- phase 1: scout burn on a shared coarse ladder
+            scout = geometric_ladder(K1, 1e-2 if adapt else float(beta_min))
+            state = init_pt_state(
+                p0[:, None].expand(S, K1, W, d).contiguous(), lnprob,
+                philox_key(self.seed))
+            state = pt_advance(
+                state, lnprob, torch.as_tensor(
+                    scout, dtype=torch.float32, device=dev).expand(S, K1),
+                nburn, a, sources)
+            # -- ladder adaptation (host, tiny)
+            if adapt:
+                lnp_h = state.lnp.double().cpu().numpy()       # (S, K1, W)
+                masked = np.where(lnp_h > _SUPPORT_FLOOR, lnp_h, np.nan)
+                with np.errstate(all="ignore"):
+                    worst = np.nanmin(masked.reshape(S, -1), axis=1)
+                worst = np.where(np.isfinite(worst), worst, -1e6)
+                betas_b = auto_ladder_batch(worst, nrungs_min=K1)
+                near = torch.as_tensor(nearest_rungs(betas_b, scout),
+                                       device=dev)             # (S, K2)
+                pos0 = state.pos[sources[:, None], near]
+                nburn2 = max(int(nburn) // 2, 50)
+            else:
+                betas_b = np.broadcast_to(scout, (S, K1)).copy()
+                pos0 = state.pos
+                nburn2 = 0
+            # -- phase 2: (re-)burn on the adapted ladders
+            state = init_pt_state(pos0.contiguous(), lnprob, state.seed,
+                                  state.step)
+            if nburn2 > 0:
+                state = pt_advance(
+                    state, lnprob, torch.as_tensor(
+                        betas_b, dtype=torch.float32, device=dev),
+                    nburn2, a, sources)
+                state = reset_counters(state)
+            ss, lnp_sum = None, 0.0
+            chain_blocks, lnp_blocks, done = [], [], 0
+
+        # -- phase 3: production segments (one when not checkpointing; every
+        # segment the same per-record transition, so segmenting never
+        # changes the chain)
+        K2 = betas_b.shape[1]
+        betas_t = torch.as_tensor(betas_b, dtype=torch.float32, device=dev)
+        if checkpoint is not None:
+            from mbb_emcee_tpu_torch.checkpoint import (
+                new_run_id, save_tier_checkpoint)
+            meta = self._tier_ck_meta(spec, dict(
+                expect, k2=K2, run_id=run_id or new_run_id()))
+        while done < nrec:
+            seg = nrec - done if checkpoint is None else min(interval,
+                                                              nrec - done)
+            state, chain, lnpch, ls, st = pt_segment(
+                state, lnprob, betas_t, seg, int(thin), a, sources)
+            keep = (lambda t: t) if checkpoint is None else (
+                lambda t: t.cpu().numpy())
+            chain_blocks.append(keep(chain))
+            lnp_blocks.append(keep(lnpch))
+            ss = st if ss is None else ss.merge(st)
+            lnp_sum = lnp_sum + ls
+            done += seg
+            if checkpoint is not None:
+                save_tier_checkpoint(
+                    checkpoint, "pt",
+                    {"pos": state.pos.cpu().numpy(),
+                     "lnp": state.lnp.cpu().numpy(),
+                     "naccept": state.naccept.cpu().numpy(),
+                     "nswap": state.nswap.cpu().numpy(),
+                     "nswap_prop": state.nswap_prop.cpu().numpy(),
+                     "nsteps": np.int64(state.nsteps),
+                     "seed": np.uint64(state.seed),
+                     "step": np.int64(state.step)},
+                    chain_blocks, lnp_blocks, meta,
+                    aux_arrays={"betas": betas_b, "ss_m": ss.m,
+                                "ss_s1": ss.s1, "ss_s2": ss.s2,
+                                "ss_n": np.float64(ss.n), "acc": lnp_sum})
+                if verbose:
+                    from mbb_emcee_tpu_torch.utils.log import enable_console
+                    enable_console().info(
+                        f"  PT checkpoint: {done}/{nrec} records x {S} "
+                        f"sources -> {checkpoint}")
+
+        self.chain_free = self._tier_chain(chain_blocks, dev)
+        self.lnprobability = self._tier_chain(lnp_blocks, dev)
+        self.acceptance_fraction = (
+            state.naccept[:, 0, :].double().cpu().numpy()
+            / max(state.nsteps, 1))                        # cold rung
+        self.swap_fraction = (state.nswap.cpu().numpy()
+                              / np.maximum(state.nswap_prop.cpu().numpy(),
+                                           1))
+        self.pt_betas = betas_b
+        logz, logz_err = ss.logz()                         # (S,), (S,)
+        ti, ti_err = thermodynamic_logz(betas_b, lnp_sum / done)
+        self.logz_pt = (logz, logz_err)
+        self.logz_ti = (ti, ti_err)
+        self._engine_record_nonextendable("pt")
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            af = self.acceptance_fraction
+            enable_console().info(
+                f"PT on {dev} over {S} sources: {K2} rungs x {W} walkers, "
+                f"mean cold acceptance {af.mean():.3f}, min adjacent swap "
+                f"fraction {self.swap_fraction.min():.2f}, lnZ in "
+                f"[{logz.min():.2f}, {logz.max():.2f}] (median err "
+                f"{np.median(logz_err):.3f})")
+        return self
+
+    def run_hmc(self, nwarmup=500, nsteps=1000, thin=1, n_leapfrog=16,
+                target_accept=0.8, verbose=False, checkpoint=None,
+                checkpoint_interval=100, resume=False):
+        """Batched gradient-based sampling (hmc.py): every source runs W
+        independent HMC chains, all (S, W) in lockstep -- the two-phase
+        warmup (dual-averaged step size, diagonal mass) then leapfrog + MH
+        production -- with forces from torch.autograd of the batch
+        likelihood's plain version on the fitter's device (the JAX package
+        takes jax.grad of its XLA likelihood). Each source adapts its OWN
+        step size (self.hmc_step_size, (S,)) and diagonal metric
+        (self.hmc_mass, (S, nfree)).
+
+        With `checkpoint=path` PRODUCTION is segmented every
+        `checkpoint_interval` records and the complete per-source state
+        (positions, gradients, step sizes, metrics, accept counters, the
+        Philox stream position) is flushed (checkpoint.save_tier_checkpoint);
+        `resume=True` continues an interrupted run toward the same nsteps
+        target, exactly the uninterrupted chain (production runs at fixed
+        (eps, mass); a kill during warmup restarts warmup).
+
+        The recorded chains have run()'s shapes; extend() does not apply."""
+        from mbb_emcee_tpu_torch.fitter import philox_key
+        from mbb_emcee_tpu_torch.hmc import (
+            _to_unconstrained, check_box, hmc_prod_core, hmc_warmup_core)
+
+        self._tier_checks(nsteps, thin, resume, checkpoint)
+        spec = self._effective_spec()
+        ops = self._lnprob_operands(spec)
+        lnprob = ops.plain
+        free_space = ops.free_space
+        self.free_space = free_space
+        self._run_spec = spec       # persisted by writeToHDF5
+        check_box(free_space.lower, free_space.upper)
+        self.thin = int(thin)
+        thin_i = int(thin)
+        S, W = self.nsources, self.nwalkers
+        dev = self.device
+        nrec = int(nsteps) // thin_i
+        sources = torch.arange(S, device=dev)
+        lower = torch.as_tensor(np.asarray(free_space.lower, np.float32),
+                                device=dev)
+        width = torch.as_tensor(np.asarray(free_space.upper
+                                           - free_space.lower, np.float32),
+                                device=dev)
+        resuming = bool(checkpoint and resume and os.path.exists(checkpoint))
+        interval = max(1, int(checkpoint_interval))
+        expect = {"nwarmup": int(nwarmup), "n_leapfrog": int(n_leapfrog),
+                  "target_accept": float(target_accept)}
+        names = ("u", "g", "lp", "raw", "nacc", "eps", "mass")
+        run_id = None
+        if resuming:
+            st, _, chain_blocks, lnp_blocks, done, run_id = \
+                self._tier_resume(checkpoint, "hmc", spec, expect, nrec,
+                                  thin_i)
+            u, g, lp, raw, nacc, eps, mass = (
+                torch.as_tensor(st[n], device=dev) for n in names)
+            seed, step = int(st["seed"]), int(st["step"])
+        else:
+            cen, sca = self._init_centers()
+            idx = free_space.free_idx
+            p0 = self._balls(torch.Generator().manual_seed(self.seed),
+                             cen[:, idx], sca[:, idx])
+            seed = philox_key(self.seed)
+            u, g, lp, raw, eps, mass, step = hmc_warmup_core(
+                lnprob, lower, width, _to_unconstrained(p0, lower, width),
+                int(nwarmup), int(n_leapfrog), float(target_accept), seed,
+                0, sources)
+            nacc = torch.zeros((S, W), dtype=torch.int32, device=dev)
+            chain_blocks, lnp_blocks, done = [], [], 0
+
+        if checkpoint is not None:
+            from mbb_emcee_tpu_torch.checkpoint import (
+                new_run_id, save_tier_checkpoint)
+            meta = self._tier_ck_meta(spec, dict(
+                expect, run_id=run_id or new_run_id()))
+        while done < nrec:
+            seg = nrec - done if checkpoint is None else min(interval,
+                                                              nrec - done)
+            chain, lnpch, u, g, lp, raw, nacc, step = hmc_prod_core(
+                lnprob, lower, width, u, g, lp, raw, nacc, eps, mass,
+                seg * thin_i, thin_i, int(n_leapfrog), seed, step, sources)
+            keep = (lambda t: t) if checkpoint is None else (
+                lambda t: t.cpu().numpy())
+            chain_blocks.append(keep(chain))
+            lnp_blocks.append(keep(lnpch))
+            done += seg
+            if checkpoint is not None:
+                arrays = dict(zip(names, (t.cpu().numpy() for t in (
+                    u, g, lp, raw, nacc, eps, mass))))
+                arrays.update(seed=np.uint64(seed), step=np.int64(step))
+                save_tier_checkpoint(checkpoint, "hmc", arrays,
+                                     chain_blocks, lnp_blocks, meta)
+                if verbose:
+                    from mbb_emcee_tpu_torch.utils.log import enable_console
+                    enable_console().info(
+                        f"  HMC checkpoint: {done}/{nrec} records x {S} "
+                        f"sources -> {checkpoint}")
+
+        self.chain_free = self._tier_chain(chain_blocks, dev)
+        self.lnprobability = self._tier_chain(lnp_blocks, dev)
+        self.acceptance_fraction = (nacc.double().cpu().numpy()
+                                    / (done * thin_i))          # (S, W)
+        self.hmc_step_size = eps.double().cpu().numpy()
+        self.hmc_mass = mass.double().cpu().numpy()
+        self._engine_record_nonextendable("hmc")
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            af = self.acceptance_fraction
+            enable_console().info(
+                f"HMC on {dev} over {S} sources: {W} chains x "
+                f"{done * thin_i} steps, mean acceptance {af.mean():.3f} "
+                f"(per-source min {af.mean(1).min():.3f}), step sizes in "
+                f"[{self.hmc_step_size.min():.4g}, "
+                f"{self.hmc_step_size.max():.4g}]")
+        return self
 
     # -- MAP + Laplace triage ---------------------------------------------------
     def run_map(self, nstarts=8, n_adam=150, n_newton=12, adam_lr=0.1,

@@ -17,9 +17,10 @@ and renamed, so a kill mid-write leaves the previous checkpoint intact.
 state is a JAX key) is refused on load, and the JAX package refuses the
 port's. h5py is imported inside the functions: only checkpoint I/O needs it.
 
-The tier checkpoints of the JAX package (save_tier_checkpoint /
-load_tier_checkpoint for PT and HMC) come with those tiers (ROADMAP.md,
-queue A, item A9).
+The batch tier's parallel-tempering and HMC runs flush through
+save_tier_checkpoint / load_tier_checkpoint: the same layout with a `tier`
+attr, arbitrary named State arrays (the Philox `seed` and `step` in place of
+a JAX key) and an Aux group (ladders, evidence accumulators).
 """
 
 from __future__ import annotations
@@ -330,3 +331,53 @@ def check_resume_meta(meta, expect: dict, path):
                 f"checkpoint {path} was written with {k}={got!r}; this "
                 f"fitter is configured with {k}={want!r} -- resume with "
                 f"the original configuration (or start a fresh run)")
+
+
+def save_tier_checkpoint(path, tier, state_arrays, chain_blocks, lnp_blocks,
+                         meta: dict, axis=1, aux_arrays=None):
+    """Checkpoint of the batch tier's PT / HMC runs: the State group holds
+    the named per-source arrays of `state_arrays` (the Philox `seed` and
+    `step` among them), chain blocks append through the stretch tiers'
+    O(new)-gzip segments (concatenated on `axis`), and `aux_arrays` (PT's
+    ladders and stepping-stone accumulators) ride in an Aux group. Written
+    atomically."""
+    import h5py
+    tmp = path + ".tmp"
+    with h5py.File(tmp, "w") as f:
+        f.attrs["version"] = _VERSION
+        f.attrs["prng_impl"] = PRNG_IMPL
+        f.attrs["multi"] = True
+        f.attrs["tier"] = tier
+        for k, v in meta.items():
+            f.attrs[k] = v
+        st = f.create_group("State")
+        for name, arr in state_arrays.items():
+            st.create_dataset(name, data=arr)
+        if aux_arrays:
+            ax = f.create_group("Aux")
+            for name, arr in aux_arrays.items():
+                ax.create_dataset(name, data=np.asarray(arr))
+        if chain_blocks:
+            _write_segments(f, path, chain_blocks, lnp_blocks, axis=axis)
+    os.replace(tmp, path)
+
+
+def load_tier_checkpoint(path, tier):
+    """Returns (state_arrays dict, aux_arrays dict, chain_so_far,
+    lnp_so_far, meta), all numpy. A file of another tier is refused, and so
+    is one of another generator (the JAX package's tier checkpoints hold a
+    JAX key)."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        got = _decode(f.attrs.get("tier", b""))
+        if got != tier:
+            raise ValueError(
+                f"{path} is a {got or 'stretch-move'!r} checkpoint, not "
+                f"a {tier!r} one")
+        meta = _open_state(f, path, multi=True)
+        meta.pop("tier", None)
+        state = {name: np.asarray(f["State"][name]) for name in f["State"]}
+        aux = ({name: np.asarray(f["Aux"][name]) for name in f["Aux"]}
+               if "Aux" in f else {})
+        chain, lnp = _read_segments(f, axis=1)
+    return state, aux, chain, lnp, meta

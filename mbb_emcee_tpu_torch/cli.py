@@ -4,8 +4,9 @@ The flags of mbb_emcee_tpu/cli.py (positional photometry file + output
 HDF5, sampler geometry, model shape, per-parameter limits / priors / initial
 values / fixing, covariance file, instrument-response mode, checkpoint /
 resume, the --extend-until serving loop, derived-quantity switches, MAP
-triage (--map, --init-map) and model checking (--ppc, --loo, --loo-exact))
-plus --device (default cuda; --device cpu runs the plain torch path).
+triage (--map, --init-map), model checking (--ppc, --loo, --loo-exact),
+Hamiltonian MC (--hmc) and parallel tempering (--pt)) plus --device
+(default cuda; --device cpu runs the plain torch path).
 Flags whose features are not ported yet exit non-zero up front with the
 ROADMAP.md item that carries them.
 
@@ -26,8 +27,7 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
 # queue-A item that carries each.
 _WAITING = (
-    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"),
-    ("get_evidence", "--get-evidence", "A9"),
+    ("get_evidence", "--get-evidence", "A9e"),
     ("plot_sed", "--plot-sed", "A10"), ("plot_corner", "--plot-corner", "A10"),
     ("plot_chain", "--plot-chain", "A10"), ("plot_ppc", "--plot-ppc", "A10"),
     ("profile_dir", "--profile-dir", "A8"),
@@ -102,12 +102,25 @@ def build_parser():
                    help="'fused' runs each sampling phase as one CUDA "
                         "kernel launch; 'torch' is the plain torch sampler; "
                         "'auto' (default) is fused on cuda, torch on cpu")
-    g.add_argument("--hmc", action="store_true")
-    g.add_argument("--hmc-leapfrog", type=int, default=16)
-    g.add_argument("--hmc-target-accept", type=float, default=0.8)
-    g.add_argument("--pt", action="store_true")
-    g.add_argument("--pt-rungs", type=int, default=12)
-    g.add_argument("--pt-beta-min", type=float, default=None)
+    g.add_argument("--hmc", action="store_true",
+                   help="sample with gradient-based Hamiltonian MC instead "
+                        "of the stretch move (torch.autograd of the plain "
+                        "likelihood; --burn becomes the warmup length)")
+    g.add_argument("--hmc-leapfrog", type=int, default=16,
+                   help="leapfrog steps per HMC trajectory (default 16)")
+    g.add_argument("--hmc-target-accept", type=float, default=0.8,
+                   help="dual-averaging target acceptance (default 0.8)")
+    g.add_argument("--pt", action="store_true",
+                   help="parallel tempering: K temperature rungs with "
+                        "replica exchange (mixes the T-lambda0 bimodality "
+                        "of optically thick fits; also reports the "
+                        "stepping-stone and thermodynamic-integration lnZ)")
+    g.add_argument("--pt-rungs", type=int, default=12,
+                   help="temperature rungs for --pt (default 12)")
+    g.add_argument("--pt-beta-min", type=float, default=None,
+                   help="hottest nonzero inverse temperature (default: "
+                        "auto -- sized after burn-in so the evidence "
+                        "ladder bridges the prior box)")
     g.add_argument("--map", action="store_true",
                    help="MAP + Laplace triage only (seconds, no MCMC): "
                         "prints the mode and its error bars and writes a "
@@ -304,8 +317,8 @@ def _serve_until_converged(fit, args, log):
 
 
 def _validate_triage_flags(args):
-    """--map / --init-map / --loo-exact combinations, refused before
-    anything runs (the JAX CLI's rules)."""
+    """--map / --init-map / --loo-exact / --hmc / --pt combinations,
+    refused before anything runs (the JAX CLI's rules and messages)."""
     if args.loo_exact and args.covfile is not None:
         raise SystemExit(
             "--loo-exact refits run through the batched likelihood "
@@ -313,17 +326,31 @@ def _validate_triage_flags(args):
             "pointwise factors are already the exact conditional predictive "
             "densities under the covariance")
     if args.map:
-        if (args.checkpoint or args.resume or args.extend_until is not None
-                or args.init_map):
-            raise SystemExit("--map is a triage mode; drop --checkpoint/"
-                             "--resume/--extend-until/--init-map")
+        if (args.hmc or args.pt or args.checkpoint or args.resume
+                or args.extend_until is not None or args.init_map):
+            raise SystemExit("--map is a triage mode; drop "
+                             "--hmc/--pt/--checkpoint/--resume/"
+                             "--extend-until/--init-map")
         if (args.get_lir or args.get_dustmass or args.get_peaklambda
                 or args.loo or args.loo_exact or args.ppc):
             raise SystemExit("derived-quantity posteriors, --ppc and --loo "
                              "need chains; run without --map for them")
-    if args.init_map and (args.resume or args.n_ensembles > 1):
-        raise SystemExit("--init-map seeds the stretch-move walker ball of a "
-                         "single ensemble; drop --resume/--n-ensembles")
+    if args.extend_until is not None and (args.hmc or args.pt):
+        raise SystemExit("--extend-until works with the stretch-move "
+                         "sampler only")
+    if args.init_map and (args.hmc or args.pt or args.resume
+                          or args.n_ensembles > 1):
+        raise SystemExit("--init-map seeds the stretch-move walker "
+                         "ball of a single ensemble; drop "
+                         "--hmc/--pt/--resume/--n-ensembles")
+    if args.hmc and args.pt:
+        raise SystemExit("--hmc and --pt are mutually exclusive")
+    if args.n_ensembles > 1 and (args.hmc or args.pt):
+        raise SystemExit("--n-ensembles applies to the stretch-move "
+                         "sampler only; drop --hmc/--pt")
+    for flag, on in (("--pt", args.pt), ("--hmc", args.hmc)):
+        if on and (args.checkpoint or args.resume):
+            raise SystemExit(f"{flag} does not support --checkpoint/--resume")
 
 
 def _map_and_write(fit, args):
@@ -465,22 +492,39 @@ def main(argv=None):
     log.info(f"Running fit: {args.nwalkers} walkers, burn={args.burn}, "
              f"steps={args.nsteps}, thin={args.thin}")
     t0 = time.perf_counter()
-    if args.init_map:
-        fit.fit_map(nstarts=args.map_starts, verbose=args.verbose)
-    fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-            recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
-            checkpoint=args.checkpoint,
-            checkpoint_interval=args.checkpoint_interval, resume=args.resume,
-            init="map" if args.init_map else "auto")
-    # actual ensemble updates; a resumed run skips the burn-in
-    total = args.nsteps
-    if not (args.resume and args.checkpoint):
-        total += args.burn if args.no_recenter_burn else 2 * args.burn
+    what = "burn + production"
+    if args.pt:
+        what = "tempered burn + production"
+        fit.run_pt(nrungs=args.pt_rungs,
+                   beta_min=(args.pt_beta_min if args.pt_beta_min is not None
+                             else "auto"),
+                   nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                   verbose=args.verbose)
+        total = args.burn + args.nsteps
+    elif args.hmc:
+        what = "warmup + production"
+        fit.run_hmc(nwarmup=args.burn, nsteps=args.nsteps, thin=args.thin,
+                    n_leapfrog=args.hmc_leapfrog,
+                    target_accept=args.hmc_target_accept,
+                    verbose=args.verbose)
+        total = args.burn + args.nsteps
+    else:
+        if args.init_map:
+            fit.fit_map(nstarts=args.map_starts, verbose=args.verbose)
+        fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                recenter_burn=not args.no_recenter_burn,
+                verbose=args.verbose, checkpoint=args.checkpoint,
+                checkpoint_interval=args.checkpoint_interval,
+                resume=args.resume, init="map" if args.init_map else "auto")
+        # actual ensemble updates; a resumed run skips the burn-in
+        total = args.nsteps
+        if not (args.resume and args.checkpoint):
+            total += args.burn if args.no_recenter_burn else 2 * args.burn
     if args.extend_until is not None:
         total += _serve_until_converged(fit, args, log)
     secs = time.perf_counter() - t0
     walkers = args.nwalkers * args.n_ensembles
-    log.info(f"  fit (burn + production): {total} steps in {secs:.2f}s "
+    log.info(f"  fit ({what}): {total} steps in {secs:.2f}s "
              f"({walkers * total / secs:,.0f} walker-steps/s, "
              f"host clock, build and first-call costs included)")
 

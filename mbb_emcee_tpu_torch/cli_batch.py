@@ -10,10 +10,11 @@ Usage example:
     run_mbb_emcee_tpu_torch_batch catalog.txt batch.h5 -b 150 -n 1000 \
         --get-lir --get-peaklambda --summary --device cuda
 
-The flags are the JAX batch CLI's (MAP triage --map / --init-map and the
---ppc / --loo checks included) plus --device (default cuda; --device cpu
-runs the plain torch path). Flags whose features are not ported yet exit
-non-zero up front with the ROADMAP.md item that carries them.
+The flags are the JAX batch CLI's (MAP triage --map / --init-map, the
+--ppc / --loo checks, --hmc and --pt included) plus --device (default
+cuda; --device cpu runs the plain torch path). Flags whose features are not
+ported yet exit non-zero up front with the ROADMAP.md item that carries
+them.
 """
 
 from __future__ import annotations
@@ -30,9 +31,8 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's batch CLI whose features wait, and the
 # ROADMAP.md queue-A item that carries each.
 _WAITING = (
-    ("hmc", "--hmc", "A9"), ("pt", "--pt", "A9"),
-    ("get_evidence", "--get-evidence", "A9"),
-    ("population", "--population", "A9"),
+    ("get_evidence", "--get-evidence", "A9e"),
+    ("population", "--population", "A9f"),
     ("plot_population", "--plot-population", "A10"),
     ("mesh_devices", "--mesh-devices", "A11"),
     ("profile_dir", "--profile-dir", "A8"),
@@ -81,12 +81,22 @@ def build_parser():
                    help="recorded steps between checkpoint flushes")
     g.add_argument("--resume", action="store_true",
                    help="resume an interrupted batch run from --checkpoint")
-    g.add_argument("--hmc", action="store_true")
-    g.add_argument("--hmc-leapfrog", type=int, default=16)
-    g.add_argument("--hmc-target-accept", type=float, default=0.8)
-    g.add_argument("--pt", action="store_true")
-    g.add_argument("--pt-rungs", type=int, default=12)
-    g.add_argument("--pt-beta-min", type=float, default=None)
+    g.add_argument("--hmc", action="store_true",
+                   help="gradient-based Hamiltonian MC instead of the "
+                        "stretch move (--burn becomes the warmup length)")
+    g.add_argument("--hmc-leapfrog", type=int, default=16,
+                   help="leapfrog steps per HMC trajectory (default 16)")
+    g.add_argument("--hmc-target-accept", type=float, default=0.8,
+                   help="dual-averaging target acceptance (default 0.8)")
+    g.add_argument("--pt", action="store_true",
+                   help="parallel tempering with replica exchange "
+                        "(mixes the optically thick T-lambda0 bimodality; "
+                        "also reports per-source stepping-stone lnZ)")
+    g.add_argument("--pt-rungs", type=int, default=12,
+                   help="temperature rungs for --pt (default 12)")
+    g.add_argument("--pt-beta-min", type=float, default=None,
+                   help="hottest nonzero inverse temperature "
+                        "(default: auto)")
     g.add_argument("--map", action="store_true",
                    help="MAP + Laplace triage of every source only (no "
                         "MCMC): per-source table and a MAPFit-only HDF5 "
@@ -237,20 +247,26 @@ def _safe_rhat(mf):
 
 
 def _summary_table(mf, offset=0):
-    """Per-source lines: free-parameter medians +/- 1 sigma and split-R-hat;
-    `offset` shifts the printed indices to catalog positions (chunks)."""
+    """Per-source lines: free-parameter medians +/- 1 sigma, split-R-hat and
+    the stepping-stone lnZ after --pt; `offset` shifts the printed indices
+    to catalog positions (chunks)."""
     names = mf.free_param_names
     cen = {p: mf.par_cen(p) for p in names}          # (S, 3) each
     rhat = _safe_rhat(mf)
+    logz_pt = mf.logz_pt
     lines = ["#   source            " +
-             "".join(f"{p:>24}" for p in names) + f"{'max-Rhat':>10}"]
+             "".join(f"{p:>24}" for p in names) + f"{'max-Rhat':>10}" +
+             ("" if logz_pt is None else f"{'lnZ(PT)':>12}")]
     srcnames = mf.source_names or [f"src{i + offset}"
                                    for i in range(mf.nsources)]
     for i, nm in enumerate(srcnames):
         cells = "".join(
             f"  {cen[p][i, 0]:>10.4g} +{cen[p][i, 1]:.3g}/-{cen[p][i, 2]:.3g}"
             .rjust(24) for p in names)
-        lines.append(f"{i + offset:>3} {nm:<16}{cells}{rhat[i]:>10.3f}")
+        line = f"{i + offset:>3} {nm:<16}{cells}{rhat[i]:>10.3f}"
+        if logz_pt is not None:
+            line += f"{logz_pt[0][i]:>12.2f}"
+        lines.append(line)
     return "\n".join(lines)
 
 
@@ -277,9 +293,10 @@ def main(argv=None):
         raise SystemExit("--chunk-size must be positive")
     chunked = C is not None and C < cat.nsources
     if args.map:
-        if args.extend_until is not None or args.init_map:
-            raise SystemExit("--map is a triage mode; drop --extend-until/"
-                             "--init-map")
+        if (args.hmc or args.pt or args.extend_until is not None
+                or args.init_map):
+            raise SystemExit("--map is a triage mode; drop --hmc/--pt/"
+                             "--extend-until/--init-map")
         if args.checkpoint or args.resume:
             raise SystemExit("--map runs in seconds; checkpointing does not "
                              "apply")
@@ -287,9 +304,14 @@ def main(argv=None):
                 or args.ppc or args.loo):
             raise SystemExit("derived-quantity posteriors, --ppc and --loo "
                              "need chains; run without --map for them")
-    if args.init_map and args.resume:
-        raise SystemExit("--init-map seeds the stretch-move walker ball; "
-                         "drop --resume")
+    if args.hmc and args.pt:
+        raise SystemExit("--hmc and --pt are mutually exclusive")
+    if args.extend_until is not None and (args.hmc or args.pt):
+        raise SystemExit("--extend-until works with the stretch-move "
+                         "sampler only")
+    if args.init_map and (args.hmc or args.pt or args.resume):
+        raise SystemExit("--init-map seeds the stretch-move walker "
+                         "ball; drop --hmc/--pt/--resume")
     if args.extend_until is not None:
         _validate_extend_flags(args)
     if (args.get_lir or args.get_dustmass) and not cat.has_redshifts:
@@ -461,17 +483,31 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
     log.info(f"Batch fit: {mf.nsources} sources x {args.nwalkers} walkers, "
              f"burn={args.burn}, steps={args.nsteps}")
     t0 = time.perf_counter()
-    if args.init_map:
-        mf.run_map(nstarts=args.map_starts, verbose=args.verbose)
-    mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-           recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
-           checkpoint=args.checkpoint,
-           checkpoint_interval=args.checkpoint_interval, resume=args.resume,
-           init="map" if args.init_map else "auto")
-    # actual ensemble updates; a resumed run skips the burn-in
+    ck = dict(checkpoint=args.checkpoint,
+              checkpoint_interval=args.checkpoint_interval,
+              resume=args.resume)
+    if args.pt:
+        mf.run_pt(nrungs=args.pt_rungs,
+                  beta_min=(args.pt_beta_min if args.pt_beta_min is not None
+                            else "auto"),
+                  nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                  verbose=args.verbose, **ck)
+    elif args.hmc:
+        mf.run_hmc(nwarmup=args.burn, nsteps=args.nsteps, thin=args.thin,
+                   n_leapfrog=args.hmc_leapfrog,
+                   target_accept=args.hmc_target_accept,
+                   verbose=args.verbose, **ck)
+    else:
+        if args.init_map:
+            mf.run_map(nstarts=args.map_starts, verbose=args.verbose)
+        mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+               recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
+               init="map" if args.init_map else "auto", **ck)
+    # actual updates; a resumed run skips the burn-in
     total = args.nsteps
     if not (args.resume and args.checkpoint):
-        total += args.burn if args.no_recenter_burn else 2 * args.burn
+        total += (args.burn if args.no_recenter_burn or args.pt or args.hmc
+                  else 2 * args.burn)
 
     if args.extend_until is not None:
         step = args.extend_step or args.nsteps

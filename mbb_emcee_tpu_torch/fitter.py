@@ -13,6 +13,11 @@ seeded with `seed`; the proposals from the Philox stream keyed by a 64-bit
 key derived from the same seed. Every launch continues that stream where
 the last one stopped, so a checkpointed run, a resumed run and run(n1) +
 extend(n2) all give the chain of the single run(n1 + n2), bit for bit.
+
+run_hmc (hmc.py: torch.autograd of the plain likelihood on the fitter's
+device) and run_pt (tempering.py: every tempered half-step one launch of
+the lnprob kernel on a CUDA device) sample the same posterior from the same
+walker ball, on Philox streams of their own under the same key.
 """
 
 from __future__ import annotations
@@ -131,6 +136,8 @@ class MBBFitter(ParamSpaceMixin):
         self.burn_chain_free = None
         self.acceptance_fraction = None
         self.thin = 1
+        self.logz_pt = None         # (lnZ, err) stepping stone, run_pt()
+        self.logz_ti = None         # (lnZ, err) thermodynamic integration
 
         if photfile is not None:
             self.read_data(photfile)
@@ -320,6 +327,7 @@ class MBBFitter(ParamSpaceMixin):
                 "resume=True requires checkpoint= (the path the previous "
                 "run flushed state to)")
         self._mf = None       # a fresh run() invalidates any merged state
+        self.logz_pt = self.logz_ti = None     # run_pt's evidence
         if self.n_ensembles > 1:
             if p0 is not None:
                 raise ValueError(
@@ -452,14 +460,144 @@ class MBBFitter(ParamSpaceMixin):
                 # ties this run's flushes together (see new_run_id)
                 "run_id": new_run_id()}
 
-    def run_hmc(self, *args, **kwargs):
-        raise not_ported("run_hmc (Hamiltonian Monte Carlo)", "A9")
+    # -- HMC and parallel tempering ---------------------------------------------
+    def _tier_done(self, backend, chain, lnp, acceptance):
+        """Record an HMC / PT production chain (run_pt then sets its
+        evidence); extend() refuses it."""
+        self.logz_pt = self.logz_ti = None
+        self.chain_free = chain
+        self.lnprobability = lnp
+        self.acceptance_fraction = acceptance
+        self.burn_chain_free = None
+        self.sampler = None
+        self.final_state = None
+        self._mf = None
+        self._backend_used = backend
 
-    def run_pt(self, *args, **kwargs):
-        raise not_ported("run_pt (parallel tempering)", "A9")
+    def run_hmc(self, nwarmup=500, nsteps=1000, nchains=None, thin=1,
+                n_leapfrog=16, target_accept=0.8, p0=None, verbose=False):
+        """Gradient-based alternative to run(): Hamiltonian MC over the
+        same posterior (hmc.py). Forces are torch.autograd of the plain
+        likelihood on the fitter's device (the lnprob kernel has no
+        backward pass; the JAX package takes jax.grad of its XLA likelihood
+        the same way). Useful for the curved, correlated T-lambda0
+        posteriors of optically thick fits.
+
+        Runs `nchains` (default nwalkers) independent chains: dual-averaged
+        step size + diagonal mass warmup (`nwarmup` steps, discarded), then
+        `nsteps` production steps recorded every `thin`. MBBResults,
+        gelman_rubin and writeToHDF5 see the usual (nrec, nchains, nfree)
+        chain. extend() does not apply (re-run with more nsteps)."""
+        from mbb_emcee_tpu_torch.hmc import hmc_sample
+
+        lnprob, free_space, x0 = self._tier_setup(
+            "run_hmc samples one set of chains -- use nchains= for more HMC "
+            "chains", nchains, p0, plain=True)
+        self.thin = int(thin)
+        res = hmc_sample(lnprob, free_space.lower, free_space.upper, x0,
+                         philox_key(self.seed), nwarmup=nwarmup,
+                         nsteps=nsteps, thin=thin, n_leapfrog=n_leapfrog,
+                         target_accept=target_accept)
+        self._tier_done("hmc", res.chain, res.lnprob, res.acceptance_fraction)
+        self.hmc_result = res
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            log = enable_console()
+            af = self.acceptance_fraction
+            log.info(f"HMC on {self.device}: mean acceptance {af.mean():.3f}, "
+                     f"step size {res.step_size:.4g}, {x0.shape[0]} chains x "
+                     f"{nsteps} steps")
+            for n, t in zip(self.free_param_names,
+                            self.autocorrelation_time()):
+                log.info(f"  autocorrelation time [{n}]: {t:.1f} steps")
+        return self
+
+    def run_pt(self, nrungs=12, beta_min="auto", nburn=300, nsteps=1000,
+               nchains=None, thin=1, p0=None, verbose=False):
+        """Parallel-tempering alternative to run(): K temperature rungs of
+        the same posterior with replica exchange between adjacent rungs
+        (tempering.py). The single-temperature ensemble traps on the real
+        T-lambda0 bimodality of optically thick fits (DESIGN.md); hot rungs
+        cross between modes and hand mixed states down the ladder. On a CUDA
+        device every tempered half-step's proposals (K x nchains/2 vectors)
+        are one launch of the lnprob kernel; on the CPU the plain
+        likelihood runs the same draws.
+
+        The production run also yields the evidence: self.logz_pt = (lnZ,
+        err) by stepping stone (headline, safe on wide prior boxes) and
+        self.logz_ti by thermodynamic integration (a diagnostic). The
+        recorded chain is the COLD (beta=1) rung; MBBResults, gelman_rubin
+        and writeToHDF5 are unchanged. extend() does not apply; re-run with
+        more nsteps."""
+        from mbb_emcee_tpu_torch.tempering import pt_sample
+
+        lnprob, _, x0 = self._tier_setup(
+            "run_pt already advances K temperature rungs -- use nchains= for "
+            "more walkers per rung", nchains, p0, plain=False)
+        self.thin = int(thin)
+        res = pt_sample(lnprob, x0, philox_key(self.seed), nrungs=nrungs,
+                        beta_min=beta_min, nburn=nburn, nsteps=nsteps,
+                        thin=thin, a=self.a)
+        self._tier_done("pt", res.chain, res.lnprob,
+                        res.acceptance_fraction[0])      # cold rung
+        self.logz_pt = (res.logz, res.logz_err)
+        self.logz_ti = (res.logz_ti, res.logz_ti_err)
+        self.pt_result = res
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            log = enable_console()
+            log.info(f"PT on {self.device}: {res.betas.size} rungs x "
+                     f"{x0.shape[0]} walkers, cold acceptance "
+                     f"{res.acceptance_fraction[0].mean():.3f}, swap "
+                     f"fractions "
+                     f"{np.array2string(res.swap_fraction, precision=2)}")
+            log.info(f"  stepping-stone lnZ = {res.logz:.3f} "
+                     f"+/- {res.logz_err:.3f}")
+        return self
+
+    def _tier_setup(self, why, nchains, p0, plain):
+        """(batched lnprob, free space, start positions (nchains, nfree) on
+        the fitter's device) of run_hmc / run_pt. `plain`: the plain torch
+        likelihood (autograd), else the lnprob kernel on a CUDA device (its
+        plain version on the CPU). The start is run()'s first walker ball
+        (the CPU generator seeded with `seed`) or p0 in 5-param or free
+        space."""
+        if self.n_ensembles > 1:
+            raise ValueError(
+                "n_ensembles > 1 applies to the stretch-move run() only; "
+                + why)
+        nchains = self.nwalkers if nchains is None else int(nchains)
+        self._auto_init_fnorm()
+        spec = self._effective_spec()
+        if plain:
+            lnprob, free_space = build_lnprob(
+                self._require_data(), self.shape, spec,
+                response_pack=self._response_pack(), device=self.device)
+        else:
+            from mbb_emcee_tpu_torch.ops import lnprob_kernel
+            ops = lnprob_kernel.prepare_lnprob_inputs(
+                self._require_data(), self.shape, spec,
+                response_pack=self._response_pack(), device=self.device)
+            free_space = ops.free_space
+
+            def lnprob(x):
+                return lnprob_kernel.mbb_lnprob(x.contiguous(), ops)
+        self.free_space = free_space
+        idx = free_space.free_idx
+        if p0 is None:
+            x0 = make_initial_ball(torch.Generator().manual_seed(self.seed),
+                                   self._init[idx], self._scatter[idx],
+                                   nchains, free_space.lower,
+                                   free_space.upper, device=self.device)
+        else:
+            x0 = torch.as_tensor(np.asarray(p0, np.float32),
+                                 device=self.device)
+            if x0.shape[-1] == NPARAMS:
+                x0 = x0[..., torch.as_tensor(idx, device=self.device)]
+        return lnprob, free_space, x0
 
     def compute_evidence(self, *args, **kwargs):
-        raise not_ported("compute_evidence (nested sampling)", "A9")
+        raise not_ported("compute_evidence (nested sampling)", "A9e")
 
     # -- MAP + Laplace triage ------------------------------------------------------
     def _posterior_key(self):
@@ -798,6 +936,11 @@ class MBBFitter(ParamSpaceMixin):
             self._mf.extend(nsteps, verbose=verbose)
             self._merge_ensembles(self._mf)
             return self
+        if getattr(self, "_backend_used", None) in ("hmc", "pt"):
+            raise RuntimeError(
+                "extend() continues a plain stretch-move run; after "
+                "run_hmc()/run_pt() re-run with a larger nsteps instead "
+                "(neither keeps resumable sampler state here)")
         if nsteps % self.thin:
             raise ValueError(
                 f"nsteps={nsteps} not divisible by thin={self.thin}")

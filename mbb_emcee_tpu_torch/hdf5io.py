@@ -13,9 +13,11 @@ other. h5py is imported inside the functions: only HDF5 I/O needs it.
                   Initial[,PhotUpperLimits]}
     /LIR, /DustMass, /PeakLambda  (optional derived chains, attrs = meta)
     /LOO  (optional WAIC + PSIS-LOO summaries, modelcheck.write_loo_group)
+    /PTEvidence  (optional, after run_pt: attrs logz, logz_err[, logz_ti,
+                  logz_ti_err])
 
-Groups the JAX package writes for surfaces this package does not have yet
-(/Evidence, /PTEvidence) are left unread.
+The group the JAX package writes for a surface this package does not have
+yet (/Evidence, nested sampling) is left unread.
 
 A MAP-triage file (the --map flows of both CLIs; no chains) holds the model
 shape attrs, /Wave, /Flux, /Unc and
@@ -145,6 +147,11 @@ def _write_results(f, res):
                                   compression="gzip", compression_opts=4)
             for k, v in (meta or {}).items():
                 ds.attrs[k] = v
+    if res.logz_pt is not None:
+        g = f.create_group("PTEvidence")
+        g.attrs["logz"], g.attrs["logz_err"] = res.logz_pt
+        if res.logz_ti is not None:
+            g.attrs["logz_ti"], g.attrs["logz_ti_err"] = res.logz_ti
     if res.loo_result is not None:
         from mbb_emcee_tpu_torch.modelcheck import write_loo_group
         write_loo_group(f, res.loo_result)
@@ -220,6 +227,12 @@ def _read_results(f):
             out[attr] = np.asarray(f[name])
             if meta_attr:
                 out[meta_attr] = dict(f[name].attrs)
+    if "PTEvidence" in f:
+        g = f["PTEvidence"]
+        out["logz_pt"] = (float(g.attrs["logz"]), float(g.attrs["logz_err"]))
+        if "logz_ti" in g.attrs:
+            out["logz_ti"] = (float(g.attrs["logz_ti"]),
+                              float(g.attrs["logz_ti_err"]))
     if "LOO" in f:
         from mbb_emcee_tpu_torch.modelcheck import read_loo_group
         out["loo_result"] = read_loo_group(f["LOO"])

@@ -15,6 +15,9 @@ limits and redshift -- are fit at once:
   * summaries (par_cen, best_fit, split-R-hat, tau) and derived posteriors
     (L_IR, dust mass, peak wavelength) are batched reductions over all
     sources on the chain's device (batchengine.py);
+  * run_pt and run_hmc (batchengine.py; tempering.py, hmc.py) sample the
+    same catalog by parallel tempering (with per-source evidence) and by
+    HMC, on the batch likelihood's plain version on the fitter's device;
   * writeToHDF5/from_h5 use the JAX package's batch schema (schema 1), so
     either package reads the other's file; results(i) is a full
     MBBResults for one source.
@@ -138,6 +141,12 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         self.peaklambda_chain = None  # (S, nsamp), compute_peaklambda()
         self.loo_result = None      # LooBatchResult, compute_loo()
         self.map_params = None      # (S, 5), run_map()
+        self.logz_pt = None         # ((S,), (S,)) stepping stone, run_pt()
+        self.logz_ti = None         # ((S,), (S,)) TI cross-check, run_pt()
+        self.swap_fraction = None   # (S, K-1), run_pt()
+        self.pt_betas = None        # (S, K) ladders, run_pt()
+        self.hmc_step_size = None   # (S,) adapted step sizes, run_hmc()
+        self.hmc_mass = None        # (S, nfree) diagonal metric, run_hmc()
 
     # -- likelihood operands ---------------------------------------------------
     def _response_pack(self):
@@ -338,6 +347,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         self._run_data = (self.flux.copy(), self.unc.copy(),
                           self.wave.copy())
         self._post_token = self._posterior_token(spec)
+        self.logz_pt = self.logz_ti = self.swap_fraction = None
+        self.pt_betas = self.hmc_step_size = self.hmc_mass = None
         if verbose:
             from mbb_emcee_tpu_torch.utils.log import enable_console
             af = self.acceptance_fraction
@@ -409,7 +420,9 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         if self.final_state is None:
             raise RuntimeError(
                 "extend() requires a prior stretch-move run() on this "
-                "fitter (a reloaded file carries no sampler state)")
+                "fitter (run_hmc/run_pt runs are not continuable -- re-run "
+                "with more steps; a reloaded file carries no sampler "
+                "state)")
         if not self._same_data():
             raise RuntimeError(
                 "set_data() was called after run(); extend() would keep "
@@ -435,14 +448,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 f"{self.chain_free.shape[1]} recorded per source")
         return self
 
-    def run_pt(self, *args, **kwargs):
-        raise not_ported("run_pt (parallel tempering)", "A9")
-
-    def run_hmc(self, *args, **kwargs):
-        raise not_ported("run_hmc (Hamiltonian Monte Carlo)", "A9")
-
     def compute_evidence(self, *args, **kwargs):
-        raise not_ported("compute_evidence (nested sampling)", "A9")
+        raise not_ported("compute_evidence (nested sampling)", "A9e")
 
     # -- batched derived quantities --------------------------------------------
     def _params(self, th):
@@ -603,6 +610,19 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 write_loo_batch_group(f, self.loo_result)
             if self.map_params is not None:
                 hdf5io.write_map_group(f, *self._map_fields())
+            if self.logz_pt is not None:
+                g = f.create_group("PTEvidence")
+                for name, arr in (("LogZ", self.logz_pt[0]),
+                                  ("LogZErr", self.logz_pt[1]),
+                                  ("LogZTI", self.logz_ti[0]),
+                                  ("LogZTIErr", self.logz_ti[1]),
+                                  ("Betas", self.pt_betas),
+                                  ("SwapFraction", self.swap_fraction)):
+                    g.create_dataset(name, data=arr)
+            if self.hmc_step_size is not None:
+                g = f.create_group("HMC")
+                g.create_dataset("StepSize", data=self.hmc_step_size)
+                g.create_dataset("Mass", data=self.hmc_mass)
         return filename
 
     def _map_fields(self):
@@ -692,6 +712,17 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 from mbb_emcee_tpu_torch.modelcheck import (
                     read_loo_batch_group)
                 mf.loo_result = read_loo_batch_group(f["LOO"])
+            if "PTEvidence" in f:
+                g = f["PTEvidence"]
+                mf.logz_pt = (np.asarray(g["LogZ"]),
+                              np.asarray(g["LogZErr"]))
+                mf.logz_ti = (np.asarray(g["LogZTI"]),
+                              np.asarray(g["LogZTIErr"]))
+                mf.pt_betas = np.asarray(g["Betas"])
+                mf.swap_fraction = np.asarray(g["SwapFraction"])
+            if "HMC" in f:
+                mf.hmc_step_size = np.asarray(f["HMC"]["StepSize"])
+                mf.hmc_mass = np.asarray(f["HMC"]["Mass"])
         return mf
 
     # -- single-source views ---------------------------------------------------
@@ -743,6 +774,12 @@ class _SourceView:
         self._init = mf._init.copy()
         self.thin = mf.thin
         self.nwalkers = mf.nwalkers
+        if mf.logz_pt is not None:
+            self.logz_pt = (float(mf.logz_pt[0][i]), float(mf.logz_pt[1][i]))
+            self.logz_ti = (float(mf.logz_ti[0][i]), float(mf.logz_ti[1][i]))
+        if mf.hmc_step_size is not None:
+            self.hmc_step_size = float(mf.hmc_step_size[i])
+            self.hmc_mass = mf.hmc_mass[i].copy()
 
     def _response_pack(self):
         return self._pack

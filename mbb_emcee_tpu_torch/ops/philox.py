@@ -8,9 +8,17 @@ This module is the same generator written with int64 torch ops, so the
 plain sampler draws the identical stream on any device and a kernel run can
 be replayed exactly by the plain version.
 
+Parallel tempering and HMC (tempering.py, hmc.py) draw from the same
+generator under the same key on counters the stretch move never uses
+(tagged_bits): a tempered run on the lnprob kernel is replayed by the plain
+likelihood on the same draws, and a source's stream does not depend on its
+batch.
+
 32-bit words live in int64 tensors; the 32x32 -> 64-bit products are split
 into 16-bit limbs so nothing overflows int64.
 """
+
+import math
 
 import torch
 
@@ -81,3 +89,91 @@ def stretch_uniforms(key, step0, nsteps, half, device, source=0):
     x0, x1, x2, _ = philox4x32(c0, c1, lane.expand(full), c3, int(key))
     u = torch.stack([bits_to_uniform(x) for x in (x0, x1, x2)], dim=-2)
     return u.reshape(lead + (6 * nsteps, half))
+
+
+# Draw tags of the parallel-tempering and HMC streams. stretch_uniforms puts
+# step >> 32 in the fourth counter word, which stays below 2^31 for any step
+# below 2^63; these streams put 2^31 + tag * 2^20 + (step >> 32) there, so no
+# counter of theirs is ever one of the stretch move's under the same key.
+_TAG_BASE = 0x80000000
+PT_TAG, HMC_TAG_A, HMC_TAG_B = 1, 2, 3
+_MAX_TAGGED_STEP = 1 << 52
+
+
+def tagged_bits(key, tag, step0, nsteps, nlanes, device, source=0):
+    """The four Philox words of counter (step low 32 bits, source, lane,
+    2^31 + tag * 2^20 + step high bits) for `nsteps` steps from global step
+    `step0` and lanes 0..nlanes-1: int64 tensors of shape (nsteps, nlanes),
+    or (nsteps, S, nlanes) when `source` is a 1-D sequence of S source
+    indices. A source's words depend on its index alone, not on the batch
+    it is drawn with."""
+    if int(step0) < 0 or int(step0) + int(nsteps) > _MAX_TAGGED_STEP:
+        raise ValueError(f"step {step0} + {nsteps} outside the tagged "
+                         f"streams' range [0, 2^52)")
+    src = torch.as_tensor(source, dtype=torch.int64, device=device)
+    lead = tuple(src.shape)
+    ones = (1,) * len(lead)
+    step = (torch.arange(nsteps, dtype=torch.int64, device=device)
+            + int(step0)).view((nsteps,) + ones + (1,))
+    full = (nsteps,) + lead + (nlanes,)
+    c0 = (step & _MASK32).expand(full)
+    c1 = (src.view((1,) + lead + (1,)) & _MASK32).expand(full)
+    c2 = torch.arange(nlanes, dtype=torch.int64, device=device).expand(full)
+    c3 = (_TAG_BASE + (int(tag) << 20) + (step >> 32)).expand(full)
+    return philox4x32(c0, c1, c2, c3, int(key))
+
+
+def pt_uniforms(key, step0, nsteps, nrungs, nwalkers, device, source=0):
+    """Parallel tempering's uniforms for `nsteps` tempered steps from global
+    step `step0`: one Philox call per (step, rung, walker) gives that
+    walker's three move uniforms (z, partner, accept) and the swap uniform
+    of the pair (rung, rung + 1). Returns (u (nsteps, [S,] 3, K, W),
+    us (nsteps, [S,] K - 1, W)) fp32."""
+    x = tagged_bits(key, PT_TAG, step0, nsteps, nrungs * nwalkers, device,
+                    source)
+    lead = x[0].shape[:-1]
+    u = torch.stack([bits_to_uniform(w) for w in x[:3]], dim=-2)
+    u = u.reshape(lead + (3, nrungs, nwalkers))
+    us = bits_to_uniform(x[3]).reshape(lead + (nrungs, nwalkers))
+    return u, us[..., :-1, :]
+
+
+def hmc_draws(key, step0, nsteps, nchains, nfree, device, source=0):
+    """HMC's draws for `nsteps` transitions from global step `step0`: two
+    Philox calls per (step, chain) give eight uniforms, the first six turned
+    into Box-Muller normals (momenta; nfree <= 6), the seventh the step-size
+    jitter 0.8 + 0.4 u and the eighth the accept uniform. Returns (normals
+    (nsteps, [S,] nchains, nfree), jitter (nsteps, [S,] nchains, 1), accept
+    uniforms (nsteps, [S,] nchains)) fp32."""
+    if nfree > 6:
+        raise ValueError(f"hmc_draws serves at most 6 free parameters; "
+                         f"got {nfree}")
+    u = [bits_to_uniform(w) for tag in (HMC_TAG_A, HMC_TAG_B)
+         for w in tagged_bits(key, tag, step0, nsteps, nchains, device,
+                              source)]
+    normals = []
+    for k in range(3):
+        r = torch.sqrt(-2.0 * torch.log(u[2 * k]))
+        th = (2.0 * math.pi) * u[2 * k + 1]
+        normals += [r * torch.cos(th), r * torch.sin(th)]
+    return (torch.stack(normals[:nfree], dim=-1),
+            (0.8 + 0.4 * u[6])[..., None], u[7])
+
+
+# Lanes x steps per block of draws: bounds the int64 intermediates of one
+# tagged_bits call (a dozen tensors of this many elements).
+BLOCK_ELEMS = 1 << 20
+
+
+def step_blocks(draw, step0, total, lanes):
+    """Yield each step's draws for `total` steps from `step0`, drawn
+    `draw(step, n)` a block at a time (n steps of `lanes` lanes each within
+    BLOCK_ELEMS). Counter-based: a step's draws do not depend on the
+    blocks."""
+    done = 0
+    while done < total:
+        n = max(1, min(total - done, BLOCK_ELEMS // max(int(lanes), 1)))
+        block = draw(step0 + done, n)
+        for t in range(n):
+            yield tuple(b[t] for b in block)
+        done += n

@@ -102,6 +102,8 @@ class MBBResults:
         self.dustmass_meta = None
         self.peaklambda_chain = None
         self.loo_result = None
+        self.logz_pt = None   # (lnZ, err) stepping stone, from run_pt()
+        self.logz_ti = None   # (lnZ, err) thermodynamic-integration check
 
         if fit is not None:
             self._from_fit(fit)
@@ -124,6 +126,8 @@ class MBBResults:
         self.thin = fit.thin
         self.nwalkers = int(self.chain.shape[0])
         self.response_pack = fit._response_pack()
+        self.logz_pt = getattr(fit, "logz_pt", None)
+        self.logz_ti = getattr(fit, "logz_ti", None)
 
     def _from_h5(self, h5file):
         explicit_z, explicit_dl = self.redshift, self.lumdist

@@ -166,8 +166,8 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--hmc"], "A9"), (["--pt"], "A9"), (["--get-evidence"], "A9"),
-    (["--population", "T"], "A9"),
+    (["--get-evidence", "--hmc"], "A9"), (["--get-evidence", "--pt"], "A9"),
+    (["--get-evidence"], "A9"), (["--population", "T"], "A9"),
     (["--plot-population", "p.png"], "A10"),
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):

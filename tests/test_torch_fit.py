@@ -235,7 +235,8 @@ def test_cli_checks_redshift_before_sampling(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--hmc"], "A9"), (["--pt"], "A9"), (["--get-evidence"], "A9"),
+    (["--get-evidence", "--hmc"], "A9"), (["--get-evidence", "--pt"], "A9"),
+    (["--get-evidence"], "A9"),
     (["--plot-sed", "x.png"], "A10"), (["--plot-corner", "x.png"], "A10"),
     (["--plot-chain", "x.png"], "A10"), (["--profile-dir", "prof"], "A8")])
 def test_cli_refuses_waiting_flags(tmp_path, flags, item):
