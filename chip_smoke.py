@@ -126,13 +126,35 @@ non-zero without printing a result):
      MultiFitter.run_pt(12 rungs, 100 + 200) and run_hmc(50 + 100 x 4) at
      16 of the batch cell's sources, each whole and in production segments
      of 50 records through the checkpoint= path (its flush replaced by a
-     recorder: the card's machine has no h5py), chains bitwise equal.
+     recorder: the card's machine has no h5py), chains bitwise equal;
+ 23. nested sampling and the population tier through the user's entry
+     points: MBBFitter.compute_evidence() at its defaults at config 2 on K1
+     (1 + n_iter x nsteps launches counted, no plain likelihood call, n_iter
+     and ms per iteration printed), replayed by the plain likelihood on the
+     card on the same Philox draws over its first NESTED_REPLAY_ITERS
+     iterations (live and dead points bitwise, lnprob within K1's
+     tolerance, up to a decision within 1e-4 of its threshold),
+     its lnZ against the CPU's same call (in a worker process beside the
+     card's work) and run_pt()'s stepping stone (phase 22's, 3x the
+     combined error), its weighted posterior medians against K2's
+     run(200, 1000) (max(2%, 3 sigma_MC)), the device's busy share of a
+     short call under torch.profiler; the thin model's evidence on the same
+     data beside it; MultiFitter.compute_evidence over NESTED_BATCH_SOURCES
+     of the batch cell's sources (every source converged; sources 0-1
+     against the CPU's same call); and the population stage on the batch
+     cell's MultiFitter.run(50, 250) on K3: HierarchicalFitter.from_batch
+     (T, beta).run(200, 1000), the correlated variant at CORRELATED_DEPTH,
+     the hyper evidence and reweight_ess, the full-size hyper-lnprob
+     against the CPU's at POP_CHECK_VECTORS hyper vectors and the hyper
+     medians against the same call on the CPU at POP_CPU_SAMPLES stored
+     samples per source.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, `22`) runs the build and those
-phases alone, a rehearsal that prints no kernel table and no result line;
+before any phase. `--phases 3,15` (or `21`, `22`, `23`) runs the build and
+those phases alone, a rehearsal that prints no kernel table and no result
+line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
 posteriors' timings of phases 9 and 14 (about a minute more). A whole run
 takes about 5-6 minutes on one H100 (H100 80GB HBM3 at 700 W), the
@@ -496,10 +518,10 @@ def use_repo_tests_package():
     sys.modules["tests"] = pkg
 
 
-def port_fitter(ci, flux, unc, cov, seed, device=None):
+def port_fitter(ci, flux, unc, cov, seed, device=None, opthin=None):
     """A port MBBFitter of parity config `ci` on `device` (default DEVICE),
     set up as tools/validate_tpu_parity.py's jax_fit sets up the JAX
-    fitter."""
+    fitter; `opthin` overrides the config's model shape."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MBBFitter
@@ -509,7 +531,8 @@ def port_fitter(ci, flux, unc, cov, seed, device=None):
     if cfg["response"]:
         responses, _ = port_response_pack()
         band_names = vp.BANDS
-    fit = MBBFitter(nwalkers=NWALKERS, seed=seed, opthin=cfg["opthin"],
+    opthin = cfg["opthin"] if opthin is None else opthin
+    fit = MBBFitter(nwalkers=NWALKERS, seed=seed, opthin=opthin,
                     noalpha=cfg["noalpha"], responses=responses,
                     device=device or DEVICE)
     fit.set_data(vp.WAVE, flux, unc, cov=cov, band_names=band_names)
@@ -814,7 +837,8 @@ def batch_fitter(flux, unc, redshifts=None, **kw):
     """A port MultiFitter on `flux`/`unc` with config 2's box and priors."""
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MultiFitter
-    mf = MultiFitter(nwalkers=NWALKERS, device=DEVICE, **kw)
+    kw.setdefault("device", DEVICE)
+    mf = MultiFitter(nwalkers=NWALKERS, **kw)
     mf.set_data(vp.WAVE, flux, unc, redshifts=redshifts)
     mf.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
     for (pi, mean, sig) in vp.CONFIGS[2]["priors"]:
@@ -3304,8 +3328,586 @@ def phase_tiers(card):
     return out["run_pt K1 launches"], out
 
 
+# Phase 23: nested sampling and the population tier, within ~90 s (its
+# calls are host-bound, so the host sets most of its time). The plain
+# replay of the K1 nested run covers its first NESTED_REPLAY_ITERS
+# iterations: the plain likelihood is a chain of some hundred small launches,
+# ~3.6 ms a call on an H100, and the run's ~19,500 calls would take ~70 s.
+NESTED_REPLAY_ITERS = 20
+# A nested decision (fy > L* of a constrained step, the order of the live
+# points) that sits this close to its threshold, relative to max(1, |L*|),
+# may fall either way between K1 and the plain likelihood.
+NESTED_MARGIN = 1e-4
+# Iterations of the compute_evidence call traced by torch.profiler for the
+# device's busy share.
+NESTED_PROFILE_ITERS = 20
+# The batch's evidence runs the plain batch likelihood, whose calls are
+# launch-bound (~4.7 ms each at any source count on an H100): at nlive 512
+# its ~600 iterations took 91 s at 16 sources and at nlive 128 its ~140
+# took 20-32 s, so it runs NESTED_BATCH_SOURCES of the batch cell's sources
+# (full width) at NESTED_BATCH_NLIVE live points.
+NESTED_BATCH_SOURCES = 16
+NESTED_BATCH_NLIVE = 64
+# The hyper-posterior's evidence at HYPER_NLIVE live points (at 512, 469
+# iterations took 32 s on an H100; at 128, 111 took 8-11 s), and the
+# correlated population's run at CORRELATED_DEPTH (the independent family's
+# runs at run(200, 1000)).
+HYPER_NLIVE = 64
+CORRELATED_DEPTH = {"nburn": 100, "nsteps": 500}
+# The population fit at full size and depth (2,800 calls of a (32, 256,
+# 4096, 2) hyper-lnprob) would keep the CPU far past the phase's budget, so
+# it is held against the CPU's at POP_CPU_SAMPLES stored samples per source
+# and POP_CPU_DEPTH, the same call on both devices; the full-size
+# hyper-lnprob is held against the CPU's at POP_CHECK_VECTORS hyper
+# vectors.
+POP_CPU_SAMPLES = 128
+POP_CPU_DEPTH = {"nburn": 50, "nsteps": 250}
+POP_CHECK_VECTORS = 8
+# The CPU references run in worker processes beside the card's work, one
+# thread each, leaving cores to the card's host-bound side.
+CPU_WORKERS, CPU_WORKER_THREADS = 3, 1
+
+
+def _cpu_worker_setup():
+    import torch
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    use_repo_tests_package()
+
+
+def _cpu_evidence_single(seed):
+    """The CPU's compute_evidence() at config 2 (a reference worker): (lnZ,
+    its error, n_iter, converged, seconds)."""
+    _cpu_worker_setup()
+    from tools import validate_tpu_parity as vp
+    flux, unc, cov = vp.mock_data(vp.CONFIGS[2])
+    fit = port_fitter(2, flux, unc, cov, seed=seed, device="cpu")
+    ev, t = _timed_cpu(fit.compute_evidence)
+    return ev.logz, ev.logz_err, ev.n_iter, ev.converged, t
+
+
+def _cpu_evidence_batch(nsrc, seed, nlive):
+    """The CPU's MultiFitter.compute_evidence(nlive=nlive) on the batch
+    cell's first `nsrc` sources (a reference worker): (lnZ (S,), errors
+    (S,), n_iter (S,), seconds)."""
+    _cpu_worker_setup()
+    flux, unc = batch_data(NSOURCES, seed=3000, missing_every=16)
+    mf = batch_fitter(flux[:nsrc], unc[:nsrc], seed=seed, device="cpu")
+    ev, t = _timed_cpu(lambda: mf.compute_evidence(nlive=nlive))
+    return ev.logz, ev.logz_err, ev.n_iter, t
+
+
+def _cpu_population(samples, names, lo, hi, phis, seed, nsamp, depth):
+    """The CPU's side of the population checks (a reference worker): the
+    full-size hyper-lnprob at hyper vectors `phis`, then the hyper chain of
+    HierarchicalFitter.run(**depth) on the first `nsamp` stored samples per
+    source, and its seconds."""
+    _cpu_worker_setup()
+    import torch
+    from mbb_emcee_tpu_torch.hierarchy import (
+        HierarchicalFitter, TruncatedGaussianPopulation)
+    pop = TruncatedGaussianPopulation.for_box(names, lo, hi)
+    lnprob, _, _ = HierarchicalFitter(samples, pop, seed=seed,
+                                      device="cpu").build()
+    lnp = lnprob(torch.as_tensor(phis)).numpy()
+    small = HierarchicalFitter(samples[:, :nsamp], pop, seed=seed,
+                               device="cpu")
+    _, t = _timed_cpu(lambda: small.run(**depth))
+    return lnp, small.chain_free, t
+
+
+def _timed_cpu(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _recording_nested():
+    """A context in which every nested iteration the run loop makes through
+    nested.nested_iteration_from_draws is recorded as (state before it, its
+    draws) in the list it yields (states are not modified in place)."""
+    import contextlib
+    from mbb_emcee_tpu_torch import nested
+
+    @contextlib.contextmanager
+    def ctx():
+        orig, seen = nested.nested_iteration_from_draws, []
+
+        def rec(state, lnprob_batch, draws, *args, **kwargs):
+            seen.append((state, draws))
+            return orig(state, lnprob_batch, draws, *args, **kwargs)
+        nested.nested_iteration_from_draws = rec
+        try:
+            yield seen
+        finally:
+            nested.nested_iteration_from_draws = orig
+    return ctx()
+
+
+def _counting_plain_likelihood():
+    """A context counting the calls of every plain single-fit likelihood
+    built meanwhile (the fitter's and the lnprob kernel operands' plain
+    version); yields a one-element list holding the count."""
+    import contextlib
+    from mbb_emcee_tpu_torch import fitter
+    from mbb_emcee_tpu_torch.ops import lnprob_kernel
+
+    @contextlib.contextmanager
+    def ctx():
+        count = [0]
+        origs = (fitter.build_lnprob, lnprob_kernel.build_lnprob)
+
+        def counting(*args, **kwargs):
+            fn, fs = origs[0](*args, **kwargs)
+
+            def counted(x):
+                count[0] += 1
+                return fn(x)
+            return counted, fs
+        fitter.build_lnprob = lnprob_kernel.build_lnprob = counting
+        try:
+            yield count
+        finally:
+            fitter.build_lnprob, lnprob_kernel.build_lnprob = origs
+    return ctx()
+
+
+def _nested_proposals(state, draws, ll_unit, a=2.0):
+    """One nested iteration's decisions from `state` (a leading source axis
+    of 1) on its draws under the unit-cube likelihood `ll_unit` ((n, d) ->
+    (n,)): (order of the live points, L*, [(fy, accepted) of each
+    constrained step])."""
+    import torch
+    from mbb_emcee_tpu_torch.nested import _take
+    seed, partner, uz, ua = draws
+    live, lnl = state.live, state.lnl
+    d, nbatch = live.shape[-1], seed.shape[-1]
+    order = torch.argsort(lnl, dim=-1, stable=True)
+    lstar = _take(lnl, order[:, nbatch - 1:nbatch])
+    surv = _take(live, order[:, nbatch:])
+    x, steps = _take(surv, seed), []
+    for k in range(partner.shape[-2]):
+        p = _take(surv, partner[:, k])
+        z = (1.0 / a) * (1.0 + uz[:, k] * (a - 1.0)) ** 2
+        y = p + z[..., None] * (x - p)
+        inbox = torch.all((y >= 0.0) & (y <= 1.0), dim=-1)
+        fy = torch.where(inbox, ll_unit(y[0].contiguous())[None],
+                         torch.full_like(y[..., 0], -torch.inf))
+        ok = inbox & (fy > lstar) & (torch.log(ua[:, k])
+                                     < (d - 1) * torch.log(z))
+        steps.append((fy, ok))
+        x = torch.where(ok[..., None], y, x)
+    return order, lstar, steps
+
+
+def _nested_replay(tag, got, want, ll_k1, ll_plain):
+    """Compare two nested runs' recorded iterations (phase 23): the live
+    points (so the dead points) and the stopping rule bitwise up to the
+    first iteration where they part, their lnprob within K1's tolerance
+    meanwhile and ln Z to rtol 1e-5 (K1 sums the bands in another order
+    than the plain version: far out in the prior box, at |lnL| ~ 1e12, the
+    two differ by an ulp). Where they part, the first decision taken
+    differently -- the order of the live points, an fy > L* of a
+    constrained step -- must sit within NESTED_MARGIN of its threshold
+    (relative to max(1, |L*|)) on both sides. Returns (parting iteration
+    or None, iterations compared, that margin, the largest relative lnprob
+    difference before parting)."""
+    import torch
+    n = min(len(got), len(want))
+    part, drift = None, 0.0
+    for i in range(n):
+        sg, sw = got[i][0], want[i][0]
+        if not (torch.equal(sg.live, sw.live)
+                and torch.equal(sg.done, sw.done)):
+            part = i - 1
+            break
+        if not (torch.allclose(sg.lnl, sw.lnl, rtol=K1_RTOL, atol=K1_ATOL)
+                and torch.equal(sg.lnx, sw.lnx)
+                and torch.allclose(sg.lnz, sw.lnz, rtol=1e-5)):
+            raise AssertionError(f"[{tag}] lnprob or ln Z of the K1 and "
+                                 f"plain runs part at iteration {i} with "
+                                 "equal live points")
+        fin = torch.isfinite(sw.lnl)
+        drift = max(drift, float(((sg.lnl - sw.lnl).abs()
+                                  / sw.lnl.abs().clamp(min=1.0))[fin].max()))
+    if part is None:
+        log(f"[23] {tag}: K1 run and plain replay: live and dead points "
+            f"bitwise over all {n} compared iterations, lnprob within "
+            f"{drift:.3g} relative, ln Z within rtol 1e-5 PASS")
+        return None, n, 0.0, drift
+    if part < 0:
+        raise AssertionError(f"[{tag}] the K1 and plain runs start from "
+                             "different points")
+    (sg, dg), (sw, dw) = got[part], want[part]
+    og, lg, pg = _nested_proposals(sg, dg, ll_k1)
+    ow, lw, pw = _nested_proposals(sw, dw, ll_plain)
+    scale = max(1.0, abs(float(lg[0, 0])))
+    what, worst = "no decision", float("inf")
+    if not torch.equal(og, ow):
+        nb = dg[0].shape[-1]
+        what = "the order of the live points"
+        worst = float((sg.lnl[0, og[0, nb]]
+                       - sg.lnl[0, og[0, nb - 1]]).abs()) / scale
+    else:
+        for k, ((fg, ag), (fw, aw)) in enumerate(zip(pg, pw)):
+            diff = ag != aw
+            if diff.any():
+                what = f"fy > L* at constrained step {k}"
+                worst = float(torch.maximum((fg - lg)[diff].abs(),
+                                            (fw - lw)[diff].abs()).max()) \
+                    / scale
+                break
+    ok = worst < NESTED_MARGIN
+    log(f"[23] {tag}: K1 run and plain replay: live and dead points bitwise "
+        f"for {part} of {n} iterations (lnprob within {drift:.3g} "
+        f"relative); at iteration {part} {what} fell differently, within "
+        f"{worst:.3g} of its threshold relative to max(1, |L*|) (limit "
+        f"{NESTED_MARGIN:g}) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] K1 and plain nested runs part on a "
+                             "decision away from its threshold")
+    return part, n, worst, drift
+
+
+def _weighted_median(x, w):
+    import numpy as np
+    order = np.argsort(x)
+    cw = np.cumsum(w[order])
+    return float(np.interp(0.5 * cw[-1], cw, x[order]))
+
+
+def _nested_vs_k2(ev, ref, free, rel):
+    """The nested run's weighted posterior medians against the K2 fit
+    `ref`, each within max(rel, 3 sigma_MC): the nested side's sigma_MC
+    from the weights' effective sample size, K2's from its autocorrelation
+    time."""
+    import numpy as np
+    w = ev.posterior_weights()
+    ess = 1.0 / np.sum(w * w)
+    flat = ref.chain.reshape(-1, 5)
+    sm_ref, _ = tau_se(ref.chain_free.double().cpu().numpy(), flat, free)
+    rows, ok_all = [], True
+    for k, pi in enumerate(free):
+        x = ev.samples[:, pi]
+        m1, m2 = _weighted_median(x, w), float(np.median(flat[:, pi]))
+        sd = float(np.sqrt(np.sum(w * (x - np.sum(w * x)) ** 2)))
+        tol = max(rel * abs(m2),
+                  3 * np.hypot(1.2533 * sd / np.sqrt(ess), sm_ref[k]))
+        ok = abs(m1 - m2) <= tol
+        ok_all &= ok
+        rows.append(f"p{pi} weighted median {m1:.5g} vs {m2:.5g} (tol "
+                    f"{tol:.3g}) {'PASS' if ok else 'FAIL'}")
+    log(f"[23] compute_evidence's weighted posterior (weights' ESS "
+        f"{ess:.0f}) against K2 run(200, 1000), max({100 * rel:g}%, 3 "
+        "sigma_MC):")
+    for r in rows:
+        log(f"[23]   {r}")
+    if not ok_all:
+        raise AssertionError("compute_evidence: posterior off the K2 fit's")
+
+
+def _hyper_medians_vs(tag, a, b, rel):
+    """Hyper-posterior medians of chains a and b (nrec, W, nfree), each
+    within max(rel, 3 sigma_MC) (sigma_MC of both from their measured
+    autocorrelation times)."""
+    import numpy as np
+    free = list(range(a.shape[-1]))
+    (ma, sa), (mb, sb) = [
+        (np.median(c.reshape(-1, c.shape[-1]), axis=0),
+         tau_se(c, c.reshape(-1, c.shape[-1]), free)[0]) for c in (a, b)]
+    tol = np.maximum(rel * np.abs(mb), 3 * np.hypot(sa, sb))
+    ok = bool(np.all(np.abs(ma - mb) <= tol))
+    log(f"[23] {tag}: medians {np.array2string(ma, precision=5)} vs "
+        f"{np.array2string(mb, precision=5)}, |d| "
+        f"{np.array2string(np.abs(ma - mb), precision=3)} <= tol "
+        f"{np.array2string(tol, precision=3)} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: hyper medians differ")
+
+
+def phase_evidence(card, tiers=None):
+    """Nested sampling and the population tier through the user's entry
+    points (see the module docstring, phase 23). `tiers` is phase 22's
+    result (for its run_pt evidence), None when phase 22 did not run.
+    Returns (launches by kernel and path, seconds and numbers by step)."""
+    import concurrent.futures
+    import multiprocessing
+    import warnings
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import nested
+    from mbb_emcee_tpu_torch.fitter import philox_key
+    from mbb_emcee_tpu_torch.hierarchy import HierarchicalFitter
+    from mbb_emcee_tpu_torch.ops import lnprob_kernel
+
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+    cfg = vp.CONFIGS[2]
+    free = vp.free_indices(cfg)
+    flux, unc, cov = vp.mock_data(cfg)
+    seed, bseed = 2301, 4331
+    bflux, bunc = batch_data(NSOURCES, seed=3000, missing_every=16)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_single = pool.submit(_cpu_evidence_single, seed)
+        cpu_batch = pool.submit(_cpu_evidence_batch, 2, bseed,
+                                NESTED_BATCH_NLIVE)
+
+        # -- the population stage on the batch cell's K3 run
+        mf = batch_fitter(bflux, bunc, seed=4330)
+        _counts(reset=True)
+        _, out["MultiFitter.run(50, 250)"] = _timed(
+            lambda: mf.run(nburn=50, nsteps=250))
+        c = _counts()
+        if c["mbb_multi_stretch_run"] != 3 or c["plain_multi_runs"]:
+            raise AssertionError("the population's batch run did not run "
+                                 "through K3 alone")
+        launches["mbb_multi_stretch_run"]["population's batch run "
+                                          "(phase 23)"] = 3
+        params = ("T", "beta")
+        hf = HierarchicalFitter.from_batch(mf, params)
+        _, out["HierarchicalFitter.run(200, 1000)"] = _timed(
+            lambda: hf.run(nburn=200, nsteps=1000))
+        pop = hf.population
+        phis = np.ascontiguousarray(hf.chain_free[-1, :POP_CHECK_VECTORS],
+                                    np.float32)
+        cpu_pop = pool.submit(_cpu_population, hf.samples, params,
+                              pop.box_lower, pop.box_upper, phis, hf.seed,
+                              POP_CPU_SAMPLES, POP_CPU_DEPTH)
+        hfc = HierarchicalFitter.from_batch(mf, params, correlated=True)
+        _, out["HierarchicalFitter.run, correlated"] = _timed(
+            lambda: hfc.run(**CORRELATED_DEPTH))
+        evh, out["HierarchicalFitter.compute_evidence"] = _timed(
+            lambda: hf.compute_evidence(nlive=HYPER_NLIVE))
+        ess, out["reweight_ess"] = _timed(hf.reweight_ess)
+        rho = hfc.par_cen("rho_T_beta")
+        ok = (np.all(np.isfinite(hf.flatchain)) and evh.converged
+              and np.isfinite(evh.logz) and np.all(ess > 1.0)
+              and np.isfinite(rho[0]))
+        log(f"[23] population of {mf.nsources} sources x "
+            f"{hf.samples.shape[1]} stored samples (T, beta): mu_T "
+            f"{hf.par_cen('mu_T')[0]:.4g}, sigma_T "
+            f"{hf.par_cen('sigma_T')[0]:.4g}, mu_beta "
+            f"{hf.par_cen('mu_beta')[0]:.4g}, acceptance "
+            f"{hf.acceptance_fraction.mean():.3f}; correlated rho "
+            f"{rho[0]:.3f} +{rho[1]:.2g} -{rho[2]:.2g}; hyper lnZ "
+            f"{evh.logz:.3f} +- {evh.logz_err:.3f} (nlive {HYPER_NLIVE}, "
+            f"{evh.n_iter} iterations); reweight ESS min {ess.min():.0f} / "
+            f"median {np.median(ess):.0f} {'PASS' if ok else 'FAIL'} "
+            f"({card})")
+        log("[23] population seconds (host clock): " + ", ".join(
+            f"{k} {out[k]:.2f}" for k in (
+                "MultiFitter.run(50, 250)",
+                "HierarchicalFitter.run(200, 1000)",
+                "HierarchicalFitter.run, correlated",
+                "HierarchicalFitter.compute_evidence", "reweight_ess")))
+        if not ok:
+            raise AssertionError("population stage results not finite")
+        small = HierarchicalFitter(hf.samples[:, :POP_CPU_SAMPLES], pop,
+                                   seed=hf.seed, device=DEVICE)
+        _, out["HierarchicalFitter.run, CPU check depth"] = _timed(
+            lambda: small.run(**POP_CPU_DEPTH))
+        lnprob_h, _, _ = hf.build()
+        lnp_card = lnprob_h(torch.as_tensor(phis, device=DEVICE)).cpu()
+
+        # -- single fit: compute_evidence() at its defaults on K1
+        ref = port_fitter(2, flux, unc, cov, seed=2201)
+        _counts(reset=True)
+        _, out["K2 run(200, 1000)"] = _timed(lambda: ref.run(nburn=200,
+                                                             nsteps=1000))
+        launches["mbb_stretch_run"]["posterior yardstick (phase 23)"] = \
+            _counts()["mbb_stretch_run"]
+        fit = port_fitter(2, flux, unc, cov, seed=seed)
+        _counts(reset=True)
+        with _counting_plain_likelihood() as nplain, \
+                _recording_nested() as got:
+            ev, t_ev = _timed(fit.compute_evidence)
+        c = _counts()
+        want = 1 + ev.n_iter * 32
+        plain = c["plain_sampler_runs"] + c["plain_multi_runs"] + nplain[0]
+        ok = (c["mbb_lnprob"] == want and plain == 0 and ev.converged
+              and len(got) == ev.n_iter)
+        log(f"[23] compute_evidence() at its defaults (nlive 512, nbatch "
+            f"32, nsteps 32), config 2 x {NWALKERS}: lnZ {ev.logz:.4f} +- "
+            f"{ev.logz_err:.4f}, H {ev.h:.2f}, n_iter {ev.n_iter}, n_like "
+            f"{ev.n_like}, converged {ev.converged}, {t_ev:.2f} s (host "
+            f"clock), {1e3 * t_ev / ev.n_iter:.2f} ms per iteration; "
+            f"{c['mbb_lnprob']} K1 launches (want 1 + n_iter x 32 = "
+            f"{want}), {plain} plain likelihood calls or runs "
+            f"{'PASS' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError("compute_evidence did not run through K1 "
+                                 "alone")
+        launches["mbb_lnprob"]["compute_evidence (phase 23)"] = \
+            c["mbb_lnprob"]
+        out.update({"compute_evidence": t_ev, "n_iter": ev.n_iter,
+                    "n_like": ev.n_like,
+                    "ms per iteration": 1e3 * t_ev / ev.n_iter,
+                    "lnZ": [ev.logz, ev.logz_err]})
+
+        # its plain replay on the card, the first NESTED_REPLAY_ITERS
+        plain_ll, fs = fit._batched_lnprob(plain=True)
+        ops = lnprob_kernel.prepare_lnprob_inputs(
+            fit.phot, fit.shape, fit._effective_spec(), device=DEVICE)
+        lo = torch.as_tensor(np.asarray(fs.lower, np.float32), device=DEVICE)
+        wd = torch.as_tensor(np.asarray(fs.upper - fs.lower, np.float32),
+                             device=DEVICE)
+        _counts(reset=True)
+        with _recording_nested() as rep, warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            _, out["plain replay"] = _timed(lambda: nested.nested_sample(
+                plain_ll, fs.lower, fs.upper, philox_key(seed),
+                max_iter=NESTED_REPLAY_ITERS, device=DEVICE))
+        if _counts()["mbb_lnprob"] != 0:
+            raise AssertionError("the plain replay launched K1")
+        log(f"[23] plain replay of {NESTED_REPLAY_ITERS} iterations on the "
+            f"card: {out['plain replay']:.2f} s (host clock)")
+        part, n, margin, drift = _nested_replay(
+            "compute_evidence", got, rep,
+            lambda u: lnprob_kernel.mbb_lnprob(lo + wd * u, ops),
+            lambda u: plain_ll(lo + wd * u))
+        out.update({"replay parting iteration": part,
+                    "replay iterations": n,
+                    "replay lnprob max relative difference": drift})
+        del got, rep
+
+        _nested_vs_k2(ev, ref, free, 0.02)
+
+        # thin against thick at config 2's data (config 2 is the thick one)
+        thin = port_fitter(2, flux, unc, cov, seed=seed, opthin=True)
+        _counts(reset=True)
+        evt, out["compute_evidence, thin"] = _timed(thin.compute_evidence)
+        launches["mbb_lnprob"]["compute_evidence, thin (phase 23)"] = \
+            _counts()["mbb_lnprob"]
+        d = ev.logz - evt.logz
+        log(f"[23] thin against thick at config 2's data: lnZ thin "
+            f"{evt.logz:.4f} +- {evt.logz_err:.4f} ({evt.n_iter} "
+            f"iterations, {out['compute_evidence, thin']:.2f} s), thick "
+            f"{ev.logz:.4f} +- {ev.logz_err:.4f}; ln B(thick/thin) {d:.4f} "
+            f"+- {np.hypot(ev.logz_err, evt.logz_err):.4f}")
+        if not (evt.converged and np.isfinite(d)):
+            raise AssertionError("the thin model's evidence did not "
+                                 "converge")
+        out["lnZ thin"] = [evt.logz, evt.logz_err]
+
+        # the device's busy share of a compute_evidence call
+        prof = port_fitter(2, flux, unc, cov, seed=seed)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            _, busy = _profiled_busy_ms(lambda: prof.compute_evidence(
+                max_iter=NESTED_PROFILE_ITERS))
+            _, wall = _timed(lambda: prof.compute_evidence(
+                max_iter=NESTED_PROFILE_ITERS))
+        share = None if busy is None else busy / (1e3 * wall)
+        log(f"[23] compute_evidence(max_iter={NESTED_PROFILE_ITERS}): "
+            f"{wall:.3f} s host clock, device busy "
+            f"{'not measured' if busy is None else f'{busy:.1f} ms'}"
+            f"{'' if share is None else f' ({100 * share:.1f}%)'} "
+            f"(torch.profiler, {card})")
+        out.update({"profiled iterations": NESTED_PROFILE_ITERS,
+                    "profiled wall s": wall, "device busy ms": busy,
+                    "device busy share": share})
+
+        # the PT evidence on the same data (phase 22's run_pt, else its own)
+        if tiers is not None:
+            lz_pt, _, se_pt = tiers["logz_pt"]["card"]
+        else:
+            ptf = port_fitter(2, flux, unc, cov, seed=2202)
+            with _recording_pt_steps() as steps:
+                ptf.run_pt()
+            lz_pt = ptf.logz_pt[0]
+            se_pt = _ss_batch_means(steps, 1000, 1000)[1]
+            del steps
+        tol = 3 * np.hypot(ev.logz_err, se_pt)
+        ok = abs(ev.logz - lz_pt) <= tol
+        log(f"[23] nested lnZ {ev.logz:.4f} against run_pt()'s stepping "
+            f"stone {lz_pt:.4f} (batch-means error {se_pt:.4f}): |d| "
+            f"{abs(ev.logz - lz_pt):.4f} <= 3 x combined {tol:.4f} "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("nested and PT evidences disagree")
+
+        # -- the batch: per-source evidence on the plain batch likelihood
+        mfe = batch_fitter(bflux[:NESTED_BATCH_SOURCES],
+                           bunc[:NESTED_BATCH_SOURCES], seed=bseed)
+        _counts(reset=True)
+        evb, t_b = _timed(lambda: mfe.compute_evidence(
+            nlive=NESTED_BATCH_NLIVE))
+        c = _counts()
+        ok = (bool(evb.converged.all()) and c["mbb_lnprob"] == 0
+              and c["mbb_multi_stretch_run"] == 0
+              and np.all(np.isfinite(evb.logz)))
+        log(f"[23] MultiFitter.compute_evidence(nlive="
+            f"{NESTED_BATCH_NLIVE}) over {NESTED_BATCH_SOURCES} of the batch "
+            f"cell's sources: {t_b:.2f} s (host clock), iterations "
+            f"{evb.n_iter.min()}-{evb.n_iter.max()}, lnZ "
+            f"{evb.logz.min():.2f}..{evb.logz.max():.2f}, all converged "
+            f"{bool(evb.converged.all())}, no kernel launched (plain batch "
+            f"likelihood) {'PASS' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError("batch evidence did not converge")
+        out.update({"MultiFitter.compute_evidence": t_b,
+                    "batch n_iter": [int(evb.n_iter.min()),
+                                     int(evb.n_iter.max())]})
+
+        # -- the CPU references
+        t_wait = time.time()
+        lc, dc, nc, conv_c, t_c = cpu_single.result()
+        bl, bd, bn, t_cb = cpu_batch.result()
+        lnp_cpu, chain_cpu, t_pc = cpu_pop.result()
+        out["waited for the CPU"] = time.time() - t_wait
+        tol = 3 * np.hypot(ev.logz_err, dc)
+        ok = conv_c and abs(ev.logz - lc) <= tol
+        log(f"[23] the CPU's compute_evidence() on the same seed: lnZ "
+            f"{lc:.4f} +- {dc:.4f} ({nc} iterations, {t_c:.1f} s in a "
+            f"worker with {CPU_WORKER_THREADS} threads); |d| "
+            f"{abs(ev.logz - lc):.4f} <= 3 x combined {tol:.4f} "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("compute_evidence on the card is not the "
+                                 "CPU's")
+        tol = 3 * np.hypot(evb.logz_err[:2], bd)
+        ok = bool(np.all(np.abs(evb.logz[:2] - bl) <= tol))
+        log(f"[23] the CPU's batch compute_evidence on sources 0-1: lnZ "
+            f"{np.array2string(bl, precision=4)} against the card's "
+            f"{np.array2string(evb.logz[:2], precision=4)}, |d| <= 3 x "
+            f"combined {np.array2string(tol, precision=4)} ({t_cb:.1f} s) "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("batch evidence on the card is not the "
+                                 "CPU's")
+        ok = torch.allclose(lnp_card, torch.as_tensor(lnp_cpu), rtol=1e-5,
+                            atol=1e-3)
+        log(f"[23] full-size hyper-lnprob ({mf.nsources} x "
+            f"{hf.samples.shape[1]} x 2) at {POP_CHECK_VECTORS} hyper "
+            f"vectors, card against CPU: max |d| "
+            f"{float((lnp_card - torch.as_tensor(lnp_cpu)).abs().max()):.3g}"
+            f" {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("hyper-lnprob on the card is not the CPU's")
+        _hyper_medians_vs(
+            f"HierarchicalFitter.run({POP_CPU_DEPTH}) on {POP_CPU_SAMPLES} "
+            f"stored samples per source, card against CPU "
+            f"({t_pc:.1f} s), max(1%, 3 sigma_MC)", small.chain_free,
+            chain_cpu, 0.01)
+        out.update({"CPU compute_evidence": t_c,
+                    "CPU batch compute_evidence (2 sources)": t_cb,
+                    "CPU population check": t_pc})
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    out["phase 23"] = time.time() - t0
+    log(f"[23] phase 23: {out['phase 23']:.1f} s")
+    return launches, out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22")
+          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
 
 
 def main(argv=None):
@@ -3347,7 +3949,9 @@ def main(argv=None):
         ("17", phase_k3_layouts), ("18", lambda: phase_k3_sweep(card)),
         ("19", phase_k1_layouts), ("20", lambda: phase_k1_sweep(card)),
         ("21", lambda: phase_map_checks(card)),
-        ("22", lambda: phase_tiers(card))]
+        ("22", lambda: phase_tiers(card)),
+        ("23", lambda: phase_evidence(
+            card, res["22"][1] if "22" in res else None))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -3382,11 +3986,13 @@ def main(argv=None):
     map_paths, map_times = res["21"]
     pt_launches, tier_times = res["22"]
     k1_by_path["run_pt (phase 22)"] = pt_launches
+    evidence_paths, evidence_times = res["23"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
         by_path.update({f"{k} (phase 21)": v
                         for k, v in map_paths[name].items()})
+        by_path.update(evidence_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -3481,6 +4087,8 @@ def main(argv=None):
         + json.dumps(map_times))
     log(f"HMC and PT, host seconds and counts ({card}): "
         + json.dumps(tier_times))
+    log(f"nested sampling and population, host seconds and counts "
+        f"({card}): " + json.dumps(evidence_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

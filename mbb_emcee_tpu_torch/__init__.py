@@ -36,7 +36,14 @@ The inference tiers beside the stretch move: Hamiltonian MC (hmc.py;
 MBBFitter.run_hmc, MultiFitter.run_hmc) with torch.autograd forces, and
 parallel tempering with stepping-stone evidence (tempering.py;
 MBBFitter.run_pt on the lnprob kernel, MultiFitter.run_pt), whose batch
-runs checkpoint through checkpoint.save_tier_checkpoint.
+runs checkpoint through checkpoint.save_tier_checkpoint. Nested sampling
+(nested.py; MBBFitter.compute_evidence on the lnprob kernel,
+MultiFitter.compute_evidence per source) gives each model variant's
+evidence for Bayes factors.
+
+The population tier (hierarchy.py): HierarchicalFitter infers a catalog's
+population distribution of T, beta, ... by reweighting the batch's stored
+chains, with a survey selection function, its own evidence and HDF5 files.
 
 The kernels are built with nvcc at first use (ops/build.py). Importing the
 package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
@@ -67,6 +74,11 @@ from mbb_emcee_tpu_torch.modelcheck import (
 from mbb_emcee_tpu_torch.reweight import (
     reweight_prior, reweight_prior_batch, ReweightResult,
     ReweightBatchResult)
+from mbb_emcee_tpu_torch.nested import (
+    nested_sample, nested_sample_batch, NestedResult, NestedBatchResult)
+from mbb_emcee_tpu_torch.hierarchy import (
+    TruncatedGaussianPopulation, CorrelatedGaussianPopulation, Selection,
+    HierarchicalFitter, fit_population)
 
 __version__ = "0.1.0"
 
@@ -82,5 +94,8 @@ __all__ = [
     "ParallelTemperingSampler", "geometric_ladder",
     "LooResult", "LooBatchResult", "LooComparison", "compare_loo",
     "reweight_prior", "reweight_prior_batch", "ReweightResult",
-    "ReweightBatchResult", "__version__",
+    "ReweightBatchResult", "nested_sample", "nested_sample_batch",
+    "NestedResult", "NestedBatchResult", "TruncatedGaussianPopulation",
+    "CorrelatedGaussianPopulation", "Selection", "HierarchicalFitter",
+    "fit_population", "__version__",
 ]

@@ -770,6 +770,55 @@ class BatchEngine:
                 f"{self.hmc_step_size.max():.4g}]")
         return self
 
+    # -- nested-sampling evidence ------------------------------------------------
+    def compute_evidence(self, nlive=512, nbatch=32, nsteps=32,
+                         max_iter=3000, tol=1e-4, seed=None, verbose=False):
+        """Per-source Bayesian evidences ln Z for the whole batch
+        (nested.make_nested_batch_runner): the S nested runs advance in
+        lockstep, every constrained step one (S, nbatch) call of the batch
+        likelihood's plain version on the fitter's device (the JAX package
+        runs its XLA likelihood the same way), and each source freezes at
+        its own termination. Same prior convention as the single fit:
+        normalized uniform over the free box times the configured Gaussian
+        priors; run it once per model variant over the same batch and
+        difference the (S,) logz vectors for per-source Bayes factors.
+
+        Needs data (set_data) but not a prior run(). Source s draws the
+        Philox stream of source index s under philox_key(seed) (default:
+        the fitter's seed). Returns a NestedBatchResult with the samples in
+        the full parameter space; also stored as self.evidence."""
+        from mbb_emcee_tpu_torch.fitter import philox_key
+        from mbb_emcee_tpu_torch.nested import make_nested_batch_runner
+
+        if self.flux is None:
+            raise RuntimeError("no data; call set_data")
+        ops = self._lnprob_operands(self._effective_spec())
+        free_space = ops.free_space
+        if not (np.all(np.isfinite(free_space.lower))
+                and np.all(np.isfinite(free_space.upper))):
+            raise ValueError("nested sampling requires finite box bounds")
+
+        def lnprob(theta, flux, errs):
+            return ops.fn(theta, ops.wave, flux, errs)
+
+        runner = make_nested_batch_runner(
+            lnprob, free_space.lower, free_space.upper, nlive=nlive,
+            nbatch=nbatch, nsteps=nsteps, max_iter=max_iter, tol=tol,
+            device=self.device)
+        res = runner(philox_key(self.seed if seed is None else int(seed)),
+                     (ops.flux, ops.errs))
+        res.samples = free_space.expand(res.samples)
+        self.evidence = res
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            enable_console().info(
+                f"nested sampling [{self.device}] over {self.nsources} "
+                f"sources: lnZ in [{res.logz.min():.2f}, "
+                f"{res.logz.max():.2f}], median err "
+                f"{np.median(res.logz_err):.3f}, iterations "
+                f"{res.n_iter.min()}-{res.n_iter.max()}")
+        return res
+
     # -- MAP + Laplace triage ---------------------------------------------------
     def run_map(self, nstarts=8, n_adam=150, n_newton=12, adam_lr=0.1,
                 verbose=False):

@@ -5,7 +5,8 @@ HDF5, sampler geometry, model shape, per-parameter limits / priors / initial
 values / fixing, covariance file, instrument-response mode, checkpoint /
 resume, the --extend-until serving loop, derived-quantity switches, MAP
 triage (--map, --init-map), model checking (--ppc, --loo, --loo-exact),
-Hamiltonian MC (--hmc) and parallel tempering (--pt)) plus --device
+Hamiltonian MC (--hmc), parallel tempering (--pt) and the nested-sampling
+evidence (--get-evidence)) plus --device
 (default cuda; --device cpu runs the plain torch path).
 Flags whose features are not ported yet exit non-zero up front with the
 ROADMAP.md item that carries them.
@@ -27,7 +28,6 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
 # queue-A item that carries each.
 _WAITING = (
-    ("get_evidence", "--get-evidence", "A9e"),
     ("plot_sed", "--plot-sed", "A10"), ("plot_corner", "--plot-corner", "A10"),
     ("plot_chain", "--plot-chain", "A10"), ("plot_ppc", "--plot-ppc", "A10"),
     ("profile_dir", "--profile-dir", "A8"),
@@ -223,8 +223,12 @@ def build_parser():
     g.add_argument("--loo-exact", action="store_true",
                    help="--loo, then refit without each band whose PSIS "
                         "k-hat exceeds 0.7 (diagonal errors only)")
-    g.add_argument("--get-evidence", action="store_true")
-    g.add_argument("--nlive", type=int, default=512)
+    g.add_argument("--get-evidence", action="store_true",
+                   help="also compute the Bayesian evidence lnZ by nested "
+                        "sampling over the parameter box (compare two runs' "
+                        "lnZ for a Bayes factor between model variants)")
+    g.add_argument("--nlive", type=int, default=512,
+                   help="nested-sampling live points (default 512)")
 
     g = p.add_argument_group("plots")
     g.add_argument("--plot-sed", default=None, metavar="PNG")
@@ -332,9 +336,11 @@ def _validate_triage_flags(args):
                              "--hmc/--pt/--checkpoint/--resume/"
                              "--extend-until/--init-map")
         if (args.get_lir or args.get_dustmass or args.get_peaklambda
-                or args.loo or args.loo_exact or args.ppc):
-            raise SystemExit("derived-quantity posteriors, --ppc and --loo "
-                             "need chains; run without --map for them")
+                or args.get_evidence or args.loo or args.loo_exact
+                or args.ppc):
+            raise SystemExit("derived-quantity posteriors, --ppc and the "
+                             "--plot-* figures need chains; run without "
+                             "--map for them")
     if args.extend_until is not None and (args.hmc or args.pt):
         raise SystemExit("--extend-until works with the stretch-move "
                          "sampler only")
@@ -527,6 +533,11 @@ def main(argv=None):
     log.info(f"  fit ({what}): {total} steps in {secs:.2f}s "
              f"({walkers * total / secs:,.0f} walker-steps/s, "
              f"host clock, build and first-call costs included)")
+
+    if args.get_evidence:
+        ev = fit.compute_evidence(nlive=args.nlive, verbose=args.verbose)
+        print(f"ln Z = {ev.logz:.4f} +/- {ev.logz_err:.4f} "
+              f"({ev.n_like} likelihood evaluations)")
 
     res = MBBResults(fit=fit, redshift=args.redshift,
                      cosmology=args.cosmology, lumdist=args.lumdist)

@@ -11,7 +11,8 @@ Usage example:
         --get-lir --get-peaklambda --summary --device cuda
 
 The flags are the JAX batch CLI's (MAP triage --map / --init-map, the
---ppc / --loo checks, --hmc and --pt included) plus --device (default
+--ppc / --loo checks, --hmc, --pt, the per-source nested-sampling evidence
+--get-evidence and the --population stage included) plus --device (default
 cuda; --device cpu runs the plain torch path). Flags whose features are not
 ported yet exit non-zero up front with the ROADMAP.md item that carries
 them.
@@ -31,8 +32,6 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's batch CLI whose features wait, and the
 # ROADMAP.md queue-A item that carries each.
 _WAITING = (
-    ("get_evidence", "--get-evidence", "A9e"),
-    ("population", "--population", "A9f"),
     ("plot_population", "--plot-population", "A10"),
     ("mesh_devices", "--mesh-devices", "A11"),
     ("profile_dir", "--profile-dir", "A8"),
@@ -196,16 +195,44 @@ def build_parser():
     g.add_argument("--get-peaklambda", action="store_true")
     g.add_argument("--derived-thin", type=int, default=1,
                    help="thin factor for derived-quantity chains")
-    g.add_argument("--get-evidence", action="store_true")
+    g.add_argument("--get-evidence", action="store_true",
+                   help="per-source Bayesian evidence lnZ by batched "
+                        "nested sampling (one lnZ column per source in "
+                        "--summary)")
     g.add_argument("--ppc", action="store_true",
                    help="per-source posterior-predictive p-values")
     g.add_argument("--loo", action="store_true",
                    help="per-source WAIC + PSIS-LOO (stored in the batch "
                         "file)")
-    g.add_argument("--nlive", type=int, default=512)
+    g.add_argument("--nlive", type=int, default=512,
+                   help="nested-sampling live points (default 512)")
 
-    g = p.add_argument_group("population")
-    g.add_argument("--population", nargs="+", default=None, metavar="PARAM")
+    g = p.add_argument_group(
+        "population (hierarchical hyper-inference over the fitted batch)")
+    g.add_argument("--population", nargs="+", default=None, metavar="PARAM",
+                   help="after the batch fit, infer the population "
+                        "distribution of these free parameters (e.g. "
+                        "'--population T beta'): box-truncated-normal "
+                        "population via importance reweighting of the "
+                        "stored per-source chains; prints the hyper-"
+                        "posterior and writes the hyper chain "
+                        "to --population-out")
+    g.add_argument("--population-burn", type=int, default=200,
+                   help="hyper-sampler burn-in steps (default 200)")
+    g.add_argument("--population-steps", type=int, default=1000,
+                   help="hyper-sampler production steps (default 1000)")
+    g.add_argument("--population-walkers", type=int, default=64,
+                   help="hyper-sampler walkers (default 64)")
+    g.add_argument("--population-out", default=None, metavar="FILE",
+                   help="hyper chain output (default: OUTFILE with "
+                        ".pop.h5)")
+    g.add_argument("--population-sigma-log-uniform", action="store_true",
+                   help="scale-invariant (log-uniform) hyper-prior on the "
+                        "population widths (default: uniform in sigma)")
+    g.add_argument("--population-correlated", action="store_true",
+                   help="bivariate population with a free correlation "
+                        "rho (exactly two --population params): is the "
+                        "catalog's T-beta trend a population property?")
     g.add_argument("--plot-population", default=None, metavar="PNG")
 
     g = p.add_argument_group("output")
@@ -247,16 +274,19 @@ def _safe_rhat(mf):
 
 
 def _summary_table(mf, offset=0):
-    """Per-source lines: free-parameter medians +/- 1 sigma, split-R-hat and
-    the stepping-stone lnZ after --pt; `offset` shifts the printed indices
-    to catalog positions (chunks)."""
+    """Per-source lines: free-parameter medians +/- 1 sigma, split-R-hat,
+    the stepping-stone lnZ after --pt and the nested lnZ after
+    --get-evidence; `offset` shifts the printed indices to catalog
+    positions (chunks)."""
     names = mf.free_param_names
     cen = {p: mf.par_cen(p) for p in names}          # (S, 3) each
     rhat = _safe_rhat(mf)
     logz_pt = mf.logz_pt
+    evidence = mf.evidence
     lines = ["#   source            " +
              "".join(f"{p:>24}" for p in names) + f"{'max-Rhat':>10}" +
-             ("" if logz_pt is None else f"{'lnZ(PT)':>12}")]
+             ("" if logz_pt is None else f"{'lnZ(PT)':>12}") +
+             ("" if evidence is None else f"{'lnZ':>12}")]
     srcnames = mf.source_names or [f"src{i + offset}"
                                    for i in range(mf.nsources)]
     for i, nm in enumerate(srcnames):
@@ -266,6 +296,8 @@ def _summary_table(mf, offset=0):
         line = f"{i + offset:>3} {nm:<16}{cells}{rhat[i]:>10.3f}"
         if logz_pt is not None:
             line += f"{logz_pt[0][i]:>12.2f}"
+        if evidence is not None:
+            line += f"{evidence.logz[i]:>12.2f}"
         lines.append(line)
     return "\n".join(lines)
 
@@ -300,10 +332,12 @@ def main(argv=None):
         if args.checkpoint or args.resume:
             raise SystemExit("--map runs in seconds; checkpointing does not "
                              "apply")
-        if (args.get_lir or args.get_dustmass or args.get_peaklambda
-                or args.ppc or args.loo):
-            raise SystemExit("derived-quantity posteriors, --ppc and --loo "
-                             "need chains; run without --map for them")
+        if args.get_lir or args.get_dustmass or args.get_peaklambda \
+                or args.get_evidence or args.ppc or args.loo \
+                or args.population:
+            raise SystemExit("derived-quantity posteriors, --ppc, --loo "
+                             "and --population need chains; run without "
+                             "--map for them")
     if args.hmc and args.pt:
         raise SystemExit("--hmc and --pt are mutually exclusive")
     if args.extend_until is not None and (args.hmc or args.pt):
@@ -318,6 +352,16 @@ def main(argv=None):
         # before sampling: failing after the run would lose every chunk
         raise SystemExit("--get-lir/--get-dustmass need finite "
                          "redshifts in the catalog's z column")
+    if args.population_correlated and (args.population is None
+                                       or len(args.population) != 2):
+        raise SystemExit("--population-correlated needs exactly two "
+                         "--population parameters (e.g. "
+                         "'--population T beta --population-correlated')")
+    if chunked and args.population:
+        raise SystemExit(
+            "--population needs every source's chain at once; run it on "
+            "an unchunked fit (or load the part files and call "
+            "hierarchy.HierarchicalFitter yourself)")
     if chunked and (args.checkpoint or args.resume):
         raise SystemExit(
             "--chunk-size is not combinable with --checkpoint/--resume "
@@ -544,6 +588,12 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
              f"walker-steps/s, host clock, build and first-call costs "
              f"included)")
 
+    if args.get_evidence:
+        ev = mf.compute_evidence(nlive=args.nlive, verbose=args.verbose)
+        print(f"ln Z: median {np.median(ev.logz):.4f} over "
+              f"{mf.nsources} sources (median err "
+              f"{np.median(ev.logz_err):.4f})")
+
     if args.get_lir:
         mf.compute_lir(wavemin=args.lir_wavemin, wavemax=args.lir_wavemax,
                        thin=args.derived_thin, cosmology=args.cosmology)
@@ -563,6 +613,11 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
         print(f"{mf.nsources} sources fit; max split-R-hat "
               f"{rhat.max():.3f} (median {np.median(rhat):.3f}); "
               f"batch written to {outfile}")
+    if args.population:
+        # the population stage runs AFTER the batch file is on disk: its
+        # failure must not lose the fits
+        from mbb_emcee_tpu_torch.hierarchy import run_population_stage
+        print(run_population_stage(mf, args, outfile))
     return 0
 
 

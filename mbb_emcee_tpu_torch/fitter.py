@@ -22,6 +22,7 @@ walker ball, on Philox streams of their own under the same key.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -138,6 +139,7 @@ class MBBFitter(ParamSpaceMixin):
         self.thin = 1
         self.logz_pt = None         # (lnZ, err) stepping stone, run_pt()
         self.logz_ti = None         # (lnZ, err) thermodynamic integration
+        self.evidence = None        # NestedResult, compute_evidence()
 
         if photfile is not None:
             self.read_data(photfile)
@@ -555,6 +557,25 @@ class MBBFitter(ParamSpaceMixin):
                      f"+/- {res.logz_err:.3f}")
         return self
 
+    def _batched_lnprob(self, plain):
+        """(lnprob (n, nfree) -> (n,), free space) of the effective spec on
+        the fitter's device: the plain torch likelihood (plain=True;
+        autograd), else the lnprob kernel on a CUDA device (its plain
+        version on the CPU)."""
+        spec = self._effective_spec()
+        if plain:
+            return build_lnprob(
+                self._require_data(), self.shape, spec,
+                response_pack=self._response_pack(), device=self.device)
+        from mbb_emcee_tpu_torch.ops import lnprob_kernel
+        ops = lnprob_kernel.prepare_lnprob_inputs(
+            self._require_data(), self.shape, spec,
+            response_pack=self._response_pack(), device=self.device)
+
+        def lnprob(x):
+            return lnprob_kernel.mbb_lnprob(x.contiguous(), ops)
+        return lnprob, ops.free_space
+
     def _tier_setup(self, why, nchains, p0, plain):
         """(batched lnprob, free space, start positions (nchains, nfree) on
         the fitter's device) of run_hmc / run_pt. `plain`: the plain torch
@@ -568,20 +589,7 @@ class MBBFitter(ParamSpaceMixin):
                 + why)
         nchains = self.nwalkers if nchains is None else int(nchains)
         self._auto_init_fnorm()
-        spec = self._effective_spec()
-        if plain:
-            lnprob, free_space = build_lnprob(
-                self._require_data(), self.shape, spec,
-                response_pack=self._response_pack(), device=self.device)
-        else:
-            from mbb_emcee_tpu_torch.ops import lnprob_kernel
-            ops = lnprob_kernel.prepare_lnprob_inputs(
-                self._require_data(), self.shape, spec,
-                response_pack=self._response_pack(), device=self.device)
-            free_space = ops.free_space
-
-            def lnprob(x):
-                return lnprob_kernel.mbb_lnprob(x.contiguous(), ops)
+        lnprob, free_space = self._batched_lnprob(plain)
         self.free_space = free_space
         idx = free_space.free_idx
         if p0 is None:
@@ -596,8 +604,41 @@ class MBBFitter(ParamSpaceMixin):
                 x0 = x0[..., torch.as_tensor(idx, device=self.device)]
         return lnprob, free_space, x0
 
-    def compute_evidence(self, *args, **kwargs):
-        raise not_ported("compute_evidence (nested sampling)", "A9e")
+    def compute_evidence(self, nlive=512, nbatch=32, nsteps=32,
+                         max_iter=3000, tol=1e-4, seed=None, verbose=False):
+        """Bayesian evidence ln Z of THIS model configuration by nested
+        sampling (nested.py), for comparing the model variants upstream
+        mbb_emcee fits (optically thin against thick, with or without
+        alpha): the Bayes factor between two fitters with the same data and
+        prior settings is exp(lnZ_A - lnZ_B).
+
+        The evidence is taken w.r.t. the normalized uniform prior over the
+        free-parameter box (set_lowlim/set_uplim) times any Gaussian prior
+        factors, as the likelihood applies them. On a CUDA device every
+        constrained step's nbatch proposals are one launch of the lnprob
+        kernel (1 + n_iter * nsteps launches a call); on the CPU the plain
+        likelihood runs the same draws. The draws come from the Philox
+        stream of philox_key(seed) (default: the fitter's seed). Returns a
+        NestedResult with the weighted samples in the FULL 5-parameter
+        space; also stored as self.evidence."""
+        from mbb_emcee_tpu_torch.nested import nested_sample
+
+        self._auto_init_fnorm()
+        lnprob, free_space = self._batched_lnprob(plain=False)
+        res = nested_sample(
+            lnprob, free_space.lower, free_space.upper,
+            philox_key(self.seed if seed is None else int(seed)),
+            nlive=nlive, nbatch=nbatch, nsteps=nsteps, max_iter=max_iter,
+            tol=tol, device=self.device)
+        res = dataclasses.replace(res, samples=free_space.expand(res.samples))
+        self.evidence = res
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            enable_console().info(
+                f"nested sampling: lnZ = {res.logz:.3f} +/- "
+                f"{res.logz_err:.3f} (H = {res.h:.2f} nats, "
+                f"{res.n_iter} iterations, {res.n_like} likelihood evals)")
+        return res
 
     # -- MAP + Laplace triage ------------------------------------------------------
     def _posterior_key(self):

@@ -12,12 +12,11 @@ other. h5py is imported inside the functions: only HDF5 I/O needs it.
     /ParamConfig/{Lower,Upper,Fixed,FixedValues,PriorMean,PriorInvSigma,
                   Initial[,PhotUpperLimits]}
     /LIR, /DustMass, /PeakLambda  (optional derived chains, attrs = meta)
+    /Evidence/{Samples,LogLike,LogWt}  (optional nested-sampling run,
+              attrs = logz, logz_err, h, n_iter, n_like, converged)
     /LOO  (optional WAIC + PSIS-LOO summaries, modelcheck.write_loo_group)
     /PTEvidence  (optional, after run_pt: attrs logz, logz_err[, logz_ti,
                   logz_ti_err])
-
-The group the JAX package writes for a surface this package does not have
-yet (/Evidence, nested sampling) is left unread.
 
 A MAP-triage file (the --map flows of both CLIs; no chains) holds the model
 shape attrs, /Wave, /Flux, /Unc and
@@ -147,6 +146,19 @@ def _write_results(f, res):
                                   compression="gzip", compression_opts=4)
             for k, v in (meta or {}).items():
                 ds.attrs[k] = v
+    ev = getattr(res, "evidence", None)
+    if ev is not None:
+        g = f.create_group("Evidence")
+        g.attrs["logz"] = ev.logz
+        g.attrs["logz_err"] = ev.logz_err
+        g.attrs["h"] = ev.h
+        g.attrs["n_iter"] = ev.n_iter
+        g.attrs["n_like"] = ev.n_like
+        g.attrs["converged"] = bool(ev.converged)
+        for name, arr in (("Samples", ev.samples), ("LogLike", ev.loglike),
+                          ("LogWt", ev.logwt)):
+            g.create_dataset(name, data=np.asarray(arr, np.float64),
+                             compression="gzip", compression_opts=4)
     if res.logz_pt is not None:
         g = f.create_group("PTEvidence")
         g.attrs["logz"], g.attrs["logz_err"] = res.logz_pt
@@ -227,6 +239,15 @@ def _read_results(f):
             out[attr] = np.asarray(f[name])
             if meta_attr:
                 out[meta_attr] = dict(f[name].attrs)
+    if "Evidence" in f:
+        from mbb_emcee_tpu_torch.nested import NestedResult
+        g = f["Evidence"]
+        out["evidence"] = NestedResult(
+            logz=float(g.attrs["logz"]), logz_err=float(g.attrs["logz_err"]),
+            h=float(g.attrs["h"]), samples=np.asarray(g["Samples"]),
+            loglike=np.asarray(g["LogLike"]), logwt=np.asarray(g["LogWt"]),
+            n_iter=int(g.attrs["n_iter"]), n_like=int(g.attrs["n_like"]),
+            converged=bool(g.attrs.get("converged", True)))
     if "PTEvidence" in f:
         g = f["PTEvidence"]
         out["logz_pt"] = (float(g.attrs["logz"]), float(g.attrs["logz_err"]))

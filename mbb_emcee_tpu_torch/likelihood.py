@@ -174,6 +174,22 @@ class LikelihoodSpec:
                    prior_mean=np.zeros(NPARAMS),
                    prior_isigma=np.zeros(NPARAMS))
 
+    @classmethod
+    def for_box(cls, lower, upper):
+        """A spec of any size from an explicit hard box, nothing fixed and
+        no priors: the parameter space of a non-MBB lnprob (the population
+        tier's hyper-parameters, hierarchy.py)."""
+        lower = np.asarray(lower, np.float64).copy()
+        upper = np.asarray(upper, np.float64).copy()
+        if lower.shape != upper.shape or lower.ndim != 1:
+            raise ValueError("lower/upper must be matching 1-D arrays")
+        if np.any(lower >= upper):
+            raise ValueError("each lower limit must be < its upper limit")
+        n = lower.size
+        return cls(lower=lower, upper=upper, fixed=np.zeros(n, bool),
+                   fixed_values=np.zeros(n), prior_mean=np.zeros(n),
+                   prior_isigma=np.zeros(n))
+
     @property
     def free_indices(self):
         return np.nonzero(~self.fixed)[0]
@@ -187,7 +203,7 @@ class LikelihoodSpec:
 class FreeSpace:
     """Mapping between the reduced sampling space and full theta."""
     free_idx: np.ndarray       # (nfree,)
-    template: np.ndarray       # (5,) zeros at free slots, fixed values else
+    template: np.ndarray       # (npar,) zeros at free slots, fixed values
     lower: np.ndarray          # (nfree,)
     upper: np.ndarray          # (nfree,)
 
@@ -207,8 +223,15 @@ class FreeSpace:
                    lower=spec.lower[free_idx].copy(),
                    upper=spec.upper[free_idx].copy())
 
+    def scatter_matrix(self, dtype=np.float64):
+        """(npar, nfree) scatter: theta = template + scatter @ free, sized
+        from the template so a spec of any size shares this mapping."""
+        s = np.zeros((self.template.size, self.nfree), dtype)
+        s[self.free_idx, np.arange(self.nfree)] = 1.0
+        return s
+
     def expand(self, free_vals):
-        """(..., nfree) free-space -> (..., 5) full parameter vectors."""
+        """(..., nfree) free-space -> (..., npar) full parameter vectors."""
         free_vals = np.asarray(free_vals)
         out = np.broadcast_to(self.template,
                               free_vals.shape[:-1]

@@ -17,7 +17,9 @@ limits and redshift -- are fit at once:
     sources on the chain's device (batchengine.py);
   * run_pt and run_hmc (batchengine.py; tempering.py, hmc.py) sample the
     same catalog by parallel tempering (with per-source evidence) and by
-    HMC, on the batch likelihood's plain version on the fitter's device;
+    HMC, and compute_evidence (nested.py) gives each source's nested-
+    sampling evidence, on the batch likelihood's plain version on the
+    fitter's device;
   * writeToHDF5/from_h5 use the JAX package's batch schema (schema 1), so
     either package reads the other's file; results(i) is a full
     MBBResults for one source.
@@ -147,6 +149,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         self.pt_betas = None        # (S, K) ladders, run_pt()
         self.hmc_step_size = None   # (S,) adapted step sizes, run_hmc()
         self.hmc_mass = None        # (S, nfree) diagonal metric, run_hmc()
+        self.evidence = None        # NestedBatchResult, compute_evidence()
 
     # -- likelihood operands ---------------------------------------------------
     def _response_pack(self):
@@ -448,9 +451,6 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                 f"{self.chain_free.shape[1]} recorded per source")
         return self
 
-    def compute_evidence(self, *args, **kwargs):
-        raise not_ported("compute_evidence (nested sampling)", "A9e")
-
     # -- batched derived quantities --------------------------------------------
     def _params(self, th):
         """(S, n, 5) samples -> five (S, n, 1) parameter tensors."""
@@ -619,6 +619,23 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                                   ("Betas", self.pt_betas),
                                   ("SwapFraction", self.swap_fraction)):
                     g.create_dataset(name, data=arr)
+            if self.evidence is not None:
+                ev = self.evidence
+                g = f.create_group("Evidence")
+                g.attrs["nbatch"] = ev.nbatch
+                g.attrs["nlive"] = ev.nlive
+                for name, arr in (("LogZ", ev.logz),
+                                  ("LogZErr", ev.logz_err), ("H", ev.h),
+                                  ("NIter", ev.n_iter),
+                                  ("NLike", ev.n_like)):
+                    g.create_dataset(name, data=arr)
+                if ev.converged is not None:
+                    g.create_dataset("Converged", data=ev.converged)
+                for name, arr in (("Samples", ev.samples),
+                                  ("LogLike", ev.loglike),
+                                  ("LogWt", ev.logwt)):
+                    g.create_dataset(name, data=np.asarray(arr, np.float32),
+                                     compression="gzip")
             if self.hmc_step_size is not None:
                 g = f.create_group("HMC")
                 g.create_dataset("StepSize", data=self.hmc_step_size)
@@ -720,6 +737,22 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                               np.asarray(g["LogZTIErr"]))
                 mf.pt_betas = np.asarray(g["Betas"])
                 mf.swap_fraction = np.asarray(g["SwapFraction"])
+            if "Evidence" in f:
+                from mbb_emcee_tpu_torch.nested import NestedBatchResult
+                g = f["Evidence"]
+                mf.evidence = NestedBatchResult(
+                    logz=np.asarray(g["LogZ"]),
+                    logz_err=np.asarray(g["LogZErr"]),
+                    h=np.asarray(g["H"]),
+                    samples=np.asarray(g["Samples"], np.float64),
+                    loglike=np.asarray(g["LogLike"], np.float64),
+                    logwt=np.asarray(g["LogWt"], np.float64),
+                    n_iter=np.asarray(g["NIter"]),
+                    n_like=np.asarray(g["NLike"]),
+                    nbatch=int(g.attrs["nbatch"]),
+                    nlive=int(g.attrs["nlive"]),
+                    converged=(np.asarray(g["Converged"], bool)
+                               if "Converged" in g else None))
             if "HMC" in f:
                 mf.hmc_step_size = np.asarray(f["HMC"]["StepSize"])
                 mf.hmc_mass = np.asarray(f["HMC"]["Mass"])
@@ -780,6 +813,10 @@ class _SourceView:
         if mf.hmc_step_size is not None:
             self.hmc_step_size = float(mf.hmc_step_size[i])
             self.hmc_mass = mf.hmc_mass[i].copy()
+        if mf.evidence is not None:
+            # this source's NestedResult, as a single fit's
+            # compute_evidence() leaves it
+            self.evidence = mf.evidence[i]
 
     def _response_pack(self):
         return self._pack

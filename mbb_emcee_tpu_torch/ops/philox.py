@@ -8,11 +8,11 @@ This module is the same generator written with int64 torch ops, so the
 plain sampler draws the identical stream on any device and a kernel run can
 be replayed exactly by the plain version.
 
-Parallel tempering and HMC (tempering.py, hmc.py) draw from the same
-generator under the same key on counters the stretch move never uses
-(tagged_bits): a tempered run on the lnprob kernel is replayed by the plain
-likelihood on the same draws, and a source's stream does not depend on its
-batch.
+Parallel tempering, HMC and nested sampling (tempering.py, hmc.py,
+nested.py) draw from the same generator under the same key on counters the
+stretch move never uses (tagged_bits): a tempered or nested run on the
+lnprob kernel is replayed by the plain likelihood on the same draws, and a
+source's stream does not depend on its batch.
 
 32-bit words live in int64 tensors; the 32x32 -> 64-bit products are split
 into 16-bit limbs so nothing overflows int64.
@@ -96,20 +96,25 @@ def stretch_uniforms(key, step0, nsteps, half, device, source=0):
 # below 2^63; these streams put 2^31 + tag * 2^20 + (step >> 32) there, so no
 # counter of theirs is ever one of the stretch move's under the same key.
 _TAG_BASE = 0x80000000
-PT_TAG, HMC_TAG_A, HMC_TAG_B = 1, 2, 3
+PT_TAG, HMC_TAG_A, HMC_TAG_B, NESTED_TAG = 1, 2, 3, 4
 _MAX_TAGGED_STEP = 1 << 52
+# Nested sampling's start draws sit on lanes from 2^31 of iteration 0; an
+# iteration's draws use lanes below nsteps * nbatch, which stays under it.
+_NESTED_START_LANE = 1 << 31
 
 
-def tagged_bits(key, tag, step0, nsteps, nlanes, device, source=0):
+def tagged_bits(key, tag, step0, nsteps, nlanes, device, source=0, lane0=0):
     """The four Philox words of counter (step low 32 bits, source, lane,
     2^31 + tag * 2^20 + step high bits) for `nsteps` steps from global step
-    `step0` and lanes 0..nlanes-1: int64 tensors of shape (nsteps, nlanes),
-    or (nsteps, S, nlanes) when `source` is a 1-D sequence of S source
-    indices. A source's words depend on its index alone, not on the batch
-    it is drawn with."""
+    `step0` and lanes lane0..lane0+nlanes-1: int64 tensors of shape
+    (nsteps, nlanes), or (nsteps, S, nlanes) when `source` is a 1-D
+    sequence of S source indices. A source's words depend on its index
+    alone, not on the batch it is drawn with."""
     if int(step0) < 0 or int(step0) + int(nsteps) > _MAX_TAGGED_STEP:
         raise ValueError(f"step {step0} + {nsteps} outside the tagged "
                          f"streams' range [0, 2^52)")
+    if int(lane0) < 0 or int(lane0) + int(nlanes) > 1 << 32:
+        raise ValueError(f"lanes {lane0} + {nlanes} outside [0, 2^32)")
     src = torch.as_tensor(source, dtype=torch.int64, device=device)
     lead = tuple(src.shape)
     ones = (1,) * len(lead)
@@ -118,7 +123,8 @@ def tagged_bits(key, tag, step0, nsteps, nlanes, device, source=0):
     full = (nsteps,) + lead + (nlanes,)
     c0 = (step & _MASK32).expand(full)
     c1 = (src.view((1,) + lead + (1,)) & _MASK32).expand(full)
-    c2 = torch.arange(nlanes, dtype=torch.int64, device=device).expand(full)
+    c2 = (torch.arange(nlanes, dtype=torch.int64, device=device)
+          + int(lane0)).expand(full)
     c3 = (_TAG_BASE + (int(tag) << 20) + (step >> 32)).expand(full)
     return philox4x32(c0, c1, c2, c3, int(key))
 
@@ -158,6 +164,44 @@ def hmc_draws(key, step0, nsteps, nchains, nfree, device, source=0):
         normals += [r * torch.cos(th), r * torch.sin(th)]
     return (torch.stack(normals[:nfree], dim=-1),
             (0.8 + 0.4 * u[6])[..., None], u[7])
+
+
+def _index(u, n):
+    """Uniforms in (0, 1) -> indices in [0, n), the stretch move's
+    partner mapping."""
+    return torch.clamp((u * n).to(torch.int64), max=int(n) - 1)
+
+
+def nested_draws(key, iteration0, niters, nbatch, nsteps, nsurv, device,
+                 source=0):
+    """Nested sampling's draws for `niters` iterations from global
+    iteration `iteration0`: one Philox call per (iteration, step k, lane b)
+    gives replacement b's partner index in [0, nsurv), its z and accept
+    uniforms at step k, and (at k = 0) its seed index in [0, nsurv).
+    Returns (seed (niters, [S,] nbatch) int64, partner (niters, [S,]
+    nsteps, nbatch) int64, uz, ua (niters, [S,] nsteps, nbatch) fp32)."""
+    if int(nsteps) * int(nbatch) > _NESTED_START_LANE:
+        raise ValueError("nsteps * nbatch must stay below 2^31")
+    x = tagged_bits(key, NESTED_TAG, iteration0, niters,
+                    int(nsteps) * int(nbatch), device, source)
+    lead = x[0].shape[:-1]
+    x = [w.reshape(lead + (int(nsteps), int(nbatch))) for w in x]
+    return (_index(bits_to_uniform(x[3][..., 0, :]), nsurv),
+            _index(bits_to_uniform(x[0]), nsurv),
+            bits_to_uniform(x[1]), bits_to_uniform(x[2]))
+
+
+def nested_start(key, nlive, ndim, device, source=0):
+    """Nested sampling's start: ([S,] nlive, ndim) fp32 uniforms in the
+    unit cube, the four words of each Philox call in order, on lanes from
+    2^31 of iteration 0 (no iteration's draws use them)."""
+    nwords = int(nlive) * int(ndim)
+    x = tagged_bits(key, NESTED_TAG, 0, 1, -(-nwords // 4), device, source,
+                    lane0=_NESTED_START_LANE)
+    w = torch.stack(x, dim=-1)[0]
+    lead = w.shape[:-2]
+    w = w.reshape(lead + (-1,))[..., :nwords]
+    return bits_to_uniform(w).reshape(lead + (int(nlive), int(ndim)))
 
 
 # Lanes x steps per block of draws: bounds the int64 intermediates of one

@@ -20,16 +20,21 @@ def _replace(spec: LikelihoodSpec, **kw) -> LikelihoodSpec:
 
 
 class ParamSpaceMixin:
+    def _param_index(self, param):
+        """Index of a parameter name or index (the MBB parameters; the
+        population tier addresses its hyper-parameters instead)."""
+        return param_index(param)
+
     def set_lowlim(self, param, value):
         """Hard lower box limit."""
-        i = param_index(param)
+        i = self._param_index(param)
         lo = self._spec.lower.copy()
         lo[i] = float(value)
         self._spec = _replace(self._spec, lower=lo)
         return self
 
     def set_uplim(self, param, value):
-        i = param_index(param)
+        i = self._param_index(param)
         hi = self._spec.upper.copy()
         hi[i] = float(value)
         self._spec = _replace(self._spec, upper=hi)
@@ -38,7 +43,7 @@ class ParamSpaceMixin:
     def fix_param(self, param, value=None):
         """Fix a parameter (at `value`, or its current initial value); it
         is removed from the sampling space."""
-        i = param_index(param)
+        i = self._param_index(param)
         fixed = self._spec.fixed.copy()
         fv = self._spec.fixed_values.copy()
         fixed[i] = True
@@ -47,7 +52,7 @@ class ParamSpaceMixin:
         return self
 
     def unfix_param(self, param):
-        i = param_index(param)
+        i = self._param_index(param)
         fixed = self._spec.fixed.copy()
         fixed[i] = False
         self._spec = _replace(self._spec, fixed=fixed)
@@ -56,7 +61,7 @@ class ParamSpaceMixin:
     def set_gaussian_prior(self, param, mean, sigma):
         if np.ndim(mean) != 0 or np.ndim(sigma) != 0:
             raise TypeError("set_gaussian_prior takes scalar mean/sigma")
-        i = param_index(param)
+        i = self._param_index(param)
         if not np.isfinite(mean):
             raise ValueError(f"prior mean must be finite; got {mean!r}")
         # NOT `sigma <= 0`: NaN compares False and would make every
@@ -74,7 +79,7 @@ class ParamSpaceMixin:
     def set_param_init(self, param, value=None, scatter=None):
         """Set a parameter's initial walker-ball center and/or scatter;
         value=None keeps the data-driven T/fnorm auto-seed active."""
-        i = param_index(param)
+        i = self._param_index(param)
         if value is not None:
             self._init[i] = float(value)
             self._user_init[i] = True

@@ -104,6 +104,7 @@ class MBBResults:
         self.loo_result = None
         self.logz_pt = None   # (lnZ, err) stepping stone, from run_pt()
         self.logz_ti = None   # (lnZ, err) thermodynamic-integration check
+        self.evidence = None  # NestedResult (compute_evidence on the fitter)
 
         if fit is not None:
             self._from_fit(fit)
@@ -128,6 +129,7 @@ class MBBResults:
         self.response_pack = fit._response_pack()
         self.logz_pt = getattr(fit, "logz_pt", None)
         self.logz_ti = getattr(fit, "logz_ti", None)
+        self.evidence = getattr(fit, "evidence", None)
 
     def _from_h5(self, h5file):
         explicit_z, explicit_dl = self.redshift, self.lumdist

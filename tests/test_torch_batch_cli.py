@@ -166,14 +166,139 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--get-evidence", "--hmc"], "A9"), (["--get-evidence", "--pt"], "A9"),
-    (["--get-evidence"], "A9"), (["--population", "T"], "A9"),
     (["--plot-population", "p.png"], "A10"),
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
                         *FAST, *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--get-evidence", "--hmc", "--hmc-leapfrog", "4"],
+    ["--get-evidence", "--pt", "--pt-rungs", "4", "--pt-beta-min", "0.01"],
+    ["--get-evidence", "--summary"],
+    ["--population", "T", "--population-burn", "10",
+     "--population-steps", "20", "--population-walkers", "8"]])
+def test_batch_cli_evidence_and_population_run(tmp_path, capsys, flags):
+    """--get-evidence and --population (once refused as A9e and A9f) run
+    after the batch fit, HMC or PT on --device cpu: the JAX CLI's lines,
+    the batch file's Evidence group (read by the JAX package) or the
+    .pop.h5 file."""
+    out = tmp_path / "o.h5"
+    rc = cli_batch.main([str(_catalog(tmp_path, nsrc=3)), str(out), *FAST,
+                         "--nlive", "40", *flags])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    jm = J.MultiFitter.from_h5(str(out))
+    if "--get-evidence" in flags:
+        ev = jm.evidence
+        assert ev.logz.shape == (3,) and np.all(np.isfinite(ev.logz))
+        assert (f"ln Z: median {np.median(ev.logz):.4f} over 3 sources "
+                f"(median err {np.median(ev.logz_err):.4f})") in printed
+        header = [ln for ln in printed.splitlines() if "max-Rhat" in ln]
+        assert bool(header) == ("--summary" in flags)
+        assert all(ln.rstrip().endswith("lnZ") for ln in header)
+    else:
+        assert jm.evidence is None
+        pop = str(tmp_path / "o.pop.h5")
+        assert f"hyper chain written to {pop}" in printed
+        back = T.HierarchicalFitter.from_h5(pop, device="cpu")
+        assert back.chain_free.shape == (20, 8, 2)
+
+
+def _mock_catalog(path, nsources, seed):
+    """tests/test_cli_batch.py's synthetic catalog: optically thin, no
+    alpha, T in [25, 40] K, 5% errors."""
+    from mbb_emcee_tpu_torch.models.modified_blackbody import (
+        MBBShape, mbb_fnu)
+    wave = np.array([100.0, 160.0, 250.0, 350.0, 500.0, 850.0])
+    rng = np.random.default_rng(seed)
+    trues = np.column_stack([
+        rng.uniform(25.0, 40.0, nsources), rng.uniform(1.5, 2.2, nsources),
+        np.full(nsources, 250.0), np.full(nsources, 3.5),
+        rng.uniform(20.0, 60.0, nsources)])
+    z = rng.uniform(1.0, 3.0, nsources)
+    lines = ["# mock survey catalog",
+             "wave = " + " ".join(f"{w:g}" for w in wave)]
+    for i in range(nsources):
+        f = mbb_fnu(torch.tensor(trues[i], dtype=torch.float32),
+                    torch.tensor(wave, dtype=torch.float32),
+                    MBBShape(opthin=True, noalpha=True)).double().numpy()
+        unc = 0.05 * f
+        flux = f + unc * rng.standard_normal(f.size)
+        lines.append(f"SRC{i:03d} {z[i]:.3f} " + " ".join(
+            f"{flux[j]:.4f} {unc[j]:.4f}" for j in range(wave.size)))
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def test_batch_cli_population(tmp_path, capsys):
+    """Twin of tests/test_cli_batch.py's: --population after the batch
+    fit prints mu/sigma posteriors and the ESS, and writes the hyper chain
+    (read by both packages); the batch file is untouched."""
+    import h5py
+    from mbb_emcee_tpu import hierarchy as jh
+    cat = _mock_catalog(tmp_path / "cat.txt", 4, 8)
+    out = str(tmp_path / "batch.h5")
+    rc = cli_batch.main([cat, out, "--opthin", "--noalpha", "-w", "64",
+                         "-b", "40", "-n", "120", "--seed", "5",
+                         "--population", "T", "--population-burn", "60",
+                         "--population-steps", "200",
+                         "--population-walkers", "16", "--device", "cpu"])
+    assert rc == 0
+    text = capsys.readouterr().out
+    assert "population (4 sources" in text
+    assert "T: mu " in text and "sigma " in text
+    assert "reweight ESS min" in text
+    pop = str(tmp_path / "batch.pop.h5")
+    assert f"hyper chain written to {pop}" in text
+    with h5py.File(pop) as f:
+        assert f.attrs["kind"] == "hierarchy"
+        assert [n.decode() for n in f.attrs["hyper_names"]] == ["mu_T",
+                                                                "sigma_T"]
+        assert f["chain_free"].shape == (200, 16, 2)
+        assert f["reweight_ess"].shape == (4,)
+    assert jh.HierarchicalFitter.from_h5(pop).free_hyper_names() == [
+        "mu_T", "sigma_T"]
+    assert J.MultiFitter.from_h5(out).nsources == 4
+
+
+def test_batch_cli_population_correlated(tmp_path, capsys):
+    cat = _mock_catalog(tmp_path / "cat.txt", 4, 12)
+    out = str(tmp_path / "batch.h5")
+    rc = cli_batch.main([cat, out, "--opthin", "--noalpha", "-w", "64",
+                         "-b", "40", "-n", "120", "--seed", "5",
+                         "--population", "T", "beta",
+                         "--population-correlated",
+                         "--population-burn", "60",
+                         "--population-steps", "150",
+                         "--population-walkers", "16", "--device", "cpu"])
+    assert rc == 0
+    assert "rho(T,beta)" in capsys.readouterr().out
+    back = T.HierarchicalFitter.from_h5(str(tmp_path / "batch.pop.h5"),
+                                        device="cpu")
+    assert back.population.hyper_names == (
+        "mu_T", "mu_beta", "sigma_T", "sigma_beta", "rho_T_beta")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--map", "--population", "T"], ["--map", "--get-evidence"],
+    ["--chunk-size", "2", "--population", "T"],
+    ["--population", "T", "--population-correlated"],
+    ["--population-correlated"]])
+def test_batch_cli_population_conflicts_match_jax(tmp_path, flags):
+    """Twin of tests/test_cli_batch.py's population conflicts: the port
+    exits with the JAX batch CLI's message, before any sampling."""
+    from mbb_emcee_tpu import cli_batch as jcli_batch
+    cat = _mock_catalog(tmp_path / "cat.txt", 4, 0)
+    args = [cat, str(tmp_path / "x.h5"), *flags]
+    with pytest.raises(SystemExit) as want:
+        jcli_batch.main(args)
+    with pytest.raises(SystemExit) as got:
+        cli_batch.main(args + ["--device", "cpu"])
+    assert str(got.value) == str(want.value) and str(got.value)
+    assert not (tmp_path / "x.h5").exists()
 
 
 @pytest.mark.parametrize("mode", ["builtin", "responsefile"])

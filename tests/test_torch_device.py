@@ -1,8 +1,9 @@
 """The port runs on the card unless the caller asks for the CPU: with no
 CUDA device and no device named (or the card named), MBBFitter(),
-MultiFitter(), MultiFitter.from_h5, MBBResults(h5file=) and both CLIs fail
-at once with a message naming the CPU switch, and nothing falls back to the
-CPU silently."""
+MultiFitter(), MultiFitter.from_h5, MBBResults(h5file=),
+HierarchicalFitter(), build_hier_lnprob, nested_sample and both CLIs fail at
+once with a message naming the CPU switch, and nothing falls back to the CPU
+silently."""
 
 import numpy as np
 import pytest
@@ -80,3 +81,23 @@ def test_clis_refuse_without_a_card(no_card, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--device cpu"):
         cli_batch.main([str(cat), str(tmp_path / "o.h5")])
     assert not (tmp_path / "o.h5").exists()
+
+
+def test_population_and_nested_refuse_without_a_card(no_card):
+    """HierarchicalFitter, build_hier_lnprob, HierarchicalFitter.from_h5 and
+    nested_sample follow the same rule; from_batch takes the batch's
+    device, here the CPU named by the batch."""
+    samples = np.random.default_rng(0).normal(35.0, 4.0, (3, 16, 1))
+    pop = T.TruncatedGaussianPopulation.for_box(("T",), [10.0], [60.0])
+    spec = T.LikelihoodSpec.for_box(pop.lower, pop.upper)
+    for make in (lambda: T.HierarchicalFitter(samples, pop),
+                 lambda: T.HierarchicalFitter(samples, pop, device="cuda"),
+                 lambda: T.hierarchy.build_hier_lnprob(samples, pop, spec),
+                 lambda: T.nested_sample(lambda x: x[:, 0], [0.0], [1.0], 0)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    mf = T.MultiFitter(nwalkers=16, opthin=True, noalpha=True, device="cpu")
+    mf.set_data(WAVE, np.stack([FLUX, FLUX]), 0.05 * np.stack([FLUX, FLUX]))
+    mf.run(nburn=2, nsteps=4)
+    hf = T.HierarchicalFitter.from_batch(mf, ("T",))
+    assert hf.device.type == "cpu"

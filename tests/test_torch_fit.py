@@ -235,14 +235,31 @@ def test_cli_checks_redshift_before_sampling(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--get-evidence", "--hmc"], "A9"), (["--get-evidence", "--pt"], "A9"),
-    (["--get-evidence"], "A9"),
     (["--plot-sed", "x.png"], "A10"), (["--plot-corner", "x.png"], "A10"),
     (["--plot-chain", "x.png"], "A10"), (["--profile-dir", "prof"], "A8")])
 def test_cli_refuses_waiting_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli.main([str(_photfile(tmp_path)), str(tmp_path / "o.h5"),
                   "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--hmc", "--hmc-leapfrog", "4"],
+    ["--pt", "--pt-rungs", "4", "--pt-beta-min", "0.01"], []])
+def test_cli_get_evidence_runs(tmp_path, capsys, flags):
+    """--get-evidence (once refused as A9e), after the stretch run, HMC or
+    PT: the JAX CLI's line, and the /Evidence group in the file, which the
+    JAX package reads."""
+    out = tmp_path / "fit.h5"
+    rc = cli.main([str(_photfile(tmp_path)), str(out), "-w", "16", "-b",
+                   "10", "-n", "20", "--get-evidence", "--nlive", "40",
+                   "--device", "cpu", *flags])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert "ln Z = " in printed and "likelihood evaluations)" in printed
+    ev = J.MBBResults(h5file=str(out)).evidence
+    assert np.isfinite(ev.logz) and ev.samples.shape[1] == 5
+    assert f"ln Z = {ev.logz:.4f} +/- {ev.logz_err:.4f}" in printed
 
 
 def _named_photfile(tmp_path):

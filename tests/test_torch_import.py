@@ -39,15 +39,16 @@ FLUX = np.array([11.2, 32.1, 44.8, 38.2, 22.9])
 
 def test_import_leaves_jax_and_reference_out():
     """In a fresh interpreter (this one already holds jax): importing the
-    port, its CLIs and the batch tier loads no jax, no mbb_emcee_tpu and no
-    h5py."""
+    port, its CLIs, the batch tier, nested sampling and the population tier
+    loads no jax, no mbb_emcee_tpu and no h5py."""
     code = ("import sys, mbb_emcee_tpu_torch, mbb_emcee_tpu_torch.cli, "
             "mbb_emcee_tpu_torch.convert, mbb_emcee_tpu_torch.cli_batch, "
             "mbb_emcee_tpu_torch.catalog, mbb_emcee_tpu_torch.multifit, "
             "mbb_emcee_tpu_torch.batchengine, "
             "mbb_emcee_tpu_torch.ops.multifit_kernel, "
             "mbb_emcee_tpu_torch.checkpoint, mbb_emcee_tpu_torch.response, "
-            "mbb_emcee_tpu_torch.instruments\n"
+            "mbb_emcee_tpu_torch.instruments, mbb_emcee_tpu_torch.nested, "
+            "mbb_emcee_tpu_torch.hierarchy\n"
             "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py') "
             "if m in sys.modules]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -168,15 +169,22 @@ def test_no_refusal_names_a2_or_a4():
     assert offending == []
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda f: f.compute_evidence(nlive=64), "A9"),
-    (lambda f: f.compute_evidence(verbose=True), "A9"),
-    (lambda f: f.compute_evidence(), "A9")])
-def test_fitter_refuses_unported_surfaces(call, item):
+@pytest.mark.parametrize("call,nlive", [
+    (lambda f: f.compute_evidence(nlive=64, max_iter=4), 64),
+    (lambda f: f.compute_evidence(nlive=64, max_iter=4, verbose=True), 64),
+    (lambda f: f.compute_evidence(max_iter=2), 512)])
+def test_fitter_compute_evidence_runs(call, nlive):
+    """compute_evidence (nested sampling, once refused as A9e) runs on the
+    CPU's plain likelihood: here cut short by max_iter, so it warns and
+    reports converged=False, with its samples in the full 5-parameter
+    space and stored on the fitter."""
     fit = MBBFitter(nwalkers=16, device="cpu")
     fit.set_data(WAVE, FLUX, 0.05 * FLUX)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        call(fit)
+    with pytest.warns(UserWarning, match="max_iter"):
+        ev = call(fit)
+    assert fit.evidence is ev and not ev.converged
+    assert ev.samples.shape == (ev.n_iter * 32 + nlive, 5)
+    assert np.isfinite(ev.logz)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ replayed from JAX's own draws (a boxed Gaussian over 5 steps, configs 0-3
 of tools/validate_tpu_parity.py over one), the same refusals with the same
 messages; the Philox streams of the tempered and HMC runs; then the port's
 twins of tests/test_tempering.py (single fit and batch, without the mesh
-and trace-count cases; the nested-sampling cross-checks wait for A9e)."""
+and trace-count cases), with their cross-checks against the port's nested
+sampling (nested.py)."""
 
 import numpy as np
 import jax
@@ -292,8 +293,9 @@ def test_set_betas_and_run_refusals_match_jax():
 
 def test_tempered_and_hmc_streams():
     """A source's draws depend on its index, not its batch; a step's draws
-    on the step, not the block; the tagged counters never meet the stretch
-    move's; Box-Muller normals are standard normal."""
+    on the step, not the block; the tagged counters (PT, HMC and nested
+    sampling) never meet the stretch move's; Box-Muller normals are standard
+    normal."""
     key = 0x1234_5678_9ABC
     u, us = philox.pt_uniforms(key, 7, 3, 4, 6, "cpu", source=[2, 5])
     u5, us5 = philox.pt_uniforms(key, 8, 2, 4, 6, "cpu", source=5)
@@ -305,6 +307,13 @@ def test_tempered_and_hmc_streams():
     s = philox.stretch_uniforms(key, 0, 2, 8, "cpu")
     assert not np.isin(philox.bits_to_uniform(x[0]).numpy(),
                        s.numpy()).any()
+    tags = (philox.PT_TAG, philox.HMC_TAG_A, philox.HMC_TAG_B,
+            philox.NESTED_TAG)
+    assert len(set(tags)) == 4 and philox.NESTED_TAG == 4
+    xn = philox.tagged_bits(key, philox.NESTED_TAG, 0, 2, 8, "cpu")
+    assert not np.isin(philox.bits_to_uniform(xn[0]).numpy(),
+                       s.numpy()).any()
+    assert not np.isin(xn[0].numpy(), x[0].numpy()).any()
     nrm, jit, ua = philox.hmc_draws(key, 0, 50, 400, 5, "cpu", source=[0, 1])
     assert nrm.shape == (50, 2, 400, 5) and jit.shape == (50, 2, 400, 1)
     assert ua.shape == (50, 2, 400)
@@ -346,12 +355,18 @@ def test_evidence_analytic():
     """lnZ against the normalized uniform box prior is -ln V for a
     normalized Gaussian well inside the box: stepping stone within
     max(3 x err, 0.15 nats), thermodynamic integration within its own
-    discretization bound."""
+    discretization bound, and the nested sampler agrees with stepping
+    stone (tests/test_tempering.py's test_evidence_analytic_and_vs_nested)."""
+    from mbb_emcee_tpu_torch.nested import nested_sample
     _, tl = _boxed_gauss()
     res = tt.pt_sample(tl, _ball(3, MU, 0.1 * SIG, 64), seed=2, nrungs=16,
                        nburn=300, nsteps=1500)
     assert abs(res.logz - (-LNV)) < max(0.15, 3.0 * res.logz_err)
     assert abs(res.logz_ti - (-LNV)) < max(0.35, 3.0 * res.logz_ti_err)
+    rn = nested_sample(tl, LOWER, UPPER, 4, nlive=400, nbatch=32, nsteps=24,
+                       device="cpu")
+    assert abs(res.logz - rn.logz) < max(
+        0.4, 3.0 * np.hypot(res.logz_err, rn.logz_err))
 
 
 def test_evidence_wide_prior():
@@ -451,7 +466,11 @@ def _mock_fit(seed, nwalkers=64):
 def test_run_pt_matches_stretch_posterior():
     """PT's cold rung and the plain stretch ensemble sample the same
     posterior: medians and widths of a 3-parameter thin fit agree within
-    MC error."""
+    MC error, and PT's stepping-stone evidence agrees with the nested
+    sampler's. The nested run takes 96 constrained steps per iteration
+    where the JAX package's twin takes 24: on this fit's default box (fnorm
+    up to 1e7) 24 steps under-mix, and a run now and then loses a nat or
+    two of evidence, in both packages."""
     fp = _mock_fit(seed=3).run_pt(nrungs=8, nburn=250, nsteps=600)
     fs = _mock_fit(seed=4).run(nburn=300, nsteps=800)
     rp, rs = T.MBBResults(fit=fp), T.MBBResults(fit=fs)
@@ -461,6 +480,9 @@ def test_run_pt_matches_stretch_posterior():
         np.testing.assert_allclose(cp[1] + cp[2], cs[1] + cs[2], rtol=0.30,
                                    err_msg=p)
     assert np.isfinite(fp.logz_pt[0]) and fp.logz_pt[1] > 0
+    lz, lz_err = fp.logz_pt
+    ev = fs.compute_evidence(nlive=256, nbatch=32, nsteps=96)
+    assert abs(lz - ev.logz) < max(1.0, 3.0 * np.hypot(lz_err, ev.logz_err))
 
 
 def test_run_pt_downstream_analysis():
@@ -518,7 +540,8 @@ def _mock_batch(S=3, seed=7, nwalkers=64):
 
 def test_multifit_run_pt_matches_plain_run():
     """Batched PT cold chains target each source's own posterior, with
-    per-source auto ladders ending at beta = 0."""
+    per-source auto ladders ending at beta = 0, and each source's
+    stepping-stone lnZ agrees with the batch's nested-sampling evidence."""
     mp = _mock_batch(seed=7).run_pt(nrungs=8, nburn=200, nsteps=500)
     assert mp.chain_free.shape == (3, 500, 64, 3)
     assert mp.acceptance_fraction.shape == (3, 64)
@@ -529,6 +552,10 @@ def test_multifit_run_pt_matches_plain_run():
         assert np.all(np.abs(cp[:, 0] - cs[:, 0])
                       < 0.4 * (cs[:, 1] + cs[:, 2])), p
     assert np.all(np.isfinite(mp.logz_pt[0]))
+    lz, lz_err = mp.logz_pt
+    ev = ms.compute_evidence(nlive=256, nbatch=32, nsteps=24)
+    assert np.all(np.abs(lz - ev.logz)
+                  < np.maximum(1.5, 4.0 * np.hypot(lz_err, ev.logz_err)))
     assert mp.pt_betas.shape[0] == 3
     assert np.all(mp.pt_betas[:, -1] == 0.0)
     assert np.all(mp.pt_betas[:, 0] == 1.0)

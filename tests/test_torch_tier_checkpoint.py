@@ -326,7 +326,8 @@ SINGLE_CONFLICTS = [
     ["--hmc", "--extend-until", "1.05"], ["--pt", "--init-map"],
     ["--hmc", "--n-ensembles", "2"], ["--pt", "--n-ensembles", "2"],
     ["--pt", "--checkpoint", "c.h5"], ["--hmc", "--checkpoint", "c.h5"],
-    ["--hmc", "--resume", "--checkpoint", "c.h5"]]
+    ["--hmc", "--resume", "--checkpoint", "c.h5"],
+    ["--get-evidence", "--map"]]
 
 
 @pytest.mark.parametrize("flags", SINGLE_CONFLICTS)
@@ -359,19 +360,25 @@ def test_batch_cli_conflicts_match_jax(tmp_path, flags):
 
 
 def test_waiting_refusals_name_their_lettered_item(tmp_path):
-    """What still waits names its lettered ROADMAP.md item (A9e nested
-    sampling, A9f population); no refusal names the bare A9 any more."""
+    """What still waits names its lettered ROADMAP.md item (--profile-dir
+    A8, the plots A10, --mesh-devices A11); nothing in the package names
+    A9, A9e or A9f any more (nested sampling and the population tier are
+    ported)."""
     cat = tmp_path / "cat.txt"
     cat.write_text(CATALOG)
-    with pytest.raises(SystemExit, match=r"item A9e\)"):
-        cli.main([str(_photfile(tmp_path)), "o.h5", "--get-evidence",
-                  "--device", "cpu"])
-    with pytest.raises(SystemExit, match=r"item A9f\)"):
-        cli_batch.main([str(cat), "o.h5", "--population", "T",
-                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"item A9e\)"):
-        T.MBBFitter(device="cpu").compute_evidence()
-    pat = re.compile(r'"A9"')
+    for flags, item in ((["--profile-dir", "p"], "A8"),
+                        (["--plot-sed", "x.png"], "A10")):
+        with pytest.raises(SystemExit, match=rf"item {item}\)"):
+            cli.main([str(_photfile(tmp_path)), "o.h5", *flags,
+                      "--device", "cpu"])
+    for flags, item in ((["--profile-dir", "p"], "A8"),
+                        (["--plot-population", "x.png"], "A10"),
+                        (["--mesh-devices", "4"], "A11")):
+        with pytest.raises(SystemExit, match=rf"item {item}\)"):
+            cli_batch.main([str(cat), "o.h5", *flags, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=r"item A11\)"):
+        T.MBBFitter(device="cpu", mesh=object())
+    pat = re.compile(r'"A9[ef]?"')
     pkg = REPO / "mbb_emcee_tpu_torch"
     offending = [f"{p.name}:{i}" for p in sorted(pkg.rglob("*.py"))
                  for i, line in enumerate(p.read_text().splitlines(), 1)
