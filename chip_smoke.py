@@ -147,14 +147,35 @@ non-zero without printing a result):
      the hyper evidence and reweight_ess, the full-size hyper-lnprob
      against the CPU's at POP_CHECK_VECTORS hyper vectors and the hyper
      medians against the same call on the CPU at POP_CPU_SAMPLES stored
-     samples per source.
+     samples per source;
+ 24. the generic-model tier (sed.py: SEDModel, SEDFitter, SEDResults; no
+     kernel of its own, the plain torch sampler over the vmapped user model)
+     through the user's entry points at 250 walkers x 5 bands: (a)
+     build_sed_lnprob of the wrapped 5-parameter MBB against K1 on the same
+     250 and 4,096 vectors, config 2 and config 3's 5 x 65 pack (K1's
+     tolerance); (b) SEDFitter.run(200, 1000) against MBBFitter.run(200,
+     1000) on K2 (medians and 68% widths within max(2%, 3 sigma_MC); no
+     kernel launched, 3 plain sampler runs) and run(n1) + extend(n2)
+     bitwise run(n1 + n2); (c) compute_lir (rtol 1e-4) and
+     compute_peaklambda (rtol 2e-3) of SEDResults and MBBResults on the SED
+     chain, and compute_lir(z_param=...) of a sampled-redshift model
+     against the CPU; (d) examples/two_temp_model.py's model and
+     cmb_corrected_mbb(5.0, opthin=True, noalpha=True) through run(50, 250)
+     against the CPU's same call (medians within 3 sigma_MC); (e) fit_map
+     against the CPU's, map_importance, run(init="map") and run_pt against
+     the K2 fit, run_hmc against the CPU's same call, posterior_predictive
+     and compute_loo against the MBB band fluxes on the same chain,
+     compute_evidence against MBBFitter.compute_evidence on K1 (3x the
+     combined error), each at the depths SED_* name; (f) the stretch step's marginal time, kernels and
+     device busy share under torch.profiler, beside K2's on the same
+     posterior.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, `22`, `23`) runs the build and
-those phases alone, a rehearsal that prints no kernel table and no result
-line;
+before any phase. `--phases 3,15` (or `21`, `22`, `23`, `24`) runs the
+build and those phases alone, a rehearsal that prints no kernel table and
+no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
 posteriors' timings of phases 9 and 14 (about a minute more). A whole run
 takes about 5-6 minutes on one H100 (H100 80GB HBM3 at 700 W), the
@@ -3085,10 +3106,10 @@ def _ss_batch_means(steps, nprod, nrec):
                                  / np.sqrt(PT_BATCHES))
 
 
-def _posterior_vs(tag, fit, ref, rel, free):
+def _posterior_vs(tag, fit, ref, rel, free, phase=22):
     """Medians and 68% widths of `fit` against the K2 fit `ref`, each within
     max(rel, 3 sigma_MC) (sigma_MC of both runs, from their measured
-    autocorrelation times)."""
+    autocorrelation times); the lines carry the phase number `phase`."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     rows, ok_all = [], True
@@ -3107,10 +3128,10 @@ def _posterior_vs(tag, fit, ref, rel, free):
         rows.append(f"p{pi} median {m1[k]:.5g} vs {m2[k]:.5g} (tol {tm:.3g}), "
                     f"width {w1[k]:.4g} vs {w2[k]:.4g} (tol {tw:.3g}) "
                     f"{'PASS' if ok else 'FAIL'}")
-    log(f"[22] {tag} against K2 run(200, 1000), max({100 * rel:g}%, 3 "
-        "sigma_MC):")
+    log(f"[{phase}] {tag} against K2 run(200, 1000), max({100 * rel:g}%, "
+        "3 sigma_MC):")
     for r in rows:
-        log(f"[22]   {r}")
+        log(f"[{phase}]   {r}")
     if not ok_all:
         raise AssertionError(f"{tag}: posterior off the K2 fit's")
 
@@ -3906,8 +3927,552 @@ def phase_evidence(card, tiers=None):
     return launches, out
 
 
+# -- phase 24: the generic-model tier (sed.py) --------------------------------
+# The generic tier runs no kernel: SEDFitter's stretch move is the plain
+# torch sampler over the vmapped user model, launch-bound on the card (~15
+# ms per step at 250 walkers on an H100), so its tiers run at depths cut to
+# keep the phase near a minute: fit_map at SED_MAP (its defaults: 8 starts,
+# 150 Adam + 12 Newton steps), run(init="map") at SED_SEEDED, run_pt at
+# SED_PT (defaults 300 burn + 1000 steps), run_hmc at SED_HMC (defaults 500
+# + 1000 x 16 leapfrog steps), compute_evidence at SED_NESTED (defaults
+# nlive 512, nbatch 32, nsteps 32) on the box SED_EVIDENCE_BOX beside
+# MBBFitter.compute_evidence on K1 at the same settings and box.
+SED_MAP = {"nstarts": 4, "n_adam": 50, "n_newton": 6}
+SED_SEEDED = {"nburn": 50, "nsteps": 100}
+SED_PT = {"nburn": 100, "nsteps": 200}
+SED_HMC = {"nwarmup": 10, "nsteps": 20, "n_leapfrog": 4}
+SED_NESTED = {"nlive": 64, "nbatch": 16, "nsteps": 8}
+# A prior volume around config 2's posterior (T, beta, lambda0, alpha,
+# fnorm): on the default box (lambda0 up to 2e4, fnorm up to 1e7) nested
+# sampling at 8 constrained steps per iteration lands tens of nats low.
+SED_EVIDENCE_BOX = ((15.0, 0.5, 20.0, 0.5, 20.0), (80.0, 4.5, 1500.0, 10.0,
+                                                   80.0))
+# The examples' models through run(50, 250) on the card and in a CPU worker.
+SED_EXAMPLE_DEPTH = {"nburn": 50, "nsteps": 250}
+# Production lengths of the marginal stretch-step time, and the steps of
+# the call whose device busy time torch.profiler takes.
+SED_TIME_STEPS = (20, 80)
+SED_PROFILE_STEPS = 3
+
+
+def sed_mbb_model(opthin=False, noalpha=False):
+    """The 5-parameter MBB as a user SEDModel (the twin of
+    tests/test_sed.py's wrapped model) on the parity tool's box."""
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import SEDModel
+    from mbb_emcee_tpu_torch.models.modified_blackbody import (
+        MBBShape, log_mbb_fnu)
+    shape = MBBShape(opthin=opthin, noalpha=noalpha)
+
+    def fnu(theta, wave):
+        return torch.exp(log_mbb_fnu(theta, wave, shape))
+    return SEDModel(fnu=fnu, param_names=vp.PARAM_NAMES, lower=vp.LOWER,
+                    upper=vp.UPPER, name="mbb-wrapped")
+
+
+def sed_fitter(ci, flux, unc, cov, seed, device=None):
+    """An SEDFitter of the wrapped MBB at parity config `ci`, set up as
+    port_fitter sets up MBBFitter (box, priors, upper-limit band, the
+    shape's fixed parameters, the walker ball at the truth with
+    MBBFitter's scatter)."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import ResponseSet, SEDFitter
+    from mbb_emcee_tpu_torch.fitter import DEFAULT_SCATTER
+    cfg = vp.CONFIGS[ci]
+    fit = SEDFitter(sed_mbb_model(cfg["opthin"], cfg["noalpha"]),
+                    nwalkers=NWALKERS, seed=seed, device=device or DEVICE)
+    band_names = vp.BANDS if cfg["response"] else None
+    fit.set_data(vp.WAVE, flux, unc, cov=cov, band_names=band_names)
+    if cfg["response"]:
+        fit.set_responses(ResponseSet.builtin(vp.BANDS, nnodes=65))
+    fit.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
+    ub = cfg.get("uplim_band")
+    if ub is not None:
+        mask = np.zeros(flux.size, bool)
+        mask[ub] = True
+        fit.set_phot_upperlimits(mask)
+    for (pi, mean, sig) in cfg["priors"]:
+        fit.set_gaussian_prior(pi, mean, sig)
+    # MBBFitter's ball: a generic model's default scatter, 5% of the box
+    # center, is far too wide in lambda0 and fnorm for the MBB's box
+    for i in range(5):
+        fit.set_param_init(i, vp.TRUE[i], DEFAULT_SCATTER[i])
+    if cfg["opthin"]:
+        fit.fix_param("lambda0", vp.TRUE[2])
+    if cfg["noalpha"]:
+        fit.fix_param("alpha", vp.TRUE[3])
+    return fit
+
+
+def two_temp_model():
+    """examples/two_temp_model.py's cold + warm greybody (shared beta), in
+    torch."""
+    import torch
+    from mbb_emcee_tpu_torch import SEDModel
+    from mbb_emcee_tpu_torch.models.modified_blackbody import (
+        MBBShape, log_mbb_fnu)
+    shape = MBBShape(opthin=True, noalpha=True)
+
+    def fnu(theta, wave):
+        t_c, t_w, beta, f_c, f_w = theta
+        pin = [torch.full_like(t_c, 250.0), torch.full_like(t_c, 4.0)]
+        p_c = torch.stack([t_c, beta, *pin, f_c])
+        p_w = torch.stack([t_w, beta, *pin, f_w])
+        return (torch.exp(log_mbb_fnu(p_c, wave, shape))
+                + torch.exp(log_mbb_fnu(p_w, wave, shape)))
+    return SEDModel(
+        fnu=fnu,
+        param_names=("T_cold", "T_warm", "beta", "fnorm_cold", "fnorm_warm"),
+        lower=[5.0, 25.0, 0.5, 1e-3, 1e-4],
+        upper=[25.0, 120.0, 4.0, 1e3, 1e2], name="two-temp-greybody")
+
+
+def example_fitter(which, seed, device=None):
+    """An SEDFitter of one of the examples' models on mock data made from
+    its truth (5% errors, noise from numpy seed 3): "two-temp" at nine
+    bands with tests/test_sed.py's beta prior, "cmb" (cmb_corrected_mbb(
+    5.0, opthin=True, noalpha=True), examples/cmb_high_z_model.py) at five
+    submm bands with T bounded to 10-60 K as the example's command line
+    bounds it."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch import SEDFitter, cmb_corrected_mbb
+    if which == "two-temp":
+        model = two_temp_model()
+        true = np.array([20.0, 45.0, 1.8, 30.0, 0.8])
+        wave = np.array([60.0, 100.0, 160.0, 250.0, 350.0, 500.0, 850.0,
+                         1100.0, 2000.0])
+    else:
+        model = cmb_corrected_mbb(5.0, opthin=True, noalpha=True,
+                                  name="cmb-mbb-z5")
+        true = np.array([22.0, 1.8, 100.0, 3.0, 8.0])
+        wave = np.array([450.0, 850.0, 1300.0, 2000.0, 3000.0])
+    f = model.fnu(torch.tensor(true, dtype=torch.float32),
+                  torch.tensor(wave, dtype=torch.float32)).double().numpy()
+    unc = 0.05 * f
+    flux = f + unc * np.random.default_rng(3).standard_normal(f.size)
+    fit = SEDFitter(model, nwalkers=NWALKERS, seed=seed,
+                    device=device or DEVICE)
+    fit.set_data(wave, flux, unc)
+    for n, v in zip(model.param_names, true):
+        fit.set_param_init(n, v, 0.1 * abs(v))
+    if which == "two-temp":
+        fit.set_gaussian_prior("beta", 1.8, 0.5)
+    else:
+        fit.fix_param("lambda0", 100.0).fix_param("alpha", 3.0)
+        fit.set_lowlim("T", 10.0).set_uplim("T", 60.0)
+        fit.set_uplim("beta", 4.0)
+    return fit
+
+
+def _cpu_example_run(which, seed):
+    """The CPU's run of one of the examples' models (a reference worker):
+    (chain_free (nrec, W, nfree), seconds)."""
+    _cpu_worker_setup()
+    fit = example_fitter(which, seed, device="cpu")
+    _, t = _timed_cpu(lambda: fit.run(**SED_EXAMPLE_DEPTH))
+    return fit.chain_free.numpy(), t
+
+
+def _cpu_sed_map(seed):
+    """The CPU's SEDFitter.fit_map at config 2 (a reference worker): (mode,
+    Laplace sigma, lnp, seconds)."""
+    _cpu_worker_setup()
+    from tools import validate_tpu_parity as vp
+    flux, unc, cov = vp.mock_data(vp.CONFIGS[2])
+    fit = sed_fitter(2, flux, unc, cov, seed, device="cpu")
+    r, t = _timed_cpu(lambda: fit.fit_map(**SED_MAP))
+    return r.x, r.sigma, r.lnprob, t
+
+
+def _cpu_sed_hmc(seed):
+    """The CPU's SEDFitter.run_hmc(**SED_HMC) at config 2 (a reference
+    worker): (chain_free, mean acceptance, seconds)."""
+    _cpu_worker_setup()
+    from tools import validate_tpu_parity as vp
+    flux, unc, cov = vp.mock_data(vp.CONFIGS[2])
+    fit = sed_fitter(2, flux, unc, cov, seed, device="cpu")
+    _, t = _timed_cpu(lambda: fit.run_hmc(**SED_HMC))
+    return fit.chain_free.numpy(), float(fit.acceptance_fraction.mean()), t
+
+
+def _medians_vs(tag, a, b, names):
+    """Medians of two (nrec, W, nfree) host chains within 3 sigma_MC of
+    their difference (each side's from its autocorrelation time)."""
+    import numpy as np
+    free = list(range(a.shape[-1]))
+    (ma, sa), (mb, sb) = [
+        (np.median(c.reshape(-1, c.shape[-1]), axis=0),
+         tau_se(c, c.reshape(-1, c.shape[-1]), free)[0]) for c in (a, b)]
+    tol = 3 * np.hypot(sa, sb)
+    ok = bool(np.all(np.abs(ma - mb) <= tol))
+    log(f"[24] {tag}: " + ", ".join(
+        f"{n} {x:.5g} vs {y:.5g} (tol {t:.3g})"
+        for n, x, y, t in zip(names, ma, mb, tol))
+        + f" {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: medians differ")
+
+
+def _sed_vs_k1(tag, ci, n, pack=None):
+    """build_sed_lnprob on the wrapped MBB against K1 on the same `n`
+    vectors (about 10% out of the box) at config `ci`, K1's tolerance,
+    floors identical. Returns the max abs difference."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.likelihood import LNPROB_FLOOR
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+        mbb_lnprob, prepare_lnprob_inputs)
+    from mbb_emcee_tpu_torch.sed import build_sed_lnprob
+    phot, shape, spec = problem(ci)
+    ops = prepare_lnprob_inputs(phot, shape, spec, pack, device=DEVICE)
+    sed_lnp, fs = build_sed_lnprob(
+        phot, sed_mbb_model(shape.opthin, shape.noalpha), spec,
+        response_pack=pack, device=DEVICE)
+    th, _ = thetas(fs, n=n)
+    x = torch.as_tensor(th, device=DEVICE)
+    got = sed_lnp(x).double().cpu().numpy()
+    want = mbb_lnprob(x, ops).double().cpu().numpy()
+    floor_g, floor_w = got <= LNPROB_FLOOR / 2, want <= LNPROB_FLOOR / 2
+    m = ~floor_w
+    dabs = np.abs(got[m] - want[m])
+    ok = (np.array_equal(floor_g, floor_w)
+          and np.all(dabs <= K1_ATOL + K1_RTOL * np.abs(want[m])))
+    log(f"[24] (a) {tag}: build_sed_lnprob against K1 on {n} vectors "
+        f"({int((~m).sum())} floored in both): max |d| {dabs.max():.3g}, "
+        f"max rel {(dabs / np.abs(want[m])).max():.3g} (rtol {K1_RTOL:g}, "
+        f"atol {K1_ATOL:g}) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"build_sed_lnprob disagrees with K1 ({tag})")
+    return float(dabs.max())
+
+
+def phase_generic(card):
+    """The generic-model tier through the user's entry points (see the
+    module docstring, phase 24). Returns (launches by kernel and path,
+    seconds and numbers by step)."""
+    import concurrent.futures
+    import multiprocessing
+    import warnings
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MBBResults, modelcheck, derived
+    from mbb_emcee_tpu_torch.sed import SEDResults
+
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+    cfg = vp.CONFIGS[2]
+    free = vp.free_indices(cfg)
+    flux, unc, cov = vp.mock_data(cfg)
+
+    def lap(part):
+        out[f"{part} ends at s"] = time.time() - t0
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_runs = {w: pool.submit(_cpu_example_run, w, 2410 + i)
+                    for i, w in enumerate(("two-temp", "cmb"))}
+        cpu_map = pool.submit(_cpu_sed_map, 2420)
+        cpu_hmc = pool.submit(_cpu_sed_hmc, 2422)
+
+        # -- (a) the SED lnprob against K1
+        _, pack = port_response_pack()
+        out["(a) max |d|"] = max(
+            _sed_vs_k1(f"config 2, point, {n}", 2, n) for n in (250, 4096))
+        out["(a) max |d| response"] = max(
+            _sed_vs_k1(f"config 3, 5 x 65, {n}", 3, n, pack)
+            for n in (250, 4096))
+        lap("(a)")
+
+        # -- (b) SEDFitter.run(200, 1000) against MBBFitter.run on K2
+        ref = port_fitter(2, flux, unc, cov, seed=2401)
+        _counts(reset=True)
+        _, out["K2 run(200, 1000)"] = _timed(lambda: ref.run(nburn=200,
+                                                             nsteps=1000))
+        launches["mbb_stretch_run"]["posterior yardstick (phase 24)"] = \
+            _counts()["mbb_stretch_run"]
+        fit = sed_fitter(2, flux, unc, cov, seed=2402)
+        _counts(reset=True)
+        _, t_run = _timed(lambda: fit.run(nburn=200, nsteps=1000))
+        c = _counts()
+        kernels = (c["mbb_lnprob"] + c["mbb_stretch_run"]
+                   + c["mbb_multi_stretch_run"])
+        ok = kernels == 0 and c["plain_sampler_runs"] == 3
+        log(f"[24] (b) SEDFitter(mbb-wrapped).run(200, 1000), config 2 x "
+            f"{NWALKERS}: {t_run:.2f} s (host clock), acceptance "
+            f"{fit.acceptance_fraction.mean():.3f}; {kernels} kernel "
+            f"launches, {c['plain_sampler_runs']} plain sampler runs (want "
+            f"0 and 3: the generic tier runs no TPU-kernel port) "
+            f"{'PASS' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError("SEDFitter.run did not run the plain "
+                                 "sampler alone")
+        out["SEDFitter.run(200, 1000)"] = t_run
+        _posterior_vs("SEDFitter.run(200, 1000)", fit, ref, 0.02, free,
+                      phase=24)
+        whole = sed_fitter(2, flux, unc, cov, seed=2403).run(nburn=10,
+                                                             nsteps=30)
+        part = sed_fitter(2, flux, unc, cov, seed=2403).run(nburn=10,
+                                                            nsteps=20)
+        part.extend(10)
+        ok = (torch.equal(whole.chain_free, part.chain_free)
+              and torch.equal(whole.lnprobability, part.lnprobability))
+        log(f"[24] (b) run(10, 20) + extend(10) against run(10, 30): chains "
+            f"{'bitwise equal PASS' if ok else 'DIFFERENT FAIL'}")
+        lap("(b)")
+        if not ok:
+            raise AssertionError("SEDFitter.extend is not the longer run")
+
+        # -- (c) derived posteriors on a chain shared with MBBResults
+        sres = fit.results(redshift=2.2)
+        mres = MBBResults(fit=ref, redshift=2.2)
+        mres.chain = sres.chain
+        n_samp = sres.flatchain.shape[0]
+        lir_s, out["SEDResults.compute_lir"] = _timed(sres.compute_lir)
+        lir_m, _ = _timed(mres.compute_lir)
+        pk_s, out["SEDResults.compute_peaklambda"] = _timed(
+            sres.compute_peaklambda)
+        pk_m, _ = _timed(mres.compute_peaklambda)
+        d_lir = float(np.max(np.abs(lir_s / lir_m - 1.0)))
+        d_pk = float(np.max(np.abs(pk_s / pk_m - 1.0)))
+        ok = d_lir <= 1e-4 and d_pk <= 2e-3
+        log(f"[24] (c) {n_samp} samples of the SED chain through "
+            f"SEDResults and MBBResults: L_IR max rel {d_lir:.3g} (rtol "
+            f"1e-4), lambda_peak max rel {d_pk:.3g} (rtol 2e-3); SEDResults "
+            f"{out['SEDResults.compute_lir']:.2f} s / "
+            f"{out['SEDResults.compute_peaklambda']:.2f} s (host clock) "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("generic derived posteriors are not "
+                                 "MBBResults'")
+        zfit = _zparam_fitter(DEVICE)
+        _, t_z = _timed(lambda: zfit.run(nburn=20, nsteps=40))
+        zres = zfit.results()
+        lz_card, _ = _timed(lambda: zres.compute_lir(z_param="z"))
+        lz_cpu = SEDResults(fit=zfit, device="cpu").compute_lir(
+            z_param="z")
+        d_z = float(np.max(np.abs(lz_card / lz_cpu - 1.0)))
+        ok = d_z <= 1e-4 and np.all(np.isfinite(lz_card))
+        log(f"[24] (c) compute_lir(z_param='z') of a sampled-redshift model "
+            f"({lz_card.size} samples of run(20, 40), {t_z:.2f} s): card "
+            f"against CPU max rel {d_z:.3g} (rtol 1e-4), L_IR median "
+            f"{np.median(lz_card):.4g} L_sun {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("z_param L_IR on the card is not the CPU's")
+        lap("(c)")
+
+        # -- (d) the examples' models, card against the CPU
+        for i, which in enumerate(("two-temp", "cmb")):
+            ex = example_fitter(which, 2410 + i)
+            _, t_ex = _timed(lambda: ex.run(**SED_EXAMPLE_DEPTH))
+            chain_cpu, t_cpu = cpu_runs[which].result()
+            names = [ex.model.param_names[j] for j in ex.free_space.free_idx]
+            _medians_vs(f"(d) {ex.model.name} run(50, 250): card "
+                        f"({t_ex:.2f} s) against CPU ({t_cpu:.1f} s), "
+                        "within 3 sigma_MC", ex.chain_free.cpu().numpy(),
+                        chain_cpu, names)
+            out[f"{which} run(50, 250)"] = t_ex
+        lap("(d)")
+
+        # -- (e) the tiers through SEDFitter
+        tfit = sed_fitter(2, flux, unc, cov, seed=2420)
+        r, out["fit_map"] = _timed(lambda: tfit.fit_map(**SED_MAP))
+        x_c, s_c, lnp_c, t_mc = cpu_map.result()
+        dx = np.abs(r.x - x_c) / s_c
+        ok = bool(np.all(dx < 1e-2)) and abs(r.lnprob - lnp_c) < 1e-2
+        log(f"[24] (e) fit_map({SED_MAP}) on the card "
+            f"({out['fit_map']:.2f} s) against "
+            f"the CPU's ({t_mc:.1f} s): |d mode| <= {dx.max():.3g} Laplace "
+            f"sigma (1e-2), lnp {r.lnprob:.4f} vs {lnp_c:.4f} "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("SED fit_map on the card is not the CPU's")
+        (_, _, ess), out["map_importance"] = _timed(tfit.map_importance)
+        _, t_seeded = _timed(lambda: tfit.run(init="map", **SED_SEEDED))
+        out["run(init='map')"] = t_seeded
+        log(f"[24] (e) map_importance(2048): ESS {ess:.0f}; "
+            f"run(init='map', {SED_SEEDED}) {t_seeded:.2f} s")
+        _posterior_vs(f"run(init='map', {SED_SEEDED})", tfit, ref, 0.02,
+                      free, phase=24)
+        res = tfit.results()
+        ppc, out["posterior_predictive"] = _timed(res.posterior_predictive)
+        loo, out["compute_loo"] = _timed(res.compute_loo)
+        samples = res._samples(1)
+        mbb_flux = derived.band_flux_eval(
+            vp_shape(2), vp.WAVE)(samples)
+        r_mbb = (mbb_flux - torch.as_tensor(
+            flux, dtype=torch.float32, device=DEVICE)) / torch.as_tensor(
+            unc, dtype=torch.float32, device=DEVICE)
+        chi2_mbb = torch.sum(r_mbb * r_mbb, dim=-1).double().cpu().numpy()
+        want_loo = modelcheck.loo_from_loglik(
+            modelcheck.pointwise_loglik_matrix(
+                derived.band_flux_eval(vp_shape(2), vp.WAVE), samples, flux,
+                np.arange(5), unc_det=unc))
+        d_chi = float(np.max(np.abs(ppc.chi2_obs - chi2_mbb)
+                             / (1.0 + chi2_mbb)))
+        d_loo = abs(loo.elpd_loo - want_loo.elpd_loo)
+        ok = (d_chi < 1e-4 and d_loo < 1e-3 * abs(want_loo.elpd_loo)
+              and 0.0 < ppc.p_value < 1.0)
+        log(f"[24] (e) posterior_predictive ({out['posterior_predictive']:.2f}"
+            f" s) p {ppc.p_value:.3f}, chi2_obs against the MBB band "
+            f"fluxes' max rel {d_chi:.3g}; compute_loo "
+            f"({out['compute_loo']:.2f} s) elpd {loo.elpd_loo:.3f} against "
+            f"{want_loo.elpd_loo:.3f} {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("SED PPC / LOO are not the MBB model's")
+        pfit = sed_fitter(2, flux, unc, cov, seed=2421)
+        _, out["run_pt"] = _timed(lambda: pfit.run_pt(**SED_PT))
+        log(f"[24] (e) run_pt({SED_PT}): {pfit.pt_result.betas.size} rungs, "
+            f"{out['run_pt']:.2f} s, stepping-stone lnZ "
+            f"{pfit.logz_pt[0]:.3f} +- {pfit.logz_pt[1]:.3f}")
+        _posterior_vs(f"run_pt({SED_PT}) cold chain", pfit, ref, 0.02, free,
+                      phase=24)
+        hfit = sed_fitter(2, flux, unc, cov, seed=2422)
+        _, out["run_hmc"] = _timed(lambda: hfit.run_hmc(**SED_HMC))
+        grads = 1 + (SED_HMC["nwarmup"] + SED_HMC["nsteps"]) \
+            * SED_HMC["n_leapfrog"]
+        chain_cpu, acc_cpu, t_hc = cpu_hmc.result()
+        log(f"[24] (e) run_hmc({SED_HMC}): {out['run_hmc']:.2f} s, "
+            f"{1e3 * out['run_hmc'] / grads:.1f} ms per gradient, acceptance "
+            f"{hfit.acceptance_fraction.mean():.3f} (CPU {acc_cpu:.3f}, "
+            f"{t_hc:.1f} s)")
+        _medians_vs(f"(e) run_hmc({SED_HMC}) on the card against the CPU's "
+                    "same call (a depth too short to converge: held to the "
+                    "CPU, not to K2), within 3 sigma_MC",
+                    hfit.chain_free.cpu().numpy(), chain_cpu,
+                    list(vp.PARAM_NAMES))
+        efit = sed_fitter(2, flux, unc, cov, seed=2423)
+        kfit = port_fitter(2, flux, unc, cov, seed=2423)
+        for f in (efit, kfit):
+            for i in range(5):
+                f.set_lowlim(i, SED_EVIDENCE_BOX[0][i])
+                f.set_uplim(i, SED_EVIDENCE_BOX[1][i])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            ev, out["compute_evidence"] = _timed(
+                lambda: efit.compute_evidence(**SED_NESTED))
+            _counts(reset=True)
+            evk, out["K1 compute_evidence"] = _timed(
+                lambda: kfit.compute_evidence(**SED_NESTED))
+        nk = _counts()["mbb_lnprob"]
+        launches["mbb_lnprob"]["compute_evidence, yardstick (phase 24)"] = nk
+        tol = 3 * np.hypot(ev.logz_err, evk.logz_err)
+        ok = (abs(ev.logz - evk.logz) <= tol and nk == 1 + evk.n_iter
+              * SED_NESTED["nsteps"])
+        log(f"[24] (e) compute_evidence({SED_NESTED}) on SED_EVIDENCE_BOX: "
+            f"SED lnZ "
+            f"{ev.logz:.4f} +- {ev.logz_err:.4f} ({ev.n_iter} iterations, "
+            f"{out['compute_evidence']:.2f} s) against MBBFitter on K1 "
+            f"{evk.logz:.4f} +- {evk.logz_err:.4f} ({evk.n_iter} iterations, "
+            f"{nk} K1 launches, {out['K1 compute_evidence']:.2f} s): |d| "
+            f"{abs(ev.logz - evk.logz):.4f} <= 3 x combined {tol:.4f} "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("SED evidence is not K1's")
+        lap("(e)")
+
+        # -- (f) the stretch step's time, kernels and busy share
+        sfit = sed_fitter(2, flux, unc, cov, seed=2430)
+        sfit.run(nburn=0, nsteps=SED_TIME_STEPS[0])
+        ts = [_timed(lambda: sfit.run(nburn=0, nsteps=n))[1]
+              for n in SED_TIME_STEPS]
+        ms_step = 1e3 * (ts[1] - ts[0]) / (SED_TIME_STEPS[1]
+                                          - SED_TIME_STEPS[0])
+        # kernels per step: the difference of two traced runs, so the
+        # start's likelihood call drops out
+        t_prof = time.time()
+        (k1, h1), (k2, h2) = (_profiled_launches(
+            lambda: sfit.run(nburn=0, nsteps=n)) for n in (1, 2))
+        kernels, host = k2 - k1, h2 - h1
+        _, busy = _profiled_busy_ms(
+            lambda: sfit.run(nburn=0, nsteps=SED_PROFILE_STEPS))
+        t_prof = time.time() - t_prof
+        _, wall = _timed(lambda: sfit.run(nburn=0,
+                                          nsteps=SED_PROFILE_STEPS))
+        kref = port_fitter(2, flux, unc, cov, seed=2430)
+        kref.run(nburn=0, nsteps=200)
+        tk = [_timed(lambda: kref.run(nburn=0, nsteps=n))[1]
+              for n in (1000, 3000)]
+        k2_ms = 1e3 * (tk[1] - tk[0]) / 2000
+        share = None if busy is None else busy / (1e3 * wall)
+        log(f"[24] (f) SEDFitter stretch step, config 2 x {NWALKERS}: "
+            f"{ms_step:.3f} ms per step (marginal, run(0, "
+            f"{SED_TIME_STEPS[1]}) - run(0, {SED_TIME_STEPS[0]}), host clock"
+            f" with the card synchronized); {kernels:.0f} device kernels and "
+            f"{host:.0f} cudaLaunchKernel calls per step (torch.profiler, "
+            f"run(0, 2) - run(0, 1)); device busy "
+            f"{'not measured' if busy is None else f'{busy:.1f} ms'} of "
+            f"{1e3 * wall:.1f} ms for run(0, {SED_PROFILE_STEPS})"
+            f"{'' if share is None else f' ({100 * share:.1f}%)'}; the "
+            f"traced runs took {t_prof:.1f} s; K2 on the same posterior "
+            f"{1e3 * k2_ms:.2f} us per step (marginal, run(0, 3000) - "
+            f"run(0, 1000)): {ms_step / k2_ms:.0f}x ({card})")
+        out.update({"ms per stretch step": ms_step,
+                    "kernels per step": kernels,
+                    "launch calls per step": host,
+                    "device busy ms": busy, "profiled wall s": wall,
+                    "device busy share": share, "traced runs s": t_prof,
+                    "K2 us per step": 1e3 * k2_ms})
+        lap("(f)")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    out["phase 24"] = time.time() - t0
+    log(f"[24] phase 24: {out['phase 24']:.1f} s; parts end at " + ", ".join(
+        f"{k.split()[0]} {v:.1f} s" for k, v in out.items()
+        if k.endswith("ends at s")))
+    return launches, out
+
+
+def vp_shape(ci):
+    """The MBBShape of parity config `ci`."""
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.models.modified_blackbody import MBBShape
+    cfg = vp.CONFIGS[ci]
+    return MBBShape(opthin=cfg["opthin"], noalpha=cfg["noalpha"])
+
+
+def _zparam_fitter(device):
+    """An SEDFitter of a thin greybody with a SAMPLED redshift (T rest
+    frame, T / (1 + z) observed) on mock data at six submm bands, with a T
+    prior (tests/test_torch_sed.py's model)."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch import SEDFitter, SEDModel
+    from mbb_emcee_tpu_torch.models.modified_blackbody import (
+        MBBShape, log_mbb_fnu)
+    shape = MBBShape(opthin=True, noalpha=True)
+
+    def fnu(th, w):
+        t_obs = th[0] / (1.0 + th[3])
+        p = torch.stack([t_obs, th[1], torch.full_like(t_obs, 250.0),
+                         torch.full_like(t_obs, 3.5), th[2]])
+        return torch.exp(log_mbb_fnu(p, w, shape))
+    model = SEDModel(fnu=fnu, param_names=("T", "beta", "fnorm", "z"),
+                     lower=[5.0, 0.5, 1.0, 0.5], upper=[150.0, 4.0, 500.0,
+                                                        6.0],
+                     name="photoz-greybody")
+    true = np.array([38.0, 1.9, 10.0, 3.0])
+    wave = np.array([250.0, 350.0, 500.0, 850.0, 1100.0, 2000.0])
+    f = model.fnu(torch.tensor(true, dtype=torch.float32),
+                  torch.tensor(wave, dtype=torch.float32)).double().numpy()
+    fit = SEDFitter(model, nwalkers=NWALKERS, seed=2404, device=device)
+    fit.set_data(wave, f, 0.07 * f)
+    fit.set_gaussian_prior("T", 38.0, 6.0)
+    for n, v in zip(model.param_names, true):
+        fit.set_param_init(n, v, 0.05 * v)
+    return fit
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
+          "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
+          "24")
 
 
 def main(argv=None):
@@ -3951,7 +4516,8 @@ def main(argv=None):
         ("21", lambda: phase_map_checks(card)),
         ("22", lambda: phase_tiers(card)),
         ("23", lambda: phase_evidence(
-            card, res["22"][1] if "22" in res else None))]
+            card, res["22"][1] if "22" in res else None)),
+        ("24", lambda: phase_generic(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -3987,12 +4553,14 @@ def main(argv=None):
     pt_launches, tier_times = res["22"]
     k1_by_path["run_pt (phase 22)"] = pt_launches
     evidence_paths, evidence_times = res["23"]
+    generic_paths, generic_times = res["24"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
         by_path.update({f"{k} (phase 21)": v
                         for k, v in map_paths[name].items()})
         by_path.update(evidence_paths[name])
+        by_path.update(generic_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -4089,6 +4657,8 @@ def main(argv=None):
         + json.dumps(tier_times))
     log(f"nested sampling and population, host seconds and counts "
         f"({card}): " + json.dumps(evidence_times))
+    log(f"generic tier, host seconds and counts ({card}): "
+        + json.dumps(generic_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

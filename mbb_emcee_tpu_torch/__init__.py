@@ -45,6 +45,13 @@ The population tier (hierarchy.py): HierarchicalFitter infers a catalog's
 population distribution of T, beta, ... by reweighting the batch's stored
 chains, with a survey selection function, its own evidence and HDF5 files.
 
+The generic-model tier (sed.py): any SED written as a single-theta torch
+function fnu(theta, wave), batched with torch.func.vmap, runs through the
+same likelihood and every sampler tier (SEDModel, SEDFitter, SEDResults;
+the plain torch sampler on the fitter's device), among them the
+CMB-corrected greybody of models/cmb.py; forecast.py gives Fisher
+forecasts of a proposed observation from the same model code.
+
 The kernels are built with nvcc at first use (ops/build.py). Importing the
 package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
 read or written.
@@ -79,6 +86,11 @@ from mbb_emcee_tpu_torch.nested import (
 from mbb_emcee_tpu_torch.hierarchy import (
     TruncatedGaussianPopulation, CorrelatedGaussianPopulation, Selection,
     HierarchicalFitter, fit_population)
+from mbb_emcee_tpu_torch.sed import (
+    SEDModel, SEDFitter, SEDResults, build_sed_lnprob)
+from mbb_emcee_tpu_torch.models.cmb import cmb_corrected_mbb
+from mbb_emcee_tpu_torch.forecast import (
+    forecast, forecast_mbb, ForecastResult)
 
 __version__ = "0.1.0"
 
@@ -97,5 +109,7 @@ __all__ = [
     "ReweightBatchResult", "nested_sample", "nested_sample_batch",
     "NestedResult", "NestedBatchResult", "TruncatedGaussianPopulation",
     "CorrelatedGaussianPopulation", "Selection", "HierarchicalFitter",
-    "fit_population", "__version__",
+    "fit_population", "SEDModel", "SEDFitter", "SEDResults",
+    "build_sed_lnprob", "cmb_corrected_mbb", "forecast", "forecast_mbb",
+    "ForecastResult", "__version__",
 ]

@@ -32,7 +32,7 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's batch CLI whose features wait, and the
 # ROADMAP.md queue-A item that carries each.
 _WAITING = (
-    ("plot_population", "--plot-population", "A10"),
+    ("plot_population", "--plot-population", "A10b"),
     ("mesh_devices", "--mesh-devices", "A11"),
     ("profile_dir", "--profile-dir", "A8"),
 )

@@ -55,6 +55,26 @@ def lir_integrand(shape):
     return one
 
 
+def lir_zparam_integrand(fnu, zi, wavemin, wavemax, n=LIR_NODES,
+                         device="cpu"):
+    """one(theta (npar,)) -> 0-dim tensor: the L_IR integral of a generic
+    model (sed.SEDModel's single-theta `fnu`) whose parameter `zi` is a
+    SAMPLED redshift, for torch.func.vmap over the chain. The z = 0
+    ln-lambda nodes scale by the sample's own (1 + z) on the device (nodes
+    *= opz, weights /= opz: the lir_nodes_weights map), so no (nsamples,
+    nodes) host arrays are built. The nodes live on `device`; pair with a
+    per-sample D_L from cosmology.luminosity_distance_batch and
+    `lir_prefactor`."""
+    base_lam, base_w = lir_nodes_weights(1.0, wavemin, wavemax, n)
+    lam = torch.as_tensor(base_lam.astype(np.float32), device=device)
+    w = torch.as_tensor(base_w.astype(np.float32), device=device)
+
+    def one(theta):
+        opz = 1.0 + theta[zi]
+        return torch.sum(w / opz * fnu(theta, lam * opz))
+    return one
+
+
 def lir_prefactor(dl_mpc):
     """HOST fp64 prefactor: 4 pi D_L^2 * (mJy -> W/m^2/Hz) * c / L_sun."""
     dl_m = np.asarray(dl_mpc, np.float64) * MPC_M

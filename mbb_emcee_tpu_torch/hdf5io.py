@@ -42,6 +42,15 @@ def is_native_results_file(h5file):
         return "nwalkers" in f.attrs and "ParamConfig" in f
 
 
+def is_sed_results_file(h5file):
+    """True when the file is a generic model's results (sed.SEDResults,
+    root attr kind = "sed"), which MBBResults refuses."""
+    import h5py
+    with h5py.File(h5file, "r") as f:
+        kind = f.attrs.get("kind", "")
+    return (kind.decode() if isinstance(kind, bytes) else str(kind)) == "sed"
+
+
 MAP_FIELDS = ("Params", "LnProb", "Cov", "Sigma", "Interior", "GradNorm")
 
 

@@ -629,7 +629,7 @@ class HierarchicalFitter(ParamSpaceMixin):
         if not isinstance(batch, MultiFitter):
             raise not_ported(
                 f"from_batch on a {type(batch).__name__} (generic-model "
-                f"batches, SEDMultiFitter)", "A10")
+                f"batches, SEDMultiFitter)", "A10b")
         if batch.chain_free is None:
             raise RuntimeError("from_batch needs a finished run()")
         chain = batch.chain_free            # (S, nrec, nw, nfree)
@@ -916,7 +916,7 @@ class HierarchicalFitter(ParamSpaceMixin):
         return torch.exp(-torch.logsumexp(2.0 * lw, dim=-1)).cpu().numpy()
 
     def plot_population(self, param, **kw):
-        raise not_ported("plot_population (plotting)", "A10")
+        raise not_ported("plot_population (plotting)", "A10b")
 
     # -- persistence ---------------------------------------------------------
     def writeToHDF5(self, path):

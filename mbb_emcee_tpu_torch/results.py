@@ -23,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mbb_emcee_tpu_torch.constants import PARAM_NAMES, NPARAMS
+from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch import derived
@@ -72,15 +72,19 @@ class PPCResult:
                 f"nsamples={self.nsamples}{extra})")
 
 
-class MBBResults:
-    """Analysis of a finished fit (fit=...) or a reload of a persisted one
-    (h5file=...), mirroring the reference's dual constructor. Derived
-    quantities, posterior-predictive checks and LOO are computed on
-    `device`: by default the fit's device, and the card for a file (with no
-    CUDA device a reload raises unless device="cpu" is named)."""
+class ChainResults:
+    """What MBBResults and the generic sed.SEDResults share: summaries of a
+    stored chain (nwalkers, nsteps, npar), the convergence diagnostics,
+    and the model checks over it on the results' device. A subclass sets
+    chain, lnprobability, phot, param_spec, response_pack, redshift,
+    lumdist, _cosmo and device, and provides param_names, _param_index and
+    _band_fluxes (the model's band fluxes, as the fitted likelihood saw
+    them)."""
 
-    def __init__(self, fit=None, h5file=None, redshift=None,
-                 cosmology=None, lumdist=None, device=None):
+    def _setup(self, fit, h5file, redshift, cosmology, lumdist, device):
+        """The dual constructor's common part: exactly one source, the
+        device (the fit's by default, else the card), redshift, cosmology
+        and lumdist as given, and no derived chains yet."""
         if (fit is None) == (h5file is None):
             raise ValueError("give exactly one of fit= or h5file=")
         self.device = (fit.device if fit is not None and device is None
@@ -102,64 +106,10 @@ class MBBResults:
         self.dustmass_meta = None
         self.peaklambda_chain = None
         self.loo_result = None
-        self.logz_pt = None   # (lnZ, err) stepping stone, from run_pt()
-        self.logz_ti = None   # (lnZ, err) thermodynamic-integration check
-        self.evidence = None  # NestedResult (compute_evidence on the fitter)
 
-        if fit is not None:
-            self._from_fit(fit)
-        else:
-            self._from_h5(h5file)
-
-    def _from_fit(self, fit):
-        if fit.chain_free is None:
-            raise RuntimeError("fitter has not been run")
-        if self.redshift is None and fit.redshift is not None:
-            self.redshift = float(fit.redshift)
-        self.chain = fit.chain                    # (nwalkers, nsteps, 5)
-        self.lnprobability = np.transpose(
-            fit.lnprobability.double().cpu().numpy(), (1, 0))
-        self.acceptance_fraction = np.asarray(fit.acceptance_fraction)
-        self.shape = fit.shape
-        self.phot = fit.phot
-        self.param_spec = fit.spec
-        self.param_init = fit._init.copy()
-        self.thin = fit.thin
-        self.nwalkers = int(self.chain.shape[0])
-        self.response_pack = fit._response_pack()
-        self.logz_pt = getattr(fit, "logz_pt", None)
-        self.logz_ti = getattr(fit, "logz_ti", None)
-        self.evidence = getattr(fit, "evidence", None)
-
-    def _from_h5(self, h5file):
-        explicit_z, explicit_dl = self.redshift, self.lumdist
-        chosen_cosmo, chosen_name = self._cosmo, self.cosmology_name
-        if not hdf5io.is_native_results_file(h5file):
-            raise not_ported("reading upstream mbb_emcee HDF5 layouts",
-                             "A8")
-        payload = hdf5io.read_results(h5file)
-        for k, v in payload.items():
-            setattr(self, k, v)
-        # Constructor arguments win over stored metadata.
-        if explicit_z is not None:
-            self.redshift = explicit_z
-        if explicit_dl is not None:
-            self.lumdist = explicit_dl
-        if payload.get("cosmology_name") and not self._cosmology_explicit:
-            self._cosmo = Cosmology.named(payload["cosmology_name"])
-            self.cosmology_name = payload["cosmology_name"]
-        elif (payload.get("cosmology_params")
-                and not self._cosmology_explicit):
-            h0, om0, ol0 = payload["cosmology_params"]
-            self._cosmo = Cosmology(H0=h0, Om0=om0, Ol0=ol0)
-            self.cosmology_name = None
-        else:
-            self._cosmo, self.cosmology_name = chosen_cosmo, chosen_name
-
-    # -- basic summaries -----------------------------------------------------------
     @property
     def flatchain(self):
-        return self.chain.reshape(-1, NPARAMS)
+        return self.chain.reshape(-1, self.chain.shape[-1])
 
     @property
     def nsteps(self):
@@ -180,7 +130,7 @@ class MBBResults:
         return self.phot.unc
 
     def parameter_chain(self, param):
-        return self.flatchain[:, param_index(param)]
+        return self.flatchain[:, self._param_index(param)]
 
     def par_cen(self, param, percentile=68.3):
         """(median, +err, -err) of a parameter (ref: mbb_results.par_cen)."""
@@ -202,23 +152,17 @@ class MBBResults:
                                self.lnprobability.shape)
         return self.chain[idx[0], idx[1]], float(self.lnprobability[idx])
 
-    def best_fit_model(self):
-        """ModifiedBlackbody at the maximum-probability sample; evaluate it
-        at any wavelength for a best-fit SED curve."""
-        from mbb_emcee_tpu_torch.models.modified_blackbody import (
-            ModifiedBlackbody)
-        theta, _ = self.best_fit
-        return ModifiedBlackbody(
-            *[float(v) for v in theta], wavenorm=self.shape.wavenorm,
-            noalpha=self.shape.noalpha, opthin=self.shape.opthin)
-
     def par_cov(self):
         """(names, cov): covariance of the FREE parameters over the
-        flattened chain (observer frame)."""
+        flattened chain."""
         idx = self.param_spec.free_indices
-        names = [PARAM_NAMES[i] for i in idx]
+        names = [self.param_names[i] for i in idx]
         cov = np.atleast_2d(np.cov(self.flatchain[:, idx].T))
         return names, cov
+
+    @property
+    def free_param_names(self):
+        return [self.param_names[i] for i in self.param_spec.free_indices]
 
     def _thinned(self, thin):
         return self.flatchain[::max(int(thin), 1)]
@@ -228,37 +172,10 @@ class MBBResults:
         return torch.as_tensor(np.asarray(self._thinned(thin), np.float32),
                                device=self.device)
 
-    def sed_percentiles(self, waves, percentile=68.3, thin=1):
-        """(3, nwave) [median, upper, lower] of f_nu in mJy at the observed
-        wavelengths `waves` (micron) over the (thinned) chain."""
-        w = torch.as_tensor(np.atleast_1d(np.asarray(waves, np.float32)),
-                            device=self.device)
-        sed = derived.sed_eval(self.shape, w)
-        fluxes = derived.batched(sed, self._samples(thin))
-        return derived.sed_band(fluxes.double().cpu().numpy(), percentile,
-                                sample_axis=0)
-
-    @property
-    def free_param_names(self):
-        return [PARAM_NAMES[i] for i in self.param_spec.free_indices]
-
     def _free_chain(self):
         """(nsteps, nwalkers, nfree): the sampler's layout."""
         idx = self.param_spec.free_indices
         return np.transpose(self.chain[:, :, idx], (1, 0, 2))
-
-    def gelman_rubin(self, rank_normalized=False):
-        """Split-R-hat per free parameter (rank_normalized=True: the
-        Vehtari et al. 2021 bulk/tail estimator)."""
-        if rank_normalized:
-            return split_rhat_rank_normalized(self._free_chain())
-        return split_rhat(self._free_chain())
-
-    def effective_samples(self, kind="bulk"):
-        """Per-free-parameter effective sample size of the stored chain
-        (Vehtari et al. 2021 rank-normalized ESS; kind="bulk" for location
-        summaries, "tail" for the 5%/95% interval endpoints)."""
-        return effective_sample_size(self._free_chain(), kind=kind)
 
     def autocorrelation_time(self):
         """Per-free-parameter integrated autocorrelation time in steps."""
@@ -299,6 +216,7 @@ class MBBResults:
         batched torch call over the thinned chain on the results' device;
         the normal draws come from a torch.Generator there seeded with
         `seed`. Returns a PPCResult."""
+        fluxes = self._band_fluxes()
         det_idx, uplim = self._detected("posterior_predictive")
         ndet = int(det_idx.size)
         y = np.asarray(self.phot.flux, np.float64)
@@ -327,8 +245,6 @@ class MBBResults:
             def color(e):
                 return sig32 * e
 
-        fluxes = derived.band_flux_eval(self.shape, self.phot.wave,
-                                        self.response_pack)
         det_t = torch.as_tensor(det_idx, device=dev)
         y_det = t32(y[det_idx])
         samples = self._samples(thin)
@@ -365,9 +281,8 @@ class MBBResults:
         p(y_i | y_-i, theta). Upper-limit and missing bands are excluded.
         Returns (and stores as .loo_result) a modelcheck.LooResult."""
         from mbb_emcee_tpu_torch import modelcheck
+        fluxes = self._band_fluxes()
         det_idx, _ = self._detected("compute_loo")
-        fluxes = derived.band_flux_eval(self.shape, self.phot.wave,
-                                        self.response_pack)
         unc = np.asarray(self.phot.unc, np.float64)
         cov_det = (None if self.phot.cov is None
                    else np.asarray(self.phot.cov, np.float64)[
@@ -383,7 +298,7 @@ class MBBResults:
         return self.loo_result
 
     def plot_sed(self, **kw):
-        raise not_ported("plotting", "A10")
+        raise not_ported("plotting", "A10b")
 
     plot_corner = plot_chain = plot_ppc = plot_sed
 
@@ -402,6 +317,134 @@ class MBBResults:
             raise RuntimeError("redshift required")
         return 1.0 + self.redshift
 
+    def lir_cen(self, percentile=68.3):
+        if self.lir_chain is None:
+            self.compute_lir()
+        return _percentile_summary(self.lir_chain, percentile)
+
+    @property
+    def lir(self):
+        return self.lir_cen()
+
+    def peaklambda_cen(self, percentile=68.3):
+        if self.peaklambda_chain is None:
+            self.compute_peaklambda()
+        return _percentile_summary(self.peaklambda_chain, percentile)
+
+    @property
+    def peaklambda(self):
+        return self.peaklambda_cen()
+
+
+class MBBResults(ChainResults):
+    """Analysis of a finished fit (fit=...) or a reload of a persisted one
+    (h5file=...), mirroring the reference's dual constructor. Derived
+    quantities, posterior-predictive checks and LOO are computed on
+    `device`: by default the fit's device, and the card for a file (with no
+    CUDA device a reload raises unless device="cpu" is named)."""
+
+    param_names = PARAM_NAMES
+
+    def __init__(self, fit=None, h5file=None, redshift=None,
+                 cosmology=None, lumdist=None, device=None):
+        self._setup(fit, h5file, redshift, cosmology, lumdist, device)
+        self.logz_pt = None   # (lnZ, err) stepping stone, from run_pt()
+        self.logz_ti = None   # (lnZ, err) thermodynamic-integration check
+        self.evidence = None  # NestedResult (compute_evidence on the fitter)
+
+        if fit is not None:
+            self._from_fit(fit)
+        else:
+            self._from_h5(h5file)
+
+    def _from_fit(self, fit):
+        if fit.chain_free is None:
+            raise RuntimeError("fitter has not been run")
+        if self.redshift is None and fit.redshift is not None:
+            self.redshift = float(fit.redshift)
+        self.chain = fit.chain                    # (nwalkers, nsteps, 5)
+        self.lnprobability = np.transpose(
+            fit.lnprobability.double().cpu().numpy(), (1, 0))
+        self.acceptance_fraction = np.asarray(fit.acceptance_fraction)
+        self.shape = fit.shape
+        self.phot = fit.phot
+        self.param_spec = fit.spec
+        self.param_init = fit._init.copy()
+        self.thin = fit.thin
+        self.nwalkers = int(self.chain.shape[0])
+        self.response_pack = fit._response_pack()
+        self.logz_pt = getattr(fit, "logz_pt", None)
+        self.logz_ti = getattr(fit, "logz_ti", None)
+        self.evidence = getattr(fit, "evidence", None)
+
+    def _from_h5(self, h5file):
+        explicit_z, explicit_dl = self.redshift, self.lumdist
+        chosen_cosmo, chosen_name = self._cosmo, self.cosmology_name
+        if hdf5io.is_sed_results_file(h5file):
+            raise ValueError(f"{h5file} is an SEDResults file (a generic "
+                             "model's fit): load it with sed.SEDResults")
+        if not hdf5io.is_native_results_file(h5file):
+            raise not_ported("reading upstream mbb_emcee HDF5 layouts",
+                             "A8")
+        payload = hdf5io.read_results(h5file)
+        for k, v in payload.items():
+            setattr(self, k, v)
+        # Constructor arguments win over stored metadata.
+        if explicit_z is not None:
+            self.redshift = explicit_z
+        if explicit_dl is not None:
+            self.lumdist = explicit_dl
+        if payload.get("cosmology_name") and not self._cosmology_explicit:
+            self._cosmo = Cosmology.named(payload["cosmology_name"])
+            self.cosmology_name = payload["cosmology_name"]
+        elif (payload.get("cosmology_params")
+                and not self._cosmology_explicit):
+            h0, om0, ol0 = payload["cosmology_params"]
+            self._cosmo = Cosmology(H0=h0, Om0=om0, Ol0=ol0)
+            self.cosmology_name = None
+        else:
+            self._cosmo, self.cosmology_name = chosen_cosmo, chosen_name
+
+    def _param_index(self, param):
+        return param_index(param)
+
+    def _band_fluxes(self):
+        return derived.band_flux_eval(self.shape, self.phot.wave,
+                                      self.response_pack)
+
+    def best_fit_model(self):
+        """ModifiedBlackbody at the maximum-probability sample; evaluate it
+        at any wavelength for a best-fit SED curve."""
+        from mbb_emcee_tpu_torch.models.modified_blackbody import (
+            ModifiedBlackbody)
+        theta, _ = self.best_fit
+        return ModifiedBlackbody(
+            *[float(v) for v in theta], wavenorm=self.shape.wavenorm,
+            noalpha=self.shape.noalpha, opthin=self.shape.opthin)
+
+    def sed_percentiles(self, waves, percentile=68.3, thin=1):
+        """(3, nwave) [median, upper, lower] of f_nu in mJy at the observed
+        wavelengths `waves` (micron) over the (thinned) chain."""
+        w = torch.as_tensor(np.atleast_1d(np.asarray(waves, np.float32)),
+                            device=self.device)
+        sed = derived.sed_eval(self.shape, w)
+        fluxes = derived.batched(sed, self._samples(thin))
+        return derived.sed_band(fluxes.double().cpu().numpy(), percentile,
+                                sample_axis=0)
+
+    def gelman_rubin(self, rank_normalized=False):
+        """Split-R-hat per free parameter (rank_normalized=True: the
+        Vehtari et al. 2021 bulk/tail estimator)."""
+        if rank_normalized:
+            return split_rhat_rank_normalized(self._free_chain())
+        return split_rhat(self._free_chain())
+
+    def effective_samples(self, kind="bulk"):
+        """Per-free-parameter effective sample size of the stored chain
+        (Vehtari et al. 2021 rank-normalized ESS; kind="bulk" for location
+        summaries, "tail" for the 5%/95% interval endpoints)."""
+        return effective_sample_size(self._free_chain(), kind=kind)
+
     # -- L_IR -----------------------------------------------------------------------
     def compute_lir(self, wavemin=8.0, wavemax=1000.0, thin=1):
         """Posterior of L_IR(wavemin-wavemax um REST) in L_sun."""
@@ -416,15 +459,6 @@ class MBBResults:
         self.lir_meta = {"wavemin": float(wavemin), "wavemax": float(wavemax),
                          "thin": int(thin)}
         return self.lir_chain
-
-    def lir_cen(self, percentile=68.3):
-        if self.lir_chain is None:
-            self.compute_lir()
-        return _percentile_summary(self.lir_chain, percentile)
-
-    @property
-    def lir(self):
-        return self.lir_cen()
 
     # -- dust mass ---------------------------------------------------------------------
     def compute_dustmass(self, kappa=2.64, kappa_wave=125.0, thin=1):
@@ -460,15 +494,6 @@ class MBBResults:
         self.peaklambda_chain = derived.batched(
             peak, self._samples(thin)).double().cpu().numpy()
         return self.peaklambda_chain
-
-    def peaklambda_cen(self, percentile=68.3):
-        if self.peaklambda_chain is None:
-            self.compute_peaklambda()
-        return _percentile_summary(self.peaklambda_chain, percentile)
-
-    @property
-    def peaklambda(self):
-        return self.peaklambda_cen()
 
     # -- persistence -------------------------------------------------------------------
     def writeToHDF5(self, filename):

@@ -1,9 +1,10 @@
 """The port runs on the card unless the caller asks for the CPU: with no
 CUDA device and no device named (or the card named), MBBFitter(),
 MultiFitter(), MultiFitter.from_h5, MBBResults(h5file=),
-HierarchicalFitter(), build_hier_lnprob, nested_sample and both CLIs fail at
-once with a message naming the CPU switch, and nothing falls back to the CPU
-silently."""
+HierarchicalFitter(), build_hier_lnprob, nested_sample, the generic tier's
+SEDFitter(), SEDResults(h5file=), forecast() and forecast_mbb(), and both
+CLIs fail at once with a message naming the CPU switch, and nothing falls
+back to the CPU silently."""
 
 import numpy as np
 import pytest
@@ -101,3 +102,33 @@ def test_population_and_nested_refuse_without_a_card(no_card):
     mf.run(nburn=2, nsteps=4)
     hf = T.HierarchicalFitter.from_batch(mf, ("T",))
     assert hf.device.type == "cpu"
+
+
+def test_generic_tier_refuses_without_a_card(no_card, tmp_path):
+    """SEDFitter(), SEDResults(h5file=...), forecast() and forecast_mbb()
+    without device= (or with the card named) raise the no-card error; a
+    results object of a CPU fit stays on the fit's device."""
+    from mbb_emcee_tpu_torch.models.modified_blackbody import log_mbb_fnu
+    shape = T.MBBShape(opthin=True, noalpha=True)
+    model = T.SEDModel(
+        fnu=lambda th, w: torch.exp(log_mbb_fnu(th, w, shape)),
+        param_names=("T", "beta", "lambda0", "alpha", "fnorm"),
+        lower=[0.1, 0.01, 1.0, 0.01, 1e-5],
+        upper=[100.0, 5.0, 2e4, 60.0, 1e7], name="mbb-wrapped")
+    fit = T.SEDFitter(model, nwalkers=16, device="cpu")
+    fit.set_data(WAVE, FLUX, 0.05 * FLUX)
+    fit.fix_param("lambda0", 250.0).fix_param("alpha", 3.5)
+    fit.run(nburn=2, nsteps=4)
+    path = str(tmp_path / "s.h5")
+    fit.results().writeToHDF5(path)
+    theta = [30.0, 1.8, 250.0, 3.5, 40.0]
+    for make in (lambda: T.SEDFitter(model),
+                 lambda: T.SEDFitter(model, device="cuda"),
+                 lambda: T.SEDResults(h5file=path, model=model),
+                 lambda: T.forecast(model, theta, WAVE, unc=0.05 * FLUX),
+                 lambda: T.forecast_mbb(theta, WAVE, unc=0.05 * FLUX)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    assert fit.results().device.type == "cpu"
+    back = T.SEDResults(h5file=path, model=model, device="cpu")
+    assert back.posterior_predictive().chi2_obs.shape == (16 * 4,)

@@ -235,8 +235,8 @@ def test_cli_checks_redshift_before_sampling(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--plot-sed", "x.png"], "A10"), (["--plot-corner", "x.png"], "A10"),
-    (["--plot-chain", "x.png"], "A10"), (["--profile-dir", "prof"], "A8")])
+    (["--plot-sed", "x.png"], "A10b"), (["--plot-corner", "x.png"], "A10b"),
+    (["--plot-chain", "x.png"], "A10b"), (["--profile-dir", "prof"], "A8")])
 def test_cli_refuses_waiting_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli.main([str(_photfile(tmp_path)), str(tmp_path / "o.h5"),

@@ -12,8 +12,8 @@ Left out by design: test_mesh_sharded_lnprob_matches_unsharded,
 test_program_token_splits_on_mesh_shape and
 test_multi_axis_mesh_first_axis_divides (source sharding over a mesh is
 ROADMAP A11: mesh= raises NotImplementedError naming it, held here),
-test_from_batch_sedmulti (the generic-model batch is A10: from_batch
-refuses it, held here) and the population plot (plotting is A10)."""
+test_from_batch_sedmulti (the generic-model batch is A10b: from_batch
+refuses it, held here) and the population plot (plotting is A10b)."""
 
 import os
 
@@ -237,7 +237,7 @@ def test_pop_files_cross_both_ways(tmp_path):
 
 def test_mesh_and_generic_batches_are_refused():
     """mesh= (A11) and a batch that is not the port's MultiFitter (the
-    generic-model SEDMultiFitter is A10) raise NotImplementedError naming
+    generic-model SEDMultiFitter is A10b) raise NotImplementedError naming
     their ROADMAP item."""
     samples = np.random.default_rng(0).normal(35, 4, (4, 16, 1))
     pop = TruncatedGaussianPopulation.for_box(("T",), [10.0], [60.0])
@@ -250,10 +250,10 @@ def test_mesh_and_generic_batches_are_refused():
     class SEDMultiFitter:
         chain_free = None
 
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         HierarchicalFitter.from_batch(SEDMultiFitter(), params=("T",))
     hf = HierarchicalFitter(samples, pop, nwalkers=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         hf.plot_population("T")
 
 

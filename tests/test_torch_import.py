@@ -39,8 +39,9 @@ FLUX = np.array([11.2, 32.1, 44.8, 38.2, 22.9])
 
 def test_import_leaves_jax_and_reference_out():
     """In a fresh interpreter (this one already holds jax): importing the
-    port, its CLIs, the batch tier, nested sampling and the population tier
-    loads no jax, no mbb_emcee_tpu and no h5py."""
+    port, its CLIs, the batch tier, nested sampling, the population tier,
+    the generic-model tier, forecasts and the CMB-corrected greybody loads
+    no jax, no mbb_emcee_tpu and no h5py."""
     code = ("import sys, mbb_emcee_tpu_torch, mbb_emcee_tpu_torch.cli, "
             "mbb_emcee_tpu_torch.convert, mbb_emcee_tpu_torch.cli_batch, "
             "mbb_emcee_tpu_torch.catalog, mbb_emcee_tpu_torch.multifit, "
@@ -48,7 +49,8 @@ def test_import_leaves_jax_and_reference_out():
             "mbb_emcee_tpu_torch.ops.multifit_kernel, "
             "mbb_emcee_tpu_torch.checkpoint, mbb_emcee_tpu_torch.response, "
             "mbb_emcee_tpu_torch.instruments, mbb_emcee_tpu_torch.nested, "
-            "mbb_emcee_tpu_torch.hierarchy\n"
+            "mbb_emcee_tpu_torch.hierarchy, mbb_emcee_tpu_torch.sed, "
+            "mbb_emcee_tpu_torch.forecast, mbb_emcee_tpu_torch.models.cmb\n"
             "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py') "
             "if m in sys.modules]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
