@@ -123,7 +123,7 @@ non-zero without printing a result):
      steps) against the same K2 fit (max(2%, 3 sigma_MC)), its time per
      gradient, and one short call under torch.profiler for the kernels per
      leapfrog step;
-     MultiFitter.run_pt(12 rungs, 100 + 200) and run_hmc(50 + 100 x 4) at
+     MultiFitter.run_pt(12 rungs, 100 + 200) and run_hmc(25 + 100 x 2) at
      16 of the batch cell's sources, each whole and in production segments
      of 50 records through the checkpoint= path (its flush replaced by a
      recorder: the card's machine has no h5py), chains bitwise equal;
@@ -168,12 +168,36 @@ non-zero without printing a result):
      compute_evidence against MBBFitter.compute_evidence on K1 (3x the
      combined error), each at the depths SED_* name; (f) the stretch step's marginal time, kernels and
      device busy share under torch.profiler, beside K2's on the same
-     posterior.
+     posterior;
+ 25. the generic batch tier and submm photo-z (sedmulti.py, photoz.py; no
+     kernel of their own: the plain batch stretch step over the vmapped
+     user model) through the user's entry points: (a) photoz_mbb's fnu,
+     every variant of cmb / opthin / noalpha, on PZ_VECTORS rows with z at
+     both bounds, on the card against the CPU, and each against the CPU's
+     fp64 evaluation of the same formulas (|d ln f| <= 1e-5 plus 8 ulp of
+     the Planck argument plus the CMB visibility's conditioning); (b) tests/test_photoz.py:352's photo-z
+     fit (T prior; beta, lambda0, alpha fixed) at 250 walkers and PZ_FIT,
+     its P(z) median and 68% width against the exact (T, fnorm, z) grid
+     marginal of PZ_GRID points evaluated on the card in one batched call
+     (that test's tolerances); (c) SEDMultiFitter of the wrapped MBB at the
+     batch cell's width (256 sources x 250 walkers x 5 bands, band 0
+     missing in 16) through run(50, 250) against MultiFitter.run(50, 250)
+     on K3 on the same data (per-source medians and 68% widths within
+     max(2%, 3 sigma_MC); 0 K1 and 0 K3 launches, 3 plain multi runs) and
+     run(n1) + extend(n2) bitwise run(n1 + n2) at 16 sources; (d)
+     compute_lir (rtol 1e-4) and compute_peaklambda (rtol 2e-3) of
+     SEDMultiFitter and MultiFitter on the same chain, thinned, and
+     compute_dustmass_batch of a 16-source photo-z batch against the CPU
+     (rtol 1e-4); (e) the batch stretch step's marginal time, kernels per
+     step and device busy share under torch.profiler, beside K3's per-step
+     time at the same batch. Budget: 40 s, advisory (a run over it
+     prints OVER and still passes: the host's clock varies 1.5x across
+     machines).
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, `22`, `23`, `24`) runs the
+before any phase. `--phases 3,15` (or `21`, `22`, `23`, `24`, `25`) runs the
 build and those phases alone, a rehearsal that prints no kernel table and
 no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
@@ -2964,7 +2988,10 @@ PT_BATCHES = 10
 TIER_SOURCES = 16
 TIER_SEGMENT = 50
 PT_BATCH = {"nrungs": 12, "nburn": 100, "nsteps": 200}
-HMC_BATCH = {"nwarmup": 50, "nsteps": 100, "n_leapfrog": 4}
+# (HMC_BATCH is cut from 50 + 100 x 4 leapfrog steps to make room for phase
+# 25: its checks, whole against segmented bitwise and finite results, do
+# not depend on the depth)
+HMC_BATCH = {"nwarmup": 25, "nsteps": 100, "n_leapfrog": 2}
 # An accept or swap decision whose log-uniform sits this close to its
 # threshold may fall either way between K1 and the plain likelihood.
 PT_MARGIN = 1e-4
@@ -3374,7 +3401,9 @@ NESTED_BATCH_NLIVE = 64
 # correlated population's run at CORRELATED_DEPTH (the independent family's
 # runs at run(200, 1000)).
 HYPER_NLIVE = 64
-CORRELATED_DEPTH = {"nburn": 100, "nsteps": 500}
+# (CORRELATED_DEPTH is cut from run(100, 500) to make room for phase 25;
+# its check is a finite rho)
+CORRELATED_DEPTH = {"nburn": 100, "nsteps": 250}
 # The population fit at full size and depth (2,800 calls of a (32, 256,
 # 4096, 2) hyper-lnprob) would keep the CPU far past the phase's budget, so
 # it is held against the CPU's at POP_CPU_SAMPLES stored samples per source
@@ -4470,9 +4499,433 @@ def _zparam_fitter(device):
     return fit
 
 
+# Phase 25: the generic batch tier and submm photo-z. (a) photoz_mbb's fnu
+# on PZ_VECTORS rows per variant; (b) tests/test_photoz.py:352's photo-z
+# fit (T prior; beta, lambda0, alpha fixed) at NWALKERS walkers, cut from
+# that test's run(250, 1200, thin=2) at 64 walkers to PZ_FIT (PERF.md
+# section 4), held against the exact (T, fnorm, z) grid marginal of
+# PZ_GRID points; (c) SEDMultiFitter at the batch cell's width through
+# SEDMULTI_DEPTH against MultiFitter's on K3, and extend bitwise at
+# SEDMULTI_EXTEND_SOURCES sources; (d) the derived posteriors on one chain
+# thinned by SEDMULTI_DERIVED_THIN, and compute_dustmass_batch of a
+# PZ_BATCH_SOURCES-source photo-z batch; (e) the batch stretch step's time
+# from two production lengths SEDMULTI_TIME_STEPS, and K3's from
+# K3_TIME_STEPS on the same posterior.
+PZ_VECTORS = 4096
+PZ_FIT = {"nburn": 100, "nsteps": 300}
+PZ_GRID = (96, 96, 144)
+SEDMULTI_DEPTH = {"nburn": 50, "nsteps": 250}
+SEDMULTI_EXTEND_SOURCES = 16
+SEDMULTI_DERIVED_THIN = 25
+PZ_BATCH_SOURCES = 16
+PZ_BATCH_DEPTH = {"nburn": 20, "nsteps": 40}
+SEDMULTI_TIME_STEPS = (10, 30)
+K3_TIME_STEPS = (200, 1000)
+PZ_WAVE = (250.0, 350.0, 500.0, 850.0, 1100.0, 2000.0)
+
+
+def _pz_thetas(n, seed):
+    """n photo-z parameter rows in the default box's populated part, z in
+    [0, 12] with 8 rows at each bound and just inside them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    th = np.column_stack([
+        rng.uniform(15.0, 60.0, n), rng.uniform(1.0, 2.5, n),
+        rng.uniform(50.0, 300.0, n), rng.uniform(1.0, 5.0, n),
+        rng.uniform(1.0, 50.0, n), rng.uniform(0.0, 12.0, n)])
+    th[:8, 5], th[8:16, 5] = 0.0, 12.0
+    th[16:24, 5], th[24:32, 5] = 1e-3, 11.99
+    return th.astype(np.float32)
+
+
+def _pz_fnu_vs_cpu():
+    """(a) photoz_mbb's fnu, every variant, on PZ_VECTORS rows on the card
+    against the same call on the CPU, and each of the two fp32 results
+    against an independent witness: the same formulas on the CPU in fp64 on
+    the same (fp32) inputs. Each |d ln f| is held to 1e-5, plus 8 ulp of
+    the Planck argument x = hc / (lambda k T_dust) at the band and at the
+    normalization point (on the Wien side ln(e^x - 1) ~ x, so an fp32
+    evaluation carries a few ulp of x: up to ~60 at z = 12), plus the CMB
+    visibility's conditioning near T_dust ~ T_CMB(z), 2e-6 (e^-vis - 1) at
+    the band and at the normalization point (tests/test_torch_photoz.py's
+    rule). Returns the largest |d ln f| of card - CPU, card - fp64 and
+    CPU - fp64, and the largest of each over its bound."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.constants import HCOK_UM_K
+    from mbb_emcee_tpu_torch.models.cmb import (
+        dust_temperature_with_cmb, log_cmb_visibility)
+    from mbb_emcee_tpu_torch.photoz import photoz_mbb
+    from mbb_emcee_tpu_torch.sed import batched_fnu
+    EPS32 = float(np.finfo(np.float32).eps)
+    th = _pz_thetas(PZ_VECTORS, 25)
+    wave = np.asarray(PZ_WAVE, np.float32)
+    th64, wave64 = (torch.as_tensor(a).double() for a in (th, wave))
+    pairs = ("card - CPU", "card - fp64", "CPU - fp64")
+    worst = {k: 0.0 for k in pairs}
+    worst.update({f"{k} / tol": 0.0 for k in pairs})
+    for cmb in (False, True):
+        for opthin in (False, True):
+            for noalpha in (False, True):
+                m = photoz_mbb(cmb=cmb, opthin=opthin, noalpha=noalpha)
+                card, cpu = (batched_fnu(m.fnu)(
+                    torch.as_tensor(th, device=dev),
+                    torch.as_tensor(wave, device=dev)).double().cpu().numpy()
+                    for dev in (DEVICE, "cpu"))
+                exact = batched_fnu(m.fnu)(th64, wave64).numpy()
+                z = th64[:, 5]
+                t_d = (dust_temperature_with_cmb(th64[:, 0], th64[:, 1], z)
+                       if cmb else th64[:, 0])
+                opz_t = (1.0 + z.numpy())[:, None]
+                t_dd = t_d.numpy()[:, None]
+                x_b = HCOK_UM_K * opz_t / (wave64.numpy()[None, :] * t_dd)
+                x_n = HCOK_UM_K * opz_t / (500.0 * t_dd)
+                tol = 1e-5 + 8 * EPS32 * (x_b + x_n)
+                if cmb:
+                    vis = log_cmb_visibility(
+                        wave64[None] / (1.0 + z[:, None]), t_d[:, None],
+                        z[:, None]).numpy()
+                    vis_n = log_cmb_visibility(500.0 / (1.0 + z), t_d,
+                                               z).numpy()
+                    tol += 2e-6 * (np.expm1(-vis) + np.expm1(-vis_n)[:, None])
+                ok = all(np.all(np.isfinite(f)) for f in (card, cpu, exact))
+                parts = []
+                for k, (f, g) in zip(pairs, ((card, cpu), (card, exact),
+                                             (cpu, exact))):
+                    d = np.abs(np.log(f) - np.log(g))
+                    ok = ok and bool(np.all(d <= tol))
+                    worst[k] = max(worst[k], float(d.max()))
+                    worst[f"{k} / tol"] = max(worst[f"{k} / tol"],
+                                              float(np.max(d / tol)))
+                    parts.append(f"{k} max |d ln f| {d.max():.3g} "
+                                 f"(/ tol {np.max(d / tol):.3f})")
+                log(f"[25] (a) {m.name} opthin={opthin} noalpha={noalpha}: "
+                    f"{PZ_VECTORS} x {wave.size} fluxes, the card's fp32, "
+                    f"the CPU's fp32 and the CPU's fp64: " + ", ".join(parts)
+                    + f" (tol 1e-5 + 8 ulp of x + the visibility's "
+                    f"conditioning) {'PASS' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("photo-z fnu on the card is not the "
+                                         "CPU's or not within fp32 of fp64")
+    return worst
+
+
+def _pz_fit_vs_grid(out):
+    """(b) The photo-z fit of tests/test_photoz.py:352 on the card at
+    PZ_FIT against the exact (T, fnorm, z) grid marginal of P(z), the grid
+    evaluated on the card in one batched call."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch import SEDFitter
+    from mbb_emcee_tpu_torch.photoz import photoz_mbb
+    model = photoz_mbb(cmb=True, opthin=True, noalpha=True, z_upper=8.0)
+    truth = np.array([38.0, 1.9, 250.0, 4.0, 10.0, 4.0])
+    wave = np.asarray(PZ_WAVE)
+    f = model.fnu(torch.tensor(truth, dtype=torch.float32),
+                  torch.tensor(wave, dtype=torch.float32)).double().numpy()
+    unc = 0.07 * f
+    flux = f + unc * np.random.default_rng(21).standard_normal(wave.size)
+    fit = SEDFitter(model, nwalkers=NWALKERS, seed=13, device=DEVICE)
+    fit.set_data(wave, flux, unc)
+    fit.set_gaussian_prior("T", 38.0, 6.0)
+    fit.fix_param("beta", 1.9).fix_param("lambda0", 250.0)
+    fit.fix_param("alpha", 4.0)
+    for nm, v in zip(model.param_names, truth):
+        fit.set_param_init(nm, v, 0.1 * abs(v))
+    _counts(reset=True)
+    _, out["(b) photo-z run"] = _timed(lambda: fit.run(**PZ_FIT))
+    c = _counts()
+    zc = fit.results().par_cen("z")
+
+    def grid():
+        tg = np.linspace(10.0, 80.0, PZ_GRID[0])
+        fg = np.linspace(5.0, 18.0, PZ_GRID[1])
+        zg = np.linspace(0.8, 8.0, PZ_GRID[2])
+        tt, ff, zz = np.meshgrid(tg, fg, zg, indexing="ij")
+        pts = np.column_stack([
+            tt.ravel(), np.full(tt.size, 1.9), np.full(tt.size, 250.0),
+            np.full(tt.size, 4.0), ff.ravel(), zz.ravel()])
+        x = torch.as_tensor(pts.astype(np.float32), device=DEVICE)
+        w, y, iu = (torch.as_tensor(a.astype(np.float32), device=DEVICE)
+                    for a in (wave, flux, 1.0 / unc))
+        r = (torch.func.vmap(model.fnu, in_dims=(0, None))(x, w) - y) * iu
+        lnp = -0.5 * torch.sum(r * r, dim=-1) \
+            - 0.5 * ((x[:, 0] - 38.0) / 6.0) ** 2
+        return lnp.double().cpu().numpy().reshape(tt.shape), zg
+
+    (vals, zg), out["(b) grid"] = _timed(grid)
+    post = np.exp(vals - vals.max())
+    pz = post.sum(axis=(0, 1))
+    cdf = np.cumsum(pz) / pz.sum()
+    zmed, zlo, zhi = (np.interp(q, cdf, zg) for q in (0.5, 0.1585, 0.8415))
+    width_g, width_m = zhi - zlo, zc[1] + zc[2]
+    contained = pz[0] < 1e-2 * pz.max() and pz[-1] < 1e-2 * pz.max()
+    ok = (contained and abs(zc[0] - zmed) < 0.08 * width_g
+          and abs(width_m - width_g) < 0.12 * width_g
+          and c["mbb_lnprob"] + c["mbb_multi_stretch_run"] == 0)
+    log(f"[25] (b) photo-z SEDFitter.run({PZ_FIT}) x {NWALKERS} walkers, "
+        f"cmb=True, T prior (38, 6), beta/lambda0/alpha fixed: "
+        f"{out['(b) photo-z run']:.2f} s, {c['plain_sampler_runs']} plain "
+        f"sampler runs; z median {zc[0]:.4f}, 68% width {width_m:.4f} "
+        f"against the {'x'.join(map(str, PZ_GRID))} grid's "
+        f"{zmed:.4f} / {width_g:.4f} ({out['(b) grid']:.2f} s, one batched "
+        f"call on the card): |d median| {abs(zc[0] - zmed):.4f} < "
+        f"{0.08 * width_g:.4f}, |d width| {abs(width_m - width_g):.4f} < "
+        f"{0.12 * width_g:.4f} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("photo-z P(z) is off the exact grid marginal")
+
+
+def sedmulti_fitter(flux, unc, seed, device=None):
+    """An SEDMultiFitter of the wrapped 5-parameter MBB on the batch cell's
+    data, set up as batch_fitter sets up MultiFitter (config 2's box and
+    priors), with both fitters' walker balls at the truth with MBBFitter's
+    scatter."""
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import SEDMultiFitter
+    from mbb_emcee_tpu_torch.fitter import DEFAULT_SCATTER
+    smf = SEDMultiFitter(sed_mbb_model(), nwalkers=NWALKERS, seed=seed,
+                         device=device or DEVICE)
+    smf.set_data(vp.WAVE, flux, unc)
+    smf.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
+    for (pi, mean, sig) in vp.CONFIGS[2]["priors"]:
+        smf.set_gaussian_prior(pi, mean, sig)
+    for i in range(5):
+        smf.set_param_init(i, vp.TRUE[i], DEFAULT_SCATTER[i])
+    return smf
+
+
+def _batch_posterior_vs(tag, a, b, rel):
+    """Per-source medians and 68% widths of batch fit `a` against `b`, each
+    within max(rel, 3 sigma_MC) (sigma_MC of both runs from their batched
+    autocorrelation times). Returns the number of (source, parameter)
+    checks."""
+    import numpy as np
+    from mbb_emcee_tpu_torch.likelihood import param_index
+    stats = []
+    for f in (a, b):
+        tau = np.maximum(np.nan_to_num(f.autocorrelation_time(), nan=1.0),
+                         1.0)                             # (S, nfree)
+        n = f.chain_free.shape[1] * f.chain_free.shape[2]
+        std = f.chain_free.double().reshape(
+            f.nsources, n, -1).std(dim=1).cpu().numpy()
+        se = std / np.sqrt(n / tau)
+        cen = np.stack([f.par_cen(p) for p in f.free_param_names], axis=1)
+        stats.append((cen[..., 0], cen[..., 1] + cen[..., 2],
+                      1.2533 * se, 1.54 * se))
+    (m1, w1, s1m, s1w), (m2, w2, s2m, s2w) = stats
+    tm = np.maximum(rel * np.abs(m2), 3 * np.hypot(s1m, s2m))
+    tw = np.maximum(rel * w2, 3 * np.hypot(s1w, s2w))
+    bad_m, bad_w = np.abs(m1 - m2) > tm, np.abs(w1 - w2) > tw
+    ok = not (bad_m.any() or bad_w.any())
+    names = [f"p{param_index(p)}" for p in b.free_param_names]
+    worst = [f"{n} median max |d|/tol {np.max(np.abs(m1 - m2)[:, k] / tm[:, k]):.3f}"
+             f", width {np.max(np.abs(w1 - w2)[:, k] / tw[:, k]):.3f}"
+             for k, n in enumerate(names)]
+    log(f"[25] {tag}: {m1.shape[0]} sources x {m1.shape[1]} parameters, "
+        f"max(2%, 3 sigma_MC): " + "; ".join(worst)
+        + f"; {int(bad_m.sum() + bad_w.sum())} outside "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: posteriors differ")
+    return bad_m.size
+
+
+def phase_generic_batch(card):
+    """The generic batch tier and photo-z through the user's entry points
+    (see the module docstring, phase 25). Returns (launches by kernel and
+    path, seconds and numbers by step)."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.photoz import (
+        compute_dustmass_batch, photoz_mbb)
+    from mbb_emcee_tpu_torch import SEDMultiFitter
+
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+
+    def lap(part):
+        out[f"{part} ends at s"] = time.time() - t0
+
+    # -- (a) photo-z fnu, card against CPU
+    out.update({f"(a) max |d ln f| {k}": v
+                for k, v in _pz_fnu_vs_cpu().items()})
+    lap("(a)")
+
+    # -- (b) the photo-z fit against the exact grid
+    _pz_fit_vs_grid(out)
+    lap("(b)")
+
+    # -- (c) SEDMultiFitter against MultiFitter on K3 at the batch cell
+    flux, unc = batch_data(NSOURCES, seed=2500, missing_every=16)
+    ref = batch_fitter(flux, unc, seed=2501)
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.fitter import DEFAULT_SCATTER
+    for i in range(5):
+        ref.set_param_init(i, vp.TRUE[i], DEFAULT_SCATTER[i])
+    _counts(reset=True)
+    _, out["K3 MultiFitter.run"] = _timed(lambda: ref.run(**SEDMULTI_DEPTH))
+    nk3 = _counts()["mbb_multi_stretch_run"]
+    launches["mbb_multi_stretch_run"]["posterior yardstick (phase 25)"] = nk3
+    if ref._backend_used != "fused" or nk3 != 3:
+        raise AssertionError("the yardstick did not run on K3")
+    # the same seed: the same walker balls and per-source Philox streams as
+    # K3's run, so a source parts from K3's chain only where K3's lnprob
+    # and the vmapped model round differently across an accept threshold
+    # (phase 8); a parted source is held at the same bound
+    smf = sedmulti_fitter(flux, unc, seed=2501)
+    _counts(reset=True)
+    _, t_run = _timed(lambda: smf.run(**SEDMULTI_DEPTH))
+    c = _counts()
+    kernels = c["mbb_lnprob"] + c["mbb_stretch_run"] \
+        + c["mbb_multi_stretch_run"]
+    ok = (kernels == 0 and c["plain_multi_runs"] == 3
+          and c["plain_sampler_runs"] == 0)
+    out["SEDMultiFitter.run"] = t_run
+    log(f"[25] (c) SEDMultiFitter(mbb-wrapped).run({SEDMULTI_DEPTH}), "
+        f"{NSOURCES} sources x {NWALKERS} walkers x 5 bands (band 0 missing "
+        f"in {len(range(1, NSOURCES, 16))}): {t_run:.2f} s (host clock), "
+        f"acceptance {smf.acceptance_fraction.mean():.3f}; "
+        f"{c['mbb_lnprob']} K1 and {c['mbb_multi_stretch_run']} K3 launches"
+        f", {c['plain_multi_runs']} plain multi runs (want 0, 0 and 3); "
+        f"K3's MultiFitter.run on the same data "
+        f"{out['K3 MultiFitter.run']:.2f} s {'PASS' if ok else 'FAIL'} "
+        f"({card})")
+    if not ok:
+        raise AssertionError("SEDMultiFitter.run did not run the plain "
+                             "multi run alone")
+    parted = int((smf.chain_free != ref.chain_free).flatten(1).any(
+        dim=1).sum())
+    out["(c) sources parted from K3"] = parted
+    out["(c) checks"] = _batch_posterior_vs(
+        f"(c) SEDMultiFitter.run against K3's MultiFitter.run ({parted} of "
+        f"{NSOURCES} sources' chains parted from K3's)", smf, ref, 0.02)
+    ns = SEDMULTI_EXTEND_SOURCES
+    whole = sedmulti_fitter(flux[:ns], unc[:ns], seed=2503).run(nburn=5,
+                                                                nsteps=20)
+    part = sedmulti_fitter(flux[:ns], unc[:ns], seed=2503).run(nburn=5,
+                                                               nsteps=10)
+    part.extend(10)
+    ok = (torch.equal(whole.chain_free, part.chain_free)
+          and torch.equal(whole.lnprobability, part.lnprobability))
+    log(f"[25] (c) {ns} sources: run(5, 10) + extend(10) against run(5, 20)"
+        f": chains {'bitwise equal PASS' if ok else 'DIFFERENT FAIL'}")
+    if not ok:
+        raise AssertionError("SEDMultiFitter.extend is not the longer run")
+    lap("(c)")
+
+    # -- (d) derived posteriors on one chain, and the photo-z dust mass
+    thin = SEDMULTI_DERIVED_THIN
+    z = np.random.default_rng(5).uniform(0.5, 4.0, NSOURCES)
+    ref.chain_free = smf.chain_free
+    lir_s, out["(d) SED compute_lir"] = _timed(
+        lambda: smf.compute_lir(redshifts=z, thin=thin))
+    lir_m, out["(d) MBB compute_lir"] = _timed(
+        lambda: ref.compute_lir(redshifts=z, thin=thin))
+    pk_s, out["(d) SED compute_peaklambda"] = _timed(
+        lambda: smf.compute_peaklambda(thin=thin))
+    pk_m, out["(d) MBB compute_peaklambda"] = _timed(
+        lambda: ref.compute_peaklambda(thin=thin))
+    d_lir = float(np.max(np.abs(lir_s / lir_m - 1.0)))
+    d_pk = float(np.max(np.abs(pk_s / pk_m - 1.0)))
+    ok = d_lir <= 1e-4 and d_pk <= 2e-3 and lir_s.shape == lir_m.shape
+    log(f"[25] (d) {lir_s.shape[0]} x {lir_s.shape[1]} samples of the "
+        f"SEDMultiFitter chain (thin {thin}) through SEDMultiFitter and "
+        f"MultiFitter: L_IR max rel {d_lir:.3g} (rtol 1e-4), lambda_peak "
+        f"max rel {d_pk:.3g} (rtol 2e-3); SEDMultiFitter "
+        f"{out['(d) SED compute_lir']:.2f} s / "
+        f"{out['(d) SED compute_peaklambda']:.2f} s, MultiFitter "
+        f"{out['(d) MBB compute_lir']:.2f} s / "
+        f"{out['(d) MBB compute_peaklambda']:.2f} s (host clock) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generic batch derived posteriors are not "
+                             "MultiFitter's")
+    model = photoz_mbb(cmb=True, z_upper=8.0)
+    zs = np.linspace(1.5, 6.0, PZ_BATCH_SOURCES)
+    rng = np.random.default_rng(12)
+    wave = np.asarray(PZ_WAVE)
+    pflux = np.stack([model.fnu(
+        torch.tensor([38.0, 1.9, 80.0, 3.0, 10.0, zz]),
+        torch.tensor(wave, dtype=torch.float32)).double().numpy()
+        for zz in zs]) * (1.0 + 0.05 * rng.standard_normal(
+            (PZ_BATCH_SOURCES, wave.size)))
+    pz = SEDMultiFitter(model, nwalkers=NWALKERS, seed=2504, device=DEVICE)
+    pz.set_data(wave, pflux, 0.07 * pflux)
+    pz.set_gaussian_prior("T", 38.0, 6.0)
+    pz.fix_param("alpha", 3.0)
+    for nm, v in zip(model.param_names, (38.0, 1.9, 80.0, 3.0, 10.0, 3.5)):
+        pz.set_param_init(nm, v, 0.1 * v)
+    _, out["(d) photo-z batch run"] = _timed(lambda: pz.run(**PZ_BATCH_DEPTH))
+    dm_card, out["(d) compute_dustmass_batch"] = _timed(
+        lambda: compute_dustmass_batch(pz, thin=4))
+    cpu = SEDMultiFitter(model, nwalkers=NWALKERS, seed=2504, device="cpu")
+    cpu.set_data(wave, pflux, 0.07 * pflux)
+    cpu.chain_free, cpu.free_space = pz.chain_free.cpu(), pz.free_space
+    dm_cpu = compute_dustmass_batch(cpu, thin=4)
+    d_dm = float(np.max(np.abs(dm_card / dm_cpu - 1.0)))
+    ok = d_dm <= 1e-4 and np.all(np.isfinite(dm_card)) and np.all(dm_card > 0)
+    log(f"[25] (d) compute_dustmass_batch of a {PZ_BATCH_SOURCES}-source "
+        f"photo-z batch (run({PZ_BATCH_DEPTH}) {out['(d) photo-z batch run']:.2f}"
+        f" s), {dm_card.shape[1]} samples each: card against CPU max rel "
+        f"{d_dm:.3g} (rtol 1e-4), {out['(d) compute_dustmass_batch']:.2f} s;"
+        f" median log10 M_dust {np.median(np.log10(dm_card)):.3f} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("photo-z batch dust mass on the card is not the "
+                             "CPU's")
+    lap("(d)")
+
+    # -- (e) the batch stretch step's time, kernels and busy share
+    smf.run(nburn=0, nsteps=SEDMULTI_TIME_STEPS[0])
+    ts = [_timed(lambda: smf.run(nburn=0, nsteps=n))[1]
+          for n in SEDMULTI_TIME_STEPS]
+    ms_step = 1e3 * (ts[1] - ts[0]) / (SEDMULTI_TIME_STEPS[1]
+                                      - SEDMULTI_TIME_STEPS[0])
+    t_prof = time.time()
+    (k1, h1), (k2, h2) = (_profiled_launches(
+        lambda: smf.run(nburn=0, nsteps=n)) for n in (1, 2))
+    _, busy = _profiled_busy_ms(lambda: smf.run(nburn=0, nsteps=3))
+    t_prof = time.time() - t_prof
+    _, wall = _timed(lambda: smf.run(nburn=0, nsteps=3))
+    tk = [_timed(lambda: ref.run(nburn=0, nsteps=n))[1]
+          for n in K3_TIME_STEPS]
+    k3_ms = 1e3 * (tk[1] - tk[0]) / (K3_TIME_STEPS[1] - K3_TIME_STEPS[0])
+    share = None if busy is None else busy / (1e3 * wall)
+    log(f"[25] (e) SEDMultiFitter batch stretch step, {NSOURCES} x "
+        f"{NWALKERS} x 5 bands: {ms_step:.3f} ms per step (marginal, "
+        f"run(0, {SEDMULTI_TIME_STEPS[1]}) - run(0, {SEDMULTI_TIME_STEPS[0]}"
+        f"), host clock with the card synchronized); {k2 - k1:.0f} device "
+        f"kernels and {h2 - h1:.0f} cudaLaunchKernel calls per step "
+        f"(torch.profiler, run(0, 2) - run(0, 1)); device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} ms'} of "
+        f"{1e3 * wall:.1f} ms for run(0, 3)"
+        f"{'' if share is None else f' ({100 * share:.1f}%)'}; the traced "
+        f"runs took {t_prof:.1f} s; K3 on the same posterior "
+        f"{1e3 * k3_ms:.2f} us per step (marginal, run(0, "
+        f"{K3_TIME_STEPS[1]}) - run(0, {K3_TIME_STEPS[0]})): "
+        f"{ms_step / k3_ms:.0f}x ({card})")
+    out.update({"ms per batch stretch step": ms_step,
+                "kernels per step": k2 - k1,
+                "launch calls per step": h2 - h1,
+                "device busy ms": busy, "profiled wall s": wall,
+                "device busy share": share, "traced runs s": t_prof,
+                "K3 us per step": 1e3 * k3_ms})
+    lap("(e)")
+    out["phase 25"] = time.time() - t0
+    ok = out["phase 25"] <= 40.0
+    log(f"[25] phase 25: {out['phase 25']:.1f} s (advisory budget 40 s: "
+        f"{'within' if ok else 'OVER'}); parts end at " + ", ".join(
+            f"{k.split()[0]} {v:.1f} s" for k, v in out.items()
+            if k.endswith("ends at s")))
+    return launches, out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
           "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
-          "24")
+          "24", "25")
 
 
 def main(argv=None):
@@ -4517,7 +4970,8 @@ def main(argv=None):
         ("22", lambda: phase_tiers(card)),
         ("23", lambda: phase_evidence(
             card, res["22"][1] if "22" in res else None)),
-        ("24", lambda: phase_generic(card))]
+        ("24", lambda: phase_generic(card)),
+        ("25", lambda: phase_generic_batch(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -4554,6 +5008,7 @@ def main(argv=None):
     k1_by_path["run_pt (phase 22)"] = pt_launches
     evidence_paths, evidence_times = res["23"]
     generic_paths, generic_times = res["24"]
+    batch_paths, batch_times = res["25"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -4561,6 +5016,7 @@ def main(argv=None):
                         for k, v in map_paths[name].items()})
         by_path.update(evidence_paths[name])
         by_path.update(generic_paths[name])
+        by_path.update(batch_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -4659,6 +5115,8 @@ def main(argv=None):
         f"({card}): " + json.dumps(evidence_times))
     log(f"generic tier, host seconds and counts ({card}): "
         + json.dumps(generic_times))
+    log(f"generic batch tier and photo-z, host seconds and counts ({card}): "
+        + json.dumps(batch_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -50,7 +50,10 @@ function fnu(theta, wave), batched with torch.func.vmap, runs through the
 same likelihood and every sampler tier (SEDModel, SEDFitter, SEDResults;
 the plain torch sampler on the fitter's device), among them the
 CMB-corrected greybody of models/cmb.py; forecast.py gives Fisher
-forecasts of a proposed observation from the same model code.
+forecasts of a proposed observation from the same model code. Its batch
+tier, SEDMultiFitter (sedmulti.py), fits one such model to a whole catalog
+on the plain batch stretch step, and photoz.py's photoz_mbb samples the
+redshift as a parameter (submm photo-z; it needs a T prior).
 
 The kernels are built with nvcc at first use (ops/build.py). Importing the
 package imports neither jax nor mbb_emcee_tpu, and h5py only when a file is
@@ -71,6 +74,7 @@ from mbb_emcee_tpu_torch.fitter import MBBFitter
 from mbb_emcee_tpu_torch.results import MBBResults, PPCResult
 from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
 from mbb_emcee_tpu_torch.multifit import MultiFitter, PPCBatchResult
+from mbb_emcee_tpu_torch.catalog import Catalog, read_catalog
 from mbb_emcee_tpu_torch.response import Response, ResponseSet
 from mbb_emcee_tpu_torch.mapfit import MAPResult
 from mbb_emcee_tpu_torch.hmc import hmc_sample, HMCResult
@@ -88,6 +92,8 @@ from mbb_emcee_tpu_torch.hierarchy import (
     HierarchicalFitter, fit_population)
 from mbb_emcee_tpu_torch.sed import (
     SEDModel, SEDFitter, SEDResults, build_sed_lnprob)
+from mbb_emcee_tpu_torch.sedmulti import SEDMultiFitter
+from mbb_emcee_tpu_torch.photoz import photoz_mbb, PhotoZMBBModel
 from mbb_emcee_tpu_torch.models.cmb import cmb_corrected_mbb
 from mbb_emcee_tpu_torch.forecast import (
     forecast, forecast_mbb, ForecastResult)
@@ -101,6 +107,7 @@ __all__ = [
     "LikelihoodSpec", "Photometry", "build_lnprob",
     "EnsembleSampler", "SamplerState", "FusedSampler", "build_kernels",
     "MBBFitter", "MBBResults", "FusedMultiSampler", "MultiFitter",
+    "Catalog", "read_catalog",
     "Response", "ResponseSet", "MAPResult", "PPCResult", "PPCBatchResult",
     "hmc_sample", "HMCResult", "pt_sample", "PTResult",
     "ParallelTemperingSampler", "geometric_ladder",
@@ -110,6 +117,7 @@ __all__ = [
     "NestedResult", "NestedBatchResult", "TruncatedGaussianPopulation",
     "CorrelatedGaussianPopulation", "Selection", "HierarchicalFitter",
     "fit_population", "SEDModel", "SEDFitter", "SEDResults",
-    "build_sed_lnprob", "cmb_corrected_mbb", "forecast", "forecast_mbb",
+    "build_sed_lnprob", "SEDMultiFitter", "photoz_mbb", "PhotoZMBBModel",
+    "cmb_corrected_mbb", "forecast", "forecast_mbb",
     "ForecastResult", "__version__",
 ]

@@ -1,11 +1,50 @@
-"""Batch-tier data handling and device-side summaries.
+"""The batch tier's one engine: data, the stretch-move run protocol, the
+device-side summaries and every inference tier, shared by MultiFitter (the
+5-parameter MBB; multifit.py) and SEDMultiFitter (a user SEDModel;
+sedmulti.py).
 
-Torch twin of the parts of mbb_emcee_tpu/batchengine.py that the
-stretch-move batch path uses (BatchEngine's data setters :183-353, the
-summaries :704-843 and the derived-quantity plumbing :846-897). The JAX
-engine's program cache, mesh sharding and traced-program plumbing have no
-counterpart: torch runs eagerly, and the multi-source kernel takes the
-whole batch in one launch.
+Torch twin of mbb_emcee_tpu/batchengine.py: the data setters (:183-353),
+the run / extend / checkpoint protocol (:465-702), the summaries (:704-843),
+the derived-quantity plumbing (:846-897) and the PT, HMC, MAP, nested,
+PPC and LOO tiers (:899-1913). The JAX engine's program cache, mesh
+sharding and traced-program plumbing have no counterpart: torch runs
+eagerly, and the multi-source kernel takes the whole batch in one launch.
+
+An adapter class supplies the likelihood and the model through a small
+hook surface; the engine never looks inside the operands:
+
+  _lnprob_operands(spec)  -> the batch likelihood on this data: .plain(theta
+                             (S, n, nfree)) -> (S, n), .fn(theta, .wave,
+                             *.data), .free_space (MultiOperands for the
+                             MBB, PlainBatchOperands for a generic model)
+  _build_sampler(spec)    -> the run protocol's sampler (.free_space,
+                             init_state / advance / run_mcmc /
+                             reset_counters / acceptance_fraction: K3's
+                             FusedMultiSampler, or sampler.
+                             MultiEnsembleSampler on the plain likelihood);
+                             it sets self._sampler and self._backend_used
+  _init_centers(init)     -> (S, npar) full-space walker-ball centers and
+                             scatters; init="map" is _map_centers()
+  _band_flux_eval()       -> fluxes(theta (S, n, npar)) -> (S, n, nb), the
+                             model's band fluxes as the likelihood sees them
+                             (PPC, LOO)
+  _model_token(spec)      -> everything the likelihood is built from
+                             besides the per-source data (model, parameter
+                             space, wavelengths, response pack): the
+                             engine's _posterior_token (the identity
+                             extend() refuses to splice across) and _map_key
+                             (what stored MAP results bind to) add the batch
+                             geometry, upper limits and band correlation
+  _per_source_priors()    -> {name: (mean (S,), 1/sigma (S,))}, the
+                             per-source interim Gaussian priors that
+                             HierarchicalFitter.from_batch divides out
+                             (default: none)
+  _spec_fingerprint(spec) -> the hash of the parameter space and model in a
+                             checkpoint (default spec: the fitter's)
+  _response_pack()        -> the (nodes, weights) quadrature pack or None
+  _param_names            -> the full-space parameter names
+  _param_index(param)     -> name or index -> index (ParamSpaceMixin)
+  _engine_label()         -> the tag of log lines
 
 Chains stay on the fitter's device as (S, nrec, nwalkers, nfree) tensors;
 par_cen, best_fit, split-R-hat and the autocorrelation time are batched
@@ -15,15 +54,20 @@ cross to the host for a summary.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from mbb_emcee_tpu_torch.likelihood import param_index, signed_iunc
+from mbb_emcee_tpu_torch.checkpoint import production
+from mbb_emcee_tpu_torch.constants import PARAM_NAMES
+from mbb_emcee_tpu_torch.fitter import philox_key
+from mbb_emcee_tpu_torch.likelihood import signed_iunc
 from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch.paramspace import _replace
+from mbb_emcee_tpu_torch.sampler import make_initial_ball
 
 
 def batched_split_rhat(chain):
@@ -72,11 +116,42 @@ def batched_tau(chain, c=5.0):
     return torch.stack(out, dim=1)
 
 
+def _batch_percentiles(chains, percentile=68.3):
+    """(S, 3) (median, +err, -err) per source from (S, nsamples): the
+    per-source results._percentile_summary in one pass."""
+    p = float(percentile)
+    lo, mid, hi = np.percentile(np.asarray(chains, np.float64),
+                                [50.0 - p / 2, 50.0, 50.0 + p / 2], axis=1)
+    return np.stack([mid, hi - mid, mid - lo], axis=1)
+
+
+@dataclasses.dataclass
+class PlainBatchOperands:
+    """A batch likelihood without a kernel: fn(theta (S, n, nfree), wave,
+    *data) -> (S, n) on per-source operands `data` (each with a leading
+    source axis) on one device."""
+    wave: torch.Tensor
+    data: tuple
+    fn: object
+    free_space: object
+
+    def plain(self, theta_free):
+        return self.fn(theta_free, self.wave, *self.data)
+
+
 class BatchEngine:
-    """Batch-tier surface shared by MultiFitter: data, upper limits, band
-    correlation, and the batched summaries. Host classes carry wave/flux/
-    unc, band_names/source_names/redshifts, free_space, chain_free,
-    lnprobability, acceptance_fraction and _spec (ParamSpaceMixin)."""
+    """Batch-tier surface shared by MultiFitter and SEDMultiFitter: data,
+    upper limits, band correlation, the stretch-move run protocol, the
+    batched summaries and the inference tiers, over the hook surface of the
+    module docstring. Host classes carry wave/flux/unc, band_names/
+    source_names/redshifts, free_space, chain_free, lnprobability,
+    acceptance_fraction, device, nwalkers, seed, a, _spec, _init, _scatter
+    (ParamSpaceMixin)."""
+
+    _param_names = PARAM_NAMES
+
+    def _engine_label(self):
+        return type(self).__name__
 
     # -- data ------------------------------------------------------------------
     def set_data(self, wave, flux, unc, band_names=None, source_names=None,
@@ -240,14 +315,14 @@ class BatchEngine:
 
     @property
     def chain(self):
-        """(S, nwalkers, nrec, 5) full-parameter chains (reference layout
-        per source), host numpy."""
+        """(S, nwalkers, nrec, npar) full-parameter chains (reference
+        layout per source), host numpy."""
         self._require_run()
         full = self.free_space.expand(self.chain_free.double().cpu().numpy())
         return np.transpose(full, (0, 2, 1, 3))
 
     def flatchain(self):
-        """(S, nrec * nwalkers, 5), host numpy."""
+        """(S, nrec * nwalkers, npar), host numpy."""
         self._require_run()
         free = self.chain_free.double().cpu().numpy()
         return self.free_space.expand(
@@ -259,15 +334,14 @@ class BatchEngine:
         if self.free_space is None:
             raise RuntimeError("no fit yet (run() sets the free-parameter "
                                "space)")
-        from mbb_emcee_tpu_torch.constants import PARAM_NAMES
-        return [PARAM_NAMES[i] for i in self.free_space.free_idx]
+        return [self._param_names[i] for i in self.free_space.free_idx]
 
     def par_cen(self, param, percentile=68.3):
         """(S, 3): per-source (median, +err, -err), computed on the chain's
         device and interpreted under the spec the run sampled (a parameter
         fixed at run time reports its fixed value with zero errors)."""
         self._require_run()
-        i = param_index(param)
+        i = self._param_index(param)
         fs = self.free_space
         hit = np.nonzero(fs.free_idx == i)[0]
         if hit.size == 0:
@@ -289,7 +363,8 @@ class BatchEngine:
         return np.stack([mid, hi - mid, mid - lo], axis=1)
 
     def best_fit(self):
-        """(params (S, 5), lnprob (S,)) at each source's max-lnp sample."""
+        """(params (S, npar), lnprob (S,)) at each source's max-lnp
+        sample."""
         self._require_run()
         S = self.nsources
         lnp = self.lnprobability.reshape(S, -1)
@@ -364,8 +439,8 @@ class BatchEngine:
                          for z in np.asarray(redshifts).ravel()])
 
     def _thinned(self, thin):
-        """(S, nsamp, 5) fp32 thinned full-parameter samples on the chain's
-        device."""
+        """(S, nsamp, npar) fp32 thinned full-parameter samples on the
+        chain's device."""
         self._require_run()
         fs = self.free_space
         free = self.chain_free.reshape(self.nsources, -1, fs.nfree)
@@ -379,7 +454,7 @@ class BatchEngine:
 
     @staticmethod
     def _chunked_samples(fn, samples, inner_elems):
-        """fn over (S, N, 5) samples in sample-axis chunks (about 64M
+        """fn over (S, N, npar) samples in sample-axis chunks (about 64M
         elements of intermediates each, `inner_elems` = per-sample fan-out
         such as quadrature nodes), as (S, N, ...) host fp64."""
         S, N = samples.shape[:2]
@@ -387,6 +462,231 @@ class BatchEngine:
         out = [fn(samples[:, i:i + chunk]).double().cpu().numpy()
                for i in range(0, N, chunk)]
         return np.concatenate(out, axis=1)
+
+    # -- the stretch-move run protocol ------------------------------------------
+    def _balls(self, gen, centers, scatters, n=None):
+        """(S, n, nfree) balls (n = nwalkers by default), one per source in
+        source order from the CPU generator `gen`, reflected at the box."""
+        fs = self.free_space
+        n = self.nwalkers if n is None else int(n)
+        return torch.stack([
+            make_initial_ball(gen, c, s, n, fs.lower, fs.upper)
+            for c, s in zip(centers, scatters)]).to(self.device)
+
+    def _map_centers(self):
+        """init="map"'s (S, npar) centers and scatters: each source's
+        run_map() mode with ~2 Laplace-sigma scatter, capped at 10x the
+        default scatter, so the ensemble starts in the typical set and
+        short burns suffice."""
+        if getattr(self, "map_params", None) is None:
+            raise RuntimeError(
+                "init='map' requires run_map() on this data first")
+        self._require_map_fresh("init='map'")
+        S = self.nsources
+        centers = self.map_params.copy()
+        scatters = np.broadcast_to(self._scatter,
+                                   (S, self._scatter.size)).copy()
+        idx = self.free_space.free_idx
+        sig = np.clip(2.0 * self.map_sigma, 1e-6, None)
+        scatters[:, idx] = np.minimum(sig, scatters[:, idx] * 10.0)
+        return centers, scatters
+
+    def _posterior_token(self, spec):
+        """Identity of the posterior a run sampled (extend() refuses to
+        splice chains across a change): the model, geometry, band
+        correlation CONTENT, upper-limit mask and band names."""
+        uplim = (None if spec.uplim_bands is None
+                 else np.asarray(spec.uplim_bands).tobytes())
+        return (self._model_token(spec), self.nsources, self.nwalkers,
+                int(self.thin), float(self.a),
+                None if self._band_corr is None
+                else self._band_corr.tobytes(),
+                uplim,
+                None if self.band_names is None
+                else tuple(self.band_names))
+
+    def _map_key(self, spec):
+        """What stored MAP results bind to besides the data: the model and
+        parameter space, the upper-limit mask and the band correlation."""
+        return (self._model_token(spec), self.nsources,
+                None if spec.uplim_bands is None
+                else np.asarray(spec.uplim_bands).tobytes(),
+                None if self._band_corr is None
+                else self._band_corr.tobytes())
+
+    def _per_source_priors(self):
+        return {}
+
+    def _record_map(self, spec):
+        self._map_token = self._map_key(spec)
+        self._map_data = (self.flux.copy(), self.unc.copy(),
+                          self.wave.copy())
+
+    def _require_map_fresh(self, what):
+        """Refuse stored MAP results after the posterior or the data changed
+        (the same nfree does not mean the same free parameters)."""
+        data = getattr(self, "_map_data", None)
+        if (getattr(self, "_map_token", None)
+                != self._map_key(self._effective_spec())
+                or data is None
+                or not (np.array_equal(data[0], self.flux)
+                        and np.array_equal(data[1], self.unc)
+                        and np.array_equal(data[2], self.wave))):
+            raise RuntimeError(
+                f"{what}: the stored MAP results are for a different batch "
+                f"/ parameter space / error model; re-run run_map() first")
+
+    def _same_data(self):
+        return (getattr(self, "_run_data", None) is not None
+                and np.array_equal(self._run_data[0], self.flux)
+                and np.array_equal(self._run_data[1], self.unc)
+                and np.array_equal(self._run_data[2], self.wave))
+
+    def run(self, nburn=50, nsteps=250, thin=1, recenter_burn=True,
+            verbose=False, checkpoint=None, checkpoint_interval=100,
+            resume=False, init="auto"):
+        """Burn -> per-source re-center on its best walker -> re-burn ->
+        reset -> production, all sources in lockstep; each phase is one
+        call of the adapter's sampler (_build_sampler). init="map" seeds
+        each source's walker ball at its run_map() mode (_map_centers).
+
+        With `checkpoint=path` the production run is segmented and the
+        per-source chain blocks and the full batch sampler state are
+        flushed to HDF5 every `checkpoint_interval` recorded steps
+        (checkpoint.production); `resume=True` continues an interrupted run
+        from that file, bitwise the uninterrupted chain. A resume under
+        another sampler backend, data or posterior is refused. Returns
+        self."""
+        if self.flux is None:
+            raise RuntimeError("no data; call set_data")
+        if int(thin) < 1:
+            raise ValueError(f"thin={thin} must be >= 1")
+        if nsteps % thin:
+            raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+        if init not in ("auto", "map"):
+            raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
+        if resume and not checkpoint:
+            raise ValueError(
+                "resume=True requires checkpoint= (the path the previous "
+                "run flushed state to); without it the run would silently "
+                "restart from scratch")
+        # before the sampler replaces free_space: init="map" reads run_map's
+        centers = self._init_centers(init)
+        spec = self._effective_spec()
+        samp = self._build_sampler(spec)
+        self.free_space = samp.free_space
+        self._run_spec = spec       # persisted by writeToHDF5
+        self.thin = int(thin)
+        state, chain, lnpchain = production(
+            samp.run_mcmc,
+            lambda: self._burn(samp, nburn, recenter_burn, centers),
+            nsteps, thin, self.device, checkpoint, checkpoint_interval,
+            bool(checkpoint and resume and os.path.exists(checkpoint)),
+            None if checkpoint is None else self._checkpoint_meta(nsteps),
+            multi=True, verbose=verbose)
+        self._record(state, chain, lnpchain)
+        self._run_data = (self.flux.copy(), self.unc.copy(),
+                          self.wave.copy())
+        self._post_token = self._posterior_token(spec)
+        self.logz_pt = self.logz_ti = self.swap_fraction = None
+        self.pt_betas = self.hmc_step_size = self.hmc_mass = None
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            af = self.acceptance_fraction
+            enable_console().info(
+                f"{self._engine_label()} ({self._backend_used} on "
+                f"{self.device}): mean acceptance fraction over "
+                f"{self.nsources} sources: {af.mean():.3f} (per-source min "
+                f"{af.mean(1).min():.3f}, max {af.mean(1).max():.3f})")
+        return self
+
+    def _burn(self, samp, nburn, recenter_burn, init_centers):
+        """The start state of production: the per-source walker balls
+        around `init_centers` ((S, npar) centers and scatters), burn-in,
+        per-source re-center, re-burn, counters reset."""
+        fs = self.free_space
+        centers, scatters = init_centers
+        cen_f, sca_f = centers[:, fs.free_idx], scatters[:, fs.free_idx]
+        gen = torch.Generator().manual_seed(self.seed)
+        state = samp.init_state(self._balls(gen, cen_f, sca_f),
+                                seed=philox_key(self.seed))
+        if nburn > 0:
+            state = samp.advance(state, nburn)
+            if recenter_burn:
+                # Each source re-centers on the best walker of ITS final
+                # burn state (not the single fit's whole-burn-chain rule);
+                # the Philox streams continue where the burn stopped.
+                S = self.nsources
+                best = state.pos[torch.arange(S, device=state.pos.device),
+                                 torch.argmax(state.lnp, dim=1)]
+                p0b = self._balls(gen, best.double().cpu().numpy(),
+                                  0.1 * sca_f)
+                state = samp.init_state(p0b, seed=state.seed,
+                                        step=state.step)
+                state = samp.advance(state, nburn)
+            state = samp.reset_counters(state)
+        return state
+
+    def _checkpoint_meta(self, nsteps):
+        """The run identity a batch checkpoint records (see
+        MBBFitter._checkpoint_meta); the band correlation enters the data
+        fingerprint only when set, as in the JAX package."""
+        from mbb_emcee_tpu_torch.checkpoint import (
+            PRNG_IMPL, data_fingerprint, new_run_id)
+        pack = self._response_pack()
+        return {"nwalkers": self.nwalkers, "nsources": self.nsources,
+                "thin": self.thin, "nsteps_target": int(nsteps),
+                "sampler_backend": self._backend_used,
+                "prng_impl": PRNG_IMPL, "seed": self.seed,
+                "data_fingerprint": data_fingerprint(
+                    self.wave, self.flux, self.unc,
+                    *(() if self._band_corr is None
+                      else (self._band_corr,)),
+                    *(() if pack is None else pack)),
+                "spec_fingerprint": self._spec_fingerprint(),
+                "run_id": new_run_id()}
+
+    def _record(self, state, chain, lnpchain):
+        self.final_state = state
+        self.chain_free = chain
+        self.lnprobability = lnpchain
+        self.acceptance_fraction = self._sampler.acceptance_fraction(state)
+
+    def extend(self, nsteps, verbose=False):
+        """Continue the production run of every source from the stored
+        final state (the run-until-converged serving loop). The Philox
+        streams continue, so run(n1) + extend(n2) gives the chain of the
+        longer run(n1 + n2), on every backend."""
+        if getattr(self, "final_state", None) is None:
+            raise RuntimeError(
+                "extend() requires a prior stretch-move run() on this "
+                "fitter (run_hmc/run_pt runs are not continuable -- re-run "
+                "with more steps; a reloaded file carries no sampler "
+                "state)")
+        if not self._same_data():
+            raise RuntimeError(
+                "set_data() was called after run(); extend() would keep "
+                "sampling the PREVIOUS batch's posterior -- call run() "
+                "for the new data instead")
+        spec = self._effective_spec()
+        if self._posterior_token(spec) != self._post_token:
+            raise RuntimeError(
+                "the parameter space / error model / band configuration "
+                "changed after run(); extend() would splice chains from "
+                "different posteriors -- call run() instead")
+        if nsteps % self.thin:
+            raise ValueError(
+                f"nsteps={nsteps} not divisible by thin={self.thin}")
+        state, chain, lnp = self._sampler.run_mcmc(
+            self.final_state, int(nsteps), self.thin)
+        self._record(state, torch.cat([self.chain_free, chain], dim=1),
+                     torch.cat([self.lnprobability, lnp], dim=1))
+        if verbose:
+            from mbb_emcee_tpu_torch.utils.log import enable_console
+            enable_console().info(
+                f"  extended by {nsteps} steps -> "
+                f"{self.chain_free.shape[1]} recorded per source")
+        return self
 
     # -- PT and HMC tiers -------------------------------------------------------
     def _engine_record_nonextendable(self, kind):
@@ -407,14 +707,13 @@ class BatchEngine:
         band correlation, response pack, parameter space), stored in its
         checkpoint and re-checked on resume: resuming another posterior
         would splice chains silently."""
-        from mbb_emcee_tpu_torch.checkpoint import (
-            data_fingerprint, spec_fingerprint)
+        from mbb_emcee_tpu_torch.checkpoint import data_fingerprint
         pack = self._response_pack()
         return data_fingerprint(
             self.wave, self.flux, self.unc,
             *(() if self._band_corr is None else (self._band_corr,)),
             *(() if pack is None else pack),
-            np.asarray([spec_fingerprint(spec, self.shape, self.a)]))
+            np.asarray([self._spec_fingerprint(spec)]))
 
     def _tier_ck_meta(self, spec, extra):
         """The run identity a PT / HMC checkpoint records: geometry, seed,
@@ -504,7 +803,6 @@ class BatchEngine:
         (S,), err (S,)) by stepping stone, self.logz_ti by thermodynamic
         integration, self.swap_fraction (S, K-1), self.pt_betas (S, K).
         extend() does not apply."""
-        from mbb_emcee_tpu_torch.fitter import philox_key
         from mbb_emcee_tpu_torch.tempering import (
             PTState, SSStats, _SUPPORT_FLOOR, auto_ladder_batch,
             geometric_ladder, init_pt_state, nearest_rungs, pt_advance,
@@ -675,7 +973,6 @@ class BatchEngine:
         (eps, mass); a kill during warmup restarts warmup).
 
         The recorded chains have run()'s shapes; extend() does not apply."""
-        from mbb_emcee_tpu_torch.fitter import philox_key
         from mbb_emcee_tpu_torch.hmc import (
             _to_unconstrained, check_box, hmc_prod_core, hmc_warmup_core)
 
@@ -787,7 +1084,6 @@ class BatchEngine:
         Philox stream of source index s under philox_key(seed) (default:
         the fitter's seed). Returns a NestedBatchResult with the samples in
         the full parameter space; also stored as self.evidence."""
-        from mbb_emcee_tpu_torch.fitter import philox_key
         from mbb_emcee_tpu_torch.nested import make_nested_batch_runner
 
         if self.flux is None:
@@ -798,15 +1094,15 @@ class BatchEngine:
                 and np.all(np.isfinite(free_space.upper))):
             raise ValueError("nested sampling requires finite box bounds")
 
-        def lnprob(theta, flux, errs):
-            return ops.fn(theta, ops.wave, flux, errs)
+        def lnprob(theta, *data):
+            return ops.fn(theta, ops.wave, *data)
 
         runner = make_nested_batch_runner(
             lnprob, free_space.lower, free_space.upper, nlive=nlive,
             nbatch=nbatch, nsteps=nsteps, max_iter=max_iter, tol=tol,
             device=self.device)
         res = runner(philox_key(self.seed if seed is None else int(seed)),
-                     (ops.flux, ops.errs))
+                     ops.data)
         res.samples = free_space.expand(res.samples)
         self.evidence = res
         if verbose:
@@ -827,7 +1123,7 @@ class BatchEngine:
         optimizer, as one batched torch computation on the per-source
         plain likelihood on the fitter's device. Stores per source
 
-            map_params   (S, 5) full-space MAP points
+            map_params   (S, npar) full-space MAP points
             map_lnprob   (S,)   posterior log-density at the mode
             map_cov      (S, nfree, nfree) Laplace covariance
             map_sigma    (S, nfree) sqrt(diag)
@@ -948,7 +1244,7 @@ class BatchEngine:
         point with NaN errors."""
         if getattr(self, "map_samples", None) is None:
             raise RuntimeError("map_importance() has not been called")
-        i = param_index(param)
+        i = self._param_index(param)
         free_idx = list(self.free_space.free_idx)
         if i not in free_idx:
             vals = self.map_params[:, i]
@@ -975,7 +1271,7 @@ class BatchEngine:
         fixed parameters)."""
         if getattr(self, "map_params", None) is None:
             raise RuntimeError("run_map() has not been called")
-        i = param_index(param)
+        i = self._param_index(param)
         vals = self.map_params[:, i]
         free_idx = list(self.free_space.free_idx)
         sig = (self.map_sigma[:, free_idx.index(i)]

@@ -28,9 +28,9 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
 # queue-A item that carries each.
 _WAITING = (
-    ("plot_sed", "--plot-sed", "A10b"),
-    ("plot_corner", "--plot-corner", "A10b"),
-    ("plot_chain", "--plot-chain", "A10b"), ("plot_ppc", "--plot-ppc", "A10b"),
+    ("plot_sed", "--plot-sed", "A10c"),
+    ("plot_corner", "--plot-corner", "A10c"),
+    ("plot_chain", "--plot-chain", "A10c"), ("plot_ppc", "--plot-ppc", "A10c"),
     ("profile_dir", "--profile-dir", "A8"),
 )
 

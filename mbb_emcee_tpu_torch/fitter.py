@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from mbb_emcee_tpu_torch.checkpoint import production
+from mbb_emcee_tpu_torch.checkpoint import PRNG_IMPL, production
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES, NPARAMS, HCOK_UM_K
 from mbb_emcee_tpu_torch.models.modified_blackbody import MBBShape
 from mbb_emcee_tpu_torch.likelihood import (
@@ -48,6 +48,38 @@ def not_ported(feature, item):
     return NotImplementedError(
         f"{feature} is not ported to mbb_emcee_tpu_torch yet "
         f"(ROADMAP.md, queue A, item {item})")
+
+
+def check_jax_keywords(dtype=None, prng_impl=None, lnprob_backend=None,
+                       jax_prng="rbg"):
+    """Refuse, by keyword, a value of the JAX constructors' dtype=,
+    prng_impl= or lnprob_backend= that the port cannot honour. The port
+    has one precision (float32), one generator (Philox-4x32-10, the
+    kernels' and ops/philox.py's) and a likelihood the device picks (the
+    lnprob kernel on CUDA, its plain torch version on the CPU). Unset, or
+    the JAX constructor's default (`jax_prng`, "xla"), is accepted."""
+    if dtype is not None:
+        try:
+            f32 = (dtype == torch.float32 if isinstance(dtype, torch.dtype)
+                   else np.dtype(dtype) == np.float32)
+        except TypeError:       # a name numpy does not know ("bfloat16")
+            f32 = False
+        if not f32:
+            raise ValueError(
+                f"dtype={dtype!r} is not taken: mbb_emcee_tpu_torch samples "
+                "in float32 only (its kernels and plain torch paths are "
+                "fp32); leave dtype unset or pass float32")
+    if prng_impl is not None and prng_impl not in (PRNG_IMPL, jax_prng):
+        raise ValueError(
+            f"prng_impl={prng_impl!r} is not taken: mbb_emcee_tpu_torch "
+            f"draws every proposal from one generator, Philox-4x32-10 "
+            f"({PRNG_IMPL!r}, the kernels' own); leave prng_impl unset")
+    if lnprob_backend not in (None, "xla"):
+        raise ValueError(
+            f"lnprob_backend={lnprob_backend!r} is not taken: "
+            "mbb_emcee_tpu_torch picks the likelihood by device (the lnprob "
+            "kernel on CUDA, its plain torch version on the CPU); leave "
+            "lnprob_backend unset")
 
 
 def default_device():
@@ -94,6 +126,10 @@ class MBBFitter(ParamSpaceMixin):
     phase) and merges their chains into one (K * nwalkers)-walker product:
     K x the samples, a cross-ensemble split-R-hat, and independent burn-ins.
     Diagonal uncertainties only.
+    dtype=, prng_impl= and lnprob_backend= are the JAX constructor's: the
+    port samples in float32 from Philox-4x32-10 on the likelihood its
+    device picks, and refuses any other value by name
+    (check_jax_keywords).
     responses: a response.ResponseSet; the model fluxes are then
     band-integrated over each named band's filter curve (set_data with
     band_names, or a photometry file with a band-name column).
@@ -102,9 +138,11 @@ class MBBFitter(ParamSpaceMixin):
     def __init__(self, nwalkers=250, photfile=None, covfile=None, covextn=0,
                  wavenorm=500.0, noalpha=False, opthin=False, *,
                  redshift=None, responses=None, nthreads=None, seed=1234,
-                 a=2.0, device=None, sampler_backend="auto", mesh=None,
+                 a=2.0, dtype=None, prng_impl=None, lnprob_backend=None,
+                 device=None, sampler_backend="auto", mesh=None,
                  n_ensembles=1):
         del nthreads  # walker parallelism is on the device
+        check_jax_keywords(dtype, prng_impl, lnprob_backend)
         if mesh is not None:
             raise not_ported("walker sharding over a mesh (mesh=)", "A11")
         if int(n_ensembles) < 1:

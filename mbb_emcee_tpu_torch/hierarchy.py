@@ -9,7 +9,7 @@ per-source posterior samples (Hogg, Myers & Bovy 2010; Thrane & Talbot
     ln L(phi) = sum_s ln [ (1/N) sum_n  p(theta_sn | phi) / pi0(theta_sn) ]
 
 where theta_sn are the batch's per-source posterior draws (MultiFitter's
-chains, K3's on the card) under the interim per-source prior pi0. For the
+chains, K3's on the card, or SEDMultiFitter's) under the interim per-source prior pi0. For the
 hyper-ensemble's W walkers the likelihood is one (W, S, N) evaluation plus
 a logsumexp over the samples, on the fitter's device, and the hyper-sampler
 is the plain stretch-move EnsembleSampler over that lnprob.
@@ -35,7 +35,6 @@ import torch
 from mbb_emcee_tpu_torch.fitter import not_ported, philox_key, resolve_device
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, LNPROB_FLOOR, spec_arrays)
-from mbb_emcee_tpu_torch.multifit import MultiFitter
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, autocorrelation_time, make_initial_ball, split_rhat)
@@ -549,7 +548,7 @@ class HierarchicalFitter(ParamSpaceMixin):
     """Hyper-parameter sampler over a catalog's stored posteriors.
 
     Construct directly from an (S, N, K) sample tensor + population model,
-    or via `from_batch(mf, params=...)` on a finished MultiFitter run. The
+    or via `from_batch(mf, params=...)` on a finished batch run. The
     run protocol, the setters (set_lowlim/set_uplim/fix_param/
     set_gaussian_prior/set_param_init on HYPER-parameters, addressed by the
     population model's names), extend() and the summaries mirror the other
@@ -615,22 +614,19 @@ class HierarchicalFitter(ParamSpaceMixin):
     @classmethod
     def from_batch(cls, batch, params, population=None, max_samples=4096,
                    sigma_log_uniform=False, correlated=False, **kw):
-        """Build the hyper-fitter from a finished MultiFitter run on the
-        batch's device (unless device= is given).
+        """Build the hyper-fitter from a finished batch run (MultiFitter or
+        SEDMultiFitter) on the batch's device (unless device= is given).
 
         `params` names the population parameters (free in the fit). The
         per-source chains are flattened and strided down to at most
         `max_samples` draws per source (deterministic stride). Gaussian
-        interim priors on the selected parameters are divided out; the
-        flat-box factor is phi-independent and cancels. The default family
-        is independent truncated normals; `correlated=True` (exactly two
+        interim priors on the selected parameters are divided out, shared
+        ones and an SEDMultiFitter's per-source ones alike; the flat-box
+        factor is phi-independent and cancels. The default family is
+        independent truncated normals; `correlated=True` (exactly two
         params) switches to the bivariate family with a free rho.
         """
-        if not isinstance(batch, MultiFitter):
-            raise not_ported(
-                f"from_batch on a {type(batch).__name__} (generic-model "
-                f"batches, SEDMultiFitter)", "A10b")
-        if batch.chain_free is None:
+        if getattr(batch, "chain_free", None) is None:
             raise RuntimeError("from_batch needs a finished run()")
         chain = batch.chain_free            # (S, nrec, nw, nfree)
         free_names = [n.lower() for n in batch.free_param_names]
@@ -682,6 +678,17 @@ class HierarchicalFitter(ParamSpaceMixin):
             ln_interim = -0.5 * np.sum(d * d, axis=-1)
         else:
             ln_interim = None
+        # ... and per-source interim priors (SEDMultiFitter's
+        # set_gaussian_prior with (S,) arrays, spec-z anchors say): the
+        # same division, the mean and 1/sigma varying along the source axis
+        per_source = batch._per_source_priors()
+        for k, p in enumerate(params):
+            entry = per_source.get(str(p).lower())
+            if entry is not None:
+                m_s, i_s = entry
+                d = (flat[..., k] - m_s[:, None]) * i_s[:, None]
+                q = -0.5 * d * d
+                ln_interim = q if ln_interim is None else ln_interim + q
         kw.setdefault("device", batch.device)
         return cls(flat, population, ln_interim=ln_interim, **kw)
 
@@ -916,7 +923,7 @@ class HierarchicalFitter(ParamSpaceMixin):
         return torch.exp(-torch.logsumexp(2.0 * lw, dim=-1)).cpu().numpy()
 
     def plot_population(self, param, **kw):
-        raise not_ported("plot_population (plotting)", "A10b")
+        raise not_ported("plot_population (plotting)", "A10c")
 
     # -- persistence ---------------------------------------------------------
     def writeToHDF5(self, path):

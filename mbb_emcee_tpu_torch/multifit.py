@@ -10,8 +10,10 @@ limits and redshift -- are fit at once:
     (ops/multifit_kernel.py, csrc/multifit.cu), one thread block per
     source; sampler_backend="torch" runs the plain multi run
     (sampler.multi_stretch_run_plain) instead, on any device;
-  * burn-in re-centering is per source, on the best walker of that
-    source's final burn state;
+  * the run protocol (burn, per-source re-center on the best walker of
+    that source's final burn state, re-burn, production, checkpoint,
+    resume, extend) is batchengine.BatchEngine.run, shared with the
+    generic-model batch tier (sedmulti.SEDMultiFitter);
   * summaries (par_cen, best_fit, split-R-hat, tau) and derived posteriors
     (L_IR, dust mass, peak wavelength) are batched reductions over all
     sources on the chain's device (batchengine.py);
@@ -33,25 +35,22 @@ single-fit stream).
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch import derived, hdf5io
-from mbb_emcee_tpu_torch.batchengine import BatchEngine
-from mbb_emcee_tpu_torch.checkpoint import production
+from mbb_emcee_tpu_torch.batchengine import BatchEngine, _batch_percentiles
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
 from mbb_emcee_tpu_torch.fitter import (
-    DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, not_ported,
-    philox_key, resolve_device)
+    DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, check_jax_keywords,
+    not_ported, resolve_device)
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, Photometry)
 from mbb_emcee_tpu_torch.models.modified_blackbody import (
     MBBShape, log_mbb_fnu_params)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
-from mbb_emcee_tpu_torch.results import _percentile_summary
-from mbb_emcee_tpu_torch.sampler import make_initial_ball
+from mbb_emcee_tpu_torch.sampler import MultiEnsembleSampler
 
 
 @dataclasses.dataclass
@@ -99,11 +98,15 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     run) or "auto" = fused on CUDA, torch on the CPU.
     responses: a response.ResponseSet for band-integrated model fluxes
     (set_data with band_names).
+    dtype=, prng_impl= and lnprob_backend=: as MBBFitter's
+    (fitter.check_jax_keywords).
     """
 
     def __init__(self, nwalkers=250, wavenorm=500.0, noalpha=False,
                  opthin=False, responses=None, seed=1234, a=2.0, mesh=None,
-                 sampler_backend="auto", device=None):
+                 sampler_backend="auto", device=None, dtype=None,
+                 prng_impl=None, lnprob_backend=None):
+        check_jax_keywords(dtype, prng_impl, lnprob_backend)
         if mesh is not None:
             raise not_ported("source sharding over a mesh (mesh=)", "A11")
         if sampler_backend not in ("auto", "torch", "fused"):
@@ -170,49 +173,16 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                     "prior_isigma")),
                 None if pack is None else tuple(a.tobytes() for a in pack))
 
-    def _posterior_token(self, spec):
-        """Identity of the posterior a run sampled (extend() refuses to
-        splice chains across a change): the model, geometry, band
-        correlation CONTENT, upper-limit mask and band names."""
-        uplim = (None if spec.uplim_bands is None
-                 else np.asarray(spec.uplim_bands).tobytes())
-        return (self._model_token(spec), self.nsources, self.nwalkers,
-                int(self.thin), float(self.a),
-                None if self._band_corr is None
-                else self._band_corr.tobytes(),
-                uplim,
-                None if self.band_names is None
-                else tuple(self.band_names))
-
-    def _same_data(self):
-        return (getattr(self, "_run_data", None) is not None
-                and np.array_equal(self._run_data[0], self.flux)
-                and np.array_equal(self._run_data[1], self.unc)
-                and np.array_equal(self._run_data[2], self.wave))
-
     def _init_centers(self, init="auto"):
         """Per-source initial centers and scatters (S, 5): fnorm from each
         source's flux nearest wavenorm, T from each source's brightest band
-        (the batched MBBFitter._auto_init_fnorm).
-
-        init="map" seeds each source's walker ball at its own MAP point
-        with ~2 Laplace-sigma scatter (run_map first), capped at 10x the
-        default scatter: the ensemble starts in the typical set, so short
-        burns suffice."""
+        (the batched MBBFitter._auto_init_fnorm); init="map" is
+        BatchEngine._map_centers."""
         if init not in ("auto", "map"):
             raise ValueError(f"init must be 'auto' or 'map'; got {init!r}")
-        S = self.nsources
         if init == "map":
-            if getattr(self, "map_params", None) is None:
-                raise RuntimeError(
-                    "init='map' requires run_map() on this data first")
-            self._require_map_fresh("init='map'")
-            centers = self.map_params.copy()
-            scatters = np.broadcast_to(self._scatter, (S, NPARAMS)).copy()
-            idx = self.free_space.free_idx
-            sig = np.clip(2.0 * self.map_sigma, 1e-6, None)
-            scatters[:, idx] = np.minimum(sig, scatters[:, idx] * 10.0)
-            return centers, scatters
+            return self._map_centers()
+        S = self.nsources
         centers = np.broadcast_to(self._init, (S, NPARAMS)).copy()
         scatters = np.broadcast_to(self._scatter, (S, NPARAMS)).copy()
         if not self._user_init[4]:
@@ -253,203 +223,31 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         return derived.band_flux_eval(self.shape, self.wave,
                                       self._response_pack())
 
-    def _map_key(self, spec):
-        """What stored MAP results bind to besides the data: the model and
-        parameter space, the upper-limit mask and the band correlation."""
-        return (self._model_token(spec), self.nsources,
-                None if spec.uplim_bands is None
-                else np.asarray(spec.uplim_bands).tobytes(),
-                None if self._band_corr is None
-                else self._band_corr.tobytes())
-
-    def _record_map(self, spec):
-        self._map_token = self._map_key(spec)
-        self._map_data = (self.flux.copy(), self.unc.copy(),
-                          self.wave.copy())
-
-    def _require_map_fresh(self, what):
-        """Refuse stored MAP results after the posterior or the data changed
-        (the same nfree does not mean the same free parameters)."""
-        data = getattr(self, "_map_data", None)
-        if (getattr(self, "_map_token", None)
-                != self._map_key(self._effective_spec())
-                or data is None
-                or not (np.array_equal(data[0], self.flux)
-                        and np.array_equal(data[1], self.unc)
-                        and np.array_equal(data[2], self.wave))):
-            raise RuntimeError(
-                f"{what}: the stored MAP results are for a different batch "
-                f"/ parameter space / error model; re-run run_map() first")
-
     def _build_sampler(self, spec):
         """A new batch sampler for `spec` on this data (building one packs a
         few hundred constants; the kernel library is built once per
         process)."""
         from mbb_emcee_tpu_torch.ops.multifit_kernel import FusedMultiSampler
         backend = self._resolve_sampler_backend()
-        whiten = (None if self._band_corr is None
-                  else self._whiten_operand())
-        self._sampler = FusedMultiSampler(
-            self.nwalkers, self.wave, self.flux, self.unc, self.shape, spec,
-            response_pack=self._response_pack(), a=self.a, whiten=whiten,
-            device=self.device, plain=backend == "torch")
+        if backend == "torch":
+            ops = self._lnprob_operands(spec)
+            self._sampler = MultiEnsembleSampler(
+                ops.nsources, self.nwalkers, ops.free_space.nfree, ops.plain,
+                self.a, ops.free_space)
+        else:
+            whiten = (None if self._band_corr is None
+                      else self._whiten_operand())
+            self._sampler = FusedMultiSampler(
+                self.nwalkers, self.wave, self.flux, self.unc, self.shape,
+                spec, response_pack=self._response_pack(), a=self.a,
+                whiten=whiten, device=self.device)
         self._backend_used = backend
         return self._sampler
 
-    def _balls(self, gen, centers, scatters, n=None):
-        """(S, n, nfree) balls (n = nwalkers by default), one per source in
-        source order from the CPU generator `gen`, reflected at the box."""
-        fs = self.free_space
-        n = self.nwalkers if n is None else int(n)
-        return torch.stack([
-            make_initial_ball(gen, c, s, n, fs.lower, fs.upper)
-            for c, s in zip(centers, scatters)]).to(self.device)
-
-    # -- the batched run -------------------------------------------------------
-    def run(self, nburn=50, nsteps=250, thin=1, recenter_burn=True,
-            verbose=False, checkpoint=None, checkpoint_interval=100,
-            resume=False, init="auto"):
-        """Burn -> per-source re-center on its best walker -> re-burn ->
-        reset -> production, all sources in lockstep; each phase is one
-        sampler call (one K3 launch on CUDA). init="map" seeds each
-        source's walker ball at its run_map() mode (_init_centers).
-
-        With `checkpoint=path` the production run is segmented and the
-        per-source chain blocks and the full batch sampler state are
-        flushed to HDF5 every `checkpoint_interval` recorded steps;
-        `resume=True` continues an interrupted run from that file. Both
-        backends draw the same Philox streams and write the same file, but
-        a resume under the other backend is refused (the chains would
-        agree only to rounding). Returns self."""
-        if self.flux is None:
-            raise RuntimeError("no data; call set_data")
-        if int(thin) < 1:
-            raise ValueError(f"thin={thin} must be >= 1")
-        if nsteps % thin:
-            raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
-        if resume and not checkpoint:
-            raise ValueError(
-                "resume=True requires checkpoint= (the path the previous "
-                "run flushed state to); without it the run would silently "
-                "restart from scratch")
-        # before the sampler replaces free_space: init="map" reads run_map's
-        centers = self._init_centers(init)
-        spec = self._effective_spec()
-        samp = self._build_sampler(spec)
-        self.free_space = samp.free_space
-        self._run_spec = spec       # persisted by writeToHDF5
-        self.thin = int(thin)
-        state, chain, lnpchain = production(
-            samp.run_mcmc,
-            lambda: self._burn(samp, nburn, recenter_burn, centers),
-            nsteps, thin, self.device, checkpoint, checkpoint_interval,
-            bool(checkpoint and resume and os.path.exists(checkpoint)),
-            None if checkpoint is None else self._checkpoint_meta(nsteps),
-            multi=True, verbose=verbose)
-        self._record(state, chain, lnpchain)
-        self._run_data = (self.flux.copy(), self.unc.copy(),
-                          self.wave.copy())
-        self._post_token = self._posterior_token(spec)
-        self.logz_pt = self.logz_ti = self.swap_fraction = None
-        self.pt_betas = self.hmc_step_size = self.hmc_mass = None
-        if verbose:
-            from mbb_emcee_tpu_torch.utils.log import enable_console
-            af = self.acceptance_fraction
-            enable_console().info(
-                f"MultiFitter ({self._backend_used} on {self.device}): "
-                f"mean acceptance fraction over {self.nsources} sources: "
-                f"{af.mean():.3f} (per-source min {af.mean(1).min():.3f}, "
-                f"max {af.mean(1).max():.3f})")
-        return self
-
-    def _burn(self, samp, nburn, recenter_burn, init_centers):
-        """The start state of production: the per-source walker balls
-        around `init_centers` ((S, 5) centers and scatters), burn-in,
-        per-source re-center, re-burn, counters reset."""
-        fs = self.free_space
-        centers, scatters = init_centers
-        cen_f, sca_f = centers[:, fs.free_idx], scatters[:, fs.free_idx]
-        gen = torch.Generator().manual_seed(self.seed)
-        state = samp.init_state(self._balls(gen, cen_f, sca_f),
-                                seed=philox_key(self.seed))
-        if nburn > 0:
-            state = samp.advance(state, nburn)
-            if recenter_burn:
-                # Each source re-centers on the best walker of ITS final
-                # burn state (not the single fit's whole-burn-chain rule);
-                # the Philox streams continue where the burn stopped.
-                S = self.nsources
-                best = state.pos[torch.arange(S, device=state.pos.device),
-                                 torch.argmax(state.lnp, dim=1)]
-                p0b = self._balls(gen, best.double().cpu().numpy(),
-                                  0.1 * sca_f)
-                state = samp.init_state(p0b, seed=state.seed,
-                                        step=state.step)
-                state = samp.advance(state, nburn)
-            state = samp.reset_counters(state)
-        return state
-
-    def _checkpoint_meta(self, nsteps):
-        """The run identity a batch checkpoint records (see
-        MBBFitter._checkpoint_meta); the band correlation enters the data
-        fingerprint only when set, as in the JAX package."""
-        from mbb_emcee_tpu_torch.checkpoint import (
-            PRNG_IMPL, data_fingerprint, new_run_id, spec_fingerprint)
-        pack = self._response_pack()
-        return {"nwalkers": self.nwalkers, "nsources": self.nsources,
-                "thin": self.thin, "nsteps_target": int(nsteps),
-                "sampler_backend": self._backend_used,
-                "prng_impl": PRNG_IMPL, "seed": self.seed,
-                "data_fingerprint": data_fingerprint(
-                    self.wave, self.flux, self.unc,
-                    *(() if self._band_corr is None
-                      else (self._band_corr,)),
-                    *(() if pack is None else pack)),
-                "spec_fingerprint": spec_fingerprint(self._spec,
-                                                     self.shape, self.a),
-                "run_id": new_run_id()}
-
-    def _record(self, state, chain, lnpchain):
-        self.final_state = state
-        self.chain_free = chain
-        self.lnprobability = lnpchain
-        self.acceptance_fraction = self._sampler.acceptance_fraction(state)
-
-    def extend(self, nsteps, verbose=False):
-        """Continue the production run of every source from the stored
-        final state (the run-until-converged serving loop). The Philox
-        streams continue, so run(n1) + extend(n2) gives the chain of the
-        longer run(n1 + n2), on both backends."""
-        if self.final_state is None:
-            raise RuntimeError(
-                "extend() requires a prior stretch-move run() on this "
-                "fitter (run_hmc/run_pt runs are not continuable -- re-run "
-                "with more steps; a reloaded file carries no sampler "
-                "state)")
-        if not self._same_data():
-            raise RuntimeError(
-                "set_data() was called after run(); extend() would keep "
-                "sampling the PREVIOUS batch's posterior -- call run() "
-                "for the new data instead")
-        spec = self._effective_spec()
-        if self._posterior_token(spec) != self._post_token:
-            raise RuntimeError(
-                "the parameter space / error model / band configuration "
-                "changed after run(); extend() would splice chains from "
-                "different posteriors -- call run() instead")
-        if nsteps % self.thin:
-            raise ValueError(
-                f"nsteps={nsteps} not divisible by thin={self.thin}")
-        state, chain, lnp = self._sampler.run_mcmc(
-            self.final_state, int(nsteps), self.thin)
-        self._record(state, torch.cat([self.chain_free, chain], dim=1),
-                     torch.cat([self.lnprobability, lnp], dim=1))
-        if verbose:
-            from mbb_emcee_tpu_torch.utils.log import enable_console
-            enable_console().info(
-                f"  extended by {nsteps} steps -> "
-                f"{self.chain_free.shape[1]} recorded per source")
-        return self
+    def _spec_fingerprint(self, spec=None):
+        from mbb_emcee_tpu_torch.checkpoint import spec_fingerprint
+        return spec_fingerprint(self._spec if spec is None else spec,
+                                self.shape, self.a)
 
     # -- batched derived quantities --------------------------------------------
     def _params(self, th):
@@ -482,8 +280,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     def lir_cen(self, percentile=68.3):
         if self.lir_chain is None:
             raise RuntimeError("call compute_lir(redshifts) first")
-        return np.stack([_percentile_summary(c, percentile)
-                         for c in self.lir_chain])
+        return _batch_percentiles(self.lir_chain, percentile)
 
     def compute_dustmass(self, redshifts=None, kappa=2.64, kappa_wave=125.0,
                          thin=1, lumdists=None, cosmology="WMAP9"):
@@ -511,8 +308,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     def dustmass_cen(self, percentile=68.3):
         if self.dustmass_chain is None:
             raise RuntimeError("call compute_dustmass(redshifts) first")
-        return np.stack([_percentile_summary(c, percentile)
-                         for c in self.dustmass_chain])
+        return _batch_percentiles(self.dustmass_chain, percentile)
 
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
@@ -530,8 +326,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     def peaklambda_cen(self, percentile=68.3):
         if self.peaklambda_chain is None:
             raise RuntimeError("call compute_peaklambda() first")
-        return np.stack([_percentile_summary(c, percentile)
-                         for c in self.peaklambda_chain])
+        return _batch_percentiles(self.peaklambda_chain, percentile)
 
     def sed_percentiles(self, waves, percentile=68.3, thin=1):
         """(S, 3, nwave) per-wavelength [median, upper, lower] f_nu in mJy

@@ -37,7 +37,7 @@ from mbb_emcee_tpu_torch.ops.sampler_kernel import (
     ERR_CLUSTER_UNPLACEABLE, MAX_WALKERS, check_plan, check_run_smem,
     max_threads, stretch_plan)
 from mbb_emcee_tpu_torch.sampler import (
-    EnsembleSampler, MultiSamplerState, _check_run_args,
+    MultiEnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
 
 # K3's layouts (csrc/multifit.cu): G lanes per walker in one block per
@@ -228,6 +228,11 @@ class MultiOperands:
     def device(self):
         return self.consts.device
 
+    @property
+    def data(self):
+        """The per-source operands the plain function takes after wave."""
+        return (self.flux, self.errs)
+
     def plain(self, theta_free):
         """The plain batched lnprob (S, n, nfree) -> (S, n) on this data."""
         return self.fn(theta_free, self.wave, self.flux, self.errs)
@@ -360,7 +365,7 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
 mbb_multi_stretch_run.launches = 0
 
 
-class FusedMultiSampler:
+class FusedMultiSampler(MultiEnsembleSampler):
     """Batched stretch-move sampler over S independent sources sharing the
     model shape, spec and band geometry, each run one launch of the
     multi-source kernel (the likelihood is compiled into it; the per-source
@@ -368,30 +373,24 @@ class FusedMultiSampler:
 
     rng="hw" draws the proposals from the per-source Philox streams;
     rng="external" takes them from a `uniforms` argument (replay tests).
-    plain=True runs the plain multi run instead on any device (the batch
-    tier's sampler_backend="torch")."""
+    The batch tier's sampler_backend="torch" is sampler.MultiEnsembleSampler
+    over the same operands' plain version."""
 
     def __init__(self, nwalkers, wave, flux, unc, shape, spec,
                  response_pack=None, a=2.0, rng="hw", whiten=None,
-                 device="cuda", plain=False):
+                 device="cuda"):
         if nwalkers % 2:
             raise ValueError("nwalkers must be even")
         if rng not in ("hw", "external"):
             raise ValueError("rng must be 'hw' or 'external'")
         if nwalkers > MAX_WALKERS:
             raise ValueError(f"at most {MAX_WALKERS} walkers per ensemble")
-        self.nwalkers = int(nwalkers)
-        self.a = float(a)
         self.rng = rng
-        self.plain = bool(plain)
         self.ops = prepare_multi_inputs(wave, flux, unc, shape, spec,
                                         response_pack, whiten, device)
-        self.free_space = self.ops.free_space
-        self.ndim = self.free_space.nfree
-        self.nsources = self.ops.nsources
-        if nwalkers < 2 * self.ndim:
-            raise ValueError(f"nwalkers={nwalkers} < 2*ndim={2 * self.ndim}")
-        self.half = self.nwalkers // 2
+        super().__init__(self.ops.nsources, nwalkers,
+                         self.ops.free_space.nfree, self.ops.plain, a,
+                         self.ops.free_space)
 
     def set_data(self, flux, unc, uplim_bands=None, whiten=None):
         """Replace the per-source photometry (same S and band count) with
@@ -400,23 +399,6 @@ class FusedMultiSampler:
         is rebuilt."""
         self.ops.set_data(flux, unc, uplim_bands, whiten)
         return self
-
-    def init_state(self, p0, seed, step=0) -> MultiSamplerState:
-        """p0: (S, nwalkers, ndim) on the sampler's device. lnprob is
-        recomputed at the start of every run, so it starts as zeros."""
-        p0 = p0.to(torch.float32).contiguous()
-        want = (self.nsources, self.nwalkers, self.ndim)
-        if tuple(p0.shape) != want:
-            raise ValueError(f"p0 shape {tuple(p0.shape)} != {want}")
-        return MultiSamplerState(
-            pos=p0, lnp=torch.zeros(want[:2], device=p0.device),
-            naccept=torch.zeros(want[:2], dtype=torch.int32,
-                                device=p0.device),
-            nsteps=0, seed=int(seed), step=int(step))
-
-    # Both act on any state with naccept/nsteps: here (S, nwalkers).
-    reset_counters = staticmethod(EnsembleSampler.reset_counters)
-    acceptance_fraction = staticmethod(EnsembleSampler.acceptance_fraction)
 
     def run_mcmc(self, state: MultiSamplerState, nsteps, thin=1,
                  uniforms=None):
@@ -430,15 +412,5 @@ class FusedMultiSampler:
                 "would silently ignore the provided stream")
         if uniforms is None and self.rng == "external":
             raise ValueError("rng='external' requires a uniforms array")
-        if self.plain:
-            return multi_stretch_run_plain(state, self.ops.plain,
-                                           nsteps // thin, thin, self.a,
-                                           uniforms)
         return mbb_multi_stretch_run(state, self.ops, nsteps // thin, thin,
                                      self.a, uniforms)
-
-    def advance(self, state: MultiSamplerState, nsteps, uniforms=None):
-        """Advance without keeping the chain (burn-in)."""
-        state, _, _ = self.run_mcmc(state, nsteps, thin=nsteps,
-                                    uniforms=uniforms)
-        return state

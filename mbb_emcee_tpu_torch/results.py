@@ -298,7 +298,7 @@ class ChainResults:
         return self.loo_result
 
     def plot_sed(self, **kw):
-        raise not_ported("plotting", "A10b")
+        raise not_ported("plotting", "A10c")
 
     plot_corner = plot_chain = plot_ppc = plot_sed
 

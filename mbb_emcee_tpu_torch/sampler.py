@@ -260,6 +260,63 @@ class EnsembleSampler:
         return state.naccept.double().cpu().numpy() / max(state.nsteps, 1)
 
 
+class MultiEnsembleSampler:
+    """S independent stretch-move ensembles in lockstep over a batched
+    lnprob ((S, n, ndim) -> (S, n)): the plain multi run
+    (multi_stretch_run_plain), source s on the Philox stream of source s,
+    with the surface the batch tier's run protocol drives
+    (batchengine.BatchEngine.run): init_state / run_mcmc / advance /
+    reset_counters / acceptance_fraction. The multi-source kernel's sampler
+    (ops/multifit_kernel.FusedMultiSampler) is this surface on K3."""
+
+    def __init__(self, nsources, nwalkers, ndim, lnprob_batch, a=2.0,
+                 free_space=None):
+        if nwalkers % 2:
+            raise ValueError("nwalkers must be even")
+        if nwalkers < 2 * ndim:
+            raise ValueError(f"nwalkers={nwalkers} < 2*ndim={2 * ndim}")
+        self.nsources = int(nsources)
+        self.nwalkers = int(nwalkers)
+        self.ndim = int(ndim)
+        self.half = self.nwalkers // 2
+        self.a = float(a)
+        self.lnprob_batch = lnprob_batch
+        self.free_space = free_space
+
+    def init_state(self, p0, seed, step=0) -> MultiSamplerState:
+        """p0: (S, nwalkers, ndim) on the sampler's device. lnprob is
+        recomputed at the start of every run, so it starts as zeros."""
+        p0 = p0.to(torch.float32).contiguous()
+        want = (self.nsources, self.nwalkers, self.ndim)
+        if tuple(p0.shape) != want:
+            raise ValueError(f"p0 shape {tuple(p0.shape)} != {want}")
+        return MultiSamplerState(
+            pos=p0, lnp=torch.zeros(want[:2], device=p0.device),
+            naccept=torch.zeros(want[:2], dtype=torch.int32,
+                                device=p0.device),
+            nsteps=0, seed=int(seed), step=int(step))
+
+    # Both act on any state with naccept/nsteps: here (S, nwalkers).
+    reset_counters = staticmethod(EnsembleSampler.reset_counters)
+    acceptance_fraction = staticmethod(EnsembleSampler.acceptance_fraction)
+
+    def run_mcmc(self, state: MultiSamplerState, nsteps, thin=1,
+                 uniforms=None):
+        """Advance every source `nsteps` updates, recording every
+        `thin`-th; `uniforms` (S, nsteps // thin, 6 * thin, half) replaces
+        the Philox streams."""
+        _check_run_args(nsteps, thin)
+        return multi_stretch_run_plain(state, self.lnprob_batch,
+                                       nsteps // thin, thin, self.a,
+                                       uniforms)
+
+    def advance(self, state: MultiSamplerState, nsteps, uniforms=None):
+        """Advance without keeping the chain (burn-in)."""
+        state, _, _ = self.run_mcmc(state, nsteps, thin=nsteps,
+                                    uniforms=uniforms)
+        return state
+
+
 def make_initial_ball(generator, center, scatter, nwalkers, lower=None,
                       upper=None, device="cpu"):
     """Gaussian ball of walkers around `center` (free space), REFLECTED at

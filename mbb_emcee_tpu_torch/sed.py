@@ -1138,7 +1138,7 @@ class SEDResults(ChainResults):
         return self.peaklambda_chain
 
     def plot_pz(self, **kw):
-        raise not_ported("plotting", "A10b")
+        raise not_ported("plotting", "A10c")
 
     # -- persistence ------------------------------------------------------------------------------
     def writeToHDF5(self, filename):

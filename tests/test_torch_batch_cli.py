@@ -166,7 +166,7 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--plot-population", "p.png"], "A10b"),
+    (["--plot-population", "p.png"], "A10c"),
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):

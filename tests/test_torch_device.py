@@ -2,7 +2,8 @@
 CUDA device and no device named (or the card named), MBBFitter(),
 MultiFitter(), MultiFitter.from_h5, MBBResults(h5file=),
 HierarchicalFitter(), build_hier_lnprob, nested_sample, the generic tier's
-SEDFitter(), SEDResults(h5file=), forecast() and forecast_mbb(), and both
+SEDFitter(), SEDResults(h5file=), forecast() and forecast_mbb(), the generic
+batch tier's SEDMultiFitter() and SEDMultiFitter.from_h5, and both
 CLIs fail at once with a message naming the CPU switch, and nothing falls
 back to the CPU silently."""
 
@@ -132,3 +133,31 @@ def test_generic_tier_refuses_without_a_card(no_card, tmp_path):
     assert fit.results().device.type == "cpu"
     back = T.SEDResults(h5file=path, model=model, device="cpu")
     assert back.posterior_predictive().chi2_obs.shape == (16 * 4,)
+
+
+def test_generic_batch_tier_refuses_without_a_card(no_card, tmp_path):
+    """SEDMultiFitter() and SEDMultiFitter.from_h5 without device= (or with
+    the card named) raise the no-card error, a photo-z model included; a
+    CPU batch's per-source view and a reload named to the CPU stay
+    there."""
+    model = T.photoz_mbb(cmb=False, opthin=True, noalpha=True)
+    for make in (lambda: T.SEDMultiFitter(model),
+                 lambda: T.SEDMultiFitter(model, device="cuda")):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    mf = T.SEDMultiFitter(model, nwalkers=16, device="cpu")
+    wave = np.array([250.0, 350.0, 500.0, 850.0, 1100.0])
+    flux = np.array([[20.0, 25.0, 21.0, 9.0, 5.0], [10.0, 14.0, 12.0, 5.0,
+                                                    3.0]])
+    mf.set_data(wave, flux, 0.1 * flux)
+    mf.set_gaussian_prior("T", 38.0, 6.0)
+    mf.fix_param("lambda0", 250.0).fix_param("alpha", 4.0)
+    for n, v in zip(model.param_names, (38.0, 1.9, 250.0, 4.0, 20.0, 3.0)):
+        mf.set_param_init(n, v, 0.05 * v)
+    mf.run(nburn=2, nsteps=4)
+    assert mf.results(1).device.type == "cpu"
+    path = mf.writeToHDF5(str(tmp_path / "b.h5"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T.SEDMultiFitter.from_h5(path, model)
+    assert T.SEDMultiFitter.from_h5(path, model,
+                                    device="cpu").chain.shape[:2] == (2, 16)

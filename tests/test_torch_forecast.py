@@ -2,7 +2,9 @@
 the same inputs (the model written twice, in jnp and in torch), and twins
 of tests/test_forecast.py: exactness on a linear model, agreement with real
 MCMC widths, the correlated / response / prior plumbing and the input
-refusals. The two photo-z forecasts wait for photoz.py (ROADMAP.md A10b)."""
+refusals, and the two photo-z forecasts (photoz.py): the exact (T, z)
+degeneracy without CMB terms and the T prior that lifts it, and the CMB
+photo-z width against the exact grid's."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -207,3 +209,60 @@ def test_forecast_mbb_fixed_by_index():
                           fixed=(1,), device="cpu")
     assert by_name.param_names == by_idx.param_names
     np.testing.assert_allclose(by_name.cov, by_idx.cov, rtol=1e-12)
+
+
+# -- the photo-z forecasts (twins of tests/test_forecast.py:70, :97) ----------
+
+PZ_TRUTH = np.array([38.0, 1.9, 250.0, 4.0, 10.0, 4.0])
+PZ_WAVE = np.array([250.0, 350.0, 500.0, 850.0, 1100.0, 2000.0])
+PZ_FIXED = ("beta", "lambda0", "alpha")
+
+
+def _pz_unc(model):
+    return 0.07 * model.fnu(torch.tensor(PZ_TRUTH, dtype=torch.float32),
+                            torch.tensor(PZ_WAVE, dtype=torch.float32)
+                            ).double().numpy()
+
+
+def test_photoz_degeneracy_guard_and_prior():
+    """Without CMB terms the (T, z) degeneracy is exact: the Fisher matrix
+    is singular and the forecast says so; the T prior makes sigma(z)
+    finite, a tighter prior a tighter sigma(z); the JAX package's forecast
+    on the same inputs agrees (rtol 1e-4)."""
+    from mbb_emcee_tpu.photoz import photoz_mbb as j_photoz_mbb
+    from mbb_emcee_tpu_torch.photoz import photoz_mbb
+    m = photoz_mbb(cmb=False, opthin=True, noalpha=True, z_upper=8.0)
+    jm = j_photoz_mbb(cmb=False, opthin=True, noalpha=True, z_upper=8.0)
+    unc = _pz_unc(m)
+    with pytest.raises(ValueError, match="singular|degeneracy"):
+        forecast(m, PZ_TRUTH, PZ_WAVE, unc=unc, fixed=PZ_FIXED,
+                 device="cpu")
+    fr = forecast(m, PZ_TRUTH, PZ_WAVE, unc=unc, fixed=PZ_FIXED,
+                  priors={"T": (38.0, 6.0)}, device="cpu")
+    jr = j_forecast(jm, PZ_TRUTH, PZ_WAVE, unc=unc, fixed=PZ_FIXED,
+                    priors={"T": (38.0, 6.0)})
+    sz = fr.sigma("z")
+    assert np.isfinite(sz) and 0.2 < sz < 3.0
+    np.testing.assert_allclose(sz, jr.sigma("z"), rtol=1e-4)
+    fr2 = forecast(m, PZ_TRUTH, PZ_WAVE, unc=unc, fixed=PZ_FIXED,
+                   priors={"T": (38.0, 2.0)}, device="cpu")
+    assert fr2.sigma("z") < 0.6 * sz
+
+
+def test_photoz_forecast_matches_grid_width():
+    """The CMB photo-z forecast with the T prior lands near the exact-grid
+    marginal width of tests/test_photoz.py::
+    test_pz_matches_exact_grid_posterior's configuration (~0.78 half
+    width; the Fisher bound is its Gaussian floor), and on the JAX
+    package's forecast (rtol 1e-4)."""
+    from mbb_emcee_tpu.photoz import photoz_mbb as j_photoz_mbb
+    from mbb_emcee_tpu_torch.photoz import photoz_mbb
+    m = photoz_mbb(cmb=True, opthin=True, noalpha=True, z_upper=8.0)
+    jm = j_photoz_mbb(cmb=True, opthin=True, noalpha=True, z_upper=8.0)
+    unc = _pz_unc(m)
+    fr = forecast(m, PZ_TRUTH, PZ_WAVE, unc=unc, fixed=PZ_FIXED,
+                  priors={"T": (38.0, 6.0)}, device="cpu")
+    jr = j_forecast(jm, PZ_TRUTH, PZ_WAVE, unc=unc, fixed=PZ_FIXED,
+                    priors={"T": (38.0, 6.0)})
+    assert 0.4 < fr.sigma("z") < 1.2, fr.sigma("z")
+    np.testing.assert_allclose(fr.sigma("z"), jr.sigma("z"), rtol=1e-4)

@@ -11,9 +11,8 @@ smaller scale, with their tolerances).
 Left out by design: test_mesh_sharded_lnprob_matches_unsharded,
 test_program_token_splits_on_mesh_shape and
 test_multi_axis_mesh_first_axis_divides (source sharding over a mesh is
-ROADMAP A11: mesh= raises NotImplementedError naming it, held here),
-test_from_batch_sedmulti (the generic-model batch is A10b: from_batch
-refuses it, held here) and the population plot (plotting is A10b)."""
+ROADMAP A11: mesh= raises NotImplementedError naming it, held here) and
+the population plot (plotting is A10c)."""
 
 import os
 
@@ -236,9 +235,10 @@ def test_pop_files_cross_both_ways(tmp_path):
 
 
 def test_mesh_and_generic_batches_are_refused():
-    """mesh= (A11) and a batch that is not the port's MultiFitter (the
-    generic-model SEDMultiFitter is A10b) raise NotImplementedError naming
-    their ROADMAP item."""
+    """mesh= (A11) raises NotImplementedError naming its ROADMAP item, and
+    so does the population plot (plotting is A10c); a generic-model batch
+    (SEDMultiFitter) that has not run is refused like a MultiFitter that
+    has not (from_batch on a run one is test_from_batch_sedmulti)."""
     samples = np.random.default_rng(0).normal(35, 4, (4, 16, 1))
     pop = TruncatedGaussianPopulation.for_box(("T",), [10.0], [60.0])
     with pytest.raises(NotImplementedError, match="A11"):
@@ -246,15 +246,69 @@ def test_mesh_and_generic_batches_are_refused():
     with pytest.raises(NotImplementedError, match="A11"):
         build_hier_lnprob(samples, pop, LikelihoodSpec.for_box(
             pop.lower, pop.upper), device=CPU, mesh=object())
-
-    class SEDMultiFitter:
-        chain_free = None
-
-    with pytest.raises(NotImplementedError, match="A10b"):
-        HierarchicalFitter.from_batch(SEDMultiFitter(), params=("T",))
+    smf = T.SEDMultiFitter(_plaw_models()[0], nwalkers=8, device=CPU)
+    with pytest.raises(RuntimeError, match="finished run"):
+        HierarchicalFitter.from_batch(smf, params=("slope",))
     hf = HierarchicalFitter(samples, pop, nwalkers=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         hf.plot_population("T")
+
+
+def _plaw_models():
+    """(port, JAX) twins of tests/test_hierarchy.py's power-law model."""
+    from mbb_emcee_tpu.sed import SEDModel as JSEDModel
+    kw = dict(param_names=("amp", "slope"), lower=[1.0, 0.1],
+              upper=[100.0, 3.0], name="plaw")
+    return (T.SEDModel(fnu=lambda th, w: th[0] * (w / 100.0) ** (-th[1]),
+                       **kw),
+            JSEDModel(fnu=lambda th, w: th[0] * (w / 100.0) ** (-th[1]),
+                      **kw))
+
+
+def test_from_batch_sedmulti(tmp_path):
+    """from_batch on a generic-model SEDMultiFitter run (the free names
+    resolved from the model), with a shared prior on amp and PER-SOURCE
+    interim priors on slope: the strided samples and ln_interim (both
+    priors divided out) against the JAX package's from_batch on the same
+    chain, read from the port's sed-batch file (rtol 1e-6); then the
+    hyper-fit's mu_slope is sane (twin of tests/test_hierarchy.py::
+    test_from_batch_sedmulti and tests/test_sedmulti.py::
+    test_ps_prior_hierarchy_interim_division)."""
+    from mbb_emcee_tpu.sedmulti import SEDMultiFitter as JSEDMultiFitter
+    model, jmodel = _plaw_models()
+    wave = np.array([60.0, 100.0, 250.0, 500.0])
+    rng = np.random.default_rng(6)
+    S = 4
+    slopes = rng.uniform(0.8, 1.6, S)
+    flux = np.stack([20.0 * (wave / 100.0) ** (-s) for s in slopes])
+    unc = 0.05 * flux
+    smf = T.SEDMultiFitter(model, nwalkers=16, seed=3, device=CPU)
+    smf.set_data(wave, flux + unc * rng.standard_normal(flux.shape), unc)
+    for nm, v in (("amp", 20.0), ("slope", 1.2)):
+        smf.set_param_init(nm, v, 0.2 * v)
+    smf.set_gaussian_prior("amp", 20.0, 10.0)
+    smf.set_gaussian_prior("slope", np.array([1.0, 1.2, 1.4, 0.0]),
+                           np.array([0.5, 0.6, 0.7, np.inf]))
+    smf.run(nburn=40, nsteps=120)
+    path = str(tmp_path / "plaw.h5")
+    smf.writeToHDF5(path)
+    jmf = JSEDMultiFitter.from_h5(path, jmodel)
+    for params in (("slope",), ("amp", "slope")):
+        hf = HierarchicalFitter.from_batch(smf, params=params, nwalkers=16,
+                                           max_samples=512)
+        jf = jh.HierarchicalFitter.from_batch(jmf, params=params,
+                                              nwalkers=16, max_samples=512)
+        np.testing.assert_array_equal(hf.samples, np.asarray(jf.samples))
+        np.testing.assert_allclose(hf.ln_interim, np.asarray(jf.ln_interim),
+                                   rtol=1e-6)
+    assert hf.device == smf.device
+    hf = HierarchicalFitter.from_batch(smf, params=("slope",), nwalkers=16,
+                                       max_samples=512)
+    hf.run(nburn=50, nsteps=150)
+    assert 0.5 < hf.par_cen("mu_slope")[0] < 2.0
+    assert hf.reweight_ess().shape == (S,)
+    with pytest.raises(ValueError, match="not free"):
+        HierarchicalFitter.from_batch(smf, params=("T",))
 
 
 # -- twins of tests/test_hierarchy.py -----------------------------------------------

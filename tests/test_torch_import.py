@@ -40,8 +40,9 @@ FLUX = np.array([11.2, 32.1, 44.8, 38.2, 22.9])
 def test_import_leaves_jax_and_reference_out():
     """In a fresh interpreter (this one already holds jax): importing the
     port, its CLIs, the batch tier, nested sampling, the population tier,
-    the generic-model tier, forecasts and the CMB-corrected greybody loads
-    no jax, no mbb_emcee_tpu and no h5py."""
+    the generic-model tier and its batch tier, forecasts, the CMB-corrected
+    greybody and the photo-z model loads no jax, no mbb_emcee_tpu and no
+    h5py."""
     code = ("import sys, mbb_emcee_tpu_torch, mbb_emcee_tpu_torch.cli, "
             "mbb_emcee_tpu_torch.convert, mbb_emcee_tpu_torch.cli_batch, "
             "mbb_emcee_tpu_torch.catalog, mbb_emcee_tpu_torch.multifit, "
@@ -50,7 +51,8 @@ def test_import_leaves_jax_and_reference_out():
             "mbb_emcee_tpu_torch.checkpoint, mbb_emcee_tpu_torch.response, "
             "mbb_emcee_tpu_torch.instruments, mbb_emcee_tpu_torch.nested, "
             "mbb_emcee_tpu_torch.hierarchy, mbb_emcee_tpu_torch.sed, "
-            "mbb_emcee_tpu_torch.forecast, mbb_emcee_tpu_torch.models.cmb\n"
+            "mbb_emcee_tpu_torch.forecast, mbb_emcee_tpu_torch.models.cmb, "
+            "mbb_emcee_tpu_torch.sedmulti, mbb_emcee_tpu_torch.photoz\n"
             "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py') "
             "if m in sys.modules]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -158,6 +160,57 @@ def test_fitter_takes_the_ported_surfaces(tmp_path, surface):
         assert Path(ck).is_file()
     if "responses" in kw:
         assert np.isfinite(fit(np.array([30.0, 1.8, 250.0, 3.5, 23.0])))
+
+
+# Names of mbb_emcee_tpu.__all__ the port does not export yet, each with
+# the ROADMAP.md queue-A item that carries it.
+WAITING_NAMES = {}
+
+
+def test_every_reference_name_is_exported():
+    """Every name in the JAX package's __all__ (read from its source: that
+    package imports jax) is in the port's __all__ and importable from it,
+    or waits on a named item of WAITING_NAMES."""
+    import ast
+    import mbb_emcee_tpu_torch as T
+    tree = ast.parse((REPO / "mbb_emcee_tpu" / "__init__.py").read_text())
+    ref = next(ast.literal_eval(n.value) for n in tree.body
+               if isinstance(n, ast.Assign)
+               and any(getattr(t, "id", None) == "__all__"
+                       for t in n.targets))
+    missing = sorted(set(ref) - set(T.__all__) - set(WAITING_NAMES))
+    assert missing == []
+    assert all(hasattr(T, n) for n in T.__all__)
+    assert not set(WAITING_NAMES) & set(T.__all__)
+
+
+@pytest.mark.parametrize("kwargs,accepted", [
+    (dict(dtype=np.float32), True), (dict(dtype="float32"), True),
+    (dict(dtype=torch.float32), True), (dict(dtype=np.float64), False),
+    (dict(dtype=torch.float64), False), (dict(dtype="bfloat16"), False),
+    (dict(prng_impl="rbg"), True),
+    (dict(prng_impl="philox4x32_10"), True),
+    (dict(prng_impl="threefry2x32"), False),
+    (dict(lnprob_backend="xla"), True),
+    (dict(lnprob_backend="pallas"), False)],
+    ids=lambda v: str(v) if not isinstance(v, dict) else
+    "-".join(f"{k}={getattr(x, '__name__', x)}" for k, x in v.items()))
+@pytest.mark.parametrize("cls", ["MBBFitter", "MultiFitter"])
+def test_jax_constructor_keywords_are_taken_by_name(cls, kwargs, accepted):
+    """dtype=, prng_impl= and lnprob_backend= of the JAX constructors: the
+    JAX default or the port's own value is taken; a value the port cannot
+    honour (float64, another generator, the TPU kernel backend) raises a
+    ValueError naming the keyword and what the port does instead, never a
+    bare TypeError."""
+    import mbb_emcee_tpu_torch as T
+    make = getattr(T, cls)
+    if accepted:
+        make(nwalkers=16, device="cpu", **kwargs)
+        return
+    (key,) = kwargs
+    with pytest.raises(ValueError, match=rf"{key}=.*(float32|Philox|"
+                                         rf"device)"):
+        make(nwalkers=16, device="cpu", **kwargs)
 
 
 def test_no_refusal_names_a2_or_a4():

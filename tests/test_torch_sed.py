@@ -894,10 +894,10 @@ def test_two_temperature_model_end_to_end(tmp_path):
 
 
 def test_plot_hooks(wrapped_fit):
-    """Plotting waits for A10b: each plot hook of SEDResults raises
+    """Plotting waits for A10c: each plot hook of SEDResults raises
     NotImplementedError naming the item."""
     res = wrapped_fit.results()
     for hook in (res.plot_sed, res.plot_corner, res.plot_chain,
                  res.plot_ppc, res.plot_pz):
-        with pytest.raises(NotImplementedError, match="A10b"):
+        with pytest.raises(NotImplementedError, match="A10c"):
             hook()

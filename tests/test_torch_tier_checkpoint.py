@@ -361,18 +361,18 @@ def test_batch_cli_conflicts_match_jax(tmp_path, flags):
 
 def test_waiting_refusals_name_their_lettered_item(tmp_path):
     """What still waits names its lettered ROADMAP.md item (--profile-dir
-    A8, the plots A10b, --mesh-devices A11); nothing in the package names
+    A8, the plots A10c, --mesh-devices A11); nothing in the package names
     A9, A9e or A9f any more (nested sampling and the population tier are
     ported)."""
     cat = tmp_path / "cat.txt"
     cat.write_text(CATALOG)
     for flags, item in ((["--profile-dir", "p"], "A8"),
-                        (["--plot-sed", "x.png"], "A10b")):
+                        (["--plot-sed", "x.png"], "A10c")):
         with pytest.raises(SystemExit, match=rf"item {item}\)"):
             cli.main([str(_photfile(tmp_path)), "o.h5", *flags,
                       "--device", "cpu"])
     for flags, item in ((["--profile-dir", "p"], "A8"),
-                        (["--plot-population", "x.png"], "A10b"),
+                        (["--plot-population", "x.png"], "A10c"),
                         (["--mesh-devices", "4"], "A11")):
         with pytest.raises(SystemExit, match=rf"item {item}\)"):
             cli_batch.main([str(cat), "o.h5", *flags, "--device", "cpu"])
