@@ -192,12 +192,30 @@ non-zero without printing a result):
      step and device busy share under torch.profiler, beside K3's per-step
      time at the same batch. Budget: 40 s, advisory (a run over it
      prints OVER and still passes: the host's clock varies 1.5x across
-     machines).
+     machines);
+ 26. the generic command line and the plots (cli_sed.py, plotting.py; no
+     kernel of their own) through the user's entry points, at the batch
+     cell's width (256 sources x 250 walkers x 5 bands) on a mock catalog
+     of the shipped examples/two_temp_model_torch.py, depth cut to -b 20
+     -n 40: (a) run_sed_tpu_torch's fit stage (cli_sed.fit) bitwise
+     SEDMultiFitter(model, 250, seed=5).run(20, 40) on the same data, 0 K1,
+     K2 and K3 launches (3 plain multi runs); (b) the fit stage with
+     --extend-until 1.1 --max-steps 120 --ppc --get-lir --get-peaklambda
+     --derived-thin 10 --summary: the production length is what the logged
+     extensions add up to, at most --max-steps, the summary carries its
+     'PPC p' column, every p-value, L_IR and lambda_peak median finite;
+     (c) the three model-file twins (examples/*_torch.py) through
+     cli_sed.load_model, fnu on the card against the CPU on 4,096 rows at
+     phase 25 (a)'s bound; (d) without matplotlib (the card's machine has
+     none) mbb_emcee_tpu_torch.plotting imports and a plot hook raises the
+     ImportError naming it; _mc_marginal on the card against the CPU
+     (rtol 1e-5); (e) the two-temperature batch step's marginal time and
+     kernels per step. Budget: 20 s, advisory, as phase 25's.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, `22`, `23`, `24`, `25`) runs the
+before any phase. `--phases 3,15` (or `21`, ..., `25`, `26`) runs the
 build and those phases alone, a rehearsal that prints no kernel table and
 no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
@@ -4923,9 +4941,369 @@ def phase_generic_batch(card):
     return launches, out
 
 
+# Phase 26: the generic command line (cli_sed.py) and the plots. The batch
+# cell's width (NSOURCES sources x NWALKERS walkers x 5 bands) on a mock
+# catalog of examples/two_temp_model_torch.py, depth cut to CLI_SED_DEPTH;
+# (b) extends by CLI_SED_DEPTH's -n up to CLI_SED_MAX_STEPS production
+# steps; the model-file twins' fnu on TWIN_VECTORS rows; _mc_marginal at
+# MC_MARGINAL_N draws; the batch stretch step's time from two production
+# lengths CLI_SED_TIME_STEPS. Budget CLI_SED_BUDGET_S, advisory.
+CLI_SED_DEPTH = ("-b", "20", "-n", "40")
+CLI_SED_SEED = 5
+CLI_SED_MAX_STEPS = 120
+CLI_SED_WAVE = (60.0, 100.0, 250.0, 500.0, 1100.0)
+CLI_SED_INIT = ("--initval", "T_cold", "18", "--initval", "T_warm", "45",
+                "--initval", "fnorm_cold", "30", "--initval", "fnorm_warm",
+                "1.5")
+CLI_SED_TIME_STEPS = (10, 30)
+CLI_SED_BUDGET_S = 20.0
+TWIN_VECTORS = 4096
+MC_MARGINAL_N = 4096
+TWIN_FILES = ("two_temp_model", "cmb_high_z_model", "photoz_model")
+
+
+def cli_sed_catalog(path, seed=2600):
+    """A mock catalog of NSOURCES sources from the shipped
+    examples/two_temp_model_torch.py at CLI_SED_WAVE (5% errors, numpy
+    draws from `seed`, redshifts 1.5-2.5), written in the catalog format;
+    returns the model file's path."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.cli_sed import load_model
+    from mbb_emcee_tpu_torch.sed import batched_fnu
+    mpath = os.path.join(REPO, "examples", "two_temp_model_torch.py")
+    model = load_model(mpath)
+    rng = np.random.default_rng(seed)
+    s = NSOURCES
+    truths = np.column_stack([
+        rng.uniform(15, 22, s), rng.uniform(38, 52, s), np.full(s, 1.8),
+        rng.uniform(15, 60, s), rng.uniform(0.5, 3.0, s)])
+    z = rng.uniform(1.5, 2.5, s)
+    f = batched_fnu(model.fnu)(
+        torch.tensor(truths, dtype=torch.float32),
+        torch.tensor(CLI_SED_WAVE, dtype=torch.float32)).double().numpy()
+    unc = 0.05 * f
+    flux = f + unc * rng.standard_normal(f.shape)
+    lines = ["wave = " + " ".join(f"{w:g}" for w in CLI_SED_WAVE)]
+    for i in range(s):
+        lines.append(f"SRC{i:03d} {z[i]:.4f} " + " ".join(
+            f"{flux[i, j]:.6g} {unc[i, j]:.6g}"
+            for j in range(len(CLI_SED_WAVE))))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return mpath
+
+
+def _twin_rows(stem, n, seed):
+    """n rows in the populated part of each model file's box (the rows of
+    tests/test_torch_examples.py)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if stem == "two_temp_model":
+        th = np.column_stack([
+            rng.uniform(5.0, 25.0, n), rng.uniform(25.0, 120.0, n),
+            rng.uniform(0.5, 4.0, n), rng.uniform(1e-3, 1e3, n),
+            rng.uniform(1e-4, 1e2, n)])
+    else:
+        cols = [rng.uniform(15.0, 60.0, n), rng.uniform(1.0, 2.5, n),
+                rng.uniform(50.0, 300.0, n), rng.uniform(1.0, 5.0, n),
+                rng.uniform(1.0, 50.0, n)]
+        if stem == "photoz_model":
+            cols.append(rng.uniform(0.0, 10.0, n))
+        th = np.column_stack(cols)
+    return th.astype(np.float32)
+
+
+def _twin_tol(stem, th64, wave64):
+    """Phase 25 (a)'s bound on |d ln f| for the same formulas: 1e-5, plus 8
+    ulp of the Planck argument x at the band and at the normalization point
+    (of the cold component, the larger x, for the two-temperature model),
+    plus the CMB visibility's conditioning, 2e-6 (e^-vis - 1) at the band
+    and at the normalization point, for the CMB models (z = 5 for the
+    cmb_high_z file, the sampled z for photo-z)."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.constants import HCOK_UM_K
+    from mbb_emcee_tpu_torch.models.cmb import (
+        dust_temperature_with_cmb, log_cmb_visibility)
+    eps32 = float(np.finfo(np.float32).eps)
+    w = wave64.numpy()[None, :]
+    if stem == "two_temp_model":
+        t = th64[:, 0].numpy()[:, None]
+        return 1e-5 + 8 * eps32 * (HCOK_UM_K / (w * t)
+                                   + HCOK_UM_K / (500.0 * t))
+    z = (th64[:, 5] if stem == "photoz_model"
+         else torch.full_like(th64[:, 0], 5.0))
+    t_d = dust_temperature_with_cmb(th64[:, 0], th64[:, 1], z)
+    opz, td = (1.0 + z.numpy())[:, None], t_d.numpy()[:, None]
+    tol = 1e-5 + 8 * eps32 * (HCOK_UM_K * opz / (w * td)
+                              + HCOK_UM_K * opz / (500.0 * td))
+    vis = log_cmb_visibility(wave64[None] / (1.0 + z[:, None]),
+                             t_d[:, None], z[:, None]).numpy()
+    vis_n = log_cmb_visibility(500.0 / (1.0 + z), t_d, z).numpy()
+    return tol + 2e-6 * (np.expm1(-vis) + np.expm1(-vis_n)[:, None])
+
+
+def _twins_on_card():
+    """(c) Each model-file twin through cli_sed.load_model: fnu on the card
+    against the CPU on TWIN_VECTORS rows x its JAX test's bands. Returns
+    {file: (max |d ln f|, max |d ln f| / bound)}."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.cli_sed import load_model
+    from mbb_emcee_tpu_torch.sed import batched_fnu
+    waves = {"two_temp_model": CLI_SED_WAVE,
+             "cmb_high_z_model": (250.0, 450.0, 850.0, 1300.0, 2000.0,
+                                  3000.0),
+             "photoz_model": PZ_WAVE}
+    out = {}
+    for stem in TWIN_FILES:
+        model = load_model(os.path.join(REPO, "examples",
+                                        f"{stem}_torch.py"))
+        th = _twin_rows(stem, TWIN_VECTORS, 26)
+        wave = np.asarray(waves[stem], np.float32)
+        card, cpu = (batched_fnu(model.fnu)(
+            torch.as_tensor(th, device=dev),
+            torch.as_tensor(wave, device=dev)).double().cpu().numpy()
+            for dev in (DEVICE, "cpu"))
+        tol = _twin_tol(stem, torch.as_tensor(th).double(),
+                        torch.as_tensor(wave).double())
+        d = np.abs(np.log(card) - np.log(cpu))
+        ok = (bool(np.all(np.isfinite(card))) and bool(np.all(card > 0))
+              and bool(np.all(d <= tol)))
+        out[stem] = (float(d.max()), float(np.max(d / tol)))
+        log(f"[26] (c) examples/{stem}_torch.py [{model.name}]: fnu of "
+            f"{TWIN_VECTORS} x {wave.size} on the card against the CPU: max "
+            f"|d ln f| {d.max():.3g} (/ bound {np.max(d / tol):.3f}; bound "
+            f"1e-5 + 8 ulp of x + the visibility's conditioning, phase 25 "
+            f"(a)'s) {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{stem}_torch.py: fnu on the card is not "
+                                 "the CPU's")
+    return out
+
+
+def _extension_lines():
+    """A context that records the messages of the package logger (the
+    serving loop's 'extending by' lines) in the list it yields."""
+    import contextlib
+    import logging
+
+    @contextlib.contextmanager
+    def ctx():
+        got = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                got.append(record.getMessage())
+        handler = Keep()
+        logger = logging.getLogger("mbb_emcee_tpu_torch")
+        logger.addHandler(handler)
+        try:
+            yield got
+        finally:
+            logger.removeHandler(handler)
+    return ctx()
+
+
+def phase_cli_sed(card):
+    """The generic command line and the plots through the user's entry
+    points (see the module docstring, phase 26). Returns (launches by
+    kernel and path, seconds and numbers by step)."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch import cli_sed
+    from mbb_emcee_tpu_torch.catalog import read_catalog
+    from mbb_emcee_tpu_torch.hierarchy import TruncatedGaussianPopulation
+    from mbb_emcee_tpu_torch.sedmulti import SEDMultiFitter
+
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+
+    def lap(part):
+        out[f"{part} ends at s"] = time.time() - t0
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    cat = os.path.join(work, "two_temp_catalog.txt")
+    mpath = cli_sed_catalog(cat)
+    base = [mpath, cat, os.path.join(work, "unwritten.h5"), "--seed",
+            str(CLI_SED_SEED), *CLI_SED_DEPTH, *CLI_SED_INIT, "--device",
+            DEVICE]
+    nburn, nsteps = int(CLI_SED_DEPTH[1]), int(CLI_SED_DEPTH[3])
+
+    # -- (a) the CLI's fit stage against SEDMultiFitter run directly
+    _counts(reset=True)
+    res, out["(a) CLI fit stage s"] = _timed(lambda: cli_sed.fit(base))
+    c = _counts()
+    kernels = c["mbb_lnprob"] + c["mbb_stretch_run"] \
+        + c["mbb_multi_stretch_run"]
+    for name in launches:
+        launches[name]["run_sed_tpu_torch fit stage (phase 26)"] = c[name]
+    model = cli_sed.load_model(mpath)
+    cdata = read_catalog(cat)
+    direct = SEDMultiFitter(model, NWALKERS, seed=CLI_SED_SEED,
+                            device=DEVICE)
+    direct.set_data(cdata.wave, cdata.flux, cdata.unc,
+                    band_names=cdata.band_names,
+                    source_names=list(cdata.names),
+                    redshifts=cdata.redshifts)
+    for i in range(0, len(CLI_SED_INIT), 3):
+        direct.set_param_init(CLI_SED_INIT[i + 1],
+                              float(CLI_SED_INIT[i + 2]))
+    _, out["(a) direct run s"] = _timed(
+        lambda: direct.run(nburn=nburn, nsteps=nsteps))
+    mf = res.mf
+    same = (torch.equal(mf.chain_free, direct.chain_free)
+            and torch.equal(mf.lnprobability, direct.lnprobability))
+    ok = (same and kernels == 0 and c["plain_multi_runs"] == 3
+          and c["plain_sampler_runs"] == 0
+          and tuple(mf.chain_free.shape) == (NSOURCES, nsteps, NWALKERS, 5))
+    log(f"[26] (a) run_sed_tpu_torch's fit stage (cli_sed.fit) on "
+        f"examples/two_temp_model_torch.py, {NSOURCES} sources x {NWALKERS} "
+        f"walkers x {len(CLI_SED_WAVE)} bands, --seed {CLI_SED_SEED} "
+        f"{' '.join(CLI_SED_DEPTH)}: {out['(a) CLI fit stage s']:.2f} s "
+        f"(host clock, model and catalog load included); chains "
+        f"{'bitwise' if same else 'NOT bitwise'} those of "
+        f"SEDMultiFitter(model, {NWALKERS}, seed={CLI_SED_SEED}).run("
+        f"{nburn}, {nsteps}) on the same data ({out['(a) direct run s']:.2f}"
+        f" s); {c['mbb_lnprob']} K1, {c['mbb_stretch_run']} K2 and "
+        f"{c['mbb_multi_stretch_run']} K3 launches, {c['plain_multi_runs']} "
+        f"plain multi runs (want 0, 0, 0 and 3) {'PASS' if ok else 'FAIL'} "
+        f"({card})")
+    if not ok:
+        raise AssertionError("the CLI's fit stage is not SEDMultiFitter.run "
+                             "on the plain batch step")
+    lap("(a)")
+
+    # -- (b) the serving loop, derived posteriors, PPC and the summary
+    flags = ["--extend-until", "1.1", "--max-steps", str(CLI_SED_MAX_STEPS),
+             "--ppc", "--get-lir", "--get-peaklambda", "--derived-thin",
+             "10", "--summary", "-v"]
+    _counts(reset=True)
+    with _extension_lines() as msgs:
+        res_b, out["(b) CLI fit stage s"] = _timed(
+            lambda: cli_sed.fit(base + flags))
+    c = _counts()
+    kernels_b = c["mbb_lnprob"] + c["mbb_stretch_run"] \
+        + c["mbb_multi_stretch_run"]
+    mf_b, ppc = res_b.mf, res_b.ppc
+    n_ext = sum("extending by" in m for m in msgs)
+    production = int(mf_b.chain_free.shape[1])
+    table = cli_sed._summary(mf_b, ppc=ppc).splitlines()
+    lir = np.median(mf_b.lir_chain, axis=1)
+    peak = np.median(mf_b.peaklambda_chain, axis=1)
+    ok = (production == nsteps * (1 + n_ext)
+          and production <= CLI_SED_MAX_STEPS
+          and "PPC p" in table[0] and len(table) == NSOURCES + 1
+          and bool(np.all(np.isfinite(ppc.p_value)))
+          and bool(np.all(np.isfinite(lir))) and bool(np.all(lir > 0))
+          and bool(np.all(np.isfinite(peak))) and bool(np.all(peak > 0))
+          and kernels_b == 0)
+    n_conv = int(np.sum(mf_b.converged(
+        rhat_max=1.1, window=nsteps, stride=max(1, production // nsteps))))
+    out.update({"(b) extensions": n_ext, "(b) production steps": production,
+                "(b) sources converged": n_conv,
+                "(b) median PPC p": float(np.median(ppc.p_value))})
+    log(f"[26] (b) the fit stage with {' '.join(flags)}: "
+        f"{out['(b) CLI fit stage s']:.2f} s (host clock); {n_ext} "
+        f"extension(s) logged, {production} production steps recorded "
+        f"(want {nsteps} x (1 + {n_ext}) <= {CLI_SED_MAX_STEPS}); "
+        f"{n_conv}/{NSOURCES} sources below R-hat 1.1 at the end; summary "
+        f"{len(table) - 1} rows with a 'PPC p' column: "
+        f"{'yes' if 'PPC p' in table[0] else 'NO'}; median PPC p "
+        f"{np.median(ppc.p_value):.3f}, L_IR medians "
+        f"{lir.min():.3g}-{lir.max():.3g} Lsun, lambda_peak medians "
+        f"{peak.min():.1f}-{peak.max():.1f} um, all finite; {kernels_b} "
+        f"kernel launches {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("the CLI's serving loop, derived posteriors or "
+                             "summary failed")
+    lap("(b)")
+
+    # -- (c) the model-file twins on the card
+    out.update({f"(c) {k} max |d ln f|": v[0]
+                for k, v in _twins_on_card().items()})
+    lap("(c)")
+
+    # -- (d) plotting where there is no matplotlib; _mc_marginal card / CPU
+    import mbb_emcee_tpu_torch.plotting as plotting
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            mf.results(0).plot_sed()
+            got = "no error"
+        except ImportError as e:
+            got = f"ImportError: {e}"
+        except Exception as e:  # noqa: BLE001 - reported, then failed
+            got = f"{type(e).__name__}: {e}"
+        ok = got.startswith("ImportError") and "matplotlib" in got
+        log(f"[26] (d) import mbb_emcee_tpu_torch.plotting: done without "
+            f"matplotlib; SEDResults.plot_sed() raised {got!r} (want the "
+            f"ImportError naming matplotlib) {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a plot hook without matplotlib did not "
+                                 "raise the ImportError naming it")
+    else:
+        log("[26] (d) matplotlib is installed on this machine: the check "
+            "of the ImportError without it does not apply here")
+    x = np.linspace(12.0, 58.0, 101)
+    worst = 0.0
+    for names, lo, hi, phi in (
+            (("T",), [10.0], [60.0], np.array([35.0, 4.0])),
+            (("T", "beta"), [10.0, 0.5], [60.0, 4.0],
+             np.array([35.0, 1.9, 4.0, 0.3]))):
+        pop = TruncatedGaussianPopulation.for_box(names, lo, hi)
+        on_card, on_cpu = (plotting._mc_marginal(
+            pop, 0, n_mc=MC_MARGINAL_N, seed=3, device=dev)(phi, x)
+            for dev in (DEVICE, "cpu"))
+        rel = float(np.max(np.abs(on_card - on_cpu)
+                           / np.maximum(np.abs(on_cpu), 1e-30)))
+        worst = max(worst, rel)
+        ok = bool(np.all(np.isfinite(on_card))) and bool(
+            np.allclose(on_card, on_cpu, rtol=1e-5, atol=1e-12))
+        log(f"[26] (d) _mc_marginal of the {len(names)}-parameter truncated "
+            f"normal, {MC_MARGINAL_N} importance draws x {x.size} grid "
+            f"points: card against CPU max rel {rel:.3g} (rtol 1e-5) "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("_mc_marginal on the card is not the CPU's")
+    out["(d) _mc_marginal max rel"] = worst
+    lap("(d)")
+
+    # -- (e) the two-temperature batch step's time and kernels
+    direct.run(nburn=0, nsteps=CLI_SED_TIME_STEPS[0])
+    ts = [_timed(lambda: direct.run(nburn=0, nsteps=n))[1]
+          for n in CLI_SED_TIME_STEPS]
+    ms_step = 1e3 * (ts[1] - ts[0]) / (CLI_SED_TIME_STEPS[1]
+                                      - CLI_SED_TIME_STEPS[0])
+    (k1, h1), (k2, h2) = (_profiled_launches(
+        lambda: direct.run(nburn=0, nsteps=n)) for n in (1, 2))
+    out.update({"ms per batch stretch step": ms_step,
+                "kernels per step": k2 - k1,
+                "launch calls per step": h2 - h1})
+    log(f"[26] (e) two-temperature batch stretch step, {NSOURCES} x "
+        f"{NWALKERS} x {len(CLI_SED_WAVE)} bands: {ms_step:.3f} ms per step "
+        f"(marginal, run(0, {CLI_SED_TIME_STEPS[1]}) - run(0, "
+        f"{CLI_SED_TIME_STEPS[0]}), host clock with the card synchronized); "
+        f"{k2 - k1:.0f} device kernels and {h2 - h1:.0f} cudaLaunchKernel "
+        f"calls per step (torch.profiler, run(0, 2) - run(0, 1)) ({card})")
+    lap("(e)")
+    out["phase 26"] = time.time() - t0
+    ok = out["phase 26"] <= CLI_SED_BUDGET_S
+    log(f"[26] phase 26: {out['phase 26']:.1f} s (advisory budget "
+        f"{CLI_SED_BUDGET_S:.0f} s: {'within' if ok else 'OVER'}); parts end "
+        f"at " + ", ".join(f"{k.split()[0]} {v:.1f} s"
+                           for k, v in out.items()
+                           if k.endswith("ends at s")))
+    return launches, out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
           "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
-          "24", "25")
+          "24", "25", "26")
 
 
 def main(argv=None):
@@ -4971,7 +5349,8 @@ def main(argv=None):
         ("23", lambda: phase_evidence(
             card, res["22"][1] if "22" in res else None)),
         ("24", lambda: phase_generic(card)),
-        ("25", lambda: phase_generic_batch(card))]
+        ("25", lambda: phase_generic_batch(card)),
+        ("26", lambda: phase_cli_sed(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -5009,6 +5388,7 @@ def main(argv=None):
     evidence_paths, evidence_times = res["23"]
     generic_paths, generic_times = res["24"]
     batch_paths, batch_times = res["25"]
+    cli_sed_paths, cli_sed_times = res["26"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -5017,6 +5397,7 @@ def main(argv=None):
         by_path.update(evidence_paths[name])
         by_path.update(generic_paths[name])
         by_path.update(batch_paths[name])
+        by_path.update(cli_sed_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -5117,6 +5498,8 @@ def main(argv=None):
         + json.dumps(generic_times))
     log(f"generic batch tier and photo-z, host seconds and counts ({card}): "
         + json.dumps(batch_times))
+    log(f"generic CLI and plots, host seconds and counts ({card}): "
+        + json.dumps(cli_sed_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,8 @@ values / fixing, covariance file, instrument-response mode, checkpoint /
 resume, the --extend-until serving loop, derived-quantity switches, MAP
 triage (--map, --init-map), model checking (--ppc, --loo, --loo-exact),
 Hamiltonian MC (--hmc), parallel tempering (--pt) and the nested-sampling
-evidence (--get-evidence)) plus --device
-(default cuda; --device cpu runs the plain torch path).
+evidence (--get-evidence), the --plot-* figures (matplotlib, headless))
+plus --device (default cuda; --device cpu runs the plain torch path).
 Flags whose features are not ported yet exit non-zero up front with the
 ROADMAP.md item that carries them.
 
@@ -28,9 +28,6 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
 # queue-A item that carries each.
 _WAITING = (
-    ("plot_sed", "--plot-sed", "A10c"),
-    ("plot_corner", "--plot-corner", "A10c"),
-    ("plot_chain", "--plot-chain", "A10c"), ("plot_ppc", "--plot-ppc", "A10c"),
     ("profile_dir", "--profile-dir", "A8"),
 )
 
@@ -338,7 +335,7 @@ def _validate_triage_flags(args):
                              "--extend-until/--init-map")
         if (args.get_lir or args.get_dustmass or args.get_peaklambda
                 or args.get_evidence or args.loo or args.loo_exact
-                or args.ppc):
+                or args.ppc or _plots_asked(args)):
             raise SystemExit("derived-quantity posteriors, --ppc and the "
                              "--plot-* figures need chains; run without "
                              "--map for them")
@@ -358,6 +355,26 @@ def _validate_triage_flags(args):
     for flag, on in (("--pt", args.pt), ("--hmc", args.hmc)):
         if on and (args.checkpoint or args.resume):
             raise SystemExit(f"{flag} does not support --checkpoint/--resume")
+
+
+def _plots_asked(args):
+    return bool(args.plot_sed or args.plot_corner or args.plot_chain
+                or args.plot_ppc)
+
+
+def _write_plots(res, args):
+    """--plot-sed / --plot-corner / --plot-chain / --plot-ppc figures of the
+    finished fit (headless; --plot-ppc thins as the derived chains do)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    if args.plot_sed:
+        res.plot_sed(savefig=args.plot_sed)
+    if args.plot_corner:
+        res.plot_corner(savefig=args.plot_corner)
+    if args.plot_chain:
+        res.plot_chain(savefig=args.plot_chain)
+    if args.plot_ppc:
+        res.plot_ppc(thin=args.derived_thin, savefig=args.plot_ppc)
 
 
 def _map_and_write(fit, args):
@@ -556,6 +573,8 @@ def main(argv=None):
     print(res)
     if args.loo_exact:
         _exact_loo(fit, loo, args)
+    if _plots_asked(args):
+        _write_plots(res, args)
     return 0
 
 

@@ -12,10 +12,10 @@ Usage example:
 
 The flags are the JAX batch CLI's (MAP triage --map / --init-map, the
 --ppc / --loo checks, --hmc, --pt, the per-source nested-sampling evidence
---get-evidence and the --population stage included) plus --device (default
-cuda; --device cpu runs the plain torch path). Flags whose features are not
-ported yet exit non-zero up front with the ROADMAP.md item that carries
-them.
+--get-evidence and the --population stage with its --plot-population figure
+included) plus --device (default cuda; --device cpu runs the plain torch
+path). Flags whose features are not ported yet exit non-zero up front with
+the ROADMAP.md item that carries them.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # Flags of the JAX package's batch CLI whose features wait, and the
 # ROADMAP.md queue-A item that carries each.
 _WAITING = (
-    ("plot_population", "--plot-population", "A10c"),
     ("mesh_devices", "--mesh-devices", "A11"),
     ("profile_dir", "--profile-dir", "A8"),
 )
@@ -233,7 +232,11 @@ def build_parser():
                    help="bivariate population with a free correlation "
                         "rho (exactly two --population params): is the "
                         "catalog's T-beta trend a population property?")
-    g.add_argument("--plot-population", default=None, metavar="PNG")
+    g.add_argument("--plot-population", default=None, metavar="PNG",
+                   help="save the population-band figure (deconvolved "
+                        "density over the per-source-median histogram; "
+                        "one panel per --population parameter, suffixed "
+                        "for >1)")
 
     g = p.add_argument_group("output")
     g.add_argument("--chunk-size", type=int, default=None, metavar="C",
@@ -273,20 +276,23 @@ def _safe_rhat(mf):
         return np.full(mf.nsources, np.nan)
 
 
-def _summary_table(mf, offset=0):
+def _summary_table(mf, offset=0, ppc=None):
     """Per-source lines: free-parameter medians +/- 1 sigma, split-R-hat,
-    the stepping-stone lnZ after --pt and the nested lnZ after
-    --get-evidence; `offset` shifts the printed indices to catalog
-    positions (chunks)."""
+    the stepping-stone lnZ after --pt, the nested lnZ after --get-evidence
+    and, given a PPCBatchResult `ppc`, the posterior-predictive p-value;
+    `offset` shifts the printed indices to catalog positions (chunks).
+    Shared with cli_sed (getattr: a batch that never ran PT or the
+    evidence may lack those attributes)."""
     names = mf.free_param_names
     cen = {p: mf.par_cen(p) for p in names}          # (S, 3) each
     rhat = _safe_rhat(mf)
-    logz_pt = mf.logz_pt
-    evidence = mf.evidence
+    logz_pt = getattr(mf, "logz_pt", None)
+    evidence = getattr(mf, "evidence", None)
     lines = ["#   source            " +
              "".join(f"{p:>24}" for p in names) + f"{'max-Rhat':>10}" +
              ("" if logz_pt is None else f"{'lnZ(PT)':>12}") +
-             ("" if evidence is None else f"{'lnZ':>12}")]
+             ("" if evidence is None else f"{'lnZ':>12}") +
+             ("" if ppc is None else f"{'PPC p':>8}")]
     srcnames = mf.source_names or [f"src{i + offset}"
                                    for i in range(mf.nsources)]
     for i, nm in enumerate(srcnames):
@@ -298,6 +304,8 @@ def _summary_table(mf, offset=0):
             line += f"{logz_pt[0][i]:>12.2f}"
         if evidence is not None:
             line += f"{evidence.logz[i]:>12.2f}"
+        if ppc is not None:
+            line += f"{ppc.p_value[i]:>8.3f}"
         lines.append(line)
     return "\n".join(lines)
 

@@ -923,7 +923,11 @@ class HierarchicalFitter(ParamSpaceMixin):
         return torch.exp(-torch.logsumexp(2.0 * lw, dim=-1)).cpu().numpy()
 
     def plot_population(self, param, **kw):
-        raise not_ported("plot_population (plotting)", "A10c")
+        """Population band + per-source-median histogram for one
+        parameter (see plotting.plot_population)."""
+        from mbb_emcee_tpu_torch.plotting import plot_population
+        self._require_run()
+        return plot_population(self, param, **kw)
 
     # -- persistence ---------------------------------------------------------
     def writeToHDF5(self, path):
@@ -1052,9 +1056,10 @@ def fit_population(batch, params, nburn=200, nsteps=1000, thin=1,
 def run_population_stage(mf, args, outfile):
     """The batch CLI's --population stage: fit the hyper-posterior over the
     just-finished batch, write the hyper chain (the caller has already
-    written the batch file, so a failure here loses nothing) and return
-    the report text to print. `args` carries the CLI's population_*
-    fields."""
+    written the batch file, so a failure here loses nothing), save the
+    --plot-population figures (headless; one per parameter, suffixed for
+    more than one) and return the report text to print. `args` carries the
+    CLI's population_* and plot_population fields."""
     hf = fit_population(
         mf, params=tuple(args.population),
         nburn=args.population_burn, nsteps=args.population_steps,
@@ -1083,4 +1088,15 @@ def run_population_stage(mf, args, outfile):
         popfile = base + ".pop.h5"
     hf.writeToHDF5(popfile)
     lines.append(f"  hyper chain written to {popfile}")
+    plot_spec = getattr(args, "plot_population", None)
+    if plot_spec:
+        import matplotlib
+        matplotlib.use("Agg")
+        base, ext = (plot_spec.rsplit(".", 1) if "." in plot_spec
+                     else (plot_spec, "png"))
+        for p in args.population:
+            path = (f"{base}.{ext}" if len(args.population) == 1
+                    else f"{base}_{p}.{ext}")
+            hf.plot_population(p, savefig=path)
+            lines.append(f"  population figure -> {path}")
     return "\n".join(lines)

@@ -297,10 +297,30 @@ class ChainResults:
             loglik, point_index=det_idx, band_names=names)
         return self.loo_result
 
+    # -- plotting --------------------------------------------------------------------
     def plot_sed(self, **kw):
-        raise not_ported("plotting", "A10c")
+        """Photometry + posterior-predictive SED band (see
+        plotting.plot_sed; batched evaluation of the chain on the results'
+        device)."""
+        from mbb_emcee_tpu_torch import plotting
+        return plotting.plot_sed(self, **kw)
 
-    plot_corner = plot_chain = plot_ppc = plot_sed
+    def plot_corner(self, **kw):
+        """Corner plot of the free-parameter posteriors
+        (see plotting.plot_corner)."""
+        from mbb_emcee_tpu_torch import plotting
+        return plotting.plot_corner(self, **kw)
+
+    def plot_chain(self, **kw):
+        """Per-walker trace plots (see plotting.plot_chain)."""
+        from mbb_emcee_tpu_torch import plotting
+        return plotting.plot_chain(self, **kw)
+
+    def plot_ppc(self, **kw):
+        """Posterior-predictive check figure: replicated vs observed
+        chi-square with the p-value annotated (see plotting.plot_ppc)."""
+        from mbb_emcee_tpu_torch import plotting
+        return plotting.plot_ppc(self, **kw)
 
     # -- cosmology helpers -----------------------------------------------------------
     def _dl_mpc(self):

@@ -1,7 +1,8 @@
 """Post-hoc prior replacement by PSIS-smoothed importance reweighting.
 
 Torch-package twin of mbb_emcee_tpu/reweight.py, a numpy copy on this
-package's MBBResults and MultiFitter.
+package's MBBResults and SEDResults (reweight_prior) and MultiFitter and
+SEDMultiFitter (reweight_prior_batch).
 
 A finished chain sampled under
 prior pi_old can answer "what would the posterior look like under
@@ -50,6 +51,31 @@ def _weighted_percentiles(x, w, qs):
     cdf = np.cumsum(ws) - 0.5 * ws
     cdf /= ws.sum()
     return np.interp(np.asarray(qs, np.float64) / 100.0, cdf, xs)
+
+
+def _index_closure(res):
+    """Name->index resolver for a Reweight*Result that pins only the
+    (small, frozen) model or a snapshot of the name list -- never `res`
+    itself: reweight results outlive their parent fits, whose chains and
+    device buffers can be large, and a closure over the fitter would keep
+    all of it alive. MBB fits resolve the package-wide parameter names."""
+    model = getattr(res, "model", None)
+    if model is not None:
+        return model.param_index                 # frozen dataclass
+    names = getattr(res, "_stored_param_names", None)
+    if names is not None:
+        lowered = [str(n).lower() for n in names]
+
+        def idx(p, _names=lowered):
+            if isinstance(p, (int, np.integer)):
+                return int(p)
+            try:
+                return _names.index(str(p).lower())
+            except ValueError:
+                raise ValueError(f"unknown parameter {p!r}") from None
+
+        return idx
+    return param_index
 
 
 def _host(samples):
@@ -168,11 +194,11 @@ def reweight_prior(res, param, mean=None, sigma=None, thin=1):
     """Reweight a finished fit's posterior under a replaced Gaussian
     prior on `param` (sigma=None removes the prior).
 
-    `res` is an MBBResults; the OLD prior is the one its
+    `res` is an MBBResults or SEDResults; the OLD prior is the one its
     recorded spec carries for that parameter (isigma 0 = flat). Returns
     a ReweightResult; check `.reliable` / `.ess` before using the
     summaries."""
-    i = param_index(param)
+    i = res._param_index(param)
     spec = res.param_spec
     if bool(spec.fixed[i]):
         raise ValueError(
@@ -194,7 +220,7 @@ def reweight_prior(res, param, mean=None, sigma=None, thin=1):
         new_prior=(None if sigma is None else float(mean),
                    None if sigma is None else float(sigma)),
         old_prior=(old_m, (1.0 / old_i) if old_i > 0 else None),
-        _index=param_index)
+        _index=_index_closure(res))
 
 
 @dataclasses.dataclass
@@ -237,10 +263,12 @@ class ReweightBatchResult:
 
 
 def reweight_prior_batch(mf, param, mean=None, sigma=None, thin=1):
-    """Batch form of reweight_prior for MultiFitter: per-source weights in
-    one pass. `mean`/`sigma` may be scalars or (S,) arrays (a different new
-    prior per source). The OLD prior is the shared spec's."""
-    i = param_index(param)
+    """Batch form of reweight_prior for MultiFitter / SEDMultiFitter:
+    per-source weights in one pass. `mean`/`sigma` may be scalars or (S,)
+    arrays (a different new prior per source). The OLD prior is the
+    shared spec's, combined with any per-source prior the fit carried for
+    that parameter (sedmulti.set_gaussian_prior with arrays)."""
+    i = mf._param_index(param)
     spec = mf._effective_spec()
     if bool(spec.fixed[i]):
         raise ValueError(
@@ -264,6 +292,19 @@ def reweight_prior_batch(mf, param, mean=None, sigma=None, thin=1):
         new_i = np.where(on, 1.0 / np.where(on, sig, 1.0), 0.0)
     old_m = np.full(S, float(spec.prior_mean[i]))
     old_i = np.full(S, float(spec.prior_isigma[i]))
+    ps = getattr(mf, "_ps_prior", None) or {}
+    # the model's canonical lower-case name for this parameter
+    names = getattr(getattr(mf, "model", None), "param_names", None)
+    key = names[i].lower() if names is not None else str(param).lower()
+    if key in ps:
+        m_s, i_s = ps[key]
+        # product of Gaussians: precisions add, means precision-weight
+        v = old_i ** 2 + np.asarray(i_s, np.float64) ** 2
+        with np.errstate(invalid="ignore", divide="ignore"):
+            comb_m = np.where(v > 0,
+                              (old_m * old_i ** 2 + m_s * i_s ** 2)
+                              / np.where(v > 0, v, 1.0), 0.0)
+        old_m, old_i = comb_m, np.sqrt(v)
     if not (np.any(new_i > 0) or np.any(old_i > 0)):
         raise ValueError(
             f"parameter {param!r} had no prior anywhere and none was "
@@ -277,4 +318,4 @@ def reweight_prior_batch(mf, param, mean=None, sigma=None, thin=1):
         logw_s[s], k_hat[s], ess[s] = _smooth_normalize(logw)
     return ReweightBatchResult(samples=samples, logw=logw_s, ess=ess,
                                pareto_k=k_hat, param=str(param),
-                               _index=param_index)
+                               _index=_index_closure(mf))

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch import derived
-from mbb_emcee_tpu_torch.fitter import not_ported, philox_key, resolve_device
+from mbb_emcee_tpu_torch.fitter import philox_key, resolve_device
 from mbb_emcee_tpu_torch.likelihood import (
     LNPROB_FLOOR, LikelihoodSpec, Photometry, spec_arrays)
 from mbb_emcee_tpu_torch.models.cosmology import (
@@ -1138,7 +1138,9 @@ class SEDResults(ChainResults):
         return self.peaklambda_chain
 
     def plot_pz(self, **kw):
-        raise not_ported("plotting", "A10c")
+        """P(z) posterior figure for photo-z fits (plotting.plot_pz)."""
+        from mbb_emcee_tpu_torch import plotting
+        return plotting.plot_pz(self, **kw)
 
     # -- persistence ------------------------------------------------------------------------------
     def writeToHDF5(self, filename):

@@ -166,12 +166,26 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--plot-population", "p.png"], "A10c"),
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
                         *FAST, *flags])
+
+
+def test_batch_cli_plot_population_writes_png(tmp_path, capsys):
+    """--plot-population (refused until the plots were ported) saves the
+    population figure after the --population stage."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    png = tmp_path / "pop.png"
+    rc = cli_batch.main([str(_catalog(tmp_path, nsrc=3)),
+                         str(tmp_path / "o.h5"), *FAST, "--population", "T",
+                         "--population-burn", "10", "--population-steps",
+                         "20", "--population-walkers", "8",
+                         "--plot-population", str(png)])
+    assert rc == 0 and png.stat().st_size > 0
+    assert f"population figure -> {png}" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [

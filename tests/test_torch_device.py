@@ -85,6 +85,24 @@ def test_clis_refuse_without_a_card(no_card, tmp_path, monkeypatch):
     assert not (tmp_path / "o.h5").exists()
 
 
+def test_sed_cli_refuses_without_a_card(no_card, tmp_path, monkeypatch):
+    """run_sed_tpu_torch defaults to cuda and refuses without a card before
+    it loads the model or builds a fitter."""
+    from mbb_emcee_tpu_torch import cli_sed
+
+    def never(*a, **k):
+        raise AssertionError("a fitter was built before the device check")
+    monkeypatch.setattr(T.SEDMultiFitter, "__init__", never)
+    monkeypatch.setattr(cli_sed, "load_model", never)
+    cat = tmp_path / "c.txt"
+    cat.write_text("wave = " + " ".join(f"{w:g}" for w in WAVE) + "\nS0 1.0 "
+                   + " ".join(f"{f} {0.05 * f}" for f in FLUX) + "\n")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli_sed.main([str(tmp_path / "m.py"), str(cat),
+                      str(tmp_path / "o.h5")])
+    assert not (tmp_path / "o.h5").exists()
+
+
 def test_population_and_nested_refuse_without_a_card(no_card):
     """HierarchicalFitter, build_hier_lnprob, HierarchicalFitter.from_h5 and
     nested_sample follow the same rule; from_batch takes the batch's

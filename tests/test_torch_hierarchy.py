@@ -11,8 +11,8 @@ smaller scale, with their tolerances).
 Left out by design: test_mesh_sharded_lnprob_matches_unsharded,
 test_program_token_splits_on_mesh_shape and
 test_multi_axis_mesh_first_axis_divides (source sharding over a mesh is
-ROADMAP A11: mesh= raises NotImplementedError naming it, held here) and
-the population plot (plotting is A10c)."""
+ROADMAP A11: mesh= raises NotImplementedError naming it, held here); the
+population plot's twins are in tests/test_torch_plotting.py."""
 
 import os
 
@@ -235,10 +235,11 @@ def test_pop_files_cross_both_ways(tmp_path):
 
 
 def test_mesh_and_generic_batches_are_refused():
-    """mesh= (A11) raises NotImplementedError naming its ROADMAP item, and
-    so does the population plot (plotting is A10c); a generic-model batch
-    (SEDMultiFitter) that has not run is refused like a MultiFitter that
-    has not (from_batch on a run one is test_from_batch_sedmulti)."""
+    """mesh= (A11) raises NotImplementedError naming its ROADMAP item; the
+    population plot of a fitter that has not run is refused
+    (test_plot_population_draws holds it on a run one); a generic-model
+    batch (SEDMultiFitter) that has not run is refused like a MultiFitter
+    that has not (from_batch on a run one is test_from_batch_sedmulti)."""
     samples = np.random.default_rng(0).normal(35, 4, (4, 16, 1))
     pop = TruncatedGaussianPopulation.for_box(("T",), [10.0], [60.0])
     with pytest.raises(NotImplementedError, match="A11"):
@@ -250,8 +251,30 @@ def test_mesh_and_generic_batches_are_refused():
     with pytest.raises(RuntimeError, match="finished run"):
         HierarchicalFitter.from_batch(smf, params=("slope",))
     hf = HierarchicalFitter(samples, pop, nwalkers=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(RuntimeError, match="run"):
         hf.plot_population("T")
+
+
+def test_plot_population_draws(tmp_path):
+    """HierarchicalFitter.plot_population (refused until the plots were
+    ported) draws the population band over the per-source medians and
+    saves it; an unknown parameter is refused."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    rng = np.random.default_rng(5)
+    x = rng.normal(35.0, 4.0, 12)
+    samples = (x[:, None] + rng.normal(0, 1.5, (12, 64)))[..., None]
+    pop = TruncatedGaussianPopulation.for_box(("T",), [10.0], [60.0])
+    hf = HierarchicalFitter(samples, pop, nwalkers=8, seed=2, device=CPU)
+    hf.run(nburn=20, nsteps=40)
+    out = tmp_path / "pop.png"
+    fig = hf.plot_population("T", n_draw=32, savefig=str(out))
+    assert out.stat().st_size > 0
+    ax = fig.axes[0]
+    assert ax.lines and ax.collections and ax.patches
+    with pytest.raises(ValueError, match="unknown population parameter"):
+        hf.plot_population("beta")
+    matplotlib.pyplot.close("all")
 
 
 def _plaw_models():

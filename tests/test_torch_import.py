@@ -41,8 +41,8 @@ def test_import_leaves_jax_and_reference_out():
     """In a fresh interpreter (this one already holds jax): importing the
     port, its CLIs, the batch tier, nested sampling, the population tier,
     the generic-model tier and its batch tier, forecasts, the CMB-corrected
-    greybody and the photo-z model loads no jax, no mbb_emcee_tpu and no
-    h5py."""
+    greybody, the photo-z model, the generic CLI and the plot helpers loads
+    no jax, no mbb_emcee_tpu, no h5py and no matplotlib."""
     code = ("import sys, mbb_emcee_tpu_torch, mbb_emcee_tpu_torch.cli, "
             "mbb_emcee_tpu_torch.convert, mbb_emcee_tpu_torch.cli_batch, "
             "mbb_emcee_tpu_torch.catalog, mbb_emcee_tpu_torch.multifit, "
@@ -52,8 +52,10 @@ def test_import_leaves_jax_and_reference_out():
             "mbb_emcee_tpu_torch.instruments, mbb_emcee_tpu_torch.nested, "
             "mbb_emcee_tpu_torch.hierarchy, mbb_emcee_tpu_torch.sed, "
             "mbb_emcee_tpu_torch.forecast, mbb_emcee_tpu_torch.models.cmb, "
-            "mbb_emcee_tpu_torch.sedmulti, mbb_emcee_tpu_torch.photoz\n"
-            "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py') "
+            "mbb_emcee_tpu_torch.sedmulti, mbb_emcee_tpu_torch.photoz, "
+            "mbb_emcee_tpu_torch.cli_sed, mbb_emcee_tpu_torch.plotting\n"
+            "bad = [m for m in ('jax', 'mbb_emcee_tpu', 'h5py', "
+            "'matplotlib') "
             "if m in sys.modules]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -894,10 +894,14 @@ def test_two_temperature_model_end_to_end(tmp_path):
 
 
 def test_plot_hooks(wrapped_fit):
-    """Plotting waits for A10c: each plot hook of SEDResults raises
-    NotImplementedError naming the item."""
+    """Each plot hook of SEDResults draws its figure (plot_pz of any
+    sampled parameter)."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
     res = wrapped_fit.results()
-    for hook in (res.plot_sed, res.plot_corner, res.plot_chain,
-                 res.plot_ppc, res.plot_pz):
-        with pytest.raises(NotImplementedError, match="A10c"):
-            hook()
+    for hook, kw in ((res.plot_sed, {}), (res.plot_corner, {}),
+                     (res.plot_chain, {}), (res.plot_ppc, {"thin": 8}),
+                     (res.plot_pz, {"param": "T"})):
+        fig = hook(**kw)
+        assert fig.axes
+        matplotlib.pyplot.close(fig)

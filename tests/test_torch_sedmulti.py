@@ -456,6 +456,31 @@ def test_ppc_and_loo_match_jax_on_a_shared_chain(shared):
     np.testing.assert_allclose(loo.elpd_loo, jloo.elpd_loo, rtol=1e-4)
 
 
+def test_reweight_batch_matches_jax_on_a_shared_chain(shared):
+    """reweight_prior_batch resolves the model's own parameter names and
+    folds a per-source prior into the old prior as the JAX package does:
+    weights, ESS and reweighted summaries on the same chain (rtol 1e-9,
+    both host fp64)."""
+    from mbb_emcee_tpu.reweight import reweight_prior_batch as j_rw
+    from mbb_emcee_tpu_torch.reweight import reweight_prior_batch
+    mf, jmf, _ = shared
+    for fit in (mf, jmf):
+        fit.set_gaussian_prior("T_warm", np.array([40.0, 45.0, 50.0, 42.0]),
+                               np.array([5.0, 5.0, np.inf, 5.0]))
+    try:
+        got = reweight_prior_batch(mf, "T_warm", 44.0, 6.0, thin=4)
+        want = j_rw(jmf, "T_warm", 44.0, 6.0, thin=4)
+    finally:
+        for fit in (mf, jmf):
+            fit.set_gaussian_prior("T_warm", np.zeros(4),
+                                   np.full(4, np.inf))
+    np.testing.assert_allclose(got.logw, want.logw, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got.ess, want.ess, rtol=1e-9)
+    for name in ("T_warm", "fnorm_cold"):
+        np.testing.assert_allclose(got.par_cen(name), want.par_cen(name),
+                                   rtol=1e-9)
+
+
 def test_sedbatch_files_cross_between_the_packages(shared, tmp_path):
     """The port's sed-batch file loads in the JAX package (chains,
     summaries, redshifts, the L_IR chain; the JAX package will not continue
