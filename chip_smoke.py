@@ -210,12 +210,33 @@ non-zero without printing a result):
      none) mbb_emcee_tpu_torch.plotting imports and a plot hook raises the
      ImportError naming it; _mc_marginal on the card against the CPU
      (rtol 1e-5); (e) the two-temperature batch step's marginal time and
-     kernels per step. Budget: 20 s, advisory, as phase 25's.
+     kernels per step. Budget: 20 s, advisory, as phase 25's;
+ 27. the migration surface (compat.py, utils/profiling.py, legacy_h5.py,
+     cli_inspect.py; no kernel of their own) at config 2's width (250
+     walkers x 5 bands, the rate cell's mock data written to a text
+     photometry file under build/chip_smoke/): (a) compat.mbb_fitter with
+     the upstream positional order (nthreads = 4 in the 8th slot),
+     redshift=2.5, run(50, 250): bitwise MBBFitter(...).run(50, 250) by
+     keyword on the card, 2 K1 and 3 K2 launches as MBBFitter.run's own
+     (FIT_LAUNCHES), like(theta) == fit(theta),
+     mbb_results(cosmo_type=...).compute_lir() bitwise MBBResults(
+     cosmology=...)'s; (b) profiling.trace(dir) around a second
+     MBBFitter.run(50, 250) in a fresh worker process (its first
+     torch.profiler session, as a CLI's --profile-dir is; a process that has
+     run many sessions can drop a later trace's device events): one Chrome
+     trace file that parses, whose
+     device-kernel events name mbb_stretch_kernel three times and the lnprob
+     kernel at least once, the same 2 K1 and 3 K2 launches counted (the
+     trace adds none), StepTimer's rate over the same call, the trace's
+     size and the seconds it adds over the untraced call; (c) without h5py
+     (the card's machine has none) legacy_h5, cli_inspect and compat import,
+     read_upstream_results and inspect_file raise the ImportError naming
+     it, and mbb_tpu_inspect_torch's parser parses. Budget: 20 s, advisory.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, ..., `25`, `26`) runs the
+before any phase. `--phases 3,15` (or `21`, ..., `26`, `27`) runs the
 build and those phases alone, a rehearsal that prints no kernel table and
 no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
@@ -5106,6 +5127,17 @@ def _extension_lines():
     return ctx()
 
 
+def _refusal(fn):
+    """'ImportError: ...' (or the other error, or 'no error') of fn()."""
+    try:
+        fn()
+    except ImportError as e:
+        return f"ImportError: {e}"
+    except Exception as e:  # noqa: BLE001 - reported, then failed
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
 def phase_cli_sed(card):
     """The generic command line and the plots through the user's entry
     points (see the module docstring, phase 26). Returns (launches by
@@ -5232,13 +5264,7 @@ def phase_cli_sed(card):
     # -- (d) plotting where there is no matplotlib; _mc_marginal card / CPU
     import mbb_emcee_tpu_torch.plotting as plotting
     if importlib.util.find_spec("matplotlib") is None:
-        try:
-            mf.results(0).plot_sed()
-            got = "no error"
-        except ImportError as e:
-            got = f"ImportError: {e}"
-        except Exception as e:  # noqa: BLE001 - reported, then failed
-            got = f"{type(e).__name__}: {e}"
+        got = _refusal(lambda: mf.results(0).plot_sed())
         ok = got.startswith("ImportError") and "matplotlib" in got
         log(f"[26] (d) import mbb_emcee_tpu_torch.plotting: done without "
             f"matplotlib; SEDResults.plot_sed() raised {got!r} (want the "
@@ -5301,9 +5327,243 @@ def phase_cli_sed(card):
     return launches, out
 
 
+MIGRATION_DEPTH = (50, 250)
+MIGRATION_SEED = 2700
+MIGRATION_COSMOLOGY = "Planck18"
+MIGRATION_BUDGET_S = 20.0
+# A default MBBFitter.run launches K1 at the walker ball's init and again at
+# the re-centered re-burn's, and K2 for the burn, the re-burn and the
+# production run.
+FIT_LAUNCHES = {"mbb_lnprob": 2, "mbb_stretch_run": 3,
+                "mbb_multi_stretch_run": 0}
+
+
+def _trace_kernels(path):
+    """{kernel event name: count} of the device-kernel events of one
+    torch.profiler Chrome trace file."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    got = {}
+    for e in events:
+        if str(e.get("cat", "")).lower() == "kernel":
+            got[e.get("name", "")] = got.get(e.get("name", ""), 0) + 1
+    return got
+
+
+def _traced_fit(tdir, phot, seed, device):
+    """A worker process's MBBFitter.run(*MIGRATION_DEPTH) on `device` under
+    profiling.trace(tdir): the process's first torch.profiler session (a
+    process that has already run many sessions can drop the device events
+    of a later trace). A warm-up run (the kernels' load) and an untraced run
+    come first. Returns (the traced run's launch counts, untraced seconds,
+    traced seconds, StepTimer's walker-steps/s over the traced run)."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from mbb_emcee_tpu_torch import MBBFitter
+    from mbb_emcee_tpu_torch.utils.profiling import StepTimer, trace
+
+    nburn, nsteps = MIGRATION_DEPTH
+
+    def fit():
+        return MBBFitter(NWALKERS, phot, None, 0, 500.0, False, False,
+                         seed=seed, device=device)
+    fit().run(nburn, nsteps)
+    _, untraced_s = _timed(lambda: fit().run(nburn, nsteps))
+    timer = StepTimer(NWALKERS)
+    traced_fit = fit()
+
+    def traced():
+        with trace(tdir):
+            with timer.phase("burn + production", nsteps + 2 * nburn):
+                traced_fit.run(nburn, nsteps)
+    _counts(reset=True)
+    _, traced_s = _timed(traced)
+    return _counts(), untraced_s, traced_s, timer.rate()
+
+
+def phase_migration(card):
+    """The migration surface through the user's entry points (see the
+    module docstring, phase 27). Returns (launches by kernel and path,
+    seconds and numbers by step)."""
+    import concurrent.futures
+    import glob
+    import importlib.util
+    import multiprocessing
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import MBBFitter, MBBResults
+    from mbb_emcee_tpu_torch import cli_inspect, compat, legacy_h5
+
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+
+    def lap(part):
+        out[f"{part} ends at s"] = time.time() - t0
+
+    nburn, nsteps = MIGRATION_DEPTH
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase27_", dir=work)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        flux, unc, _ = vp.mock_data(vp.CONFIGS[2])
+        phot = os.path.join(tmp, "phot.txt")
+        with open(phot, "w") as fh:
+            for w, f, u in zip(vp.WAVE, flux, unc):
+                fh.write(f"{w:.17g} {f:.17g} {u:.17g}\n")
+        args = (NWALKERS, phot, None, 0, 500.0, False, False)
+        # (b)'s worker starts now: its start-up overlaps (a)
+        tdir = os.path.join(tmp, "trace")
+        traced_run = pool.submit(_traced_fit, tdir, phot,
+                                 MIGRATION_SEED + 1, DEVICE)
+
+        # -- (a) compat.mbb_fitter on the card, against MBBFitter
+        _counts(reset=True)
+        fit, out["(a) compat run s"] = _timed(lambda: compat.mbb_fitter(
+            *args, 4, redshift=2.5, seed=MIGRATION_SEED,
+            device=DEVICE).run(nburn, nsteps))
+        c = _counts()
+        path = "compat.mbb_fitter.run (phase 27)"
+        for name in launches:
+            launches[name][path] = c[name]
+        _counts(reset=True)
+        ref, out["(a) MBBFitter run s"] = _timed(lambda: MBBFitter(
+            *args, nthreads=4, redshift=2.5, seed=MIGRATION_SEED,
+            device=DEVICE).run(nburn, nsteps))
+        c_ref = _counts()
+        same = (torch.equal(fit.chain_free, ref.chain_free)
+                and torch.equal(fit.lnprobability, ref.lnprobability))
+        theta = np.asarray(vp.TRUE, np.float64)
+        like, call = float(fit.like(theta)), float(fit(theta))
+        lir_c = np.asarray(compat.mbb_results(
+            fit=fit, cosmo_type=MIGRATION_COSMOLOGY).compute_lir())
+        lir_n = np.asarray(MBBResults(
+            fit=fit, cosmology=MIGRATION_COSMOLOGY).compute_lir())
+        lir_same = lir_c.shape == lir_n.shape and bool(
+            np.array_equal(lir_c, lir_n)) and bool(np.all(np.isfinite(lir_c)))
+        want = {k: c_ref[k] for k in FIT_LAUNCHES}
+        ok = (same and {k: c[k] for k in FIT_LAUNCHES} == want == FIT_LAUNCHES
+              and c["plain_sampler_runs"] + c["plain_multi_runs"] == 0
+              and like == call and np.isfinite(like) and lir_same
+              and fit.redshift == 2.5
+              and tuple(fit.chain_free.shape) == (nsteps, NWALKERS, 5))
+        out.update({"(a) like": like, "(a) L_IR median": float(
+            np.median(lir_c))})
+        log(f"[27] (a) compat.mbb_fitter{args[:1] + ('phot.txt',) + args[2:]}"
+            f" + (4,) [nthreads], redshift=2.5, seed={MIGRATION_SEED}, "
+            f"config 2's mock data: run({nburn}, {nsteps}) "
+            f"{out['(a) compat run s']:.2f} s (host clock); chains "
+            f"{'bitwise' if same else 'NOT bitwise'} MBBFitter's by "
+            f"keyword ({out['(a) MBBFitter run s']:.2f} s); "
+            f"{c['mbb_lnprob']} K1, {c['mbb_stretch_run']} K2, "
+            f"{c['mbb_multi_stretch_run']} K3 launches and "
+            f"{c['plain_sampler_runs'] + c['plain_multi_runs']} plain runs "
+            f"(want {FIT_LAUNCHES['mbb_lnprob']}, "
+            f"{FIT_LAUNCHES['mbb_stretch_run']}, 0, 0: MBBFitter.run's "
+            f"{c_ref['mbb_lnprob']}, {c_ref['mbb_stretch_run']}, "
+            f"{c_ref['mbb_multi_stretch_run']}); like(theta) {like:.9g} "
+            f"{'==' if like == call else '!='} fit(theta) {call:.9g}; "
+            f"mbb_results(cosmo_type={MIGRATION_COSMOLOGY!r}).compute_lir() "
+            f"{'bitwise' if lir_same else 'NOT bitwise'} MBBResults("
+            f"cosmology=...)'s, median {np.median(lir_c):.6g} Lsun "
+            f"{'PASS' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError("compat.mbb_fitter / mbb_results is not "
+                                 "MBBFitter / MBBResults on the card")
+        lap("(a)")
+
+        # -- (b) profiling.trace around a second run (in the worker)
+        c, out["(b) untraced run s"], out["(b) traced run s"], rate = \
+            traced_run.result()
+        path = "MBBFitter.run under profiling.trace (phase 27)"
+        for name in launches:
+            launches[name][path] = c[name]
+        files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+        kernels = _trace_kernels(files[0]) if len(files) == 1 else {}
+        n_k2 = sum(n for k, n in kernels.items()
+                   if "mbb_stretch_kernel" in k)
+        n_k1 = sum(n for k, n in kernels.items()
+                   if "mbb_lnprob_kernel" in k
+                   or "mbb_lnprob_loop_kernel" in k)
+        out.update({
+            "(b) trace files": len(files),
+            "(b) trace bytes": (os.path.getsize(files[0]) if files else 0),
+            "(b) trace adds s": out["(b) traced run s"]
+            - out["(b) untraced run s"],
+            "(b) K2 kernel events": n_k2, "(b) K1 kernel events": n_k1,
+            "(b) device kernel events": sum(kernels.values()),
+            "(b) StepTimer walker-steps/s": rate})
+        ok = (len(files) == 1 and n_k2 == FIT_LAUNCHES["mbb_stretch_run"]
+              and n_k1 >= 1 and {k: c[k] for k in FIT_LAUNCHES} == FIT_LAUNCHES
+              and np.isfinite(rate) and rate > 0)
+        log(f"[27] (b) profiling.trace(dir) around MBBFitter.run({nburn}, "
+            f"{nsteps}) on the card, the first trace of a fresh worker "
+            f"process: {len(files)} trace file(s) (want 1), "
+            f"{out['(b) trace bytes']:,} bytes, "
+            f"{sum(kernels.values())} device-kernel events: "
+            f"mbb_stretch_kernel x {n_k2} (want 3), mbb_lnprob kernels x "
+            f"{n_k1} (want >= 1); {c['mbb_lnprob']} K1 and "
+            f"{c['mbb_stretch_run']} K2 launches counted (want "
+            f"{FIT_LAUNCHES['mbb_lnprob']} and "
+            f"{FIT_LAUNCHES['mbb_stretch_run']}: the trace adds none); the "
+            f"traced call {out['(b) traced run s']:.2f}"
+            f" s against {out['(b) untraced run s']:.2f} s untraced (host "
+            f"clock): the trace adds {out['(b) trace adds s']:.2f} s; "
+            f"StepTimer {rate:,.0f} walker-steps/s over the traced call "
+            f"{'PASS' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError("the profiler trace of a fit on the card "
+                                 "lacks its kernels")
+        lap("(b)")
+
+        # -- (c) the host-only modules where there is no h5py
+        parsed = cli_inspect.build_parser().parse_args(["x.h5"])
+        parse_ok = (parsed.files == ["x.h5"] and parsed.percentile == 68.3
+                    and not parsed.json)
+        if importlib.util.find_spec("h5py") is None:
+            got_r = _refusal(lambda: legacy_h5.read_upstream_results(phot))
+            got_i = _refusal(lambda: cli_inspect.inspect_file(phot))
+            ok = parse_ok and all(g.startswith("ImportError") and "h5py" in g
+                                  for g in (got_r, got_i))
+            log(f"[27] (c) mbb_emcee_tpu_torch.legacy_h5, .cli_inspect and "
+                f".compat imported without h5py; read_upstream_results "
+                f"raised {got_r!r}, inspect_file raised {got_i!r} (want the "
+                f"ImportError naming h5py); build_parser().parse_args("
+                f"['x.h5']) {'parsed' if parse_ok else 'FAILED'} "
+                f"{'PASS' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the host-only modules did not refuse "
+                                     "by name without h5py")
+        else:
+            log("[27] (c) h5py is installed on this machine: the check of "
+                "the ImportError without it does not apply here; "
+                f"build_parser().parse_args(['x.h5']) "
+                f"{'parsed' if parse_ok else 'FAILED'}")
+            if not parse_ok:
+                raise AssertionError("mbb_tpu_inspect_torch's parser")
+        lap("(c)")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase 27"] = time.time() - t0
+    ok = out["phase 27"] <= MIGRATION_BUDGET_S
+    log(f"[27] phase 27: {out['phase 27']:.1f} s (advisory budget "
+        f"{MIGRATION_BUDGET_S:.0f} s: {'within' if ok else 'OVER'}); parts "
+        f"end at " + ", ".join(f"{k.split()[0]} {v:.1f} s"
+                               for k, v in out.items()
+                               if k.endswith("ends at s")))
+    return launches, out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
           "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
-          "24", "25", "26")
+          "24", "25", "26", "27")
 
 
 def main(argv=None):
@@ -5350,7 +5610,8 @@ def main(argv=None):
             card, res["22"][1] if "22" in res else None)),
         ("24", lambda: phase_generic(card)),
         ("25", lambda: phase_generic_batch(card)),
-        ("26", lambda: phase_cli_sed(card))]
+        ("26", lambda: phase_cli_sed(card)),
+        ("27", lambda: phase_migration(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -5389,6 +5650,7 @@ def main(argv=None):
     generic_paths, generic_times = res["24"]
     batch_paths, batch_times = res["25"]
     cli_sed_paths, cli_sed_times = res["26"]
+    migration_paths, migration_times = res["27"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -5398,6 +5660,7 @@ def main(argv=None):
         by_path.update(generic_paths[name])
         by_path.update(batch_paths[name])
         by_path.update(cli_sed_paths[name])
+        by_path.update(migration_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -5500,6 +5763,8 @@ def main(argv=None):
         + json.dumps(batch_times))
     log(f"generic CLI and plots, host seconds and counts ({card}): "
         + json.dumps(cli_sed_times))
+    log(f"migration surface, host seconds and counts ({card}): "
+        + json.dumps(migration_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,8 +8,8 @@ triage (--map, --init-map), model checking (--ppc, --loo, --loo-exact),
 Hamiltonian MC (--hmc), parallel tempering (--pt) and the nested-sampling
 evidence (--get-evidence), the --plot-* figures (matplotlib, headless))
 plus --device (default cuda; --device cpu runs the plain torch path).
-Flags whose features are not ported yet exit non-zero up front with the
-ROADMAP.md item that carries them.
+--profile-dir writes a torch.profiler trace of the fit (open it in
+Perfetto).
 
 Usage example:
     run_mbb_emcee_tpu_torch phot.txt fit.h5 -z 2.2 --nwalkers 250 -b 100 \
@@ -24,13 +24,6 @@ import sys
 import time
 
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES
-
-# Flags of the JAX package's CLI whose features wait, and the ROADMAP.md
-# queue-A item that carries each.
-_WAITING = (
-    ("profile_dir", "--profile-dir", "A8"),
-)
-
 
 def _validate_extend_flags(args):
     """--extend-until sanity, shared with the batch CLI and checked BEFORE
@@ -235,16 +228,11 @@ def build_parser():
     g.add_argument("--plot-ppc", default=None, metavar="PNG")
 
     p.add_argument("-v", "--verbose", action="store_true")
-    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the fit into "
+                        "this directory (a Chrome trace: open it in "
+                        "Perfetto)")
     return p
-
-
-def _refuse_waiting_flags(args):
-    for attr, flag, item in _WAITING:
-        if getattr(args, attr):
-            raise SystemExit(
-                f"{flag} is not ported to mbb_emcee_tpu_torch yet "
-                f"(ROADMAP.md, queue A, item {item})")
 
 
 def _uplim_mask(specs, nbands, band_names):
@@ -447,7 +435,6 @@ def _exact_loo(fit, loo, args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_waiting_flags(args)
     from mbb_emcee_tpu_torch.fitter import resolve_device
     try:
         resolve_device(args.device)
@@ -476,6 +463,7 @@ def main(argv=None):
     from mbb_emcee_tpu_torch.likelihood import Photometry
     from mbb_emcee_tpu_torch.results import MBBResults
     from mbb_emcee_tpu_torch.utils.log import enable_console
+    from mbb_emcee_tpu_torch.utils.profiling import trace
 
     log = enable_console(logging.INFO if args.verbose else logging.WARNING)
     names = (Photometry.from_file(args.photfile).band_names
@@ -517,40 +505,46 @@ def main(argv=None):
              f"steps={args.nsteps}, thin={args.thin}")
     t0 = time.perf_counter()
     what = "burn + production"
-    if args.pt:
-        what = "tempered burn + production"
-        fit.run_pt(nrungs=args.pt_rungs,
-                   beta_min=(args.pt_beta_min if args.pt_beta_min is not None
-                             else "auto"),
-                   nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-                   verbose=args.verbose)
-        total = args.burn + args.nsteps
-    elif args.hmc:
-        what = "warmup + production"
-        fit.run_hmc(nwarmup=args.burn, nsteps=args.nsteps, thin=args.thin,
-                    n_leapfrog=args.hmc_leapfrog,
-                    target_accept=args.hmc_target_accept,
-                    verbose=args.verbose)
-        total = args.burn + args.nsteps
-    else:
-        if args.init_map:
-            fit.fit_map(nstarts=args.map_starts, verbose=args.verbose)
-        fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-                recenter_burn=not args.no_recenter_burn,
-                verbose=args.verbose, checkpoint=args.checkpoint,
-                checkpoint_interval=args.checkpoint_interval,
-                resume=args.resume, init="map" if args.init_map else "auto")
-        # actual ensemble updates; a resumed run skips the burn-in
-        total = args.nsteps
-        if not (args.resume and args.checkpoint):
-            total += args.burn if args.no_recenter_burn else 2 * args.burn
-    if args.extend_until is not None:
-        total += _serve_until_converged(fit, args, log)
+    with trace(args.profile_dir, device=args.device):
+        if args.pt:
+            what = "tempered burn + production"
+            fit.run_pt(nrungs=args.pt_rungs,
+                       beta_min=(args.pt_beta_min
+                                 if args.pt_beta_min is not None
+                                 else "auto"),
+                       nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                       verbose=args.verbose)
+            total = args.burn + args.nsteps
+        elif args.hmc:
+            what = "warmup + production"
+            fit.run_hmc(nwarmup=args.burn, nsteps=args.nsteps,
+                        thin=args.thin, n_leapfrog=args.hmc_leapfrog,
+                        target_accept=args.hmc_target_accept,
+                        verbose=args.verbose)
+            total = args.burn + args.nsteps
+        else:
+            if args.init_map:
+                fit.fit_map(nstarts=args.map_starts, verbose=args.verbose)
+            fit.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                    recenter_burn=not args.no_recenter_burn,
+                    verbose=args.verbose, checkpoint=args.checkpoint,
+                    checkpoint_interval=args.checkpoint_interval,
+                    resume=args.resume,
+                    init="map" if args.init_map else "auto")
+            # actual ensemble updates; a resumed run skips the burn-in
+            total = args.nsteps
+            if not (args.resume and args.checkpoint):
+                total += (args.burn if args.no_recenter_burn
+                          else 2 * args.burn)
+        if args.extend_until is not None:
+            total += _serve_until_converged(fit, args, log)
     secs = time.perf_counter() - t0
     walkers = args.nwalkers * args.n_ensembles
     log.info(f"  fit ({what}): {total} steps in {secs:.2f}s "
              f"({walkers * total / secs:,.0f} walker-steps/s, "
              f"host clock, build and first-call costs included)")
+    if args.profile_dir:
+        log.info(f"profiler trace written to {args.profile_dir}")
 
     if args.get_evidence:
         ev = fit.compute_evidence(nlive=args.nlive, verbose=args.verbose)

@@ -14,8 +14,9 @@ The flags are the JAX batch CLI's (MAP triage --map / --init-map, the
 --ppc / --loo checks, --hmc, --pt, the per-source nested-sampling evidence
 --get-evidence and the --population stage with its --plot-population figure
 included) plus --device (default cuda; --device cpu runs the plain torch
-path). Flags whose features are not ported yet exit non-zero up front with
-the ROADMAP.md item that carries them.
+path) and --profile-dir (a torch.profiler trace of the batch fit). Flags
+whose features are not ported yet exit non-zero up front with the
+ROADMAP.md item that carries them.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 # ROADMAP.md queue-A item that carries each.
 _WAITING = (
     ("mesh_devices", "--mesh-devices", "A11"),
-    ("profile_dir", "--profile-dir", "A8"),
 )
 
 
@@ -254,7 +254,9 @@ def build_parser():
                         "errors, R-hat)")
 
     p.add_argument("-v", "--verbose", action="store_true")
-    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the batch fit "
+                        "(a Chrome trace: open it in Perfetto)")
     return p
 
 
@@ -532,69 +534,76 @@ def _fit_and_write(mf, args, log, outfile, offset=0):
     the derived posteriors, write `outfile`, print the summary."""
     import numpy as np
 
+    from mbb_emcee_tpu_torch.utils.profiling import trace
+
     log.info(f"Batch fit: {mf.nsources} sources x {args.nwalkers} walkers, "
              f"burn={args.burn}, steps={args.nsteps}")
     t0 = time.perf_counter()
     ck = dict(checkpoint=args.checkpoint,
               checkpoint_interval=args.checkpoint_interval,
               resume=args.resume)
-    if args.pt:
-        mf.run_pt(nrungs=args.pt_rungs,
-                  beta_min=(args.pt_beta_min if args.pt_beta_min is not None
-                            else "auto"),
-                  nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-                  verbose=args.verbose, **ck)
-    elif args.hmc:
-        mf.run_hmc(nwarmup=args.burn, nsteps=args.nsteps, thin=args.thin,
-                   n_leapfrog=args.hmc_leapfrog,
-                   target_accept=args.hmc_target_accept,
-                   verbose=args.verbose, **ck)
-    else:
-        if args.init_map:
-            mf.run_map(nstarts=args.map_starts, verbose=args.verbose)
-        mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
-               recenter_burn=not args.no_recenter_burn, verbose=args.verbose,
-               init="map" if args.init_map else "auto", **ck)
-    # actual updates; a resumed run skips the burn-in
-    total = args.nsteps
-    if not (args.resume and args.checkpoint):
-        total += (args.burn if args.no_recenter_burn or args.pt or args.hmc
-                  else 2 * args.burn)
-
-    if args.extend_until is not None:
-        step = args.extend_step or args.nsteps
-        max_steps = args.max_steps or 10 * args.nsteps
-        # Fixed window + floor stride: R-hat over the full chain span at a
-        # fixed reduction shape as the chain grows.
-        window = max(4, args.nsteps // max(args.thin, 1))
-
-        def _converged():
-            nrec = int(mf.chain_free.shape[1])
-            return mf.converged(rhat_max=args.extend_until, window=window,
-                                stride=max(1, nrec // window),
-                                tau_mult=args.tau_mult)
-
-        done = args.nsteps
-        while done < max_steps:
-            ok = _converged()
-            n_bad = int(np.sum(~ok))
-            if n_bad == 0:
-                break
-            log.info(f"  {n_bad}/{mf.nsources} sources above full-span "
-                     f"R-hat {args.extend_until}; extending by {step} "
-                     f"steps")
-            mf.extend(step, verbose=args.verbose)
-            done += step
-            total += step
+    with trace(args.profile_dir, device=args.device):
+        if args.pt:
+            mf.run_pt(nrungs=args.pt_rungs,
+                      beta_min=(args.pt_beta_min
+                                if args.pt_beta_min is not None
+                                else "auto"),
+                      nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                      verbose=args.verbose, **ck)
+        elif args.hmc:
+            mf.run_hmc(nwarmup=args.burn, nsteps=args.nsteps, thin=args.thin,
+                       n_leapfrog=args.hmc_leapfrog,
+                       target_accept=args.hmc_target_accept,
+                       verbose=args.verbose, **ck)
         else:
-            ok = _converged()
-        log.info(f"serving loop done at {done} production steps: "
-                 f"{int(np.sum(ok))}/{mf.nsources} sources converged")
+            if args.init_map:
+                mf.run_map(nstarts=args.map_starts, verbose=args.verbose)
+            mf.run(nburn=args.burn, nsteps=args.nsteps, thin=args.thin,
+                   recenter_burn=not args.no_recenter_burn,
+                   verbose=args.verbose,
+                   init="map" if args.init_map else "auto", **ck)
+        # actual updates; a resumed run skips the burn-in
+        total = args.nsteps
+        if not (args.resume and args.checkpoint):
+            total += (args.burn if args.no_recenter_burn or args.pt or args.hmc
+                      else 2 * args.burn)
+
+        if args.extend_until is not None:
+            step = args.extend_step or args.nsteps
+            max_steps = args.max_steps or 10 * args.nsteps
+            # Fixed window + floor stride: R-hat over the full chain span at a
+            # fixed reduction shape as the chain grows.
+            window = max(4, args.nsteps // max(args.thin, 1))
+
+            def _converged():
+                nrec = int(mf.chain_free.shape[1])
+                return mf.converged(rhat_max=args.extend_until, window=window,
+                                    stride=max(1, nrec // window),
+                                    tau_mult=args.tau_mult)
+
+            done = args.nsteps
+            while done < max_steps:
+                ok = _converged()
+                n_bad = int(np.sum(~ok))
+                if n_bad == 0:
+                    break
+                log.info(f"  {n_bad}/{mf.nsources} sources above full-span "
+                         f"R-hat {args.extend_until}; extending by {step} "
+                         f"steps")
+                mf.extend(step, verbose=args.verbose)
+                done += step
+                total += step
+            else:
+                ok = _converged()
+            log.info(f"serving loop done at {done} production steps: "
+                     f"{int(np.sum(ok))}/{mf.nsources} sources converged")
     secs = time.perf_counter() - t0
     log.info(f"  batch fit: {total} steps in {secs:.2f}s "
              f"({mf.nsources * args.nwalkers * total / secs:,.0f} "
              f"walker-steps/s, host clock, build and first-call costs "
              f"included)")
+    if args.profile_dir:
+        log.info(f"profiler trace written to {args.profile_dir}")
 
     if args.get_evidence:
         ev = mf.compute_evidence(nlive=args.nlive, verbose=args.verbose)

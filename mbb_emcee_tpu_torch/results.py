@@ -28,7 +28,7 @@ from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch import hdf5io
-from mbb_emcee_tpu_torch.fitter import not_ported, resolve_device
+from mbb_emcee_tpu_torch.fitter import resolve_device
 from mbb_emcee_tpu_torch.likelihood import param_index
 from mbb_emcee_tpu_torch.sampler import (
     autocorrelation_time, effective_sample_size, split_rhat,
@@ -403,10 +403,14 @@ class MBBResults(ChainResults):
         if hdf5io.is_sed_results_file(h5file):
             raise ValueError(f"{h5file} is an SEDResults file (a generic "
                              "model's fit): load it with sed.SEDResults")
-        if not hdf5io.is_native_results_file(h5file):
-            raise not_ported("reading upstream mbb_emcee HDF5 layouts",
-                             "A8")
-        payload = hdf5io.read_results(h5file)
+        if hdf5io.is_native_results_file(h5file):
+            payload = hdf5io.read_results(h5file)
+        else:
+            # A migrating user's file from upstream mbb_emcee: the
+            # tolerant reconstructed-schema reader maps it into the same
+            # payload, warning about every guessed name.
+            from mbb_emcee_tpu_torch.legacy_h5 import read_upstream_results
+            payload = read_upstream_results(h5file)
         for k, v in payload.items():
             setattr(self, k, v)
         # Constructor arguments win over stored metadata.

@@ -168,6 +168,15 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
+    """A flag whose ROADMAP.md item waits names it; the flag of a ported
+    item (A8: --profile-dir) runs and leaves a trace in its directory."""
+    if item == "A8":
+        prof = tmp_path / flags[1]
+        assert cli_batch.main([str(_catalog(tmp_path)),
+                               str(tmp_path / "o.h5"), *FAST,
+                               flags[0], str(prof)]) == 0
+        assert len(list(prof.glob("*.pt.trace.json"))) == 1
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
         cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
                         *FAST, *flags])

@@ -6,9 +6,10 @@ CLI's (names, bounds and name exactly; fnu on 64 in-box thetas x the JAX
 tests' wavelengths at rtol 1e-5, with the CMB visibility's conditioning
 term of tests/test_torch_photoz.py for the CMB models), and each model file
 driving run_sed_tpu_torch as shipped (the twin of
-tests/test_cli_sed.py:192). The slow lane runs the three script twins as
-subprocesses with MBB_EXAMPLE_QUICK=1 --device cpu, as tests/test_examples.py
-runs their originals."""
+tests/test_cli_sed.py:192). fit_single_source_torch.py runs in tier-1 as a
+subprocess with MBB_EXAMPLE_QUICK=1 --device cpu, as tests/test_examples.py
+runs its original in the fast lane; the slow lane runs the other script
+twins so. No twin imports jax or the JAX package (read from the source)."""
 
 import os
 import subprocess
@@ -156,15 +157,18 @@ def test_shipped_model_file(stem, tmp_path):
     assert np.all(np.isfinite(back.chain_free.numpy()))
 
 
+FAST = ["fit_single_source_torch.py"]
 SCRIPTS = ["photoz_fit_torch.py", "survey_forecast_torch.py",
-           "custom_model_torch.py"]
+           "custom_model_torch.py", "fit_covariance_uplims_torch.py",
+           "fit_with_responses_torch.py", "serve_batches_torch.py",
+           "serve_ragged_catalog_torch.py",
+           "serve_correlated_tempered_torch.py",
+           "model_comparison_torch.py", "population_inference_torch.py"]
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("name", SCRIPTS)
-def test_example_slow_lane(name, tmp_path):
-    """The script twin runs to its end as `python examples/<name>
-    --device cpu` with MBB_EXAMPLE_QUICK=1, from a temp directory."""
+def _run(name, tmp_path):
+    """`python examples/<name> --device cpu` with MBB_EXAMPLE_QUICK=1,
+    from a temp directory; returns its standard output."""
     env = dict(os.environ, MBB_EXAMPLE_QUICK="1")
     proc = subprocess.run(
         [sys.executable, os.path.join(EXAMPLES, name), "--device", "cpu"],
@@ -174,3 +178,44 @@ def test_example_slow_lane(name, tmp_path):
         f"--- stdout ---\n{proc.stdout[-3000:]}\n"
         f"--- stderr ---\n{proc.stderr[-3000:]}")
     assert proc.stdout.strip()
+    return proc.stdout
+
+
+@pytest.mark.parametrize("name", FAST)
+def test_example_quick(name, tmp_path):
+    """The fast-lane twin runs to its end and reloads its own file."""
+    out = _run(name, tmp_path)
+    assert "round-trip T:" in out
+    assert (tmp_path / "fit.h5").is_file()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_example_slow_lane(name, tmp_path):
+    """The script twin runs to its end as `python examples/<name>
+    --device cpu` with MBB_EXAMPLE_QUICK=1, from a temp directory."""
+    _run(name, tmp_path)
+
+
+def test_twins_import_no_jax():
+    """Every examples/*_torch.py twin, each beside its original, imports
+    neither jax nor the JAX package (read from the source: no import
+    statement names them)."""
+    import ast
+    twins = sorted(n for n in os.listdir(EXAMPLES) if n.endswith("_torch.py"))
+    assert set(FAST + SCRIPTS) <= set(twins)
+    for name in twins:
+        assert os.path.isfile(os.path.join(EXAMPLES, name[:-9] + ".py"))
+        with open(os.path.join(EXAMPLES, name)) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "jaxlib", "mbb_emcee_tpu"), (
+                    f"{name}:{node.lineno} imports {mod}")

@@ -236,9 +236,13 @@ def test_cli_checks_redshift_before_sampling(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [(["--profile-dir", "prof"], "A8")])
 def test_cli_refuses_waiting_flags(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
-        cli.main([str(_photfile(tmp_path)), str(tmp_path / "o.h5"),
-                  "--device", "cpu", *flags])
+    """The single-fit CLI has no waiting flag left: the flag of A8
+    (--profile-dir, ported) runs and leaves a trace in its directory."""
+    prof = tmp_path / flags[1]
+    assert cli.main([str(_photfile(tmp_path)), str(tmp_path / "o.h5"),
+                     "-w", "16", "-b", "4", "-n", "8", "--device", "cpu",
+                     flags[0], str(prof)]) == 0
+    assert len(list(prof.glob("*.pt.trace.json"))) == 1
 
 
 @pytest.mark.parametrize("flag", ["--plot-sed", "--plot-corner",

@@ -360,23 +360,27 @@ def test_batch_cli_conflicts_match_jax(tmp_path, flags):
 
 
 def test_waiting_refusals_name_their_lettered_item(tmp_path):
-    """What still waits names its lettered ROADMAP.md item (--profile-dir
-    A8, --mesh-devices A11); nothing in the package names A9, A9e, A9f or
-    A10c any more (nested sampling, the population tier and the plots are
-    ported)."""
+    """What still waits names its lettered ROADMAP.md item (--mesh-devices
+    A11); --profile-dir (A8, ported) runs in both CLIs and leaves a trace;
+    nothing in the package names A8, A9, A9e, A9f or A10c any more (the
+    migration surface, nested sampling, the population tier and the plots
+    are ported)."""
     cat = tmp_path / "cat.txt"
     cat.write_text(CATALOG)
-    for flags, item in ((["--profile-dir", "p"], "A8"),):
-        with pytest.raises(SystemExit, match=rf"item {item}\)"):
-            cli.main([str(_photfile(tmp_path)), "o.h5", *flags,
-                      "--device", "cpu"])
-    for flags, item in ((["--profile-dir", "p"], "A8"),
-                        (["--mesh-devices", "4"], "A11")):
+    small = ["-w", "16", "-b", "4", "-n", "8", "--device", "cpu"]
+    p1, p2 = tmp_path / "p1", tmp_path / "p2"
+    assert cli.main([str(_photfile(tmp_path)), str(tmp_path / "o1.h5"),
+                     "--profile-dir", str(p1), *small]) == 0
+    assert cli_batch.main([str(cat), str(tmp_path / "o2.h5"),
+                           "--profile-dir", str(p2), *small]) == 0
+    for prof in (p1, p2):
+        assert len(list(prof.glob("*.pt.trace.json"))) == 1
+    for flags, item in ((["--mesh-devices", "4"], "A11"),):
         with pytest.raises(SystemExit, match=rf"item {item}\)"):
             cli_batch.main([str(cat), "o.h5", *flags, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match=r"item A11\)"):
         T.MBBFitter(device="cpu", mesh=object())
-    pat = re.compile(r'"A(9[ef]?|10c)"')
+    pat = re.compile(r'"A(8|9[ef]?|10c)"')
     pkg = REPO / "mbb_emcee_tpu_torch"
     offending = [f"{p.name}:{i}" for p in sorted(pkg.rglob("*.py"))
                  for i, line in enumerate(p.read_text().splitlines(), 1)
