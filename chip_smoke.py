@@ -231,12 +231,33 @@ non-zero without printing a result):
      size and the seconds it adds over the untraced call; (c) without h5py
      (the card's machine has none) legacy_h5, cli_inspect and compat import,
      read_upstream_results and inspect_file raise the ImportError naming
-     it, and mbb_tpu_inspect_torch's parser parses. Budget: 20 s, advisory.
+     it, and mbb_tpu_inspect_torch's parser parses. Budget: 20 s, advisory;
+ 28. multi-device sharding (parallel/, the mesh= legs of the batch tiers
+     and MBBFitter, --mesh-devices) through the user's entry points, the
+     mesh across the cards when the machine has several, else its shards
+     sharing cuda:0: (a) MultiFitter(mesh=4 shards).run(50, 250) with the
+     default sampler_backend at the batch cell's width (256 sources x 250
+     walkers x 5 bands) bitwise the unsharded K3 run, 3 K3 launches per
+     shard and no plain run; (b) K3 at source0=64 on sources 64-127 bitwise
+     rows 64:128 of the whole launch, and against the plain multi run at
+     the same offset by phase 8's rule; (c) ShardedEnsembleSampler on 5
+     shards at config 2 (250 walkers), K1 per shard, bitwise
+     EnsembleSampler on the same K1 lnprob and seed, K1 launches counted,
+     and K1 on each shard's device at its 25-vector blocks against
+     build_lnprob's plain version at phase 2's tolerances;
+     (d) MBBFitter(mesh=5 shards).run(50, 250) on K1 (its launches counted,
+     no K2) against K2's fit within max(1%, 3 sigma_MC); (e)
+     cli_batch.main with --device cuda and --mesh-devices one more than the
+     cards present raises walker_mesh's error; (f) the sharded single
+     fit's ms and kernels per step beside K2's, the sharded K3 run's time
+     beside the unsharded one's at the batch cell and at 64 times its
+     catalog (16,384 sources, several waves per card; bitwise required).
+     Budget: 20 s, advisory.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, ..., `26`, `27`) runs the
+before any phase. `--phases 3,15` (or `21`, ..., `27`, `28`) runs the
 build and those phases alone, a rehearsal that prints no kernel table and
 no result line;
 `--profile-derived` adds torch.profiler's device busy time to the derived
@@ -602,10 +623,12 @@ def use_repo_tests_package():
     sys.modules["tests"] = pkg
 
 
-def port_fitter(ci, flux, unc, cov, seed, device=None, opthin=None):
-    """A port MBBFitter of parity config `ci` on `device` (default DEVICE),
-    set up as tools/validate_tpu_parity.py's jax_fit sets up the JAX
-    fitter; `opthin` overrides the config's model shape."""
+def port_fitter(ci, flux, unc, cov, seed, device=None, opthin=None,
+                mesh=None):
+    """A port MBBFitter of parity config `ci` on `device` (default DEVICE;
+    with `mesh`, its walker axis sharded over the mesh), set up as
+    tools/validate_tpu_parity.py's jax_fit sets up the JAX fitter;
+    `opthin` overrides the config's model shape."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MBBFitter
@@ -618,7 +641,7 @@ def port_fitter(ci, flux, unc, cov, seed, device=None, opthin=None):
     opthin = cfg["opthin"] if opthin is None else opthin
     fit = MBBFitter(nwalkers=NWALKERS, seed=seed, opthin=opthin,
                     noalpha=cfg["noalpha"], responses=responses,
-                    device=device or DEVICE)
+                    device=device or DEVICE, mesh=mesh)
     fit.set_data(vp.WAVE, flux, unc, cov=cov, band_names=band_names)
     fit.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
     ub = cfg.get("uplim_band")
@@ -773,13 +796,19 @@ def _profiled_device_us(fn, reps, kernel):
     return total / count if count and total > 0 else None
 
 
-def _host_s(fn):
-    """Seconds of fn() on the host clock, synchronized on both ends."""
+def _sync_all():
     import torch
-    torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _host_s(fn):
+    """Seconds of fn() on the host clock, every card synchronized on both
+    ends."""
+    _sync_all()
     t0 = time.perf_counter()
     fn()
-    torch.cuda.synchronize()
+    _sync_all()
     return time.perf_counter() - t0
 
 
@@ -1079,8 +1108,10 @@ def _replay_record(samp, pos, seed, step, thin):
         pos=pos.contiguous(), lnp=torch.zeros(pos.shape[:2], device=DEVICE),
         naccept=torch.zeros(pos.shape[:2], dtype=torch.int32, device=DEVICE),
         nsteps=0, seed=seed, step=step)
-    _, ck, lk = mbb_multi_stretch_run(st, samp.ops, thin, 1, samp.a)
-    _, cp, lp = multi_stretch_run_plain(st, samp.ops.plain, thin, 1, samp.a)
+    _, ck, lk = mbb_multi_stretch_run(st, samp.ops, thin, 1, samp.a,
+                                      source0=samp.source0)
+    _, cp, lp = multi_stretch_run_plain(st, samp.ops.plain, thin, 1, samp.a,
+                                        source0=samp.source0)
     return (ck, lk), (cp, lp)
 
 
@@ -1105,7 +1136,7 @@ def _parting_margin(samp, pos, seed, step, replay, s):
     else:
         prev, lnp_prev = cp[t - 1], lp[t - 1, act]
     u3 = stretch_uniforms(seed, step + t, 1, half, DEVICE,
-                          source=[s])[0, 3 * hb:3 * hb + 3]
+                          source=[samp.source0 + s])[0, 3 * hb:3 * hb + 3]
 
     def lnp_of(prop):
         batch = pos[:, :half].clone()
@@ -3172,10 +3203,12 @@ def _ss_batch_means(steps, nprod, nrec):
                                  / np.sqrt(PT_BATCHES))
 
 
-def _posterior_vs(tag, fit, ref, rel, free, phase=22):
-    """Medians and 68% widths of `fit` against the K2 fit `ref`, each within
-    max(rel, 3 sigma_MC) (sigma_MC of both runs, from their measured
-    autocorrelation times); the lines carry the phase number `phase`."""
+def _posterior_vs(tag, fit, ref, rel, free, phase=22,
+                  ref_tag="K2 run(200, 1000)"):
+    """Medians and 68% widths of `fit` against the K2 fit `ref` (`ref_tag`),
+    each within max(rel, 3 sigma_MC) (sigma_MC of both runs, from their
+    measured autocorrelation times); the lines carry the phase number
+    `phase`."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     rows, ok_all = [], True
@@ -3194,7 +3227,7 @@ def _posterior_vs(tag, fit, ref, rel, free, phase=22):
         rows.append(f"p{pi} median {m1[k]:.5g} vs {m2[k]:.5g} (tol {tm:.3g}), "
                     f"width {w1[k]:.4g} vs {w2[k]:.4g} (tol {tw:.3g}) "
                     f"{'PASS' if ok else 'FAIL'}")
-    log(f"[{phase}] {tag} against K2 run(200, 1000), max({100 * rel:g}%, "
+    log(f"[{phase}] {tag} against {ref_tag}, max({100 * rel:g}%, "
         "3 sigma_MC):")
     for r in rows:
         log(f"[{phase}]   {r}")
@@ -5560,10 +5593,338 @@ def phase_migration(card):
                                if k.endswith("ends at s")))
     return launches, out
 
+MESH_DEPTH = (50, 250)
+MESH_BATCH_SHARDS = 4
+MESH_WALKER_SHARDS = 5
+MESH_SOURCE0 = 64
+# (f)'s catalog of several waves per card: the batch cell tiled 64 times,
+# 16,384 sources, about 4 of K3's 1,056-source waves per card on 4 cards
+MESH_WIDE_TILES = 64
+MESH_TIME_STEPS = 100
+MESH_BUDGET_S = 20.0
+
+
+def card_mesh(n):
+    """(mesh of n shards, where they lie): across the cards when the
+    machine has more than one, else n shards sharing cuda:0 (on the CPU,
+    the CPU)."""
+    import torch
+    from mbb_emcee_tpu_torch.parallel import walker_mesh
+    if DEVICE == "cpu":
+        return walker_mesh(n, devices=["cpu"] * n), f"{n} CPU shards"
+    k = torch.cuda.device_count()
+    mesh = walker_mesh(n, devices=[f"cuda:{i % k}" for i in range(n)])
+    return mesh, (f"{n} shards across {k} cards" if k > 1 else
+                  f"{n} shards sharing cuda:0 (one card: the path across "
+                  f"cards is not exercised)")
+
+
+def phase_mesh(card):
+    """Multi-device sharding through the user's entry points (see the
+    module docstring, phase 28). Returns (launches by kernel and path,
+    seconds and numbers by step, max abs error by kernel)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch import cli_batch
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
+        mbb_lnprob, prepare_lnprob_inputs)
+    from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
+    from mbb_emcee_tpu_torch.parallel import ShardedEnsembleSampler
+    from mbb_emcee_tpu_torch.sampler import (
+        EnsembleSampler, multi_stretch_run_plain)
+
+    t0 = time.time()
+    out = {}
+    errs = {"mbb_lnprob": 0.0, "mbb_multi_stretch_run": 0.0}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+    nburn, nsteps = MESH_DEPTH
+
+    def lap(part):
+        out[f"{part} ends at s"] = time.time() - t0
+
+    # -- (a) the batch cell over a source mesh: K3 once per shard and phase
+    mesh_b, where_b = card_mesh(MESH_BATCH_SHARDS)
+    flux, unc = batch_data(NSOURCES, seed=2800, missing_every=16)
+
+    def batch(mesh):
+        # the default sampler_backend ("auto"): K3 on the card, mesh or not
+        return batch_fitter(flux, unc, seed=2801, mesh=mesh)
+
+    _counts(reset=True)
+    got, out["(a) sharded run s"] = _timed(
+        lambda: batch(mesh_b).run(nburn, nsteps))
+    c = _counts()
+    path = f"MultiFitter(mesh={MESH_BATCH_SHARDS} shards).run (phase 28)"
+    for name in launches:
+        launches[name][path] = c[name]
+    want, out["(a) unsharded run s"] = _timed(
+        lambda: batch(None).run(nburn, nsteps))
+    same = (torch.equal(got.chain_free, want.chain_free)
+            and torch.equal(got.lnprobability, want.lnprobability)
+            and np.array_equal(got.acceptance_fraction,
+                               want.acceptance_fraction))
+    n_k3 = 3 * MESH_BATCH_SHARDS
+    ok = (same and c["mbb_multi_stretch_run"] == n_k3
+          and c["plain_multi_runs"] == 0 and got._backend_used == "fused"
+          and bool(torch.isfinite(got.lnprobability).all()))
+    log(f"[28] (a) MultiFitter(mesh), default sampler_backend, at the batch "
+        f"cell's width ({NSOURCES} sources x {NWALKERS} walkers x 5 bands, "
+        f"band 0 missing in 16) on {where_b}: run({nburn}, {nsteps}) "
+        f"{out['(a) sharded run s']:.2f} s against "
+        f"{out['(a) unsharded run s']:.2f} s unsharded (host clock); chains, "
+        f"lnprob and acceptance {'bitwise' if same else 'NOT bitwise'} the "
+        f"unsharded K3 run's; {c['mbb_multi_stretch_run']} K3 launches "
+        f"(want {n_k3}: 3 per shard), {c['plain_multi_runs']} plain multi "
+        f"runs {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("the sharded batch run is not the unsharded "
+                             "K3 run")
+    lap("(a)")
+
+    # -- (b) K3 at a global source offset against its plain version
+    mf = batch(None)
+    spec = mf._effective_spec()
+    whole = mf._build_sampler(spec)
+    lo, hi = MESH_SOURCE0, 2 * MESH_SOURCE0
+    view = mf._shard_view(lo, hi, mf.device)
+    part = view._build_sampler(view._effective_spec())
+    state = whole.init_state(_multi_ball(whole.free_space, NSOURCES, 40),
+                             seed=77)
+    pstate = dataclasses.replace(state, pos=state.pos[lo:hi].contiguous(),
+                                 lnp=state.lnp[lo:hi].contiguous(),
+                                 naccept=state.naccept[lo:hi].contiguous())
+    got_w = whole.run_mcmc(state, 200, thin=10)
+    got_p = part.run_mcmc(pstate, 200, thin=10)
+    rows = (torch.equal(got_p[1], got_w[1][lo:hi])
+            and torch.equal(got_p[2], got_w[2][lo:hi])
+            and torch.equal(got_p[0].naccept, got_w[0].naccept[lo:hi]))
+    log(f"[28] (b) K3 with source0={lo} on sources {lo}..{hi - 1} of the "
+        f"batch cell, Philox mode, 20 records x thin 10: chains, lnprob and "
+        f"accepts {'bitwise' if rows else 'NOT bitwise'} rows {lo}:{hi} of "
+        f"the {NSOURCES}-source launch {'PASS' if rows else 'FAIL'}")
+    if not rows:
+        raise AssertionError("K3's source0 does not give a source the "
+                             "stream it has in the whole batch")
+    plain = multi_stretch_run_plain(pstate, part.ops.plain, 20, 10, part.a,
+                                    source0=lo)
+    errs["mbb_multi_stretch_run"] = _compare_multi_width(
+        "28", part, pstate, got_p, plain, 10)
+    lap("(b)")
+
+    # -- (c) the walker-sharded sampler on K1 per shard, bitwise the
+    # single-device sampler on the same K1 lnprob
+    mesh_w, where_w = card_mesh(MESH_WALKER_SHARDS)
+    phot, shape, spec2 = problem(2)
+    ops_by_dev, by_dev = {}, {}
+    for dev in mesh_w.devices:
+        if dev not in by_dev:
+            ops = ops_by_dev[dev] = prepare_lnprob_inputs(phot, shape, spec2,
+                                                          device=dev)
+            by_dev[dev] = (lambda o: lambda x: mbb_lnprob(x.contiguous(),
+                                                          o))(ops)
+    sharded = ShardedEnsembleSampler(
+        NWALKERS, ops.nfree, [by_dev[d] for d in mesh_w.devices], mesh_w)
+    single = EnsembleSampler(NWALKERS, ops.nfree, by_dev[mesh_w.devices[0]])
+    p0 = _ball(ops.free_space, NWALKERS, 28, mesh_w.devices[0])
+    nrun = 200
+    _counts(reset=True)
+    rs = sharded.run_mcmc(sharded.init_state(p0, seed=2802), nrun, thin=10)
+    k1_sharded = _counts()["mbb_lnprob"]
+    _counts(reset=True)
+    r1 = single.run_mcmc(single.init_state(p0, seed=2802), nrun, thin=10)
+    k1_single = _counts()["mbb_lnprob"]
+    same = (torch.equal(rs[1], r1[1]) and torch.equal(rs[2], r1[2])
+            and torch.equal(rs[0].naccept, r1[0].naccept))
+    k = MESH_WALKER_SHARDS
+    want_k1 = 2 * k + 2 * k + 2 * k * nrun
+    ok = same and k1_sharded == want_k1 and k1_single == 3 + 2 * nrun
+    path = f"ShardedEnsembleSampler({k} shards) on K1 (phase 28)"
+    launches["mbb_lnprob"][path] = k1_sharded
+    log(f"[28] (c) ShardedEnsembleSampler on {where_w}, K1 per shard, "
+        f"config 2, {NWALKERS} walkers ({NWALKERS // 2 // k} per shard and "
+        f"half), run_mcmc({nrun}, thin=10): chains, lnprob and accepts "
+        f"{'bitwise' if same else 'NOT bitwise'} EnsembleSampler's on the "
+        f"same K1 lnprob and seed; {k1_sharded} K1 launches (want "
+        f"{want_k1}: 2 per shard and half-step, 4 per shard to start), "
+        f"{k1_single} unsharded (want {3 + 2 * nrun}) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the walker-sharded sampler is not the single "
+                             "sampler on K1")
+    # K1 at the shard's batch against its plain version (build_lnprob's),
+    # on each shard's device: every shard's block of each half, at the
+    # first and last records of the sharded run's chain
+    loc = NWALKERS // 2 // k
+    dk1 = 0.0
+    for rec in (0, rs[1].shape[0] - 1):
+        for h in range(2):
+            for d, dev in enumerate(mesh_w.devices):
+                lo_w = h * (NWALKERS // 2) + d * loc
+                x = rs[1][rec, lo_w:lo_w + loc].to(dev).contiguous()
+                kern = mbb_lnprob(x, ops_by_dev[dev]).double()
+                want = ops_by_dev[dev].plain(x).double()
+                dabs = (kern - want).abs()
+                if not bool((dabs <= K1_ATOL + K1_RTOL * want.abs()).all()):
+                    raise AssertionError(
+                        f"K1 on shard {d} ({dev}) disagrees with its plain "
+                        f"version at {loc} vectors")
+                dk1 = max(dk1, float(dabs.max()))
+    errs["mbb_lnprob"] = dk1
+    log(f"[28] (c) K1 on each shard's device at its batch ({loc} vectors, "
+        f"every shard and half, first and last records) against "
+        f"build_lnprob's plain version: max |d| {dk1:.3g} (rtol "
+        f"{K1_RTOL:g}, atol {K1_ATOL:g}) PASS")
+    lap("(c)")
+
+    # -- (d) MBBFitter(mesh=) through the whole protocol against K2's fit
+    flux2, unc2, cov2 = vp.mock_data(vp.CONFIGS[2])
+    free = vp.free_indices(vp.CONFIGS[2])
+    _counts(reset=True)
+    fit, out["(d) sharded fit s"] = _timed(lambda: port_fitter(
+        2, flux2, unc2, cov2, 2803, mesh=mesh_w).run(nburn, nsteps))
+    c = _counts()
+    path = f"MBBFitter(mesh={k} shards).run (phase 28)"
+    for name in launches:
+        launches[name][path] = c[name]
+    ref, out["(d) K2 fit s"] = _timed(lambda: port_fitter(
+        2, flux2, unc2, cov2, 2803).run(nburn, nsteps))
+    # K1 once per shard and half: for each of the two init_states and at
+    # the start of each of the three runs, then at every half-step
+    want_k1 = 2 * k * (2 + 3 + 2 * nburn + nsteps)
+    ok = (fit._backend_used == "sharded" and c["mbb_lnprob"] == want_k1
+          and c["mbb_stretch_run"] == 0
+          and c["plain_sampler_runs"] + c["plain_multi_runs"] == 0)
+    log(f"[28] (d) MBBFitter(mesh) on {where_w}, config 2, run({nburn}, "
+        f"{nsteps}): {out['(d) sharded fit s']:.2f} s against K2's "
+        f"{out['(d) K2 fit s']:.2f} s (host clock); {c['mbb_lnprob']} K1 "
+        f"launches (want {want_k1}), {c['mbb_stretch_run']} K2, "
+        f"{c['plain_sampler_runs'] + c['plain_multi_runs']} plain runs "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MBBFitter(mesh=) did not run on K1 per shard")
+    _posterior_vs(f"MBBFitter(mesh={k} shards).run({nburn}, {nsteps})", fit,
+                  ref, 0.01, free, phase=28,
+                  ref_tag=f"K2 run({nburn}, {nsteps})")
+    lap("(d)")
+
+    # -- (e) --mesh-devices asks for more cards than there are
+    have = 1 if DEVICE == "cpu" else torch.cuda.device_count()
+    try:
+        cli_batch.main(["catalog.txt", "out.h5", "--device", "cuda",
+                        "--mesh-devices", str(have + 1)])
+        got_e = "no error"
+    except (ValueError, SystemExit) as err:
+        got_e = f"{type(err).__name__}: {err}"
+    ok = got_e == (f"ValueError: requested {have + 1} devices, only {have} "
+                   "available")
+    log(f"[28] (e) cli_batch.main(... --device cuda --mesh-devices "
+        f"{have + 1}) with {have} card(s): {got_e} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok and DEVICE != "cpu":
+        raise AssertionError("--mesh-devices did not refuse a mesh larger "
+                             "than the cards present")
+    lap("(e)")
+
+    # -- (f) time and kernels per step: the sharded single fit against K2,
+    # the sharded K3 run against the unsharded
+    st = sharded.init_state(p0, seed=2804)
+    t_sh = _host_s(lambda: sharded.run_mcmc(st, MESH_TIME_STEPS))
+    n_sh = _profiled_launches(lambda: sharded.run_mcmc(st, 10))[0]
+    k2 = FusedSampler(NWALKERS, phot, shape, spec2, device=mesh_w.devices[0])
+    st2 = k2.init_state(p0, seed=2804)
+    t_k2 = _host_s(lambda: k2.run_mcmc(st2, MESH_TIME_STEPS))
+    n_k2 = _profiled_launches(lambda: k2.run_mcmc(st2, 10))[0]
+    lap("(f1)")
+    samp_b = got._sampler
+    st_b = samp_b.init_state(_multi_ball(whole.free_space, NSOURCES, 41),
+                             seed=78)
+    t_kb = _host_s(lambda: samp_b.run_mcmc(st_b, 200, thin=10))
+    t_k1 = _host_s(lambda: whole.run_mcmc(st_b, 200, thin=10))
+    lap("(f2)")
+    # K3 on a catalog of several waves per card, sharded and not, in turns
+    # (sharded, unsharded, unsharded, sharded) after a short warm-up each
+    nwide = MESH_WIDE_TILES * NSOURCES
+    wide = [batch_fitter(np.tile(flux, (MESH_WIDE_TILES, 1)),
+                         np.tile(unc, (MESH_WIDE_TILES, 1)), seed=2805,
+                         mesh=m) for m in (mesh_b, None)]
+    samps = [w._batch_sampler(w._effective_spec()) for w in wide]
+    st_w = samps[1].init_state(_multi_ball(
+        whole.free_space, NSOURCES, 42).repeat(MESH_WIDE_TILES, 1, 1),
+        seed=79)
+    runs = [sm.run_mcmc(st_w, 200, thin=10) for sm in samps]
+    same_w = (torch.equal(runs[0][1], runs[1][1])
+              and torch.equal(runs[0][2], runs[1][2]))
+    del runs
+    # thin 10 records 20 states per walker; thin 200 one, so the join
+    # moves a twentieth of the bytes and the time is mostly the launches
+    t_w = {(i, th): [] for i in (0, 1) for th in (10, 200)}
+    for th in (10, 200):
+        for i in (0, 1, 1, 0):
+            t_w[i, th].append(_host_s(lambda: samps[i].run_mcmc(
+                st_w, 200, thin=th)))
+    # where the sharded time goes (thin 200): each shard's K3 run alone on
+    # its card, and the host's seconds until the sharded run returns (the
+    # launches enqueued, no sync)
+    from mbb_emcee_tpu_torch.batchengine import _cut
+    shards = samps[0]._shards
+    cuts = [_cut(st_w, sh.lo, sh.hi, sh.device) for sh in shards]
+    t_alone = [_host_s(lambda: sh.obj.run_mcmc(c, 200, thin=200))
+               for sh, c in zip(shards, cuts)]
+    _sync_all()
+    t_q = time.perf_counter()
+    samps[0].run_mcmc(st_w, 200, thin=200)
+    t_q = time.perf_counter() - t_q
+    _sync_all()
+    out.update({
+        "(f) sharded single fit ms per step": 1e3 * t_sh / MESH_TIME_STEPS,
+        "(f) sharded single fit kernels per step": n_sh / 10,
+        "(f) K2 ms per step": 1e3 * t_k2 / MESH_TIME_STEPS,
+        "(f) K2 kernels per 10-step run": n_k2,
+        "(f) sharded K3 run ms (200 steps)": 1e3 * t_kb,
+        "(f) unsharded K3 run ms (200 steps)": 1e3 * t_k1,
+        **{f"(f) {'un' if i else ''}sharded K3 run ms ({nwide} sources, "
+           f"200 steps, thin {th}, two turns)": [1e3 * x for x in v]
+           for (i, th), v in t_w.items()},
+        f"(f) each shard's K3 run alone ms ({nwide} sources, thin 200)":
+            [1e3 * x for x in t_alone],
+        f"(f) host ms until the sharded run returns ({nwide} sources, "
+        "thin 200)": 1e3 * t_q})
+    log(f"[28] (f) the walker-sharded single fit ({where_w}): "
+        f"{1e3 * t_sh / MESH_TIME_STEPS:.3f} ms per step, "
+        f"{n_sh / 10:.1f} device kernels per step; K2 on the same posterior "
+        f"{1e3 * t_k2 / MESH_TIME_STEPS:.4f} ms per step, {n_k2} kernel(s) "
+        f"per {10}-step run; K3 over {where_b}: {1e3 * t_kb:.2f} ms per "
+        f"200-step run of {NSOURCES} sources, unsharded {1e3 * t_k1:.2f} ms; "
+        f"at {nwide} sources " + "; ".join(
+            f"thin {th}: "
+            f"{', '.join(f'{1e3 * x:.2f}' for x in t_w[0, th])} ms sharded "
+            f"against {', '.join(f'{1e3 * x:.2f}' for x in t_w[1, th])} ms "
+            f"unsharded" for th in (10, 200))
+        + f"; each shard alone (thin 200) "
+        f"{', '.join(f'{1e3 * x:.2f}' for x in t_alone)} ms, the sharded "
+        f"run returns to the host after {1e3 * t_q:.2f} ms"
+        f", chains {'bitwise' if same_w else 'NOT bitwise'} (host clock, "
+        f"every card synchronized) ({card})")
+    if not same_w:
+        raise AssertionError(f"the sharded {nwide}-source K3 run is not the "
+                             "unsharded one")
+    lap("(f)")
+    out["phase 28"] = time.time() - t0
+    ok = out["phase 28"] <= MESH_BUDGET_S
+    log(f"[28] phase 28: {out['phase 28']:.1f} s (advisory budget "
+        f"{MESH_BUDGET_S:.0f} s: {'within' if ok else 'OVER'}); parts end "
+        f"at " + ", ".join(f"{k_.split()[0]} {v:.1f} s"
+                           for k_, v in out.items()
+                           if k_.endswith("ends at s")))
+    return launches, out, errs
+
 
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
           "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
-          "24", "25", "26", "27")
+          "24", "25", "26", "27", "28")
 
 
 def main(argv=None):
@@ -5611,7 +5972,8 @@ def main(argv=None):
         ("24", lambda: phase_generic(card)),
         ("25", lambda: phase_generic_batch(card)),
         ("26", lambda: phase_cli_sed(card)),
-        ("27", lambda: phase_migration(card))]
+        ("27", lambda: phase_migration(card)),
+        ("28", lambda: phase_mesh(card))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -5651,6 +6013,7 @@ def main(argv=None):
     batch_paths, batch_times = res["25"]
     cli_sed_paths, cli_sed_times = res["26"]
     migration_paths, migration_times = res["27"]
+    mesh_paths, mesh_times, mesh_errs = res["28"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -5661,6 +6024,7 @@ def main(argv=None):
         by_path.update(batch_paths[name])
         by_path.update(cli_sed_paths[name])
         by_path.update(migration_paths[name])
+        by_path.update(mesh_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -5669,7 +6033,8 @@ def main(argv=None):
          "replaces": "mbb_emcee_tpu/ops/pallas_lnprob.py:248",
          "launches": sum(k1_by_path.values()),
          "launches_by_path": k1_by_path,
-         "max_abs_err": max(res["2"], r1, k1_layout_err, rc1),
+         "max_abs_err": max(res["2"], r1, k1_layout_err, rc1,
+                            mesh_errs["mbb_lnprob"]),
          "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"],
          "bound_ms": t["k1_bound"][0], "bound_us": 1e3 * t["k1_bound"][0],
          "bound_by": t["k1_bound"][1], "library_ms": None,
@@ -5712,7 +6077,8 @@ def main(argv=None):
          "replaces": "mbb_emcee_tpu/ops/pallas_multifit.py:203",
          "launches": sum(k3_by_path.values()),
          "launches_by_path": k3_by_path,
-         "max_abs_err": max(res["7"], res["8"], r3, k3_layout_err, rc3),
+         "max_abs_err": max(res["7"], res["8"], r3, k3_layout_err, rc3,
+                            mesh_errs["mbb_multi_stretch_run"]),
          "ms": t["k3_ms"], "plain_ms": t["k3_plain_ms"],
          "bound_ms": t["k3_bound"][0], "bound_us": 1e3 * t["k3_bound"][0],
          "bound_by": t["k3_bound"][1], "library_ms": None,
@@ -5765,6 +6131,8 @@ def main(argv=None):
         + json.dumps(cli_sed_times))
     log(f"migration surface, host seconds and counts ({card}): "
         + json.dumps(migration_times))
+    log(f"multi-device sharding, host seconds and counts ({card}): "
+        + json.dumps(mesh_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

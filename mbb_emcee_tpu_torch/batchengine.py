@@ -6,9 +6,21 @@ sedmulti.py).
 Torch twin of mbb_emcee_tpu/batchengine.py: the data setters (:183-353),
 the run / extend / checkpoint protocol (:465-702), the summaries (:704-843),
 the derived-quantity plumbing (:846-897) and the PT, HMC, MAP, nested,
-PPC and LOO tiers (:899-1913). The JAX engine's program cache, mesh
-sharding and traced-program plumbing have no counterpart: torch runs
-eagerly, and the multi-source kernel takes the whole batch in one launch.
+PPC and LOO tiers (:899-1913). The JAX engine's program cache and
+traced-program plumbing have no counterpart: torch runs eagerly, and the
+multi-source kernel takes the whole batch in one launch.
+
+Source mesh (the JAX engine's _shard / shard_map legs, :363-463): with
+`mesh` (a parallel.walker_mesh) every tier splits the source axis into
+mesh.size contiguous blocks (_shards), runs its per-source computation on
+each block on that shard's device -- the sampler, the PT / HMC / MAP /
+nested cores, the model's band fluxes of PPC and LOO -- with the block's
+GLOBAL source indices, so each source draws the Philox streams it draws
+unsharded, and joins the results in source order on the mesh's first
+device, where the chains, states and summaries live (_on_shards). Every
+per-source result is therefore the unsharded run's bit for bit, and a
+checkpoint written under one mesh resumes under another or none (the
+streams do not depend on the partitioning; mesh_token is recorded).
 
 An adapter class supplies the likelihood and the model through a small
 hook surface; the engine never looks inside the operands:
@@ -54,6 +66,7 @@ cross to the host for a summary.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 
@@ -67,7 +80,81 @@ from mbb_emcee_tpu_torch.likelihood import signed_iunc
 from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch.paramspace import _replace
-from mbb_emcee_tpu_torch.sampler import make_initial_ball
+from mbb_emcee_tpu_torch.sampler import (
+    MultiEnsembleSampler, make_initial_ball)
+
+
+def _cut(x, lo, hi, device):
+    """Rows lo:hi of x's leading (source) axis, on `device`: tensors, numpy
+    arrays, and dataclasses and tuples of them field by field; any other
+    value (ints, floats, None) is shared and passes unchanged."""
+    if isinstance(x, torch.Tensor):
+        return x[lo:hi].to(device)
+    if isinstance(x, np.ndarray):
+        return x[lo:hi]
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _cut(getattr(x, f.name), lo, hi, device)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        parts = [_cut(v, lo, hi, device) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def _join(parts, device):
+    """The shards' results joined in source order (the inverse of _cut):
+    tensors concatenated on `device`, numpy arrays concatenated, dataclasses
+    and tuples field by field; any other value is the same on every shard
+    and is taken once."""
+    x = parts[0]
+    if isinstance(x, torch.Tensor):
+        return torch.cat([p.to(device) for p in parts])
+    if isinstance(x, np.ndarray):
+        return np.concatenate(parts)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _join([getattr(p, f.name) for p in parts], device)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        joined = [_join(list(v), device) for v in zip(*parts)]
+        return type(x)(*joined) if hasattr(x, "_fields") else tuple(joined)
+    if any(p != x for p in parts[1:]):
+        raise AssertionError(f"shards disagree on a shared value: {parts}")
+    return x
+
+
+# A shard of the source axis: its view of the fitter (_shard_view), what the
+# tier built on it, its global source indices and block on its device.
+_Shard = collections.namedtuple("_Shard", "view obj sources lo hi device")
+
+
+class _ShardedBatchSampler:
+    """The run protocol's sampler over the source shards: each shard's own
+    sampler (K3, or the plain multi run) on its block of sources, the state
+    whole on the fitter's device between calls and cut per call (without a
+    mesh, the one sampler called directly)."""
+
+    def __init__(self, engine, shards):
+        self._shards = shards
+        self._on_shards = engine._on_shards
+        self.free_space = shards[0].obj.free_space
+
+    def _on(self, fn, *args):
+        return self._on_shards(self._shards, fn, *args)
+
+    def init_state(self, p0, seed, step=0):
+        return self._on(lambda s, _, p: s.init_state(p, seed, step), p0)
+
+    def run_mcmc(self, state, nsteps, thin=1):
+        return self._on(lambda s, _, st: s.run_mcmc(st, nsteps, thin), state)
+
+    def advance(self, state, nsteps):
+        return self._on(lambda s, _, st: s.advance(st, nsteps), state)
+
+    reset_counters = staticmethod(MultiEnsembleSampler.reset_counters)
+    acceptance_fraction = staticmethod(
+        MultiEnsembleSampler.acceptance_fraction)
 
 
 def batched_split_rhat(chain):
@@ -149,9 +236,83 @@ class BatchEngine:
     (ParamSpaceMixin)."""
 
     _param_names = PARAM_NAMES
+    mesh = None         # a parallel.walker_mesh over the source axis
+    _source0 = 0        # global index of the first source (a shard's view)
 
     def _engine_label(self):
         return type(self).__name__
+
+    # -- the source mesh ---------------------------------------------------------
+    def _mesh_token(self):
+        from mbb_emcee_tpu_torch.parallel.mesh import mesh_token
+        return str(mesh_token(self.mesh))
+
+    def _shard_view(self, lo, hi, device):
+        """This fitter restricted to sources lo:hi on `device`: the block's
+        per-source data, upper-limit mask and metadata, and its first
+        global source index. Adapters with more per-source state extend
+        it."""
+        import copy
+        v = copy.copy(self)
+        v.mesh = None
+        v.device = device
+        v._source0 = self._source0 + lo
+        v.flux, v.unc = self.flux[lo:hi], self.unc[lo:hi]
+        for name in ("source_names", "redshifts"):
+            if getattr(self, name) is not None:
+                setattr(v, name, getattr(self, name)[lo:hi])
+        ub = self._spec.uplim_bands
+        if ub is not None and ub.ndim == 2:
+            v._spec = _replace(self._spec, uplim_bands=ub[lo:hi])
+        return v
+
+    def _shards(self, build):
+        """Per shard of the source mesh, build(view) on its block's view
+        with the block's global source indices on its device; without a
+        mesh one shard, the whole batch, built on the fitter itself."""
+        S = self.nsources
+        if self.mesh is None:
+            return [_Shard(self, build(self), torch.arange(
+                S, device=self.device) + self._source0, 0, S, None)]
+        from mbb_emcee_tpu_torch.parallel.mesh import mesh_blocks
+        out = []
+        for lo, hi, dev in mesh_blocks(self.mesh, S):
+            v = self._shard_view(lo, hi, dev)
+            out.append(_Shard(v, build(v), torch.arange(lo, hi, device=dev)
+                              + self._source0, lo, hi, dev))
+        return out
+
+    def _on_shards(self, shards, fn, *args):
+        """fn(shard.obj, shard.sources, *args) on every shard, `args` with a
+        leading source axis cut to its block on its device (_cut), the
+        results joined in source order on the fitter's device (_join).
+        Without a mesh, one call on the whole batch."""
+        if shards[0].device is None:
+            return fn(shards[0].obj, shards[0].sources, *args)
+        # every block is cut before any shard's work is queued: a copy off
+        # the fitter's device waits for the work queued there, so a cut
+        # made after the first shard's launch would hold the other cards
+        # until that shard's run ended
+        cuts = [[_cut(a, sh.lo, sh.hi, sh.device) for a in args]
+                for sh in shards]
+        return _join([fn(sh.obj, sh.sources, *c)
+                      for sh, c in zip(shards, cuts)], self.device)
+
+    def _shard_operands(self, spec):
+        """Per shard, the batch likelihood on its block (_lnprob_operands;
+        without a mesh, on the whole batch under `spec`)."""
+        return self._shards(lambda v: v._lnprob_operands(
+            spec if v is self else v._effective_spec()))
+
+    def _batch_sampler(self, spec):
+        """The run protocol's sampler: the adapter's (_build_sampler) on
+        every shard's block (_ShardedBatchSampler; without a mesh one
+        shard, the whole batch under `spec`)."""
+        shards = self._shards(lambda v: v._build_sampler(
+            spec if v is self else v._effective_spec()))
+        self._backend_used = shards[0].view._backend_used
+        self._sampler = _ShardedBatchSampler(self, shards)
+        return self._sampler
 
     # -- data ------------------------------------------------------------------
     def set_data(self, wave, flux, unc, band_names=None, source_names=None,
@@ -573,7 +734,7 @@ class BatchEngine:
         # before the sampler replaces free_space: init="map" reads run_map's
         centers = self._init_centers(init)
         spec = self._effective_spec()
-        samp = self._build_sampler(spec)
+        samp = self._batch_sampler(spec)
         self.free_space = samp.free_space
         self._run_spec = spec       # persisted by writeToHDF5
         self.thin = int(thin)
@@ -644,6 +805,7 @@ class BatchEngine:
                       else (self._band_corr,)),
                     *(() if pack is None else pack)),
                 "spec_fingerprint": self._spec_fingerprint(),
+                "mesh_token": self._mesh_token(),
                 "run_id": new_run_id()}
 
     def _record(self, state, chain, lnpchain):
@@ -812,9 +974,8 @@ class BatchEngine:
         if self.nwalkers % 2:
             raise ValueError("nwalkers must be even")
         spec = self._effective_spec()
-        ops = self._lnprob_operands(spec)
-        lnprob = ops.plain
-        free_space = ops.free_space
+        shards = self._shard_operands(spec)
+        free_space = shards[0].obj.free_space
         self.free_space = free_space
         self._run_spec = spec       # persisted by writeToHDF5
         self.thin = int(thin)
@@ -849,13 +1010,15 @@ class BatchEngine:
                              cen[:, idx], sca[:, idx])
             # -- phase 1: scout burn on a shared coarse ladder
             scout = geometric_ladder(K1, 1e-2 if adapt else float(beta_min))
-            state = init_pt_state(
-                p0[:, None].expand(S, K1, W, d).contiguous(), lnprob,
-                philox_key(self.seed))
-            state = pt_advance(
-                state, lnprob, torch.as_tensor(
-                    scout, dtype=torch.float32, device=dev).expand(S, K1),
-                nburn, a, sources)
+            state = self._on_shards(
+                shards, lambda ops, _, p: init_pt_state(
+                    p, ops.plain, philox_key(self.seed)),
+                p0[:, None].expand(S, K1, W, d).contiguous())
+            state = self._on_shards(
+                shards, lambda ops, src, st, b: pt_advance(
+                    st, ops.plain, b, nburn, a, src),
+                state, torch.as_tensor(
+                    scout, dtype=torch.float32, device=dev).expand(S, K1))
             # -- ladder adaptation (host, tiny)
             if adapt:
                 lnp_h = state.lnp.double().cpu().numpy()       # (S, K1, W)
@@ -873,13 +1036,16 @@ class BatchEngine:
                 pos0 = state.pos
                 nburn2 = 0
             # -- phase 2: (re-)burn on the adapted ladders
-            state = init_pt_state(pos0.contiguous(), lnprob, state.seed,
-                                  state.step)
+            seed, step = state.seed, state.step
+            state = self._on_shards(
+                shards, lambda ops, _, p: init_pt_state(
+                    p, ops.plain, seed, step), pos0.contiguous())
             if nburn2 > 0:
-                state = pt_advance(
-                    state, lnprob, torch.as_tensor(
-                        betas_b, dtype=torch.float32, device=dev),
-                    nburn2, a, sources)
+                state = self._on_shards(
+                    shards, lambda ops, src, st, b: pt_advance(
+                        st, ops.plain, b, nburn2, a, src),
+                    state, torch.as_tensor(
+                        betas_b, dtype=torch.float32, device=dev))
                 state = reset_counters(state)
             ss, lnp_sum = None, 0.0
             chain_blocks, lnp_blocks, done = [], [], 0
@@ -893,12 +1059,15 @@ class BatchEngine:
             from mbb_emcee_tpu_torch.checkpoint import (
                 new_run_id, save_tier_checkpoint)
             meta = self._tier_ck_meta(spec, dict(
-                expect, k2=K2, run_id=run_id or new_run_id()))
+                expect, k2=K2, run_id=run_id or new_run_id(),
+                mesh_token=self._mesh_token()))
         while done < nrec:
             seg = nrec - done if checkpoint is None else min(interval,
                                                               nrec - done)
-            state, chain, lnpch, ls, st = pt_segment(
-                state, lnprob, betas_t, seg, int(thin), a, sources)
+            state, chain, lnpch, ls, st = self._on_shards(
+                shards, lambda ops, src, st, b: pt_segment(
+                    st, ops.plain, b, seg, int(thin), a, src),
+                state, betas_t)
             keep = (lambda t: t) if checkpoint is None else (
                 lambda t: t.cpu().numpy())
             chain_blocks.append(keep(chain))
@@ -978,9 +1147,8 @@ class BatchEngine:
 
         self._tier_checks(nsteps, thin, resume, checkpoint)
         spec = self._effective_spec()
-        ops = self._lnprob_operands(spec)
-        lnprob = ops.plain
-        free_space = ops.free_space
+        shards = self._shard_operands(spec)
+        free_space = shards[0].obj.free_space
         self.free_space = free_space
         self._run_spec = spec       # persisted by writeToHDF5
         check_box(free_space.lower, free_space.upper)
@@ -989,12 +1157,12 @@ class BatchEngine:
         S, W = self.nsources, self.nwalkers
         dev = self.device
         nrec = int(nsteps) // thin_i
-        sources = torch.arange(S, device=dev)
-        lower = torch.as_tensor(np.asarray(free_space.lower, np.float32),
-                                device=dev)
-        width = torch.as_tensor(np.asarray(free_space.upper
-                                           - free_space.lower, np.float32),
-                                device=dev)
+
+        def box(device):
+            return (torch.as_tensor(np.asarray(a, np.float32), device=device)
+                    for a in (free_space.lower,
+                              free_space.upper - free_space.lower))
+        lower, width = box(dev)
         resuming = bool(checkpoint and resume and os.path.exists(checkpoint))
         interval = max(1, int(checkpoint_interval))
         expect = {"nwarmup": int(nwarmup), "n_leapfrog": int(n_leapfrog),
@@ -1014,10 +1182,11 @@ class BatchEngine:
             p0 = self._balls(torch.Generator().manual_seed(self.seed),
                              cen[:, idx], sca[:, idx])
             seed = philox_key(self.seed)
-            u, g, lp, raw, eps, mass, step = hmc_warmup_core(
-                lnprob, lower, width, _to_unconstrained(p0, lower, width),
-                int(nwarmup), int(n_leapfrog), float(target_accept), seed,
-                0, sources)
+            u, g, lp, raw, eps, mass, step = self._on_shards(
+                shards, lambda ops, src, u0: hmc_warmup_core(
+                    ops.plain, *box(src.device), u0, int(nwarmup),
+                    int(n_leapfrog), float(target_accept), seed, 0, src),
+                _to_unconstrained(p0, lower, width))
             nacc = torch.zeros((S, W), dtype=torch.int32, device=dev)
             chain_blocks, lnp_blocks, done = [], [], 0
 
@@ -1025,13 +1194,16 @@ class BatchEngine:
             from mbb_emcee_tpu_torch.checkpoint import (
                 new_run_id, save_tier_checkpoint)
             meta = self._tier_ck_meta(spec, dict(
-                expect, run_id=run_id or new_run_id()))
+                expect, run_id=run_id or new_run_id(),
+                mesh_token=self._mesh_token()))
         while done < nrec:
             seg = nrec - done if checkpoint is None else min(interval,
                                                               nrec - done)
-            chain, lnpch, u, g, lp, raw, nacc, step = hmc_prod_core(
-                lnprob, lower, width, u, g, lp, raw, nacc, eps, mass,
-                seg * thin_i, thin_i, int(n_leapfrog), seed, step, sources)
+            chain, lnpch, u, g, lp, raw, nacc, step = self._on_shards(
+                shards, lambda ops, src, *st: hmc_prod_core(
+                    ops.plain, *box(src.device), *st, seg * thin_i, thin_i,
+                    int(n_leapfrog), seed, step, src),
+                u, g, lp, raw, nacc, eps, mass)
             keep = (lambda t: t) if checkpoint is None else (
                 lambda t: t.cpu().numpy())
             chain_blocks.append(keep(chain))
@@ -1088,19 +1260,23 @@ class BatchEngine:
 
         if self.flux is None:
             raise RuntimeError("no data; call set_data")
-        ops = self._lnprob_operands(self._effective_spec())
+        spec = self._effective_spec()
+        ops = self._lnprob_operands(spec)
         free_space = ops.free_space
         if not (np.all(np.isfinite(free_space.lower))
                 and np.all(np.isfinite(free_space.upper))):
             raise ValueError("nested sampling requires finite box bounds")
 
-        def lnprob(theta, *data):
-            return ops.fn(theta, ops.wave, *data)
+        def bind(o):
+            return lambda theta, *data: o.fn(theta, o.wave, *data)
 
+        # with a mesh, each shard's likelihood on its device
+        lnprob = (bind(ops) if self.mesh is None else
+                  [bind(sh.obj) for sh in self._shard_operands(spec)])
         runner = make_nested_batch_runner(
             lnprob, free_space.lower, free_space.upper, nlive=nlive,
             nbatch=nbatch, nsteps=nsteps, max_iter=max_iter, tol=tol,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         res = runner(philox_key(self.seed if seed is None else int(seed)),
                      ops.data)
         res.samples = free_space.expand(res.samples)
@@ -1138,8 +1314,8 @@ class BatchEngine:
         if self.flux is None:
             raise RuntimeError("no data; call set_data")
         spec = self._effective_spec()
-        ops = self._lnprob_operands(spec)
-        free_space = ops.free_space
+        shards = self._shard_operands(spec)
+        free_space = shards[0].obj.free_space
         self.free_space = free_space
         # the spec THIS fit ran under: writeToHDF5 persists it
         self._run_spec = spec
@@ -1152,9 +1328,10 @@ class BatchEngine:
         cen, sca = self._init_centers()
         x0 = self._balls(torch.Generator().manual_seed(self.seed),
                          cen[:, idx], sca[:, idx], int(nstarts))
-        x_map, lnp_map, H, gn = map_fit(ops.plain, free_space.lower,
-                                        free_space.upper, x0, n_adam,
-                                        n_newton, adam_lr)
+        x_map, lnp_map, H, gn = self._on_shards(
+            shards, lambda ops, _, x: map_fit(
+                ops.plain, free_space.lower, free_space.upper, x, n_adam,
+                n_newton, adam_lr), x0)
         self.map_params = free_space.expand(x_map)
         self.map_lnprob = lnp_map
         self.map_cov, h_ok = laplace_cov_host(H)
@@ -1189,8 +1366,8 @@ class BatchEngine:
         if getattr(self, "map_params", None) is None:
             raise RuntimeError("run_map() has not been called")
         self._require_map_fresh("map_importance()")
-        ops = self._lnprob_operands(self._effective_spec())
-        free_space = ops.free_space
+        shards = self._shard_operands(self._effective_spec())
+        free_space = shards[0].obj.free_space
         S = self.nsources
         d = free_space.nfree
         N = int(nsamples)
@@ -1207,7 +1384,8 @@ class BatchEngine:
         Lt = torch.as_tensor(L.astype(np.float32), device=dev)
         x = (torch.as_tensor(mu.astype(np.float32), device=dev)[:, None, :]
              + torch.sum(eps_d[:, :, None, :] * Lt[:, None, :, :], dim=-1))
-        lnp = ops.plain(x).double().cpu().numpy()       # (S, N)
+        lnp = self._on_shards(shards, lambda ops, _, xs: ops.plain(xs),
+                              x).double().cpu().numpy()       # (S, N)
         lnq = (-0.5 * np.sum(eps.double().numpy() ** 2, axis=2)
                - logdet[:, None] - 0.5 * d * np.log(2.0 * np.pi))
         # Out-of-box draws sit at the finite floor, which absorbs lnq in
@@ -1323,7 +1501,7 @@ class BatchEngine:
         y = t32(y_h)[:, None, :]
         y64 = torch.as_tensor(y_h, device=dev)[:, None, :]
         mask = t32(inc)[:, None, :]
-        fluxes = self._band_flux_eval()
+        flux_shards = self._shards(lambda v: v._band_flux_eval())
         if self._band_corr is None:
             a = t32(np.where(inc, iunc, 0.0))[:, None, :]
             with np.errstate(divide="ignore"):
@@ -1362,7 +1540,8 @@ class BatchEngine:
         co, cr = [], []
         above = torch.zeros((S, nb), dtype=torch.int64, device=dev)
         for i in range(0, N, chunk):
-            m = fluxes(samples[:, i:i + chunk])          # (S, c, nb)
+            m = self._on_shards(flux_shards, lambda f, _, th: f(th),
+                                samples[:, i:i + chunk])  # (S, c, nb)
             d = whiten(m - y)
             eps = torch.randn(m.shape, generator=gen, device=dev) * mask
             co.append(torch.sum(d * d, dim=-1))
@@ -1397,12 +1576,11 @@ class BatchEngine:
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
         y = t32(np.where(inc, np.nan_to_num(self.flux), 0.0))[:, None, :]
-        fluxes = self._band_flux_eval()
         if self._band_corr is None:
             lam_diag = np.where(inc, iunc, np.nan) ** 2      # 1/sigma^2
-            op = t32(np.where(inc, iunc, 0.0))[:, None, :]
+            per_source = (y, t32(np.where(inc, iunc, 0.0))[:, None, :])
 
-            def one(th):
+            def one(fluxes, th, y, op):
                 d = (fluxes(th) - y) * op
                 return -0.5 * d * d
             inner = nb
@@ -1413,9 +1591,9 @@ class BatchEngine:
             lam_diag = np.where(inc, np.einsum("skb,skb->sb", W, W), np.nan)
             idg = t32(np.where(inc, 1.0 / np.where(inc, lam_diag, 1.0),
                                0.0))[:, None, :]
-            Wt = t32(W)[:, None]                         # (S, 1, k, b)
+            per_source = (y, t32(W)[:, None], idg)       # Wt (S, 1, k, b)
 
-            def one(th):
+            def one(fluxes, th, y, Wt, idg):
                 d = fluxes(th) - y                       # (S, c, b)
                 r = torch.sum(Wt * d[:, :, None, :], dim=-1)       # W d
                 g = torch.sum(Wt * r[:, :, :, None], dim=-2)       # W^T r
@@ -1424,7 +1602,10 @@ class BatchEngine:
         pack = self._response_pack()
         inner = max(inner, nb * (pack[0].shape[1] if pack is not None
                                  else 1))
-        q = self._chunked_samples(one, self._thinned(thin), inner)
+        flux_shards = self._shards(lambda v: v._band_flux_eval())
+        q = self._chunked_samples(
+            lambda th: self._on_shards(flux_shards, lambda f, _, *a: one(
+                f, *a), th, *per_source), self._thinned(thin), inner)
         with np.errstate(invalid="ignore"):
             lnnorm = 0.5 * (np.log(lam_diag) - np.log(2.0 * np.pi))
         self.loo_result = modelcheck.loo_batch_from_loglik(

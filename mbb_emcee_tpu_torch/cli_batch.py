@@ -14,9 +14,10 @@ The flags are the JAX batch CLI's (MAP triage --map / --init-map, the
 --ppc / --loo checks, --hmc, --pt, the per-source nested-sampling evidence
 --get-evidence and the --population stage with its --plot-population figure
 included) plus --device (default cuda; --device cpu runs the plain torch
-path) and --profile-dir (a torch.profiler trace of the batch fit). Flags
-whose features are not ported yet exit non-zero up front with the
-ROADMAP.md item that carries them.
+path) and --profile-dir (a torch.profiler trace of the batch fit).
+--mesh-devices N shards the source axis over N devices
+(parallel.walker_mesh): N cards with --device cuda (the command raises if
+fewer are present), N shards on the CPU with --device cpu.
 """
 
 from __future__ import annotations
@@ -31,10 +32,8 @@ from mbb_emcee_tpu_torch.cli import (
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 
 # Flags of the JAX package's batch CLI whose features wait, and the
-# ROADMAP.md queue-A item that carries each.
-_WAITING = (
-    ("mesh_devices", "--mesh-devices", "A11"),
-)
+# ROADMAP.md queue-A item that carries each: none.
+_WAITING = ()
 
 
 def build_parser():
@@ -71,7 +70,11 @@ def build_parser():
                         "the multi-source CUDA kernel; 'torch' is the plain "
                         "torch multi run; 'auto' (default) is fused on "
                         "cuda, torch on cpu")
-    g.add_argument("--mesh-devices", type=int, default=None, metavar="N")
+    g.add_argument("--mesh-devices", type=int, default=None, metavar="N",
+                   help="shard the source axis over an N-device mesh "
+                        "(with --chunk-size, N must divide the chunk size): "
+                        "N cards with --device cuda, N shards on the CPU "
+                        "with --device cpu")
     g.add_argument("--checkpoint", default=None,
                    help="HDF5 file to flush the batch's chains + sampler "
                         "state to during the production run")
@@ -260,6 +263,19 @@ def build_parser():
     return p
 
 
+def cli_mesh(args):
+    """The mesh of --mesh-devices N (None without it), built with the
+    device check, before any file is read: N cards with --device cuda
+    (walker_mesh raises if fewer are present), N shards on the CPU with
+    --device cpu."""
+    n = args.mesh_devices
+    if n is None:
+        return None
+    from mbb_emcee_tpu_torch.parallel import walker_mesh
+    return walker_mesh(n, devices=None if args.device == "cuda"
+                       else ["cpu"] * n)
+
+
 def _refuse_waiting_flags(args):
     for attr, flag, item in _WAITING:
         if getattr(args, attr):
@@ -320,6 +336,7 @@ def main(argv=None):
         resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(str(err)) from None
+    mesh = cli_mesh(args)
     if importlib.util.find_spec("h5py") is None:
         raise SystemExit("writing the HDF5 output file needs h5py, which is "
                          "not installed")
@@ -383,12 +400,19 @@ def main(argv=None):
             "response mode requires a 'bands = ...' header row in the "
             "catalog naming each column")
     responses = _responses(args, cat.band_names)
+    # with --chunk-size each fit binds a chunk, not the whole catalog
+    if mesh is not None and (C if chunked else cat.nsources) % mesh.size:
+        what = ("--chunk-size" if chunked
+                else f"the source count ({cat.nsources})")
+        raise SystemExit(
+            f"--mesh-devices {mesh.size} must divide {what}; pad the "
+            f"catalog or change the mesh size")
 
     mf = MultiFitter(nwalkers=args.nwalkers, wavenorm=args.wavenorm,
                      noalpha=args.noalpha, opthin=args.opthin,
                      responses=responses, seed=args.seed, a=args.stretch_a,
                      sampler_backend=args.sampler_backend,
-                     device=args.device)
+                     device=args.device, mesh=mesh)
     # With --chunk-size only one C-source tile is bound at a time; the
     # first now, so data-dependent setters (the band correlation) work.
     first = slice(0, C) if chunked else slice(None)

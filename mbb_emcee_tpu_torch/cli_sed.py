@@ -20,8 +20,9 @@ HMC/PT tiers, MAP triage + map-seeded runs, per-source derived posteriors
 and the PPC sweep, mid-run checkpoint/resume and the --population stage.
 Parameters are addressed by the MODEL's own names (--prior T_cold 18 2).
 The flags are the JAX CLI's plus --device (default cuda; --device cpu runs
-the plain torch path on the CPU); --mesh-devices exits non-zero with the
-ROADMAP.md item that carries it. The output files are the JAX package's
+the plain torch path on the CPU); --mesh-devices N shards the source axis
+over N cards (--device cuda) or N shards on the CPU (--device cpu). The
+output files are the JAX package's
 kind='sed-batch' and kind='sed-map' layouts, which either package reads.
 """
 
@@ -33,10 +34,8 @@ import sys
 from typing import NamedTuple
 
 # Flags of the JAX package's generic CLI whose features wait, and the
-# ROADMAP.md queue-A item that carries each.
-_WAITING = (
-    ("mesh_devices", "--mesh-devices", "A11"),
-)
+# ROADMAP.md queue-A item that carries each: none.
+_WAITING = ()
 
 
 def build_parser():
@@ -67,7 +66,9 @@ def build_parser():
     g.add_argument("--seed", type=int, default=207)
     g.add_argument("--stretch-a", type=float, default=2.0)
     g.add_argument("--mesh-devices", type=int, default=None, metavar="N",
-                   help="shard the source axis over an N-device mesh")
+                   help="shard the source axis over an N-device mesh (N "
+                        "cards with --device cuda, N shards on the CPU "
+                        "with --device cpu)")
     g.add_argument("--checkpoint", default=None,
                    help="flush complete state here every "
                         "--checkpoint-interval records (bitwise resume)")
@@ -455,6 +456,8 @@ def fit(argv=None):
         resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(str(err)) from None
+    from mbb_emcee_tpu_torch.cli_batch import cli_mesh
+    mesh = cli_mesh(args)
 
     import logging
     from mbb_emcee_tpu_torch.catalog import read_catalog
@@ -471,9 +474,13 @@ def fit(argv=None):
             "response mode requires a 'bands = ...' header row in the "
             "catalog")
     responses = _responses(args, cat.band_names)
+    if mesh is not None and cat.nsources % mesh.size:
+        raise SystemExit(
+            f"--mesh-devices {mesh.size} must divide the source count "
+            f"({cat.nsources})")
 
     mf = SEDMultiFitter(model, nwalkers=args.nwalkers, seed=args.seed,
-                        a=args.stretch_a, device=args.device)
+                        a=args.stretch_a, device=args.device, mesh=mesh)
     if responses is not None:
         mf.set_responses(responses)
     mf.set_data(cat.wave, cat.flux, cat.unc, band_names=cat.band_names,

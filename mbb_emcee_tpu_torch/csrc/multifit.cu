@@ -66,7 +66,8 @@ mbb_multi_stretch_kernel(const float* __restrict__ pos_in,
                          float* __restrict__ lnp_out,
                          int* __restrict__ nacc_out, int half, int wpb,
                          int nrec, int thin, float a, unsigned long long seed,
-                         unsigned long long step0, MbbConfig c) {
+                         unsigned long long step0, int source0,
+                         MbbConfig c) {
   extern __shared__ float dyn[];
   const MbbShared s = mbb_shared_layout(dyn, c);
   int src = blockIdx.x;
@@ -99,15 +100,15 @@ mbb_multi_stretch_kernel(const float* __restrict__ pos_in,
                           : uniforms + ns * nrec * 6 * thin * half,
       chain + ns * nrec * nw * nfree, lnpchain + ns * nrec * nw,
       pos_out + ns * nw * nfree, lnp_out + ns * nw, nacc_out + ns * nw,
-      half, wpb, nrec, thin, a, seed, step0, (uint32_t)src, c, s,
-      mbb_shared_end(s, c));
+      half, wpb, nrec, thin, a, seed, step0, (uint32_t)(source0 + src), c,
+      s, mbb_shared_end(s, c));
 }
 
 typedef void (*MbbMultiKernel)(const float*, const int*, const float*,
                                const float*, const float*, const float*,
                                float*, float*, float*, float*, int*, int,
                                int, int, int, float, unsigned long long,
-                               unsigned long long, MbbConfig);
+                               unsigned long long, int, MbbConfig);
 
 // The instantiated layouts: G in {1, 4} in one block per source, G in
 // {8, 16, 32} in a cluster per source; null for any other.
@@ -213,15 +214,18 @@ extern "C" int mbb_multi_resident(int nb, int nnodes, int half, int group,
 // cudaOccupancyMaxActiveClusters finds no room for one cluster. flux is
 // (S, nb); errs is (S, nb) signed 1/sigma, or (S, nb, nb) whitening when
 // icfg's use_chol is set; `uniforms` is (S, nrec, 6 * thin, half) or null
-// (Philox mode).
+// (Philox mode). Source s of the launch draws the Philox stream of global
+// source source0 + s: a shard of a catalog (batchengine's mesh blocks)
+// passes its first source's index, so a source's draws do not depend on
+// the shard it lands in.
 extern "C" int mbb_multi_stretch_launch(
     const float* pos_in, const int* nacc_in, const float* consts,
     const float* flux, const float* errs, const float* uniforms,
     float* chain, float* lnpchain, float* pos_out, float* lnp_out,
     int* nacc_out, int nsources, int half, int group, int cluster, int wpb,
     int threads, int nrec, int thin, float a, unsigned long long seed,
-    unsigned long long step0, const int* icfg, const float* fcfg,
-    void* stream) {
+    unsigned long long step0, int source0, const int* icfg,
+    const float* fcfg, void* stream) {
   const MbbConfig c = mbb_read_config(icfg, fcfg);
   MbbMultiKernel kernel;
   cudaLaunchConfig_t cfg;
@@ -240,7 +244,7 @@ extern "C" int mbb_multi_stretch_launch(
   err = cudaLaunchKernelEx(&cfg, kernel, pos_in, nacc_in, consts, flux, errs,
                            uniforms, chain, lnpchain, pos_out, lnp_out,
                            nacc_out, half, wpb, nrec, thin, a, seed, step0,
-                           c);
+                           source0, c);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

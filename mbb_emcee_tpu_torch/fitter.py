@@ -42,14 +42,6 @@ DEFAULT_INIT = np.array([12.0, 2.0, 250.0, 4.0, 40.0])
 DEFAULT_SCATTER = np.array([2.0, 0.3, 50.0, 0.8, 8.0])
 
 
-def not_ported(feature, item):
-    """The error for a surface of the JAX package this port does not have
-    yet; `item` names its entry in ROADMAP.md's queue."""
-    return NotImplementedError(
-        f"{feature} is not ported to mbb_emcee_tpu_torch yet "
-        f"(ROADMAP.md, queue A, item {item})")
-
-
 def check_jax_keywords(dtype=None, prng_impl=None, lnprob_backend=None,
                        jax_prng="rbg"):
     """Refuse, by keyword, a value of the JAX constructors' dtype=,
@@ -121,6 +113,11 @@ class MBBFitter(ParamSpaceMixin):
     plain torch path on the CPU).
     sampler_backend: "fused" (the whole run as one kernel launch), "torch"
     (the plain torch sampler) or "auto" = fused on CUDA, torch on the CPU.
+    mesh: a parallel.walker_mesh; run() then shards the walker axis over
+    its devices (parallel.ShardedEnsembleSampler, the lnprob kernel on each
+    card, the plain likelihood on the CPU) and the fitter's device is the
+    mesh's first. sampler_backend="fused" with a mesh is refused at run():
+    the stretch-move kernel runs one ensemble on one card.
     n_ensembles > 1 runs K independent ensembles of this fit through the
     batch tier (MultiFitter; on CUDA one multi-source kernel launch per
     phase) and merges their chains into one (K * nwalkers)-walker product:
@@ -143,8 +140,6 @@ class MBBFitter(ParamSpaceMixin):
                  n_ensembles=1):
         del nthreads  # walker parallelism is on the device
         check_jax_keywords(dtype, prng_impl, lnprob_backend)
-        if mesh is not None:
-            raise not_ported("walker sharding over a mesh (mesh=)", "A11")
         if int(n_ensembles) < 1:
             raise ValueError(f"n_ensembles={n_ensembles} must be >= 1")
         self.n_ensembles = int(n_ensembles)
@@ -152,6 +147,10 @@ class MBBFitter(ParamSpaceMixin):
         if sampler_backend not in ("auto", "torch", "fused"):
             raise ValueError(
                 "sampler_backend must be 'auto', 'torch' or 'fused'")
+        if mesh is not None:
+            from mbb_emcee_tpu_torch.parallel.mesh import mesh_device
+            device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.sampler_backend = sampler_backend
         self.nwalkers = int(nwalkers)
@@ -267,6 +266,12 @@ class MBBFitter(ParamSpaceMixin):
         return self.responses.pack(phot.band_names)
 
     def _resolve_sampler_backend(self):
+        if self.mesh is not None:
+            if self.sampler_backend == "fused":
+                raise ValueError(
+                    "sampler_backend='fused' is single-chip; drop mesh= "
+                    "or use the default backend")
+            return "sharded"
         if self.sampler_backend != "auto":
             return self.sampler_backend
         return "fused" if self.device.type == "cuda" else "torch"
@@ -276,6 +281,18 @@ class MBBFitter(ParamSpaceMixin):
         spec = self._effective_spec()
         backend = self._resolve_sampler_backend()
         self._backend_used = backend
+        if backend == "sharded":
+            from mbb_emcee_tpu_torch.parallel import ShardedEnsembleSampler
+            by_device = {}
+            for dev in self.mesh.devices:
+                if dev not in by_device:
+                    by_device[dev] = self._batched_lnprob(False, dev)
+            lnprob, free_space = by_device[self.device]
+            sampler = ShardedEnsembleSampler(
+                self.nwalkers, free_space.nfree,
+                [by_device[dev][0] for dev in self.mesh.devices], self.mesh,
+                a=self.a)
+            return lnprob, free_space, sampler
         if backend == "fused":
             from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
             sampler = FusedSampler(
@@ -595,20 +612,21 @@ class MBBFitter(ParamSpaceMixin):
                      f"+/- {res.logz_err:.3f}")
         return self
 
-    def _batched_lnprob(self, plain):
+    def _batched_lnprob(self, plain, device=None):
         """(lnprob (n, nfree) -> (n,), free space) of the effective spec on
-        the fitter's device: the plain torch likelihood (plain=True;
-        autograd), else the lnprob kernel on a CUDA device (its plain
-        version on the CPU)."""
+        `device` (default: the fitter's): the plain torch likelihood
+        (plain=True; autograd), else the lnprob kernel on a CUDA device
+        (its plain version on the CPU)."""
         spec = self._effective_spec()
+        device = self.device if device is None else device
         if plain:
             return build_lnprob(
                 self._require_data(), self.shape, spec,
-                response_pack=self._response_pack(), device=self.device)
+                response_pack=self._response_pack(), device=device)
         from mbb_emcee_tpu_torch.ops import lnprob_kernel
         ops = lnprob_kernel.prepare_lnprob_inputs(
             self._require_data(), self.shape, spec,
-            response_pack=self._response_pack(), device=self.device)
+            response_pack=self._response_pack(), device=device)
 
         def lnprob(x):
             return lnprob_kernel.mbb_lnprob(x.contiguous(), ops)
@@ -947,6 +965,15 @@ class MBBFitter(ParamSpaceMixin):
                 "n_ensembles > 1 uses the batched likelihood (diagonal "
                 "uncertainties only); drop the covariance or use "
                 "n_ensembles=1")
+        if self.mesh is not None:
+            # MultiFitter would read the walker mesh as a source mesh over
+            # the K ensembles
+            raise ValueError(
+                "mesh= cannot combine with n_ensembles > 1: the mesh "
+                "shards the walker axis of a single fit, while "
+                "n_ensembles runs through the batched multi-source path; "
+                "drop mesh= (the fused multi kernel is single-chip) or "
+                "use MultiFitter directly for source-axis sharding")
         K = self.n_ensembles
         mf = MultiFitter(nwalkers=self.nwalkers,
                          wavenorm=self.shape.wavenorm,

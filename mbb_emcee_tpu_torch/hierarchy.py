@@ -32,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from mbb_emcee_tpu_torch.fitter import not_ported, philox_key, resolve_device
+from mbb_emcee_tpu_torch.fitter import philox_key, resolve_device
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, LNPROB_FLOOR, spec_arrays)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin
@@ -443,9 +443,17 @@ def build_hier_lnprob(samples, population, spec: LikelihoodSpec,
     "cpu". Returns (lnprob_fn, free_space); lnprob_fn maps hyper vectors
     (W, nfree) -> (W,) (or (nfree,) -> a 0-dim tensor) with the package's
     box-floor / clip-widening / reduced-space conventions
-    (likelihood.build_lnprob)."""
+    (likelihood.build_lnprob).
+
+    Under `mesh` (a parallel.walker_mesh, whose size must divide S; the
+    device is its first) the samples split over the mesh's devices in
+    contiguous source blocks: each shard sums its sources' terms on its
+    device and the partial sums add on the first device, so the result
+    differs from the unsharded one only in the order of that sum."""
     if mesh is not None:
-        raise not_ported("source sharding over a mesh (mesh=)", "A11")
+        from mbb_emcee_tpu_torch.parallel.mesh import (
+            WALKER_AXIS, check_mesh, mesh_blocks, mesh_device)
+        device = mesh_device(mesh, device)
     device = resolve_device(device)
     host = np.asarray(samples)
     if host.ndim != 3:
@@ -493,6 +501,36 @@ def build_hier_lnprob(samples, population, spec: LikelihoodSpec,
                     "hyper-lnprob). Draw injections over the population "
                     "box")
 
+    if mesh is None:
+        blocks = [(samples, ln_interim)]
+    else:
+        n_shard = check_mesh(mesh).size
+        if S % n_shard:
+            raise ValueError(
+                f"mesh axis {WALKER_AXIS!r} size {n_shard} must divide the "
+                f"source count {S}")
+        blocks = [(samples[lo:hi].to(dev), None if ln_interim is None
+                   else ln_interim[lo:hi].to(dev))
+                  for lo, hi, dev in mesh_blocks(mesh, S)]
+
+    def source_sum(phi_safe):
+        """sum_s ln (1/N) sum_n p(theta_sn | phi) / pi(theta_sn): each
+        block's on its device, the blocks' partial sums added here (phi
+        copied to every block's device before any block's work is queued:
+        a copy waits for the work queued on its source device)."""
+        phis = [phi_safe.to(smp.device) for smp, _ in blocks]
+        parts = []
+        for (smp, lni), phi in zip(blocks, phis):
+            lw = population.ln_dist(phi, smp)  # (W,s,N)
+            if lni is not None:
+                lw = lw - lni
+            parts.append(torch.sum(torch.logsumexp(lw, dim=-1) - log_n,
+                                   dim=-1).to(device))
+        lnl = parts[0]
+        for p in parts[1:]:
+            lnl = lnl + p
+        return lnl
+
     sa = spec_arrays(spec)
     free_space = sa.free_space
     free_idx = torch.as_tensor(free_space.free_idx, device=device)
@@ -519,10 +557,7 @@ def build_hier_lnprob(samples, population, spec: LikelihoodSpec,
         inbox = torch.all((phi_free >= lo_free) & (phi_free <= hi_free),
                           dim=-1)
         phi_safe = torch.minimum(torch.maximum(phi, lo_full), hi_full)
-        lw = population.ln_dist(phi_safe, samples)      # (W, S, N)
-        if ln_interim is not None:
-            lw = lw - ln_interim
-        lnl = torch.sum(torch.logsumexp(lw, dim=-1) - log_n, dim=-1)
+        lnl = source_sum(phi_safe)
         if selection is not None:
             # -S ln alpha(phi): one more (W, M) reduction
             ln_alpha = torch.logsumexp(
@@ -553,14 +588,19 @@ class HierarchicalFitter(ParamSpaceMixin):
     set_gaussian_prior/set_param_init on HYPER-parameters, addressed by the
     population model's names), extend() and the summaries mirror the other
     fitters. device: "cuda" (the default; raises without a card) or "cpu";
-    the hyper-lnprob and the hyper-sampler run there.
+    the hyper-lnprob and the hyper-sampler run there. mesh: a
+    parallel.walker_mesh whose size divides S; the hyper-lnprob's source
+    sum is then split over its devices (build_hier_lnprob) and the device
+    is its first.
     """
 
     def __init__(self, samples, population, ln_interim=None, nwalkers=64,
                  seed=3033, a=2.0, dtype=torch.float32, device=None,
                  mesh=None):
         if mesh is not None:
-            raise not_ported("source sharding over a mesh (mesh=)", "A11")
+            from mbb_emcee_tpu_torch.parallel.mesh import mesh_device
+            device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.device = resolve_device(device)
         # samples keep the fitter's dtype on the host (no fp32 rounding of
         # a float64 fit)
@@ -741,7 +781,7 @@ class HierarchicalFitter(ParamSpaceMixin):
         lnprob, free_space = build_hier_lnprob(
             self.samples, self.population, self._effective_spec(),
             ln_interim=self.ln_interim, selection=self.selection,
-            dtype=self.dtype, device=self.device)
+            dtype=self.dtype, device=self.device, mesh=self.mesh)
         sampler = EnsembleSampler(self.nwalkers, free_space.nfree, lnprob,
                                   a=self.a)
         return lnprob, free_space, sampler
@@ -889,7 +929,7 @@ class HierarchicalFitter(ParamSpaceMixin):
         lnprob, free_space = build_hier_lnprob(
             self.samples, self.population, self._effective_spec(),
             ln_interim=self.ln_interim, selection=self.selection,
-            dtype=self.dtype, device=self.device)
+            dtype=self.dtype, device=self.device, mesh=self.mesh)
         res = nested_sample(
             lambda x: lnprob(x).to(torch.float32), free_space.lower,
             free_space.upper,

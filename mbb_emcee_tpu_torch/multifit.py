@@ -24,7 +24,11 @@ limits and redshift -- are fit at once:
     fitter's device;
   * writeToHDF5/from_h5 use the JAX package's batch schema (schema 1), so
     either package reads the other's file; results(i) is a full
-    MBBResults for one source.
+    MBBResults for one source;
+  * with mesh= (parallel.walker_mesh) the source axis splits over the
+    mesh's devices, each block on its own device with its global source
+    indices (batchengine.py), so a sharded run is the unsharded run bit
+    for bit.
 
 Randomness: the walker balls come from a torch.Generator seeded with
 `seed`, in source order; the proposals from the Philox stream keyed by
@@ -44,7 +48,7 @@ from mbb_emcee_tpu_torch.batchengine import BatchEngine, _batch_percentiles
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
 from mbb_emcee_tpu_torch.fitter import (
     DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, check_jax_keywords,
-    not_ported, resolve_device)
+    resolve_device)
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, Photometry)
 from mbb_emcee_tpu_torch.models.modified_blackbody import (
@@ -95,7 +99,13 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     CUDA device available the constructor raises (pass device="cpu").
     sampler_backend: "fused" (each phase one launch of the multi-source
     kernel; the plain multi run for CPU tensors), "torch" (the plain multi
-    run) or "auto" = fused on CUDA, torch on the CPU.
+    run) or "auto" = fused on CUDA, torch on the CPU, with or without a
+    mesh.
+    mesh: a parallel.walker_mesh over the source axis, whose size must
+    divide the source count; the fitter's device is its first. Each shard
+    runs its block of sources on its device: on CUDA one K3 launch per
+    shard and phase with the block's global source offset, on the CPU the
+    plain multi run.
     responses: a response.ResponseSet for band-integrated model fluxes
     (set_data with band_names).
     dtype=, prng_impl= and lnprob_backend=: as MBBFitter's
@@ -107,11 +117,13 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                  sampler_backend="auto", device=None, dtype=None,
                  prng_impl=None, lnprob_backend=None):
         check_jax_keywords(dtype, prng_impl, lnprob_backend)
-        if mesh is not None:
-            raise not_ported("source sharding over a mesh (mesh=)", "A11")
         if sampler_backend not in ("auto", "torch", "fused"):
             raise ValueError(
                 "sampler_backend must be 'auto', 'torch' or 'fused'")
+        if mesh is not None:
+            from mbb_emcee_tpu_torch.parallel.mesh import mesh_device
+            device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.sampler_backend = sampler_backend
         self.nwalkers = int(nwalkers)
@@ -233,14 +245,14 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             ops = self._lnprob_operands(spec)
             self._sampler = MultiEnsembleSampler(
                 ops.nsources, self.nwalkers, ops.free_space.nfree, ops.plain,
-                self.a, ops.free_space)
+                self.a, ops.free_space, self._source0)
         else:
             whiten = (None if self._band_corr is None
                       else self._whiten_operand())
             self._sampler = FusedMultiSampler(
                 self.nwalkers, self.wave, self.flux, self.unc, self.shape,
                 spec, response_pack=self._response_pack(), a=self.a,
-                whiten=whiten, device=self.device)
+                whiten=whiten, device=self.device, source0=self._source0)
         self._backend_used = backend
         return self._sampler
 

@@ -35,7 +35,7 @@ import warnings
 import numpy as np
 import torch
 
-from mbb_emcee_tpu_torch.fitter import not_ported, resolve_device
+from mbb_emcee_tpu_torch.fitter import resolve_device
 from mbb_emcee_tpu_torch.ops.philox import (
     BLOCK_ELEMS, nested_draws, nested_start, step_blocks)
 
@@ -378,6 +378,27 @@ def nested_sample(lnprob_batch, lower, upper, seed, nlive=512, nbatch=32,
         converged=converged)
 
 
+def _join_runs(parts, nlive, lower):
+    """_run's results of consecutive source blocks as one batch's: the dead
+    sets padded to the longest block's, as an unsharded run pads a source
+    that finished early (x at the box's lower corner, -inf lnL and
+    weight), the live points after them."""
+    if len(parts) == 1:
+        return parts[0]
+    ndead = max(p[3].shape[1] for p in parts) - nlive
+
+    def pad(a, fill):
+        k = ndead + nlive - a.shape[1]
+        gap = np.broadcast_to(fill, (a.shape[0], k) + a.shape[2:])
+        return np.concatenate([a[:, :-nlive], gap, a[:, -nlive:]], axis=1)
+
+    fills = (lower, -np.inf, -np.inf)
+    return tuple(
+        np.concatenate([p[i] for p in parts]) if i < 3 else
+        np.concatenate([pad(p[i], fills[i - 3]) for p in parts])
+        for i in range(6))
+
+
 def make_nested_batch_runner(lnprob_batch, lower, upper, nlive=512,
                              nbatch=32, nsteps=32, max_iter=3000, a=2.0,
                              tol=1e-4, device=None, mesh=None):
@@ -385,12 +406,29 @@ def make_nested_batch_runner(lnprob_batch, lower, upper, nlive=512,
     NestedBatchResult`` for S-source data tuples. `lnprob_batch(theta
     (S, n, d), *data) -> (S, n)` in box space, `data` a non-empty tuple of
     tensors with leading source axis S on `device`. Source s draws the
-    Philox stream of source index s under `seed`."""
-    if mesh is not None:
-        raise not_ported("nested sampling sharded over a mesh (mesh=)",
-                         "A11")
+    Philox stream of source index s under `seed`.
+
+    With `mesh` (a parallel.walker_mesh; `device` is then its first) the
+    sources split into mesh.size contiguous blocks, each run on its shard's
+    device with its global source indices, and the results join in source
+    order: every source's result is the unsharded run's. `lnprob_batch` is
+    then one function that runs on every device of the mesh, or a sequence
+    of them, one per shard, each bound to its shard's device."""
     lower, upper = _check_box(lower, upper, nlive, nbatch)
+    if mesh is not None:
+        from mbb_emcee_tpu_torch.parallel.mesh import mesh_blocks, mesh_device
+        device = mesh_device(mesh, device)
+        fns = ([lnprob_batch] * mesh.size if callable(lnprob_batch)
+               else list(lnprob_batch))
+        if len(fns) != mesh.size:
+            raise ValueError(f"need one lnprob_batch per shard ({mesh.size})"
+                             f"; got {len(fns)}")
     device = resolve_device(device)
+
+    def run_block(fn, seed, sources, dev, data):
+        return _run(fn, lower, upper, int(seed), sources, int(nlive),
+                    int(nbatch), int(nsteps), int(max_iter), float(a),
+                    float(tol), dev, data)
 
     def run_batch(seed, data):
         data = tuple(data)
@@ -399,10 +437,16 @@ def make_nested_batch_runner(lnprob_batch, lower, upper, nlive=512,
                 "data must be a non-empty tuple of (S, ...) arrays")
         data = tuple(torch.as_tensor(t, device=device) for t in data)
         S = data[0].shape[0]
-        it, done, lnz, xs, ls, ws = _run(
-            lnprob_batch, lower, upper, int(seed),
-            torch.arange(S, device=device), int(nlive), int(nbatch),
-            int(nsteps), int(max_iter), float(a), float(tol), device, data)
+        if mesh is None:
+            parts = [run_block(lnprob_batch, seed, torch.arange(
+                S, device=device), device, data)]
+        else:
+            # each block's run is launched after the previous one ended:
+            # _run waits on its device once per iteration
+            parts = [run_block(fn, seed, torch.arange(lo, hi, device=dev),
+                               dev, tuple(t[lo:hi].to(dev) for t in data))
+                     for fn, (lo, hi, dev) in zip(fns, mesh_blocks(mesh, S))]
+        it, done, lnz, xs, ls, ws = _join_runs(parts, int(nlive), lower)
         if not done.all():
             bad = int((~done).sum())
             warnings.warn(

@@ -118,8 +118,8 @@ def _load(path):
     lib.mbb_stretch_launch.restype = _I
     lib.mbb_multi_stretch_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _I, _I, ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _P, _P,
-        _P]
+        _I, _I, ctypes.c_float, ctypes.c_uint64, ctypes.c_uint64, _I, _P,
+        _P, _P]
     lib.mbb_multi_stretch_launch.restype = _I
     lib.mbb_multi_resident.argtypes = [_I] * 7
     lib.mbb_multi_resident.restype = _I

@@ -283,11 +283,14 @@ def prepare_multi_inputs(wave, flux, unc, shape, spec, response_pack=None,
 
 
 def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
-                          nrec, thin, a=2.0, uniforms=None, plan=None):
+                          nrec, thin, a=2.0, uniforms=None, plan=None,
+                          source0=0):
     """`nrec` records of `thin` stretch-move steps for every source from
     `state` under the batch likelihood in `ops`. `uniforms`
     (S, nrec, 6 * thin, half) fp32 replaces the per-source Philox streams
-    keyed by state.seed at state.step. `plan` (a StretchPlan of one of
+    keyed by state.seed at state.step; source s draws the stream of global
+    source source0 + s (a shard of a catalog passes its first source's
+    index). `plan` (a StretchPlan of one of
     MULTI_LAYOUTS) sets the kernel's layout; None takes plan_multi_on_card's
     for the card (the plain version on the CPU has none, but a bad plan is
     refused on every device). Returns (state, chain
@@ -303,7 +306,7 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
         check_plan(plan, nb, nnodes, half, MULTI_LAYOUTS)
     if device.type == "cpu":
         return multi_stretch_run_plain(state, ops.plain, nrec, thin, a,
-                                       uniforms)
+                                       uniforms, source0)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if nsrc != ops.nsources or nfree != ops.nfree or nw % 2:
@@ -344,7 +347,7 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
             chain.data_ptr(), lnpchain.data_ptr(), pos_out.data_ptr(),
             lnp_out.data_ptr(), nacc_out.data_ptr(), nsrc, half, plan.group,
             plan.cluster, plan.walkers_per_block, plan.threads, nrec, thin,
-            float(a), state.seed & (2 ** 64 - 1), state.step,
+            float(a), state.seed & (2 ** 64 - 1), state.step, int(source0),
             ops.icfg.ctypes.data, ops.fcfg.ctypes.data,
             current_stream_handle(device))
     if rc == ERR_CLUSTER_UNPLACEABLE:
@@ -371,14 +374,15 @@ class FusedMultiSampler(MultiEnsembleSampler):
     multi-source kernel (the likelihood is compiled into it; the per-source
     data are runtime operands, replaced by set_data).
 
-    rng="hw" draws the proposals from the per-source Philox streams;
+    rng="hw" draws the proposals from the per-source Philox streams, source
+    s on the stream of global source source0 + s;
     rng="external" takes them from a `uniforms` argument (replay tests).
     The batch tier's sampler_backend="torch" is sampler.MultiEnsembleSampler
     over the same operands' plain version."""
 
     def __init__(self, nwalkers, wave, flux, unc, shape, spec,
                  response_pack=None, a=2.0, rng="hw", whiten=None,
-                 device="cuda"):
+                 device="cuda", source0=0):
         if nwalkers % 2:
             raise ValueError("nwalkers must be even")
         if rng not in ("hw", "external"):
@@ -390,7 +394,7 @@ class FusedMultiSampler(MultiEnsembleSampler):
                                         response_pack, whiten, device)
         super().__init__(self.ops.nsources, nwalkers,
                          self.ops.free_space.nfree, self.ops.plain, a,
-                         self.ops.free_space)
+                         self.ops.free_space, source0)
 
     def set_data(self, flux, unc, uplim_bands=None, whiten=None):
         """Replace the per-source photometry (same S and band count) with
@@ -413,4 +417,4 @@ class FusedMultiSampler(MultiEnsembleSampler):
         if uniforms is None and self.rng == "external":
             raise ValueError("rng='external' requires a uniforms array")
         return mbb_multi_stretch_run(state, self.ops, nsteps // thin, thin,
-                                     self.a, uniforms)
+                                     self.a, uniforms, source0=self.source0)

@@ -64,11 +64,13 @@ def bits_to_uniform(bits):
     return (bits >> 8).to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
 
 
-def stretch_uniforms(key, step0, nsteps, half, device, source=0):
+def stretch_uniforms(key, step0, nsteps, half, device, source=0, lane0=0):
     """The kernels' proposal uniforms for `nsteps` ensemble steps starting
     at global step `step0`, laid out as the external-uniforms input:
     (6 * nsteps, half) fp32, rows 6t + 3h + c for step t, half h (0 = A,
-    1 = B) and draw c (0 z, 1 partner, 2 accept).
+    1 = B) and draw c (0 z, 1 partner, 2 accept), for walker lanes
+    lane0..lane0 + half - 1 of each half (a walker shard's block of the
+    ensemble's lanes: parallel.ShardedEnsembleSampler).
 
     Counter words: (step low 32 bits, h + 2 * source, lane, step high 32
     bits), so source 0 is the single-ensemble kernel's stream. `source` is
@@ -80,8 +82,8 @@ def stretch_uniforms(key, step0, nsteps, half, device, source=0):
     step = (torch.arange(nsteps, dtype=torch.int64, device=device)
             + int(step0)).view(nsteps, 1, 1)
     h = torch.arange(2, dtype=torch.int64, device=device).view(1, 2, 1)
-    lane = torch.arange(half, dtype=torch.int64, device=device).view(1, 1,
-                                                                     half)
+    lane = (torch.arange(half, dtype=torch.int64, device=device)
+            + int(lane0)).view(1, 1, half)
     full = lead + (nsteps, 2, half)
     c0 = (step & _MASK32).expand(full)
     c1 = ((h + 2 * src) & _MASK32).expand(full)

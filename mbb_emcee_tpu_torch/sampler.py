@@ -160,18 +160,20 @@ stretch_run_plain.runs = 0
 
 
 def multi_stretch_run_plain(state: MultiSamplerState, lnprob_batch, nrec,
-                            thin, a=2.0, uniforms=None):
+                            thin, a=2.0, uniforms=None, source0=0):
     """The plain version of the multi-source stretch-move kernel (K3): S
     independent ensembles, `nrec` records of `thin` steps each, all sources
-    in lockstep. lnprob_batch maps (S, n, ndim) -> (S, n). `uniforms`
-    (S, nrec, 6 * thin, half) replaces the per-source Philox streams.
+    in lockstep. lnprob_batch maps (S, n, ndim) -> (S, n). Source s draws
+    the Philox stream of global source source0 + s (a shard of a catalog
+    passes its first source's index); `uniforms` (S, nrec, 6 * thin, half)
+    replaces the streams.
 
     Returns (state, chain (S, nrec, nwalkers, ndim),
     lnpchain (S, nrec, nwalkers))."""
     multi_stretch_run_plain.runs += 1
     nsrc, nw = state.pos.shape[:2]
     half = nw // 2
-    sources = torch.arange(nsrc, device=state.pos.device)
+    sources = torch.arange(nsrc, device=state.pos.device) + int(source0)
 
     def draw(r):
         if uniforms is not None:
@@ -263,14 +265,14 @@ class EnsembleSampler:
 class MultiEnsembleSampler:
     """S independent stretch-move ensembles in lockstep over a batched
     lnprob ((S, n, ndim) -> (S, n)): the plain multi run
-    (multi_stretch_run_plain), source s on the Philox stream of source s,
-    with the surface the batch tier's run protocol drives
-    (batchengine.BatchEngine.run): init_state / run_mcmc / advance /
+    (multi_stretch_run_plain), source s on the Philox stream of global
+    source source0 + s, with the surface the batch tier's run protocol
+    drives (batchengine.BatchEngine.run): init_state / run_mcmc / advance /
     reset_counters / acceptance_fraction. The multi-source kernel's sampler
     (ops/multifit_kernel.FusedMultiSampler) is this surface on K3."""
 
     def __init__(self, nsources, nwalkers, ndim, lnprob_batch, a=2.0,
-                 free_space=None):
+                 free_space=None, source0=0):
         if nwalkers % 2:
             raise ValueError("nwalkers must be even")
         if nwalkers < 2 * ndim:
@@ -282,6 +284,7 @@ class MultiEnsembleSampler:
         self.a = float(a)
         self.lnprob_batch = lnprob_batch
         self.free_space = free_space
+        self.source0 = int(source0)
 
     def init_state(self, p0, seed, step=0) -> MultiSamplerState:
         """p0: (S, nwalkers, ndim) on the sampler's device. lnprob is
@@ -308,7 +311,7 @@ class MultiEnsembleSampler:
         _check_run_args(nsteps, thin)
         return multi_stretch_run_plain(state, self.lnprob_batch,
                                        nsteps // thin, thin, self.a,
-                                       uniforms)
+                                       uniforms, self.source0)
 
     def advance(self, state: MultiSamplerState, nsteps, uniforms=None):
         """Advance without keeping the chain (burn-in)."""

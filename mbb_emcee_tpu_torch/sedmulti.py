@@ -39,8 +39,7 @@ from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch.batchengine import (
     BatchEngine, PlainBatchOperands, _batch_percentiles)
 from mbb_emcee_tpu_torch.checkpoint import PRNG_IMPL, data_fingerprint
-from mbb_emcee_tpu_torch.fitter import (
-    check_jax_keywords, not_ported, resolve_device)
+from mbb_emcee_tpu_torch.fitter import check_jax_keywords, resolve_device
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, Photometry)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin
@@ -71,7 +70,9 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
     device: "cuda" (the default; raises without a card) or "cpu".
     prng_impl: the JAX constructor's keyword; the port draws from
     Philox-4x32-10 and refuses another generator by name
-    (fitter.check_jax_keywords). mesh= waits for ROADMAP.md item A11.
+    (fitter.check_jax_keywords). mesh: a parallel.walker_mesh over the
+    source axis (batchengine.py); the fitter's device is its first, and a
+    sharded run is the unsharded run bit for bit.
     With photoz.photoz_mbb, set a Gaussian prior on T: without CMB terms T
     and z are exactly degenerate.
     """
@@ -80,9 +81,11 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
                  mesh=None, prng_impl=None, device=None):
         if not isinstance(model, SEDModel):
             raise TypeError("model must be an SEDModel")
-        if mesh is not None:
-            raise not_ported("source sharding over a mesh (mesh=)", "A11")
         check_jax_keywords(prng_impl=prng_impl, jax_prng="threefry2x32")
+        if mesh is not None:
+            from mbb_emcee_tpu_torch.parallel.mesh import mesh_device
+            device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.device = resolve_device(device)
         model.validate(device=self.device)
         self.model = model
@@ -220,6 +223,12 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
     def _per_source_priors(self):
         return dict(self._ps_prior)
 
+    def _shard_view(self, lo, hi, device):
+        v = super()._shard_view(lo, hi, device)
+        v._ps_prior = {k: (m[lo:hi], i[lo:hi])
+                       for k, (m, i) in self._ps_prior.items()}
+        return v
+
     def _ps_token(self):
         """Fingerprint-ready tuple of the per-source priors; () unused."""
         return tuple(x for name in sorted(self._ps_prior)
@@ -299,7 +308,7 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
                 f"many more)")
         self._sampler = MultiEnsembleSampler(
             self.nsources, self.nwalkers, nfree, ops.plain, self.a,
-            ops.free_space)
+            ops.free_space, self._source0)
         self._backend_used = "torch"
         return self._sampler
 
@@ -487,7 +496,7 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
             f.attrs["seed"] = self.seed
             f.attrs["a"] = self.a
             f.attrs["prng_impl"] = self.prng_impl.encode()
-            f.attrs["mesh_token"] = b"None"
+            f.attrs["mesh_token"] = self._mesh_token().encode()
             f.create_dataset("ChainFree", data=self.chain_free.cpu().numpy()
                              .astype(np.float32), compression="gzip")
             f.create_dataset("LnProbability",
@@ -576,7 +585,10 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
         """Restore a batch fit of either package (summaries, derived
         quantities, PPC, LOO, per-source views); extend() continues this
         package's stretch-move runs and refuses another generator's. The
-        model must match the stored parameter names and model name."""
+        model must match the stored parameter names and model name. A file
+        written under any mesh reloads under any mesh= or none (its
+        mesh_token is a record: the Philox streams do not depend on the
+        partitioning)."""
         import h5py
 
         def text(v):

@@ -168,8 +168,13 @@ def test_batch_cli_refuses_uplims_with_correlation(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-devices", "4"], "A11"), (["--profile-dir", "prof"], "A8")])
 def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
-    """A flag whose ROADMAP.md item waits names it; the flag of a ported
-    item (A8: --profile-dir) runs and leaves a trace in its directory."""
+    """No flag waits for a ROADMAP.md item any more: the flag of each
+    ported item runs. A8's --profile-dir leaves a trace in its directory;
+    A11's --mesh-devices builds a mesh of CPU shards under --device cpu and
+    refuses, with the JAX CLI's message, a mesh size that does not divide
+    the catalog's 5 sources (tests/test_torch_parallel.py runs the CLI on
+    a mesh that does)."""
+    assert cli_batch._WAITING == ()
     if item == "A8":
         prof = tmp_path / flags[1]
         assert cli_batch.main([str(_catalog(tmp_path)),
@@ -177,7 +182,9 @@ def test_batch_cli_refuses_waiting_flags(tmp_path, flags, item):
                                flags[0], str(prof)]) == 0
         assert len(list(prof.glob("*.pt.trace.json"))) == 1
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP.md.*{item}"):
+    with pytest.raises(SystemExit, match=r"^--mesh-devices 4 must divide "
+                       r"the source count \(5\); pad the catalog or "
+                       r"change the mesh size$"):
         cli_batch.main([str(_catalog(tmp_path)), str(tmp_path / "o.h5"),
                         *FAST, *flags])
 

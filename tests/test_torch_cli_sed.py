@@ -524,11 +524,24 @@ def test_jax_model_file_is_refused(tmp_path):
 
 
 def test_refuses_mesh_devices_by_item(tmp_path):
+    """--mesh-devices (ROADMAP A11, ported) no longer refuses by item: on
+    the CPU it shards the 2-source catalog over 2 CPU shards and fits the
+    unsharded fit's chains bit for bit; a mesh size that does not divide
+    the source count exits with the JAX CLI's message."""
+    from mbb_emcee_tpu_torch import cli_sed
+    assert cli_sed._WAITING == ()
     mpath = _write_model(tmp_path)
     cat, _ = _write_catalog(tmp_path, S=2)
-    with pytest.raises(SystemExit, match=r"ROADMAP.md.*item A11\)"):
-        main([mpath, cat, str(tmp_path / "o.h5"), "--mesh-devices", "2",
-              *CPU])
+    args = [mpath, cat, str(tmp_path / "o.h5"), "-w", "32", "-b", "4",
+            "-n", "8", "--seed", "5", *INITS, *CPU]
+    got = fit(args + ["--mesh-devices", "2"]).mf
+    want = fit(args).mf
+    assert got.mesh.size == 2 and want.mesh is None
+    assert torch.equal(got.chain_free, want.chain_free)
+    assert torch.equal(got.lnprobability, want.lnprobability)
+    with pytest.raises(SystemExit, match=r"^--mesh-devices 3 must divide "
+                       r"the source count \(2\)$"):
+        main(args + ["--mesh-devices", "3"])
 
 
 @pytest.fixture(scope="module")

@@ -235,16 +235,19 @@ def test_pop_files_cross_both_ways(tmp_path):
 
 
 def test_mesh_and_generic_batches_are_refused():
-    """mesh= (A11) raises NotImplementedError naming its ROADMAP item; the
-    population plot of a fitter that has not run is refused
-    (test_plot_population_draws holds it on a run one); a generic-model
-    batch (SEDMultiFitter) that has not run is refused like a MultiFitter
-    that has not (from_batch on a run one is test_from_batch_sedmulti)."""
+    """mesh= (ROADMAP A11, ported) takes a parallel.walker_mesh and
+    refuses anything else (a JAX mesh, say) with a TypeError naming
+    walker_mesh (tests/test_torch_parallel.py holds the sharded
+    hyper-lnprob against JAX's and the unsharded one); the population plot
+    of a fitter that has not run is refused (test_plot_population_draws
+    holds it on a run one); a generic-model batch (SEDMultiFitter) that has
+    not run is refused like a MultiFitter that has not (from_batch on a
+    run one is test_from_batch_sedmulti)."""
     samples = np.random.default_rng(0).normal(35, 4, (4, 16, 1))
     pop = TruncatedGaussianPopulation.for_box(("T",), [10.0], [60.0])
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="walker_mesh"):
         HierarchicalFitter(samples, pop, device=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="walker_mesh"):
         build_hier_lnprob(samples, pop, LikelihoodSpec.for_box(
             pop.lower, pop.upper), device=CPU, mesh=object())
     smf = T.SEDMultiFitter(_plaw_models()[0], nwalkers=8, device=CPU)

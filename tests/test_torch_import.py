@@ -132,9 +132,19 @@ def test_auto_backend_follows_the_device(device, backend, want,
 
 
 @pytest.mark.parametrize("kwargs,item", [(dict(mesh=object()), "A11")])
-def test_constructor_refuses_unported_options(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+def test_constructor_refuses_unported_options(kwargs, item, monkeypatch):
+    """mesh= (ROADMAP A11, ported) takes a parallel.walker_mesh only: any
+    other object is refused by name, and a device= that is not the mesh's
+    first device conflicts with it."""
+    from mbb_emcee_tpu_torch.parallel import walker_mesh
+    with pytest.raises(TypeError, match="walker_mesh"):
         MBBFitter(device="cpu", **kwargs)
+    cpu2 = walker_mesh(2, devices=["cpu"] * 2)
+    assert MBBFitter(mesh=cpu2).device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="conflicts with the mesh"):
+        MBBFitter(device="cuda", mesh=cpu2)
 
 
 @pytest.mark.parametrize("surface", [

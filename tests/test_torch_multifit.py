@@ -470,7 +470,10 @@ def test_multifitter_checkpointed_run(tmp_path):
 @pytest.mark.parametrize("call,item", [
     (lambda: T.MultiFitter(mesh=object(), device="cpu"), "A11")])
 def test_multifitter_refuses_unported_surfaces(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+    """mesh= (ROADMAP A11, ported) takes a parallel.walker_mesh and refuses
+    anything else by name (tests/test_torch_parallel.py runs the tiers on
+    a mesh against the unsharded batch)."""
+    with pytest.raises(TypeError, match="walker_mesh"):
         call()
 
 

@@ -304,7 +304,7 @@ def test_determinism_and_validation():
     with pytest.raises(ValueError, match="nbatch"):
         tn.nested_sample(_gauss_ll(), LOWER, UPPER, 0, nlive=32, nbatch=32,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="walker_mesh"):
         tn.make_nested_batch_runner(_gauss_ll(), LOWER, UPPER, mesh=object())
 
 

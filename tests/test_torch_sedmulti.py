@@ -763,7 +763,7 @@ def test_constructor_and_set_data_validation():
         SEDMultiFitter(object(), device="cpu")
     with pytest.raises(ValueError, match="even"):
         SEDMultiFitter(MODEL, nwalkers=15, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="walker_mesh"):
         SEDMultiFitter(MODEL, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="prng_impl=.*Philox"):
         SEDMultiFitter(MODEL, prng_impl="rbg", device="cpu")
