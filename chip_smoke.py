@@ -168,7 +168,13 @@ non-zero without printing a result):
      compute_evidence against MBBFitter.compute_evidence on K1 (3x the
      combined error), each at the depths SED_* name; (f) the stretch step's marginal time, kernels and
      device busy share under torch.profiler, beside K2's on the same
-     posterior;
+     posterior. The generic tier's plain stretch step runs as one captured
+     CUDA graph per step (sampler._StepGraph): (b) requires its three runs
+     on the captured step and graph mode 'graph', and a 20-step graphed run
+     bitwise the eager loop from the same state; (d) requires graph mode
+     for both example models; (f) gives the captured step's ms per step,
+     its graph's kernel nodes (libcuda's cuGraphGetNodes) and torch.profiler's
+     kernels and busy share beside the eager loop's on the same state;
  25. the generic batch tier and submm photo-z (sedmulti.py, photoz.py; no
      kernel of their own: the plain batch stretch step over the vmapped
      user model) through the user's entry points: (a) photoz_mbb's fnu,
@@ -184,13 +190,16 @@ non-zero without printing a result):
      missing in 16) through run(50, 250) against MultiFitter.run(50, 250)
      on K3 on the same data (per-source medians and 68% widths within
      max(2%, 3 sigma_MC); 0 K1 and 0 K3 launches, 3 plain multi runs) and
-     run(n1) + extend(n2) bitwise run(n1 + n2) at 16 sources; (d)
+     run(n1) + extend(n2) bitwise run(n1 + n2) at 16 sources, its three
+     runs on the captured batch step (graph mode 'graph') and a 10-step
+     graphed run bitwise the eager loop; (b) and (d) require graph mode of
+     photoz_mbb's runs; (d)
      compute_lir (rtol 1e-4) and compute_peaklambda (rtol 2e-3) of
      SEDMultiFitter and MultiFitter on the same chain, thinned, and
      compute_dustmass_batch of a 16-source photo-z batch against the CPU
-     (rtol 1e-4); (e) the batch stretch step's marginal time, kernels per
-     step and device busy share under torch.profiler, beside K3's per-step
-     time at the same batch. Budget: 40 s, advisory (a run over it
+     (rtol 1e-4); (e) the captured batch step's marginal time, kernel
+     nodes, kernels per step and device busy share beside the eager loop's
+     and K3's per-step time at the same batch. Budget: 40 s, advisory (a run over it
      prints OVER and still passes: the host's clock varies 1.5x across
      machines);
  26. the generic command line and the plots (cli_sed.py, plotting.py; no
@@ -199,7 +208,9 @@ non-zero without printing a result):
      of the shipped examples/two_temp_model_torch.py, depth cut to -b 20
      -n 40: (a) run_sed_tpu_torch's fit stage (cli_sed.fit) bitwise
      SEDMultiFitter(model, 250, seed=5).run(20, 40) on the same data, 0 K1,
-     K2 and K3 launches (3 plain multi runs); (b) the fit stage with
+     K2 and K3 launches (3 plain multi runs, on the captured step, graph
+     mode 'graph'; a 10-step graphed run bitwise the eager loop); (b) the
+     fit stage with
      --extend-until 1.1 --max-steps 120 --ppc --get-lir --get-peaklambda
      --derived-thin 10 --summary: the production length is what the logged
      extensions add up to, at most --max-steps, the summary carries its
@@ -210,7 +221,14 @@ non-zero without printing a result):
      none) mbb_emcee_tpu_torch.plotting imports and a plot hook raises the
      ImportError naming it; _mc_marginal on the card against the CPU
      (rtol 1e-5); (e) the two-temperature batch step's marginal time and
-     kernels per step. Budget: 20 s, advisory, as phase 25's;
+     kernels per step, captured and eager; (f) every model the repo ships
+     on the captured step: examples/{two_temp_model,cmb_high_z_model,
+     photoz_model}_torch.py through cli_sed.load_model in SEDFitter.run(5,
+     10) and examples/custom_model_torch.py's own lnprob (its definitions,
+     the script run up to CUSTOM_MODEL_CUT) in EnsembleSampler, each in
+     graph mode with a short graphed run bitwise the eager loop (the
+     wrapped MBB, photoz_mbb and the hierarchy's hyper-lnprob are held in
+     phases 23-25). Budget: 20 s, advisory, as phase 25's;
  27. the migration surface (compat.py, utils/profiling.py, legacy_h5.py,
      cli_inspect.py; no kernel of their own) at config 2's width (250
      walkers x 5 bands, the rate cell's mock data written to a text
@@ -241,8 +259,9 @@ non-zero without printing a result):
      shard and no plain run; (b) K3 at source0=64 on sources 64-127 bitwise
      rows 64:128 of the whole launch, and against the plain multi run at
      the same offset by phase 8's rule; (c) ShardedEnsembleSampler on 5
-     shards at config 2 (250 walkers), K1 per shard, bitwise
-     EnsembleSampler on the same K1 lnprob and seed, K1 launches counted,
+     shards at config 2 (250 walkers), K1 per shard, bitwise the
+     unsharded eager loop (stretch_run_plain) on the same K1 lnprob and
+     seed, K1 launches counted,
      and K1 on each shard's device at its 25-vector blocks against
      build_lnprob's plain version at phase 2's tolerances;
      (d) MBBFitter(mesh=5 shards).run(50, 250) on K1 (its launches counted,
@@ -251,18 +270,40 @@ non-zero without printing a result):
      cards present raises walker_mesh's error; (f) the sharded single
      fit's ms and kernels per step beside K2's, the sharded K3 run's time
      beside the unsharded one's at the batch cell and at 64 times its
-     catalog (16,384 sources, several waves per card; bitwise required).
-     Budget: 20 s, advisory.
+     catalog (16,384 sources, several waves per card; bitwise required);
+     (g) the captured plain step over the mesh: SEDMultiFitter(mesh=4
+     shards).run(50, 250) of the wrapped MBB with every shard in graph
+     mode, bitwise the unsharded run, and each shard's captured step
+     bitwise its eager loop; HierarchicalFitter(mesh=4 shards).run(50, 250)
+     at 32 sources x 256 draws, its hyper step in graph mode where the
+     shards share one card and eager by design across cards (its source sum
+     spans them), with no capture warning, bitwise its eager loop, and its
+     hyper-lnprob against the unsharded one's at rtol 1e-5.
+     Budget: 20 s, advisory;
+ 29. simulation-based calibration (tests/test_torch_sbc.py, the twin of
+     tests/test_sbc.py) through the user's entry points at that test's
+     full S (48; 32 for the single-fit modes; M = S = 32, N = 256 for the
+     hierarchy), depths, truths and thresholds, the variants of SBC_WHOLE:
+     per variant KS, mean, variance and edge shares of the ranks, seconds,
+     the K1/K2/K3 launches and runs on the captured step (plain, response
+     and correlated on K3, single on K1 + K2, sedmulti, photoz and the
+     hierarchy on the captured plain step in graph mode, PT, MAP +
+     importance and nested sampling on plain torch); a variant whose ranks
+     miss a threshold, or which ran off its path, fails the phase. Budget:
+     SBC_BUDGET_S, advisory;
+ 30. the SBC variants a whole run has no room for (SBC_ALONE: HMC and
+     fit_map -> run(init="map")), the same checks. Not part of the whole
+     run: `python3 chip_smoke.py --phases 30` runs it alone.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, ..., `27`, `28`) runs the
-build and those phases alone, a rehearsal that prints no kernel table and
-no result line;
+before any phase. `--phases 3,15` (or `21`, ..., `28`, `29`, `30`) runs
+the build and those phases alone, a rehearsal that prints no kernel table
+and no result line (phase 30 runs only so);
 `--profile-derived` adds torch.profiler's device busy time to the derived
 posteriors' timings of phases 9 and 14 (about a minute more). A whole run
-takes about 5-6 minutes on one H100 (H100 80GB HBM3 at 700 W), the
+takes about 5-8 minutes on one H100 (H100 80GB HBM3 at 700 W), the
 kernels' build included.
 """
 
@@ -679,9 +720,16 @@ def tau_se(chain_free, flat, free):
     return 1.2533 * std / np.sqrt(n_eff), 1.54 * std / np.sqrt(n_eff)
 
 
+def _plain_runs(c):
+    """Runs of the plain torch samplers in counts `c`, eager or on the
+    captured step."""
+    return (c["plain_sampler_runs"] + c["plain_multi_runs"]
+            + c["graphed_runs"] + c["graphed_multi_runs"])
+
+
 def _counts(reset=False):
     """Zero (reset=True) or read the launch counts of K1, K2 and K3 and the
-    run counts of the two plain samplers."""
+    run counts of the two plain samplers, eager and graphed."""
     from mbb_emcee_tpu_torch import sampler as plain_sampler
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
     from mbb_emcee_tpu_torch.ops.multifit_kernel import mbb_multi_stretch_run
@@ -691,7 +739,10 @@ def _counts(reset=False):
            "mbb_multi_stretch_run": (mbb_multi_stretch_run, "launches"),
            "plain_sampler_runs": (plain_sampler.stretch_run_plain, "runs"),
            "plain_multi_runs": (plain_sampler.multi_stretch_run_plain,
-                                "runs")}
+                                "runs"),
+           "graphed_runs": (plain_sampler.stretch_run_graphed, "runs"),
+           "graphed_multi_runs": (plain_sampler.multi_stretch_run_graphed,
+                                  "runs")}
     if reset:
         for fn, attr in fns.values():
             setattr(fn, attr, 0)
@@ -885,7 +936,7 @@ def phase_time(card):
     250 walkers x 5 bands, full 5-parameter model (config 2)."""
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
     from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
-    from mbb_emcee_tpu_torch.sampler import EnsembleSampler
+    from mbb_emcee_tpu_torch.sampler import stretch_run_plain
 
     phot, shape, spec = problem(2)
     samp = FusedSampler(NWALKERS, phot, shape, spec, device=DEVICE)
@@ -895,8 +946,10 @@ def phase_time(card):
     out["k1_ms"] = _cuda_ms(lambda: mbb_lnprob(p0, samp.ops), 200)
     out["k1_plain_ms"] = _cuda_ms(lambda: samp.ops.plain(p0), 50)
     out["k2_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200), 5)
-    plain = EnsembleSampler(NWALKERS, samp.ndim, samp.ops.plain, a=samp.a)
-    out["k2_plain_ms"] = _cuda_ms(lambda: plain.run_mcmc(state, 200), 1)
+    # the plain version: stretch_run_plain's eager loop (EnsembleSampler
+    # replays a captured step on the card)
+    out["k2_plain_ms"] = _cuda_ms(lambda: stretch_run_plain(
+        state, samp.ops.plain, 200, 1, samp.a), 1)
     nconsts = samp.ops.consts.numel()
     out["k1_bound"] = k1_bound(samp.ops.icfg, NWALKERS, samp.ndim, nconsts)
     out["k2_bound"] = k2_bound(samp.ops.icfg, 1, NWALKERS, samp.ndim,
@@ -1669,7 +1722,7 @@ def phase_time_response(card):
     K2's marginal rate beside point mode on the same model."""
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
     from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
-    from mbb_emcee_tpu_torch.sampler import EnsembleSampler
+    from mbb_emcee_tpu_torch.sampler import stretch_run_plain
 
     phot, shape, spec = problem(3)
     _, pack = port_response_pack(65)
@@ -1691,8 +1744,8 @@ def phase_time_response(card):
     out["k1_resp_ms"] = _cuda_ms(lambda: mbb_lnprob(p0, samp.ops), 200)
     out["k1_resp_plain_ms"] = _cuda_ms(lambda: samp.ops.plain(p0), 50)
     out["k2_resp_ms"] = _cuda_ms(lambda: samp.run_mcmc(state, 200), 5)
-    plain = EnsembleSampler(NWALKERS, samp.ndim, samp.ops.plain, a=samp.a)
-    out["k2_resp_plain_ms"] = _cuda_ms(lambda: plain.run_mcmc(state, 200), 1)
+    out["k2_resp_plain_ms"] = _cuda_ms(lambda: stretch_run_plain(
+        state, samp.ops.plain, 200, 1, samp.a), 1)
     nconsts = samp.ops.consts.numel()
     out["k1_resp_bound"] = k1_bound(samp.ops.icfg, NWALKERS, samp.ndim,
                                     nconsts)
@@ -2791,7 +2844,7 @@ def _path_counts(path, kernel, want):
     Returns the launch count."""
     c = _counts()
     n = c[kernel]
-    plain = c["plain_sampler_runs"] + c["plain_multi_runs"]
+    plain = _plain_runs(c)
     ok = n == want and plain == 0
     log(f"[21] {path}: {n} {kernel} launches (want {want}), {plain} plain "
         f"sampler runs {'PASS' if ok else 'FAIL'}")
@@ -3254,6 +3307,180 @@ def _profiled_launches(fn):
     return kernels, host
 
 
+def _halves(state):
+    """(pos_a, pos_b) of a single or a multi sampler state."""
+    if hasattr(state, "pos_a"):
+        return state.pos_a, state.pos_b
+    half = state.pos.shape[1] // 2
+    return state.pos[:, :half], state.pos[:, half:]
+
+
+def _k1_lnprob(ops):
+    """A batched lnprob on K1."""
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import mbb_lnprob
+
+    def lnprob(x):
+        return mbb_lnprob(x.contiguous(), ops)
+    return lnprob
+
+
+def _shard_sampler(fitter):
+    """The plain multi sampler of a batch fitter's one shard."""
+    (shard,) = fitter._sampler._shards
+    return shard.obj
+
+
+def _eager_run(sampler, state, nrec, thin):
+    """The eager loop (stretch_run_plain or multi_stretch_run_plain) on the
+    sampler's lnprob from `state`: what its captured step must equal."""
+    from mbb_emcee_tpu_torch import sampler as ts
+    if hasattr(state, "pos_a"):
+        return ts.stretch_run_plain(state, sampler.lnprob_batch, nrec, thin,
+                                    sampler.a)
+    return ts.multi_stretch_run_plain(state, sampler.lnprob_batch, nrec,
+                                      thin, sampler.a,
+                                      source0=sampler.source0)
+
+
+def _graph_kernel_nodes(sampler, state):
+    """(kernel nodes, all nodes) of the sampler's step captured anew from
+    `state` into a graph that keeps its nodes, read with the CUDA driver
+    API's cuGraphGetNodes / cuGraphNodeGetType (kernel nodes: type 0)."""
+    import ctypes
+    import torch
+    from mbb_emcee_tpu_torch import sampler as ts
+    pos_a, pos_b = _halves(state)
+    g = ts._StepGraph(sampler.lnprob_batch, pos_a, sampler.a,
+                      ts.step_source(pos_a, getattr(sampler, "source0", 0)))
+    g.load(pos_a, pos_b, sampler.lnprob_batch(pos_a),
+           sampler.lnprob_batch(pos_b), state.seed, state.step)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    g.capture(graph)
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0), len(kinds)
+
+
+def _all_graph(mode):
+    """A sampler's graph_mode (a batch fitter's: the tuple of its shards')
+    says every step replayed a captured graph."""
+    modes = mode if isinstance(mode, tuple) else (mode,)
+    return bool(modes) and all(m == "graph" for m in modes)
+
+
+def _require_graph(tag, phase, sampler):
+    """Require that the sampler's last run replayed its captured step (a
+    shipped model must capture: its eager fallback is a fault here)."""
+    mode = sampler.graph_mode
+    log(f"[{phase}] {tag}: graph mode {mode!r} (want 'graph') "
+        f"{'PASS' if _all_graph(mode) else 'FAIL'}")
+    if not _all_graph(mode):
+        raise AssertionError(f"{tag} did not run on its captured step")
+
+
+def _graph_vs_eager(tag, phase, sampler, state, nsteps, thin):
+    """The sampler's graphed run of `nsteps` from `state` against the eager
+    loop from the same state: graph mode "graph", final state, chain,
+    lnprob and accepts bitwise."""
+    import torch
+    got = sampler.run_mcmc(state, nsteps, thin)
+    mode = sampler.graph_mode
+    want = _eager_run(sampler, state, nsteps // thin, thin)
+    same = (all(torch.equal(a, b) for a, b in zip(
+        _halves(got[0]) + (got[0].naccept, got[1], got[2]),
+        _halves(want[0]) + (want[0].naccept, want[1], want[2])))
+        and got[0].step == want[0].step)
+    ok = mode == "graph" and same
+    log(f"[{phase}] {tag}: graph mode {mode!r} (want 'graph'); run_mcmc("
+        f"{nsteps}, thin={thin}) on the captured step against the eager "
+        f"loop from the same state: state, chain, lnprob and accepts "
+        f"{'bitwise equal' if same else 'DIFFERENT'} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the captured step is not the eager "
+                             "step")
+
+
+def _marginal_ms(run, ns):
+    """ms per step of run(n): (t(ns[1]) - t(ns[0])) / (ns[1] - ns[0]), each
+    time the least of two calls after a first untimed one (the host's
+    clock jitters by tens of ms across a short call)."""
+    run(ns[0])
+    t = [min(_timed(lambda: run(n))[1] for _ in range(2)) for n in ns]
+    return 1e3 * (t[1] - t[0]) / (ns[1] - ns[0])
+
+
+def _kernel_step_ms(sampler, state, ns):
+    """ms per step of a kernel's sampler (K2's or K3's) from `state`:
+    run_mcmc(state, n, thin=n) timed by CUDA events (the mean of 3 calls
+    after a warm-up), marginal over ns[1] - ns[0] steps. A fit's run(0, n)
+    on the host clock holds host work that jitters by more than the
+    kernel's whole difference (it gave negative marginals)."""
+    t = [_cuda_ms(lambda: sampler.run_mcmc(state, n, thin=n), 3)
+         for n in ns]
+    return (t[1] - t[0]) / (ns[1] - ns[0])
+
+
+def _step_figures(tag, phase, sampler, state, steps, eager_steps, card):
+    """ms, kernels and busy share per step of the sampler's captured step
+    from `state` beside the eager loop's: host-clock marginals
+    (_marginal_ms) of run_mcmc(n) over `steps` and of the eager loop over
+    `eager_steps`, the captured graph's kernel nodes, torch.profiler's
+    device kernels per step of each (run(2) - run(1)), and the device's
+    busy share of a 3-step run of each."""
+    graphed = lambda n: sampler.run_mcmc(state, n)  # noqa: E731
+    eager = lambda n: _eager_run(sampler, state, n, 1)  # noqa: E731
+    graphed(1)                      # the capture, outside the timings
+    t_prof = time.time()
+    f = {"graph ms per step": _marginal_ms(graphed, steps),
+         "eager ms per step": _marginal_ms(eager, eager_steps)}
+    try:
+        f["graph kernel nodes"], f["graph nodes"] = _graph_kernel_nodes(
+            sampler, state)
+    except Exception as e:  # noqa: BLE001 -- a figure, not a check
+        f["graph kernel nodes"] = f["graph nodes"] = None
+        log(f"[{phase}] {tag}: graph nodes not measured ({e})")
+    for name, run in (("graph", graphed), ("eager", eager)):
+        (k1, h1), (k2, h2) = (_profiled_launches(lambda: run(n))
+                              for n in (1, 2))
+        f[f"{name} profiled kernels per step"] = k2 - k1
+        f[f"{name} launch calls per step"] = h2 - h1
+        _, busy = _profiled_busy_ms(lambda: run(3))
+        _, wall = _timed(lambda: run(3))
+        f[f"{name} device busy share"] = (None if busy is None
+                                          else busy / (1e3 * wall))
+    f["traced and timed runs s"] = time.time() - t_prof
+
+    def share(x):
+        return "not measured" if x is None else f"{100 * x:.1f}%"
+    log(f"[{phase}] {tag}: captured step {f['graph ms per step']:.3f} ms "
+        f"per step (marginal, run_mcmc({steps[1]}) - run_mcmc({steps[0]}))"
+        f", {f['graph kernel nodes']} kernel nodes of {f['graph nodes']} in "
+        f"its graph, {f['graph profiled kernels per step']:.0f} device "
+        f"kernels per step under torch.profiler (the record's copies "
+        f"included), busy {share(f['graph device busy share'])}; eager "
+        f"loop {f['eager ms per step']:.3f} ms per step (marginal over "
+        f"{eager_steps[1]} - {eager_steps[0]} steps), "
+        f"{f['eager profiled kernels per step']:.0f} device kernels and "
+        f"{f['eager launch calls per step']:.0f} cudaLaunchKernel calls per"
+        f" step, busy {share(f['eager device busy share'])}: "
+        f"{f['eager ms per step'] / f['graph ms per step']:.1f}x "
+        f"({f['traced and timed runs s']:.1f} s) ({card})")
+    return f
+
+
 def _tier_segments(tag, run, flushes):
     """run(checkpoint, interval) whole and in production segments of
     TIER_SEGMENT records through the checkpoint= path, the flush replaced by
@@ -3315,7 +3542,7 @@ def phase_tiers(card):
     nburn2 = max(300 // 2, 50)
     steps = 300 + nburn2 + 1000
     want = 2 * steps + (1 if K == 12 else 2)
-    plain = c["plain_sampler_runs"] + c["plain_multi_runs"]
+    plain = _plain_runs(c)
     ok = c["mbb_lnprob"] == want and plain == 0 and len(got) == steps
     log(f"[22] run_pt() at its defaults: {K} rungs x {NWALKERS} walkers, "
         f"{steps} tempered steps in {t_pt:.2f} s (host clock); "
@@ -3796,6 +4023,8 @@ def phase_evidence(card, tiers=None):
         hf = HierarchicalFitter.from_batch(mf, params)
         _, out["HierarchicalFitter.run(200, 1000)"] = _timed(
             lambda: hf.run(nburn=200, nsteps=1000))
+        _require_graph("HierarchicalFitter.from_batch(T, beta).run(200, "
+                       "1000), the hyper-lnprob", 23, hf._sampler)
         pop = hf.population
         phis = np.ascontiguousarray(hf.chain_free[-1, :POP_CHECK_VECTORS],
                                     np.float32)
@@ -3805,6 +4034,8 @@ def phase_evidence(card, tiers=None):
         hfc = HierarchicalFitter.from_batch(mf, params, correlated=True)
         _, out["HierarchicalFitter.run, correlated"] = _timed(
             lambda: hfc.run(**CORRELATED_DEPTH))
+        _require_graph("HierarchicalFitter.from_batch(correlated=True), "
+                       "the hyper-lnprob", 23, hfc._sampler)
         evh, out["HierarchicalFitter.compute_evidence"] = _timed(
             lambda: hf.compute_evidence(nlive=HYPER_NLIVE))
         ess, out["reweight_ess"] = _timed(hf.reweight_ess)
@@ -3852,7 +4083,7 @@ def phase_evidence(card, tiers=None):
             ev, t_ev = _timed(fit.compute_evidence)
         c = _counts()
         want = 1 + ev.n_iter * 32
-        plain = c["plain_sampler_runs"] + c["plain_multi_runs"] + nplain[0]
+        plain = _plain_runs(c) + nplain[0]
         ok = (c["mbb_lnprob"] == want and plain == 0 and ev.converged
               and len(got) == ev.n_iter)
         log(f"[23] compute_evidence() at its defaults (nlive 512, nbatch "
@@ -4050,10 +4281,10 @@ SED_EVIDENCE_BOX = ((15.0, 0.5, 20.0, 0.5, 20.0), (80.0, 4.5, 1500.0, 10.0,
                                                    80.0))
 # The examples' models through run(50, 250) on the card and in a CPU worker.
 SED_EXAMPLE_DEPTH = {"nburn": 50, "nsteps": 250}
-# Production lengths of the marginal stretch-step time, and the steps of
-# the call whose device busy time torch.profiler takes.
+# Production lengths of the marginal stretch-step time ...
 SED_TIME_STEPS = (20, 80)
-SED_PROFILE_STEPS = 3
+# ... and of the eager loop's, beside the captured step's.
+SED_EAGER_STEPS = (5, 25)
 
 
 def sed_mbb_model(opthin=False, noalpha=False):
@@ -4305,19 +4536,25 @@ def phase_generic(card):
         c = _counts()
         kernels = (c["mbb_lnprob"] + c["mbb_stretch_run"]
                    + c["mbb_multi_stretch_run"])
-        ok = kernels == 0 and c["plain_sampler_runs"] == 3
+        ok = (kernels == 0 and c["graphed_runs"] == 3
+              and _plain_runs(c) == 3
+              and fit._sampler.graph_mode == "graph")
         log(f"[24] (b) SEDFitter(mbb-wrapped).run(200, 1000), config 2 x "
             f"{NWALKERS}: {t_run:.2f} s (host clock), acceptance "
             f"{fit.acceptance_fraction.mean():.3f}; {kernels} kernel "
-            f"launches, {c['plain_sampler_runs']} plain sampler runs (want "
-            f"0 and 3: the generic tier runs no TPU-kernel port) "
-            f"{'PASS' if ok else 'FAIL'} ({card})")
+            f"launches, {c['graphed_runs']} runs on the captured step and "
+            f"{_plain_runs(c) - c['graphed_runs']} eager runs (want 0, 3 "
+            f"and 0: the generic tier runs no TPU-kernel port), graph mode "
+            f"{fit._sampler.graph_mode!r} {'PASS' if ok else 'FAIL'} "
+            f"({card})")
         if not ok:
-            raise AssertionError("SEDFitter.run did not run the plain "
-                                 "sampler alone")
+            raise AssertionError("SEDFitter.run did not run the captured "
+                                 "plain step alone")
         out["SEDFitter.run(200, 1000)"] = t_run
         _posterior_vs("SEDFitter.run(200, 1000)", fit, ref, 0.02, free,
                       phase=24)
+        _graph_vs_eager("(b) SEDFitter(mbb-wrapped)", 24, fit._sampler,
+                        fit._state, 20, 2)
         whole = sed_fitter(2, flux, unc, cov, seed=2403).run(nburn=10,
                                                              nsteps=30)
         part = sed_fitter(2, flux, unc, cov, seed=2403).run(nburn=10,
@@ -4373,6 +4610,7 @@ def phase_generic(card):
         for i, which in enumerate(("two-temp", "cmb")):
             ex = example_fitter(which, 2410 + i)
             _, t_ex = _timed(lambda: ex.run(**SED_EXAMPLE_DEPTH))
+            _require_graph(f"(d) {ex.model.name}", 24, ex._sampler)
             chain_cpu, t_cpu = cpu_runs[which].result()
             names = [ex.model.param_names[j] for j in ex.free_space.free_idx]
             _medians_vs(f"(d) {ex.model.name} run(50, 250): card "
@@ -4482,45 +4720,20 @@ def phase_generic(card):
         # -- (f) the stretch step's time, kernels and busy share
         sfit = sed_fitter(2, flux, unc, cov, seed=2430)
         sfit.run(nburn=0, nsteps=SED_TIME_STEPS[0])
-        ts = [_timed(lambda: sfit.run(nburn=0, nsteps=n))[1]
-              for n in SED_TIME_STEPS]
-        ms_step = 1e3 * (ts[1] - ts[0]) / (SED_TIME_STEPS[1]
-                                          - SED_TIME_STEPS[0])
-        # kernels per step: the difference of two traced runs, so the
-        # start's likelihood call drops out
-        t_prof = time.time()
-        (k1, h1), (k2, h2) = (_profiled_launches(
-            lambda: sfit.run(nburn=0, nsteps=n)) for n in (1, 2))
-        kernels, host = k2 - k1, h2 - h1
-        _, busy = _profiled_busy_ms(
-            lambda: sfit.run(nburn=0, nsteps=SED_PROFILE_STEPS))
-        t_prof = time.time() - t_prof
-        _, wall = _timed(lambda: sfit.run(nburn=0,
-                                          nsteps=SED_PROFILE_STEPS))
+        fig = _step_figures("(f) SEDFitter stretch step, config 2 x "
+                            f"{NWALKERS}", 24, sfit._sampler, sfit._state,
+                            SED_TIME_STEPS, SED_EAGER_STEPS, card)
         kref = port_fitter(2, flux, unc, cov, seed=2430)
-        kref.run(nburn=0, nsteps=200)
-        tk = [_timed(lambda: kref.run(nburn=0, nsteps=n))[1]
-              for n in (1000, 3000)]
-        k2_ms = 1e3 * (tk[1] - tk[0]) / 2000
-        share = None if busy is None else busy / (1e3 * wall)
-        log(f"[24] (f) SEDFitter stretch step, config 2 x {NWALKERS}: "
-            f"{ms_step:.3f} ms per step (marginal, run(0, "
-            f"{SED_TIME_STEPS[1]}) - run(0, {SED_TIME_STEPS[0]}), host clock"
-            f" with the card synchronized); {kernels:.0f} device kernels and "
-            f"{host:.0f} cudaLaunchKernel calls per step (torch.profiler, "
-            f"run(0, 2) - run(0, 1)); device busy "
-            f"{'not measured' if busy is None else f'{busy:.1f} ms'} of "
-            f"{1e3 * wall:.1f} ms for run(0, {SED_PROFILE_STEPS})"
-            f"{'' if share is None else f' ({100 * share:.1f}%)'}; the "
-            f"traced runs took {t_prof:.1f} s; K2 on the same posterior "
-            f"{1e3 * k2_ms:.2f} us per step (marginal, run(0, 3000) - "
-            f"run(0, 1000)): {ms_step / k2_ms:.0f}x ({card})")
+        kref.run(nburn=0, nsteps=10)
+        k2_ms = _kernel_step_ms(kref.sampler, kref.final_state, (1000, 3000))
+        ms_step = fig["graph ms per step"]
+        log(f"[24] (f) K2 on the same posterior {1e3 * k2_ms:.2f} us per "
+            f"step (marginal, CUDA events, run_mcmc(3000) - run_mcmc(1000) "
+            f"on its sampler): the captured "
+            f"step {ms_step / k2_ms:.0f}x, the eager loop "
+            f"{fig['eager ms per step'] / k2_ms:.0f}x ({card})")
         out.update({"ms per stretch step": ms_step,
-                    "kernels per step": kernels,
-                    "launch calls per step": host,
-                    "device busy ms": busy, "profiled wall s": wall,
-                    "device busy share": share, "traced runs s": t_prof,
-                    "K2 us per step": 1e3 * k2_ms})
+                    "K2 us per step": 1e3 * k2_ms, **fig})
         lap("(f)")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -4592,6 +4805,7 @@ SEDMULTI_DERIVED_THIN = 25
 PZ_BATCH_SOURCES = 16
 PZ_BATCH_DEPTH = {"nburn": 20, "nsteps": 40}
 SEDMULTI_TIME_STEPS = (10, 30)
+SEDMULTI_EAGER_STEPS = (3, 9)
 K3_TIME_STEPS = (200, 1000)
 PZ_WAVE = (250.0, 350.0, 500.0, 850.0, 1100.0, 2000.0)
 
@@ -4707,6 +4921,8 @@ def _pz_fit_vs_grid(out):
     _counts(reset=True)
     _, out["(b) photo-z run"] = _timed(lambda: fit.run(**PZ_FIT))
     c = _counts()
+    _require_graph(f"(b) photoz_mbb in SEDFitter.run({PZ_FIT})", 25,
+                   fit._sampler)
     zc = fit.results().par_cen("z")
 
     def grid():
@@ -4748,16 +4964,17 @@ def _pz_fit_vs_grid(out):
         raise AssertionError("photo-z P(z) is off the exact grid marginal")
 
 
-def sedmulti_fitter(flux, unc, seed, device=None):
+def sedmulti_fitter(flux, unc, seed, device=None, mesh=None):
     """An SEDMultiFitter of the wrapped 5-parameter MBB on the batch cell's
     data, set up as batch_fitter sets up MultiFitter (config 2's box and
     priors), with both fitters' walker balls at the truth with MBBFitter's
-    scatter."""
+    scatter; over `mesh` (on its first device) when one is given."""
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import SEDMultiFitter
     from mbb_emcee_tpu_torch.fitter import DEFAULT_SCATTER
     smf = SEDMultiFitter(sed_mbb_model(), nwalkers=NWALKERS, seed=seed,
-                         device=device or DEVICE)
+                         device=None if mesh else device or DEVICE,
+                         mesh=mesh)
     smf.set_data(vp.WAVE, flux, unc)
     smf.set_uplim("T", vp.UPPER[0]).set_uplim("beta", vp.UPPER[1])
     for (pi, mean, sig) in vp.CONFIGS[2]["priors"]:
@@ -4853,21 +5070,25 @@ def phase_generic_batch(card):
     c = _counts()
     kernels = c["mbb_lnprob"] + c["mbb_stretch_run"] \
         + c["mbb_multi_stretch_run"]
-    ok = (kernels == 0 and c["plain_multi_runs"] == 3
-          and c["plain_sampler_runs"] == 0)
+    mode = smf._sampler.graph_mode
+    ok = (kernels == 0 and c["graphed_multi_runs"] == 3
+          and _plain_runs(c) == 3 and mode == ("graph",))
     out["SEDMultiFitter.run"] = t_run
     log(f"[25] (c) SEDMultiFitter(mbb-wrapped).run({SEDMULTI_DEPTH}), "
         f"{NSOURCES} sources x {NWALKERS} walkers x 5 bands (band 0 missing "
         f"in {len(range(1, NSOURCES, 16))}): {t_run:.2f} s (host clock), "
         f"acceptance {smf.acceptance_fraction.mean():.3f}; "
         f"{c['mbb_lnprob']} K1 and {c['mbb_multi_stretch_run']} K3 launches"
-        f", {c['plain_multi_runs']} plain multi runs (want 0, 0 and 3); "
-        f"K3's MultiFitter.run on the same data "
-        f"{out['K3 MultiFitter.run']:.2f} s {'PASS' if ok else 'FAIL'} "
-        f"({card})")
+        f", {c['graphed_multi_runs']} plain multi runs on the captured step"
+        f" and {_plain_runs(c) - c['graphed_multi_runs']} eager runs (want "
+        f"0, 0, 3 and 0), graph mode {mode!r}; K3's MultiFitter.run on the "
+        f"same data {out['K3 MultiFitter.run']:.2f} s "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
     if not ok:
-        raise AssertionError("SEDMultiFitter.run did not run the plain "
-                             "multi run alone")
+        raise AssertionError("SEDMultiFitter.run did not run the captured "
+                             "plain multi step alone")
+    _graph_vs_eager("(c) SEDMultiFitter(mbb-wrapped)", 25,
+                    _shard_sampler(smf), smf.final_state, 10, 2)
     parted = int((smf.chain_free != ref.chain_free).flatten(1).any(
         dim=1).sum())
     out["(c) sources parted from K3"] = parted
@@ -4931,6 +5152,8 @@ def phase_generic_batch(card):
     for nm, v in zip(model.param_names, (38.0, 1.9, 80.0, 3.0, 10.0, 3.5)):
         pz.set_param_init(nm, v, 0.1 * v)
     _, out["(d) photo-z batch run"] = _timed(lambda: pz.run(**PZ_BATCH_DEPTH))
+    _require_graph(f"(d) photoz_mbb in SEDMultiFitter.run({PZ_BATCH_DEPTH})",
+                   25, pz._sampler)
     dm_card, out["(d) compute_dustmass_batch"] = _timed(
         lambda: compute_dustmass_batch(pz, thin=4))
     cpu = SEDMultiFitter(model, nwalkers=NWALKERS, seed=2504, device="cpu")
@@ -4952,39 +5175,19 @@ def phase_generic_batch(card):
 
     # -- (e) the batch stretch step's time, kernels and busy share
     smf.run(nburn=0, nsteps=SEDMULTI_TIME_STEPS[0])
-    ts = [_timed(lambda: smf.run(nburn=0, nsteps=n))[1]
-          for n in SEDMULTI_TIME_STEPS]
-    ms_step = 1e3 * (ts[1] - ts[0]) / (SEDMULTI_TIME_STEPS[1]
-                                      - SEDMULTI_TIME_STEPS[0])
-    t_prof = time.time()
-    (k1, h1), (k2, h2) = (_profiled_launches(
-        lambda: smf.run(nburn=0, nsteps=n)) for n in (1, 2))
-    _, busy = _profiled_busy_ms(lambda: smf.run(nburn=0, nsteps=3))
-    t_prof = time.time() - t_prof
-    _, wall = _timed(lambda: smf.run(nburn=0, nsteps=3))
-    tk = [_timed(lambda: ref.run(nburn=0, nsteps=n))[1]
-          for n in K3_TIME_STEPS]
-    k3_ms = 1e3 * (tk[1] - tk[0]) / (K3_TIME_STEPS[1] - K3_TIME_STEPS[0])
-    share = None if busy is None else busy / (1e3 * wall)
-    log(f"[25] (e) SEDMultiFitter batch stretch step, {NSOURCES} x "
-        f"{NWALKERS} x 5 bands: {ms_step:.3f} ms per step (marginal, "
-        f"run(0, {SEDMULTI_TIME_STEPS[1]}) - run(0, {SEDMULTI_TIME_STEPS[0]}"
-        f"), host clock with the card synchronized); {k2 - k1:.0f} device "
-        f"kernels and {h2 - h1:.0f} cudaLaunchKernel calls per step "
-        f"(torch.profiler, run(0, 2) - run(0, 1)); device busy "
-        f"{'not measured' if busy is None else f'{busy:.1f} ms'} of "
-        f"{1e3 * wall:.1f} ms for run(0, 3)"
-        f"{'' if share is None else f' ({100 * share:.1f}%)'}; the traced "
-        f"runs took {t_prof:.1f} s; K3 on the same posterior "
-        f"{1e3 * k3_ms:.2f} us per step (marginal, run(0, "
-        f"{K3_TIME_STEPS[1]}) - run(0, {K3_TIME_STEPS[0]})): "
-        f"{ms_step / k3_ms:.0f}x ({card})")
+    fig = _step_figures(f"(e) SEDMultiFitter batch stretch step, {NSOURCES}"
+                        f" x {NWALKERS} x 5 bands", 25, _shard_sampler(smf),
+                        smf.final_state, SEDMULTI_TIME_STEPS,
+                        SEDMULTI_EAGER_STEPS, card)
+    k3_ms = _kernel_step_ms(ref._sampler, ref.final_state, K3_TIME_STEPS)
+    ms_step = fig["graph ms per step"]
+    log(f"[25] (e) K3 on the same posterior {1e3 * k3_ms:.2f} us per step "
+        f"(marginal, CUDA events, run_mcmc({K3_TIME_STEPS[1]}) - run_mcmc("
+        f"{K3_TIME_STEPS[0]}) on its sampler): the captured step "
+        f"{ms_step / k3_ms:.0f}x, "
+        f"the eager loop {fig['eager ms per step'] / k3_ms:.0f}x ({card})")
     out.update({"ms per batch stretch step": ms_step,
-                "kernels per step": k2 - k1,
-                "launch calls per step": h2 - h1,
-                "device busy ms": busy, "profiled wall s": wall,
-                "device busy share": share, "traced runs s": t_prof,
-                "K3 us per step": 1e3 * k3_ms})
+                "K3 us per step": 1e3 * k3_ms, **fig})
     lap("(e)")
     out["phase 25"] = time.time() - t0
     ok = out["phase 25"] <= 40.0
@@ -5010,10 +5213,21 @@ CLI_SED_INIT = ("--initval", "T_cold", "18", "--initval", "T_warm", "45",
                 "--initval", "fnorm_cold", "30", "--initval", "fnorm_warm",
                 "1.5")
 CLI_SED_TIME_STEPS = (10, 30)
+CLI_SED_EAGER_STEPS = (3, 9)
 CLI_SED_BUDGET_S = 20.0
 TWIN_VECTORS = 4096
 MC_MARGINAL_N = 4096
 TWIN_FILES = ("two_temp_model", "cmb_high_z_model", "photoz_model")
+TWIN_WAVES = {"two_temp_model": CLI_SED_WAVE,
+              "cmb_high_z_model": (250.0, 450.0, 850.0, 1300.0, 2000.0,
+                                   3000.0),
+              "photoz_model": PZ_WAVE}
+# (f): every shipped model through a short run on the captured step.
+SHIPPED_WALKERS = 64
+SHIPPED_DEPTH = {"nburn": 5, "nsteps": 10}
+# examples/custom_model_torch.py defines its model and lnprob above this
+# line and samples below it.
+CUSTOM_MODEL_CUT = "# 1. Generic stretch-move ensemble"
 
 
 def cli_sed_catalog(path, seed=2600):
@@ -5106,10 +5320,7 @@ def _twins_on_card():
     import torch
     from mbb_emcee_tpu_torch.cli_sed import load_model
     from mbb_emcee_tpu_torch.sed import batched_fnu
-    waves = {"two_temp_model": CLI_SED_WAVE,
-             "cmb_high_z_model": (250.0, 450.0, 850.0, 1300.0, 2000.0,
-                                  3000.0),
-             "photoz_model": PZ_WAVE}
+    waves = TWIN_WAVES
     out = {}
     for stem in TWIN_FILES:
         model = load_model(os.path.join(REPO, "examples",
@@ -5135,6 +5346,65 @@ def _twins_on_card():
             raise AssertionError(f"{stem}_torch.py: fnu on the card is not "
                                  "the CPU's")
     return out
+
+
+def _custom_model_namespace():
+    """examples/custom_model_torch.py's definitions (its two-temperature
+    model, data and batched lnprob on DEVICE): the script run up to
+    CUSTOM_MODEL_CUT, where its sampling starts."""
+    path = os.path.join(REPO, "examples", "custom_model_torch.py")
+    with open(path) as fh:
+        src = fh.read()
+    if CUSTOM_MODEL_CUT not in src:
+        raise AssertionError(f"{path} lost the line {CUSTOM_MODEL_CUT!r}")
+    ns = {"__name__": "custom_model_torch", "__file__": path}
+    argv, sys.argv = sys.argv, [path, "--device", DEVICE]
+    try:
+        exec(compile(src[:src.index(CUSTOM_MODEL_CUT)], path, "exec"), ns)
+    finally:
+        sys.argv = argv
+    return ns
+
+
+def _shipped_models_on_graph():
+    """(f) Every model file the repo ships (examples/*_model_torch.py
+    through cli_sed.load_model) in SEDFitter.run(SHIPPED_DEPTH) on mock data
+    at one of its _twin_rows, and examples/custom_model_torch.py's own
+    lnprob in EnsembleSampler, each on the captured step: graph mode
+    'graph', and a short graphed run bitwise the eager loop."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch import EnsembleSampler, SEDFitter
+    from mbb_emcee_tpu_torch.cli_sed import load_model
+    from mbb_emcee_tpu_torch.sampler import make_initial_ball
+    for i, stem in enumerate(TWIN_FILES):
+        model = load_model(os.path.join(REPO, "examples",
+                                        f"{stem}_torch.py"))
+        th = _twin_rows(stem, 1, 2660 + i)[0]
+        wave = np.asarray(TWIN_WAVES[stem])
+        f = model.fnu(torch.as_tensor(th), torch.as_tensor(
+            wave, dtype=torch.float32)).double().numpy()
+        fit = SEDFitter(model, nwalkers=SHIPPED_WALKERS, seed=2650 + i,
+                        device=DEVICE)
+        fit.set_data(wave, f, 0.05 * f)
+        for nm, v in zip(model.param_names, th):
+            fit.set_param_init(nm, float(v), 0.05 * abs(float(v)))
+        fit.run(**SHIPPED_DEPTH)
+        tag = f"(f) examples/{stem}_torch.py [{model.name}]"
+        _require_graph(f"{tag} SEDFitter.run({SHIPPED_DEPTH})", 26,
+                       fit._sampler)
+        _graph_vs_eager(tag, 26, fit._sampler, fit._state, 10, 2)
+    ns = _custom_model_namespace()
+    lo, hi = ns["LOWER"], ns["UPPER"]
+    samp = EnsembleSampler(SHIPPED_WALKERS, lo.size, ns["lnprob"])
+    center = 0.5 * (lo + hi)
+    p0 = make_initial_ball(torch.Generator().manual_seed(1), center,
+                           0.15 * center, SHIPPED_WALKERS, lo, hi,
+                           device=DEVICE)
+    _graph_vs_eager("(f) examples/custom_model_torch.py's lnprob in "
+                    "EnsembleSampler", 26, samp,
+                    samp.advance(samp.init_state(p0, seed=2), 10), 10, 2)
+    _require_graph("(f) examples/custom_model_torch.py's lnprob", 26, samp)
 
 
 def _extension_lines():
@@ -5224,8 +5494,9 @@ def phase_cli_sed(card):
     mf = res.mf
     same = (torch.equal(mf.chain_free, direct.chain_free)
             and torch.equal(mf.lnprobability, direct.lnprobability))
-    ok = (same and kernels == 0 and c["plain_multi_runs"] == 3
-          and c["plain_sampler_runs"] == 0
+    mode = mf._sampler.graph_mode
+    ok = (same and kernels == 0 and c["graphed_multi_runs"] == 3
+          and _plain_runs(c) == 3 and mode == ("graph",)
           and tuple(mf.chain_free.shape) == (NSOURCES, nsteps, NWALKERS, 5))
     log(f"[26] (a) run_sed_tpu_torch's fit stage (cli_sed.fit) on "
         f"examples/two_temp_model_torch.py, {NSOURCES} sources x {NWALKERS} "
@@ -5236,12 +5507,16 @@ def phase_cli_sed(card):
         f"SEDMultiFitter(model, {NWALKERS}, seed={CLI_SED_SEED}).run("
         f"{nburn}, {nsteps}) on the same data ({out['(a) direct run s']:.2f}"
         f" s); {c['mbb_lnprob']} K1, {c['mbb_stretch_run']} K2 and "
-        f"{c['mbb_multi_stretch_run']} K3 launches, {c['plain_multi_runs']} "
-        f"plain multi runs (want 0, 0, 0 and 3) {'PASS' if ok else 'FAIL'} "
+        f"{c['mbb_multi_stretch_run']} K3 launches, "
+        f"{c['graphed_multi_runs']} plain multi runs on the captured step "
+        f"and {_plain_runs(c) - c['graphed_multi_runs']} eager runs (want 0,"
+        f" 0, 0, 3 and 0), graph mode {mode!r} {'PASS' if ok else 'FAIL'} "
         f"({card})")
     if not ok:
         raise AssertionError("the CLI's fit stage is not SEDMultiFitter.run "
-                             "on the plain batch step")
+                             "on the captured plain batch step")
+    _graph_vs_eager("(a) the CLI's two-temperature batch", 26,
+                    _shard_sampler(mf), mf.final_state, 10, 2)
     lap("(a)")
 
     # -- (b) the serving loop, derived posteriors, PPC and the summary
@@ -5334,22 +5609,18 @@ def phase_cli_sed(card):
 
     # -- (e) the two-temperature batch step's time and kernels
     direct.run(nburn=0, nsteps=CLI_SED_TIME_STEPS[0])
-    ts = [_timed(lambda: direct.run(nburn=0, nsteps=n))[1]
-          for n in CLI_SED_TIME_STEPS]
-    ms_step = 1e3 * (ts[1] - ts[0]) / (CLI_SED_TIME_STEPS[1]
-                                      - CLI_SED_TIME_STEPS[0])
-    (k1, h1), (k2, h2) = (_profiled_launches(
-        lambda: direct.run(nburn=0, nsteps=n)) for n in (1, 2))
-    out.update({"ms per batch stretch step": ms_step,
-                "kernels per step": k2 - k1,
-                "launch calls per step": h2 - h1})
-    log(f"[26] (e) two-temperature batch stretch step, {NSOURCES} x "
-        f"{NWALKERS} x {len(CLI_SED_WAVE)} bands: {ms_step:.3f} ms per step "
-        f"(marginal, run(0, {CLI_SED_TIME_STEPS[1]}) - run(0, "
-        f"{CLI_SED_TIME_STEPS[0]}), host clock with the card synchronized); "
-        f"{k2 - k1:.0f} device kernels and {h2 - h1:.0f} cudaLaunchKernel "
-        f"calls per step (torch.profiler, run(0, 2) - run(0, 1)) ({card})")
+    fig = _step_figures(f"(e) two-temperature batch stretch step, "
+                        f"{NSOURCES} x {NWALKERS} x {len(CLI_SED_WAVE)} "
+                        "bands", 26, _shard_sampler(direct),
+                        direct.final_state, CLI_SED_TIME_STEPS,
+                        CLI_SED_EAGER_STEPS, card)
+    out.update({"ms per batch stretch step": fig["graph ms per step"],
+                **fig})
     lap("(e)")
+
+    # -- (f) every shipped model on the captured step
+    _, out["(f) shipped models s"] = _timed(_shipped_models_on_graph)
+    lap("(f)")
     out["phase 26"] = time.time() - t0
     ok = out["phase 26"] <= CLI_SED_BUDGET_S
     log(f"[26] phase 26: {out['phase 26']:.1f} s (advisory budget "
@@ -5482,7 +5753,7 @@ def phase_migration(card):
             np.array_equal(lir_c, lir_n)) and bool(np.all(np.isfinite(lir_c)))
         want = {k: c_ref[k] for k in FIT_LAUNCHES}
         ok = (same and {k: c[k] for k in FIT_LAUNCHES} == want == FIT_LAUNCHES
-              and c["plain_sampler_runs"] + c["plain_multi_runs"] == 0
+              and _plain_runs(c) == 0
               and like == call and np.isfinite(like) and lir_same
               and fit.redshift == 2.5
               and tuple(fit.chain_free.shape) == (nsteps, NWALKERS, 5))
@@ -5496,7 +5767,7 @@ def phase_migration(card):
             f"keyword ({out['(a) MBBFitter run s']:.2f} s); "
             f"{c['mbb_lnprob']} K1, {c['mbb_stretch_run']} K2, "
             f"{c['mbb_multi_stretch_run']} K3 launches and "
-            f"{c['plain_sampler_runs'] + c['plain_multi_runs']} plain runs "
+            f"{_plain_runs(c)} plain runs "
             f"(want {FIT_LAUNCHES['mbb_lnprob']}, "
             f"{FIT_LAUNCHES['mbb_stretch_run']}, 0, 0: MBBFitter.run's "
             f"{c_ref['mbb_lnprob']}, {c_ref['mbb_stretch_run']}, "
@@ -5633,7 +5904,7 @@ def phase_mesh(card):
     from mbb_emcee_tpu_torch.ops.sampler_kernel import FusedSampler
     from mbb_emcee_tpu_torch.parallel import ShardedEnsembleSampler
     from mbb_emcee_tpu_torch.sampler import (
-        EnsembleSampler, multi_stretch_run_plain)
+        EnsembleSampler, multi_stretch_run_plain, stretch_run_plain)
 
     t0 = time.time()
     out = {}
@@ -5723,8 +5994,7 @@ def phase_mesh(card):
         if dev not in by_dev:
             ops = ops_by_dev[dev] = prepare_lnprob_inputs(phot, shape, spec2,
                                                           device=dev)
-            by_dev[dev] = (lambda o: lambda x: mbb_lnprob(x.contiguous(),
-                                                          o))(ops)
+            by_dev[dev] = _k1_lnprob(ops)
     sharded = ShardedEnsembleSampler(
         NWALKERS, ops.nfree, [by_dev[d] for d in mesh_w.devices], mesh_w)
     single = EnsembleSampler(NWALKERS, ops.nfree, by_dev[mesh_w.devices[0]])
@@ -5734,7 +6004,9 @@ def phase_mesh(card):
     rs = sharded.run_mcmc(sharded.init_state(p0, seed=2802), nrun, thin=10)
     k1_sharded = _counts()["mbb_lnprob"]
     _counts(reset=True)
-    r1 = single.run_mcmc(single.init_state(p0, seed=2802), nrun, thin=10)
+    # the unsharded sampler's eager loop (a K1 lnprob is not captured)
+    r1 = stretch_run_plain(single.init_state(p0, seed=2802),
+                           single.lnprob_batch, nrun // 10, 10, single.a)
     k1_single = _counts()["mbb_lnprob"]
     same = (torch.equal(rs[1], r1[1]) and torch.equal(rs[2], r1[2])
             and torch.equal(rs[0].naccept, r1[0].naccept))
@@ -5796,12 +6068,12 @@ def phase_mesh(card):
     want_k1 = 2 * k * (2 + 3 + 2 * nburn + nsteps)
     ok = (fit._backend_used == "sharded" and c["mbb_lnprob"] == want_k1
           and c["mbb_stretch_run"] == 0
-          and c["plain_sampler_runs"] + c["plain_multi_runs"] == 0)
+          and _plain_runs(c) == 0)
     log(f"[28] (d) MBBFitter(mesh) on {where_w}, config 2, run({nburn}, "
         f"{nsteps}): {out['(d) sharded fit s']:.2f} s against K2's "
         f"{out['(d) K2 fit s']:.2f} s (host clock); {c['mbb_lnprob']} K1 "
         f"launches (want {want_k1}), {c['mbb_stretch_run']} K2, "
-        f"{c['plain_sampler_runs'] + c['plain_multi_runs']} plain runs "
+        f"{_plain_runs(c)} plain runs "
         f"{'PASS' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("MBBFitter(mesh=) did not run on K1 per shard")
@@ -5912,6 +6184,8 @@ def phase_mesh(card):
         raise AssertionError(f"the sharded {nwide}-source K3 run is not the "
                              "unsharded one")
     lap("(f)")
+    _mesh_graph_checks(mesh_b, where_b, card)
+    lap("(g)")
     out["phase 28"] = time.time() - t0
     ok = out["phase 28"] <= MESH_BUDGET_S
     log(f"[28] phase 28: {out['phase 28']:.1f} s (advisory budget "
@@ -5922,9 +6196,191 @@ def phase_mesh(card):
     return launches, out, errs
 
 
+def _mesh_graph_checks(mesh, where, card):
+    """Phase 28 (g) (see the module docstring): the captured plain step of
+    a source-sharded SEDMultiFitter and of HierarchicalFitter over
+    `mesh`."""
+    import warnings
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch.batchengine import _cut
+    from mbb_emcee_tpu_torch.hierarchy import (
+        HierarchicalFitter, TruncatedGaussianPopulation)
+    nburn, nsteps = MESH_DEPTH
+    k = mesh.size
+    one_card = len(set(mesh.devices)) == 1
+    flux, unc = batch_data(NSOURCES, seed=2806, missing_every=16)
+    fits = [sedmulti_fitter(flux, unc, seed=2806, mesh=m)
+            for m in (mesh, None)]
+    _counts(reset=True)
+    for f in fits:
+        f.run(nburn=nburn, nsteps=nsteps)
+    c = _counts()
+    mode = fits[0]._sampler.graph_mode
+    same = (torch.equal(fits[0].chain_free, fits[1].chain_free)
+            and torch.equal(fits[0].lnprobability, fits[1].lnprobability))
+    ok = (same and mode == ("graph",) * k
+          and c["graphed_multi_runs"] == 3 * (k + 1)
+          and c["plain_multi_runs"] == 0)
+    log(f"[28] (g) SEDMultiFitter(mbb-wrapped, mesh) on {where}, "
+        f"run({nburn}, {nsteps}): graph modes {mode!r}, "
+        f"{c['graphed_multi_runs']} runs on captured steps and "
+        f"{c['plain_multi_runs']} eager (want {3 * (k + 1)}: 3 per shard "
+        f"and 3 unsharded, and 0); chains and lnprob "
+        f"{'bitwise' if same else 'NOT bitwise'} the unsharded run's "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the source-sharded plain step is not the "
+                             "unsharded captured step")
+    final = fits[0].final_state
+    for i, sh in enumerate(fits[0]._sampler._shards):
+        _graph_vs_eager(f"(g) SEDMultiFitter(mesh) shard {i} on "
+                        f"{sh.device}", 28, sh.obj,
+                        _cut(final, sh.lo, sh.hi, sh.device), 10, 2)
+
+    rng = np.random.default_rng(2807)
+    theta = rng.normal(35.0, 4.0, 32)
+    samples = (theta[:, None] + rng.normal(0.0, 1.5, (32, 256)))[..., None]
+    pop = TruncatedGaussianPopulation.for_box(
+        ("T",), [10.0], [60.0], sigma_min=2.0, sigma_max=6.0)
+    hfs = [HierarchicalFitter(samples, pop, nwalkers=32, seed=2807, mesh=m,
+                              device=None if m else DEVICE)
+           for m in (mesh, None)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for h in hfs:
+            h.run(nburn=nburn, nsteps=nsteps)
+    warned = [str(w.message) for w in caught
+              if "could not be captured" in str(w.message)]
+    samp = hfs[0]._sampler
+    want = "graph" if one_card else "eager"
+    state = hfs[0]._state
+    got = samp.run_mcmc(state, 10, 2)
+    eager = _eager_run(samp, state, 5, 2)
+    same = all(torch.equal(a, b) for a, b in zip(
+        _halves(got[0]) + (got[0].naccept, got[1], got[2]),
+        _halves(eager[0]) + (eager[0].naccept, eager[1], eager[2])))
+    x = hfs[0]._state.pos_a
+    lnp_sh = samp.lnprob_batch(x).double()
+    lnp_un = hfs[1]._sampler.lnprob_batch(x.to(hfs[1].device)).double()
+    rel = float(((lnp_sh - lnp_un.to(lnp_sh.device)).abs()
+                 / lnp_un.abs().to(lnp_sh.device).clamp_min(1.0)).max())
+    ok = (samp.graph_mode == want and samp.capture == one_card
+          and not warned and same and rel <= 1e-5
+          and hfs[1]._sampler.graph_mode == "graph"
+          and bool(np.all(np.isfinite(hfs[0].flatchain))))
+    log(f"[28] (g) HierarchicalFitter(mesh) on {where}, 32 sources x 256 "
+        f"draws, run({nburn}, {nsteps}): graph mode "
+        f"{samp.graph_mode!r} (want {want!r}: "
+        f"{'the shards share one card' if one_card else 'eager by design, its source sum spans the cards'}"
+        f"), the unsharded fit's {hfs[1]._sampler.graph_mode!r}; "
+        f"{len(warned)} capture warnings; run_mcmc(10, thin=2) "
+        f"{'bitwise' if same else 'NOT bitwise'} the eager loop; hyper-"
+        f"lnprob against the unsharded one at {x.shape[0]} walkers: max "
+        f"rel |d| {rel:.3g} (rtol 1e-5) {'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("the sharded hierarchy's step is off its path "
+                             f"({warned})")
+
+
+# Phases 29-30: the SBC twin (tests/test_torch_sbc.py's sbc_ranks and
+# sbc_hierarchy_ranks) on the card at tests/test_sbc.py's full S, depths,
+# truths and thresholds. Phase 29 runs in the whole run; phase 30 holds the
+# variants a whole run has no room for and runs alone (--phases 30).
+# The split by the variants' seconds on an H100 (PERF.md): 34 s for these
+# together in a whole run, 55 s for the two left alone.
+SBC_WHOLE = ("plain", "response", "correlated", "single", "sedmulti",
+             "photoz", "hierarchy", "pt", "map_is", "nested")
+SBC_ALONE = ("hmc", "single_map_init")
+SBC_BUDGET_S = 60.0
+
+
+def _sbc_variant(mode):
+    """One SBC variant on the card: (rank statistics with seconds, launches
+    and graph mode, launches by kernel). Raises when its ranks miss a
+    threshold of tests/test_sbc.py or it ran off its path."""
+    import numpy as np
+    from tests.test_torch_sbc import (
+        HIER, rank_stats, sbc_hierarchy_ranks, sbc_ranks, sbc_size)
+    _counts(reset=True)
+    t0 = time.time()
+    if mode == "hierarchy":
+        ranks, S, modes = sbc_hierarchy_ranks(device=DEVICE)
+        graph = modes[0] if len(set(modes)) == 1 else tuple(set(modes))
+    else:
+        ranks, S, info = sbc_ranks(mode, device=DEVICE)
+        graph = info.get("graph_mode")
+    _sync_all()
+    st = rank_stats(ranks, S)
+    st["seconds"] = time.time() - t0
+    c = _counts()
+    st.update({"S": S, "ranks": int(np.size(ranks)), "graph_mode": graph,
+               "K1": c["mbb_lnprob"], "K2": c["mbb_stretch_run"],
+               "K3": c["mbb_multi_stretch_run"],
+               "plain stretch runs": _plain_runs(c)
+               - c["graphed_runs"] - c["graphed_multi_runs"],
+               "graphed runs": c["graphed_runs"] + c["graphed_multi_runs"]})
+    # the path each variant must take (tests/test_sbc.py's mode map)
+    n = sbc_size(mode) if mode != "hierarchy" else HIER["M"]
+    want = {"plain": {"K3": 3, "graphed runs": 0},
+            "response": {"K3": 3, "graphed runs": 0},
+            "correlated": {"K3": 3, "graphed runs": 0},
+            "single": {"K2": 3 * n, "graphed runs": 0},
+            "single_map_init": {"K2": 3 * n, "graphed runs": 0},
+            "sedmulti": {"K3": 0, "graphed runs": 3,
+                         "graph_mode": ("graph",)},
+            "photoz": {"K3": 0, "graphed runs": 3, "graph_mode": ("graph",)},
+            "hierarchy": {"graphed runs": 3 * n, "graph_mode": "graph"},
+            }.get(mode, {"K2": 0, "K3": 0, "graphed runs": 0})
+    want["plain stretch runs"] = 0
+    path_ok = all(st[k] == v for k, v in want.items())
+    log(f"[SBC] {mode}: S {S}, {st['ranks']} ranks: KS {st['ks']:.4f} "
+        f"(< {st['ks_max']:.4f}), mean {st['mean']:.4f} (0.5 +- 0.10), var "
+        f"{st['var']:.5f} ({0.6 / 12:.5f}-{1.6 / 12:.5f}), below 0.02 "
+        f"{st['low']:.3f} / above 0.98 {st['high']:.3f} (< 0.15); "
+        f"{st['seconds']:.1f} s; {st['K1']} K1, {st['K2']} K2, {st['K3']} K3"
+        f" launches, {st['graphed runs']} runs on the captured step, "
+        f"{st['plain stretch runs']} eager stretch runs, graph mode "
+        f"{graph!r} (want {want}) "
+        f"{'PASS' if st['ok'] and path_ok else 'FAIL'}")
+    if not path_ok:
+        raise AssertionError(f"SBC {mode} ran off its path: {st}")
+    if not st["ok"]:
+        raise AssertionError(f"SBC {mode}: ranks not uniform: {st}")
+    return st
+
+
+def phase_sbc(card, modes, phase):
+    """Simulation-based calibration on the card (see the module docstring,
+    phases 29 and 30). Returns (launches by kernel and path, statistics and
+    seconds by variant)."""
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+    for mode in modes:
+        st = _sbc_variant(mode)
+        out[mode] = st
+        for kernel, key in (("mbb_lnprob", "K1"), ("mbb_stretch_run", "K2"),
+                            ("mbb_multi_stretch_run", "K3")):
+            if st[key]:
+                launches[kernel][f"SBC {mode} (phase {phase})"] = st[key]
+    out[f"phase {phase}"] = time.time() - t0
+    note = ""
+    if phase == 29:
+        note = (f" (advisory budget {SBC_BUDGET_S:.0f} s: "
+                f"{'within' if out['phase 29'] <= SBC_BUDGET_S else 'OVER'})")
+    log(f"[{phase}] phase {phase}: {out[f'phase {phase}']:.1f} s{note}; "
+        + ", ".join(f"{m} {out[m]['seconds']:.1f} s" for m in modes)
+        + f" ({card})")
+    return launches, out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
           "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
-          "24", "25", "26", "27", "28")
+          "24", "25", "26", "27", "28", "29", "30")
+# Phases a whole run leaves out: each runs alone (--phases 30).
+ALONE_PHASES = ("30",)
 
 
 def main(argv=None):
@@ -5973,13 +6429,16 @@ def main(argv=None):
         ("25", lambda: phase_generic_batch(card)),
         ("26", lambda: phase_cli_sed(card)),
         ("27", lambda: phase_migration(card)),
-        ("28", lambda: phase_mesh(card))]
+        ("28", lambda: phase_mesh(card)),
+        ("29", lambda: phase_sbc(card, SBC_WHOLE, 29)),
+        ("30", lambda: phase_sbc(card, SBC_ALONE, 30))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
     res = {}
     for name, fn in steps:
-        if only is None or name in only or name in ("0", "1"):
+        if (name in ("0", "1") or (only is None and name not in ALONE_PHASES)
+                or (only is not None and name in only)):
             t_phase = time.time()
             res[name] = fn()
             log(f"phase {name}: {time.time() - t_phase:.1f} s")
@@ -6014,6 +6473,7 @@ def main(argv=None):
     cli_sed_paths, cli_sed_times = res["26"]
     migration_paths, migration_times = res["27"]
     mesh_paths, mesh_times, mesh_errs = res["28"]
+    sbc_paths, sbc_stats = res["29"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -6025,6 +6485,7 @@ def main(argv=None):
         by_path.update(cli_sed_paths[name])
         by_path.update(migration_paths[name])
         by_path.update(mesh_paths[name])
+        by_path.update(sbc_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -6133,6 +6594,8 @@ def main(argv=None):
         + json.dumps(migration_times))
     log(f"multi-device sharding, host seconds and counts ({card}): "
         + json.dumps(mesh_times))
+    log(f"simulation-based calibration, ranks, seconds and counts "
+        f"({card}): " + json.dumps(sbc_stats))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

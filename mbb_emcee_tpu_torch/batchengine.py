@@ -156,6 +156,13 @@ class _ShardedBatchSampler:
     acceptance_fraction = staticmethod(
         MultiEnsembleSampler.acceptance_fraction)
 
+    @property
+    def graph_mode(self):
+        """The tuple of the shards' samplers' graph_mode ("graph" or
+        "eager" after a plain multi run; None on K3), in shard order."""
+        return tuple(getattr(sh.obj, "graph_mode", None)
+                     for sh in self._shards)
+
 
 def batched_split_rhat(chain):
     """(S, nrec, nw, nfree) chain tensor -> (S, nfree) split-R-hat, fp64:

@@ -51,10 +51,21 @@ _CHUNK_ELEMS = 1 << 26
 _LN_2PI = math.log(2.0 * math.pi)
 
 
+_CONSTS = {}
+
+
 def _const(a, like):
-    """Host array `a` as a tensor of `like`'s dtype and device."""
-    return torch.as_tensor(np.asarray(a), dtype=like.dtype,
-                           device=like.device)
+    """Host array `a` as a tensor of `like`'s dtype and device, copied to
+    the device once per (contents, dtype, device): a hyper-lnprob call then
+    copies nothing from the host, as a captured step requires
+    (sampler._StepGraph). Callers never write to it."""
+    a = np.asarray(a)
+    key = (a.tobytes(), a.shape, a.dtype.str, like.dtype, like.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(a, dtype=like.dtype,
+                                           device=like.device)
+    return t
 
 
 def _hyper(phi, theta, ncols):
@@ -782,8 +793,13 @@ class HierarchicalFitter(ParamSpaceMixin):
             self.samples, self.population, self._effective_spec(),
             ln_interim=self.ln_interim, selection=self.selection,
             dtype=self.dtype, device=self.device, mesh=self.mesh)
+        lnprob.label = (f"the hyper-lnprob of "       # sampler._label
+                        f"{type(self.population).__name__}")
+        # over several cards the hyper-lnprob's work spans them, and a
+        # captured step records one card's stream: the eager loop runs
+        one_card = self.mesh is None or len(set(self.mesh.devices)) == 1
         sampler = EnsembleSampler(self.nwalkers, free_space.nfree, lnprob,
-                                  a=self.a)
+                                  a=self.a, capture=one_card)
         return lnprob, free_space, sampler
 
     def run(self, nburn=200, nsteps=1000, thin=1, p0=None,

@@ -243,6 +243,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         backend = self._resolve_sampler_backend()
         if backend == "torch":
             ops = self._lnprob_operands(spec)
+            ops.label = "MultiFitter's batch likelihood"    # sampler._label
             self._sampler = MultiEnsembleSampler(
                 ops.nsources, self.nwalkers, ops.free_space.nfree, ops.plain,
                 self.a, ops.free_space, self._source0)

@@ -42,16 +42,34 @@ def _mulhilo(m, x):
     return hi & _MASK32, lo
 
 
-def philox4x32(c0, c1, c2, c3, key):
-    """Philox-4x32-10 of the counter words (int64 tensors holding 32-bit
-    values, broadcastable) under the 64-bit python-int `key`. Returns the
-    four output words as int64 tensors."""
+def _round_key_words(key):
+    """The (k0, k1) key words of each of the ten rounds of the 64-bit
+    python-int `key`."""
     k0 = key & _MASK32
     k1 = (key >> 32) & _MASK32
+    words = []
+    for _ in range(_ROUNDS):
+        words.append((k0, k1))
+        k0 = (k0 + _W0) & _MASK32
+        k1 = (k1 + _W1) & _MASK32
+    return words
+
+
+def round_keys(key, device):
+    """`key`'s round key words as a (10, 2) int64 tensor on `device`: the
+    key as data, so one captured draw (sampler._StepGraph) serves any
+    seed. philox4x32 takes it in place of the int."""
+    return torch.tensor(_round_key_words(int(key)), dtype=torch.int64,
+                        device=device)
+
+
+def philox4x32(c0, c1, c2, c3, key):
+    """Philox-4x32-10 of the counter words (int64 tensors holding 32-bit
+    values, broadcastable) under the 64-bit python-int `key`, or its
+    round_keys tensor. Returns the four output words as int64 tensors."""
+    words = key if torch.is_tensor(key) else _round_key_words(int(key))
     for r in range(_ROUNDS):
-        if r:
-            k0 = (k0 + _W0) & _MASK32
-            k1 = (k1 + _W1) & _MASK32
+        k0, k1 = words[r][0], words[r][1]
         hi0, lo0 = _mulhilo(_M0, c0)
         hi1, lo1 = _mulhilo(_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
@@ -75,12 +93,20 @@ def stretch_uniforms(key, step0, nsteps, half, device, source=0, lane0=0):
     Counter words: (step low 32 bits, h + 2 * source, lane, step high 32
     bits), so source 0 is the single-ensemble kernel's stream. `source` is
     an int, or a 1-D sequence of S source indices, which adds a leading
-    axis: (S, 6 * nsteps, half), the multi-source kernel's streams."""
+    axis: (S, 6 * nsteps, half), the multi-source kernel's streams.
+
+    The device-counter form: `step0` a 0-d int64 tensor on `device`, `key`
+    its round_keys tensor and `source` an int64 tensor on `device` (0-d
+    for one ensemble). Nothing then leaves the device or is read back, so
+    a captured step draws from the counter it increments in place; the
+    words depend on the global step alone, so the draws are the int form's
+    bit for bit."""
     src = torch.as_tensor(source, dtype=torch.int64, device=device)
     lead = tuple(src.shape)
     src = src.reshape(lead + (1, 1, 1))
+    step0 = step0 if torch.is_tensor(step0) else int(step0)
     step = (torch.arange(nsteps, dtype=torch.int64, device=device)
-            + int(step0)).view(nsteps, 1, 1)
+            + step0).view(nsteps, 1, 1)
     h = torch.arange(2, dtype=torch.int64, device=device).view(1, 2, 1)
     lane = (torch.arange(half, dtype=torch.int64, device=device)
             + int(lane0)).view(1, 1, half)
@@ -88,7 +114,7 @@ def stretch_uniforms(key, step0, nsteps, half, device, source=0, lane0=0):
     c0 = (step & _MASK32).expand(full)
     c1 = ((h + 2 * src) & _MASK32).expand(full)
     c3 = (step >> 32).expand(full)
-    x0, x1, x2, _ = philox4x32(c0, c1, lane.expand(full), c3, int(key))
+    x0, x1, x2, _ = philox4x32(c0, c1, lane.expand(full), c3, key)
     u = torch.stack([bits_to_uniform(x) for x in (x0, x1, x2)], dim=-2)
     return u.reshape(lead + (6 * nsteps, half))
 

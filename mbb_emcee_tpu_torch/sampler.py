@@ -19,17 +19,28 @@ then half B, and draws them from the kernel's own Philox-4x32-10 stream
 same chain up to fp32 rounding. `multi_stretch_run_plain` is the same loop
 over S independent ensembles in lockstep, the plain version of the
 multi-source kernel (ops/multifit_kernel.py), one Philox stream per source.
+
+On a card, EnsembleSampler and MultiEnsembleSampler run those loops on one
+captured CUDA graph of one ensemble step (`_StepGraph`: both half-steps
+with their Philox draws, the step counter on the device), replayed `thin`
+times per record: the chain of the eager loop bit for bit, with one graph
+launch per step where the eager step launches every elementwise op of the
+lnprob from Python. The JAX package compiles the same loop into one
+program. A step that cannot be captured (a model that copies host data to
+the device, syncs or branches on a tensor value) runs the eager loop
+instead and warns once; `graph_mode` says which ran.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch.likelihood import SUPPORT_FLOOR
-from mbb_emcee_tpu_torch.ops.philox import stretch_uniforms
+from mbb_emcee_tpu_torch.ops.philox import round_keys, stretch_uniforms
 
 
 @dataclasses.dataclass
@@ -196,6 +207,219 @@ def multi_stretch_run_plain(state: MultiSamplerState, lnprob_batch, nrec,
 multi_stretch_run_plain.runs = 0
 
 
+# Eager steps on the capture stream before a capture (the first call of a
+# model does its lazy set-up there, outside the graph).
+GRAPH_WARMUP_STEPS = 2
+
+
+class _StepGraph:
+    """One ensemble step of _stretch_records -- half A then half B, each
+    with its three rows of Philox draws -- captured as a CUDA graph over
+    static buffers: the halves, their lnprob, the accept counts, the
+    global step (a 0-d int64 the graph increments) and the round keys.
+    `source` (an int64 tensor on the device: 0-d for one ensemble, the
+    global source indices for S) keys the streams as stretch_uniforms
+    does, so a replay draws the rows of the eager loop's record draw."""
+
+    def __init__(self, lnprob_batch, pos_a, a, source):
+        self.lnprob_batch, self.a, self.source = lnprob_batch, a, source
+        self.half = pos_a.shape[-2]
+        lnp_shape = pos_a.shape[:-1]
+        dev = pos_a.device
+        self.pos_a = torch.empty_like(pos_a,
+                                      memory_format=torch.contiguous_format)
+        self.pos_b = torch.empty_like(self.pos_a)
+        self.lnp_a = torch.empty(lnp_shape, dtype=pos_a.dtype, device=dev)
+        self.lnp_b = torch.empty_like(self.lnp_a)
+        self.acc_a = torch.zeros(lnp_shape, dtype=torch.int32, device=dev)
+        self.acc_b = torch.zeros_like(self.acc_a)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.keys = round_keys(0, dev)
+        self.graph = None
+
+    def load(self, pos_a, pos_b, lnp_a, lnp_b, seed, step):
+        """Copy a run's start into the static buffers."""
+        for dst, src in ((self.pos_a, pos_a), (self.pos_b, pos_b),
+                         (self.lnp_a, lnp_a), (self.lnp_b, lnp_b)):
+            dst.copy_(src)
+        self.acc_a.zero_()
+        self.acc_b.zero_()
+        self.step.fill_(int(step))
+        self.keys.copy_(round_keys(seed, self.keys.device))
+
+    def step_once(self):
+        """The captured body: one step on the static buffers."""
+        u = stretch_uniforms(self.keys, self.step, 1, self.half,
+                             self.step.device, source=self.source)
+        for rows, act, pas, lnp, acc in (
+                (slice(0, 3), self.pos_a, self.pos_b, self.lnp_a,
+                 self.acc_a),
+                (slice(3, 6), self.pos_b, self.pos_a, self.lnp_b,
+                 self.acc_b)):
+            new, new_lnp, ok = stretch_half_step_from_uniforms(
+                u[..., rows, :], act, pas, lnp, self.lnprob_batch, self.a)
+            act.copy_(new)
+            lnp.copy_(new_lnp)
+            acc += ok
+        self.step += 1
+
+    def capture(self, graph=None):
+        """Warm up on a side stream, then capture step_once into `graph`
+        (a new torch.cuda.CUDAGraph by default; one built with
+        keep_graph=True keeps its nodes readable). The static buffers must
+        hold a run's start: the warm-up steps move them."""
+        dev = self.step.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP_STEPS):
+                    self.step_once()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph() if graph is None else graph
+            with torch.cuda.graph(graph, stream=side):
+                self.step_once()
+        self.graph = graph
+
+    def records(self, nrec, thin):
+        """`nrec` records of `thin` replays from the loaded start, in
+        _stretch_records' return layout. Before a capture (the CPU) each
+        step runs step_once eagerly: the body the graph holds."""
+        step = self.step_once if self.graph is None else self.graph.replay
+        lead, (half, ndim) = self.pos_a.shape[:-2], self.pos_a.shape[-2:]
+        chain = torch.empty(lead + (nrec, 2 * half, ndim),
+                            dtype=self.pos_a.dtype, device=self.step.device)
+        lnpchain = torch.empty(lead + (nrec, 2 * half),
+                               dtype=self.pos_a.dtype,
+                               device=self.step.device)
+        for r in range(nrec):
+            for _ in range(thin):
+                step()
+            chain[..., r, :half, :] = self.pos_a
+            chain[..., r, half:, :] = self.pos_b
+            lnpchain[..., r, :half] = self.lnp_a
+            lnpchain[..., r, half:] = self.lnp_b
+        return tuple(t.clone() for t in (
+            self.pos_a, self.pos_b, self.lnp_a, self.lnp_b, self.acc_a,
+            self.acc_b)) + (chain, lnpchain)
+
+
+def step_source(pos_a, source0=0):
+    """_StepGraph's `source` for the half-ensemble `pos_a`: 0-d (one
+    ensemble) or the global indices source0.. of its S sources."""
+    lead = pos_a.shape[:-2]
+    if not lead:
+        return torch.zeros((), dtype=torch.int64, device=pos_a.device)
+    return torch.arange(lead[0], dtype=torch.int64,
+                        device=pos_a.device) + int(source0)
+
+
+class _StepGraphs:
+    """A sampler's captured steps, one per (leading shape, device) of its
+    state (its lnprob and `a` are its own), and the mode of its last run:
+    "graph", or "eager" (the CPU, external uniforms, a sampler built with
+    capture=False, or a step that raised while being captured or launched
+    a hand-written kernel: that warns once, naming the model (_label) and
+    the error, and the sampler stays eager on that shape and device)."""
+
+    def __init__(self, lnprob_batch, a):
+        self.lnprob_batch, self.a = lnprob_batch, a
+        self.graphs = {}
+        self.mode = None
+
+    def _graph(self, key, pos_a, source0, start):
+        if key not in self.graphs:
+            from mbb_emcee_tpu_torch.ops import kernel_launches
+            g = _StepGraph(self.lnprob_batch, pos_a, self.a,
+                           step_source(pos_a, source0))
+            g.load(*start)
+            launched = kernel_launches()
+            try:
+                g.capture()
+                if kernel_launches() != launched:
+                    # a replay would launch the kernel uncounted
+                    raise RuntimeError(
+                        "it launches a hand-written kernel (ops."
+                        "kernel_launches), which counts its launches in "
+                        "its wrapper where a replay would not")
+            except Exception as e:  # noqa: BLE001 -- any capture fault
+                cause = e.__context__ or e
+                warnings.warn(
+                    f"the stretch step of {_label(self.lnprob_batch)} "
+                    f"could not be captured as a CUDA graph "
+                    f"({type(cause).__name__}: {cause}); it runs eagerly, "
+                    "one launch per operation (see sed.py's model "
+                    "contract)",
+                    RuntimeWarning, stacklevel=5)
+                torch.cuda.synchronize(pos_a.device)
+                g = None
+            self.graphs[key] = g
+        return self.graphs[key]
+
+    def records(self, pos_a, pos_b, seed, step, nrec, thin, source0=0):
+        """_stretch_records on the captured step, drawing from the Philox
+        stream (seed, step) as the eager loop does. None (mode "eager")
+        when the step could not be captured."""
+        key = (tuple(pos_a.shape), pos_a.device)
+        if key in self.graphs and self.graphs[key] is None:
+            self.mode = "eager"         # refused before: nothing to load
+            return None
+        start = (pos_a, pos_b, self.lnprob_batch(pos_a),
+                 self.lnprob_batch(pos_b), seed, step)
+        g = self._graph(key, pos_a, source0, start)
+        self.mode = "eager" if g is None else "graph"
+        if g is None:
+            return None
+        g.load(*start)
+        return g.records(nrec, thin)
+
+
+def stretch_run_graphed(state: SamplerState, graphs: _StepGraphs, nrec,
+                        thin):
+    """stretch_run_plain's run on the sampler's captured step: the same
+    chain, lnprob and accept counts bit for bit, one graph replay per
+    step. None when the step could not be captured."""
+    out = graphs.records(state.pos_a, state.pos_b, state.seed, state.step,
+                         nrec, thin)
+    if out is None:
+        return None
+    stretch_run_graphed.runs += 1
+    pos_a, pos_b, lnp_a, lnp_b, acc_a, acc_b, chain, lnpchain = out
+    new_state = SamplerState(
+        pos_a=pos_a, pos_b=pos_b, lnp_a=lnp_a, lnp_b=lnp_b,
+        naccept=state.naccept + torch.cat([acc_a, acc_b]),
+        nsteps=state.nsteps + nrec * thin, seed=state.seed,
+        step=state.step + nrec * thin)
+    return new_state, chain, lnpchain
+
+
+stretch_run_graphed.runs = 0
+
+
+def multi_stretch_run_graphed(state: MultiSamplerState, graphs: _StepGraphs,
+                              nrec, thin, source0=0):
+    """multi_stretch_run_plain's run on the sampler's captured step, bit
+    for bit (source s on the stream of global source source0 + s). None
+    when the step could not be captured."""
+    half = state.pos.shape[1] // 2
+    out = graphs.records(state.pos[:, :half], state.pos[:, half:],
+                         state.seed, state.step, nrec, thin, source0)
+    if out is None:
+        return None
+    multi_stretch_run_graphed.runs += 1
+    pos_a, pos_b, lnp_a, lnp_b, acc_a, acc_b, chain, lnpchain = out
+    new_state = MultiSamplerState(
+        pos=torch.cat([pos_a, pos_b], dim=1),
+        lnp=torch.cat([lnp_a, lnp_b], dim=1),
+        naccept=state.naccept + torch.cat([acc_a, acc_b], dim=1),
+        nsteps=state.nsteps + nrec * thin, seed=state.seed,
+        step=state.step + nrec * thin)
+    return new_state, chain, lnpchain
+
+
+multi_stretch_run_graphed.runs = 0
+
+
 def _check_run_args(nsteps, thin):
     if int(thin) < 1:
         raise ValueError(f"thin={thin} must be >= 1")
@@ -205,13 +429,29 @@ def _check_run_args(nsteps, thin):
         raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
 
 
+def _label(lnprob_batch):
+    """The model's name in a capture warning: the `label` that a fitter's
+    likelihood builder sets on the lnprob (or on the object whose method
+    it is), else the callable's qualified name."""
+    for obj in (lnprob_batch, getattr(lnprob_batch, "__self__", None)):
+        label = getattr(obj, "label", None)
+        if label:
+            return label
+    return getattr(lnprob_batch, "__qualname__", repr(lnprob_batch))
+
+
 class EnsembleSampler:
     """Stretch-move ensemble sampler over any batched lnprob
     ((n, ndim) -> (n,)), with the surface of the JAX package's sampler:
     init_state / run_mcmc / advance / reset_counters / acceptance_fraction.
+    On a card a run replays one captured step (stretch_run_graphed), and
+    `graph_mode` is "graph" or "eager" after a run. capture=False keeps
+    the eager loop: for an lnprob whose work spans several cards (a graph
+    records one card's stream), as HierarchicalFitter's over a mesh of
+    several cards.
     """
 
-    def __init__(self, nwalkers, ndim, lnprob_batch, a=2.0):
+    def __init__(self, nwalkers, ndim, lnprob_batch, a=2.0, capture=True):
         if nwalkers < 2 * ndim:
             raise ValueError(
                 f"nwalkers={nwalkers} < 2*ndim={2 * ndim}: the stretch move "
@@ -222,6 +462,12 @@ class EnsembleSampler:
         self.ndim = int(ndim)
         self.a = float(a)
         self.lnprob_batch = lnprob_batch
+        self.capture = bool(capture)
+        self._graphs = _StepGraphs(lnprob_batch, self.a)
+
+    @property
+    def graph_mode(self):
+        return self._graphs.mode
 
     def init_state(self, p0, seed, step=0) -> SamplerState:
         """p0: (nwalkers, ndim) fp32 initial positions (free space)."""
@@ -248,6 +494,12 @@ class EnsembleSampler:
         """Advance `nsteps` updates, recording every `thin`-th. Returns
         (state, chain (nsteps//thin, nwalkers, ndim), lnpchain)."""
         _check_run_args(nsteps, thin)
+        if uniforms is None and state.pos_a.is_cuda and self.capture:
+            out = stretch_run_graphed(state, self._graphs, nsteps // thin,
+                                      thin)
+            if out is not None:
+                return out
+        self._graphs.mode = "eager"
         return stretch_run_plain(state, self.lnprob_batch, nsteps // thin,
                                  thin, self.a, uniforms)
 
@@ -269,7 +521,9 @@ class MultiEnsembleSampler:
     source source0 + s, with the surface the batch tier's run protocol
     drives (batchengine.BatchEngine.run): init_state / run_mcmc / advance /
     reset_counters / acceptance_fraction. The multi-source kernel's sampler
-    (ops/multifit_kernel.FusedMultiSampler) is this surface on K3."""
+    (ops/multifit_kernel.FusedMultiSampler) is this surface on K3. On a
+    card a run replays one captured step (multi_stretch_run_graphed;
+    `graph_mode` as EnsembleSampler's)."""
 
     def __init__(self, nsources, nwalkers, ndim, lnprob_batch, a=2.0,
                  free_space=None, source0=0):
@@ -285,6 +539,9 @@ class MultiEnsembleSampler:
         self.lnprob_batch = lnprob_batch
         self.free_space = free_space
         self.source0 = int(source0)
+        self._graphs = _StepGraphs(lnprob_batch, self.a)
+
+    graph_mode = EnsembleSampler.graph_mode
 
     def init_state(self, p0, seed, step=0) -> MultiSamplerState:
         """p0: (S, nwalkers, ndim) on the sampler's device. lnprob is
@@ -309,6 +566,13 @@ class MultiEnsembleSampler:
         `thin`-th; `uniforms` (S, nsteps // thin, 6 * thin, half) replaces
         the Philox streams."""
         _check_run_args(nsteps, thin)
+        if uniforms is None and state.pos.is_cuda:
+            out = multi_stretch_run_graphed(state, self._graphs,
+                                            nsteps // thin, thin,
+                                            self.source0)
+            if out is not None:
+                return out
+        self._graphs.mode = "eager"
         return multi_stretch_run_plain(state, self.lnprob_batch,
                                        nsteps // thin, thin, self.a,
                                        uniforms, self.source0)

@@ -492,6 +492,7 @@ class SEDFitter(ParamSpaceMixin):
     def build(self):
         """(lnprob, free_space, sampler) for the current data + spec."""
         lnprob, free_space = self._lnprob()
+        lnprob.label = repr(self.model.name)        # sampler._label
         sampler = EnsembleSampler(self.nwalkers, free_space.nfree, lnprob,
                                   a=self.a)
         return lnprob, free_space, sampler

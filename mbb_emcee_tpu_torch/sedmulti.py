@@ -306,6 +306,7 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
                 f"nwalkers={self.nwalkers} < 2*nfree={2 * nfree}: the "
                 f"stretch move needs at least twice the dimension (prefer "
                 f"many more)")
+        ops.label = repr(self.model.name)       # sampler._label
         self._sampler = MultiEnsembleSampler(
             self.nsources, self.nwalkers, nfree, ops.plain, self.a,
             ops.free_space, self._source0)
