@@ -124,9 +124,10 @@ non-zero without printing a result):
      gradient, and one short call under torch.profiler for the kernels per
      leapfrog step;
      MultiFitter.run_pt(12 rungs, 100 + 200) and run_hmc(25 + 100 x 2) at
-     16 of the batch cell's sources, each whole and in production segments
-     of 50 records through the checkpoint= path (its flush replaced by a
-     recorder: the card's machine has no h5py), chains bitwise equal;
+     16 of the batch cell's sources (walker balls at the truth), each whole
+     and in production segments of 50 records through the checkpoint= path
+     (its flush replaced by a recorder: the card's machine has no h5py),
+     chains bitwise equal;
  23. nested sampling and the population tier through the user's entry
      points: MBBFitter.compute_evidence() at its defaults at config 2 on K1
      (1 + n_iter x nsteps launches counted, no plain likelihood call, n_iter
@@ -293,12 +294,44 @@ non-zero without printing a result):
      SBC_BUDGET_S, advisory;
  30. the SBC variants a whole run has no room for (SBC_ALONE: HMC and
      fit_map -> run(init="map")), the same checks. Not part of the whole
-     run: `python3 chip_smoke.py --phases 30` runs it alone.
+     run: `python3 chip_smoke.py --phases 30` runs it alone;
+ 31. the card legs of the ported tiers that had run on the CPU only, through
+     the user's entry points at the batch cell's width (250 walkers x 5
+     bands), with no plain run where a kernel is the path: (a)
+     SEDMultiFitter of the wrapped MBB (phase 25's model) at TIER_SOURCES of
+     the batch cell's sources: run_pt(PT_BATCH) and run_hmc(HMC_BATCH)
+     against MultiFitter's same call on the same data, seed and walker balls
+     (phase 22's runs when the phases run together; per-source medians and
+     68% widths within max(2%, 3 sigma_MC)),
+     compute_evidence(nlive=NESTED_BATCH_NLIVE) against MultiFitter's same
+     call (phase 23's when the phases run together): every source converged,
+     each lnZ within 3x the combined error; 0 K1 / K3 launches on these
+     plain-likelihood paths, seconds printed; (b)
+     MBBFitter.compute_evidence() at the default box
+     (likelihood.DEFAULT_LOWER / DEFAULT_UPPER: T <= 1000, beta <= 20) on
+     config 2's data and priors, on K1 (1 + n_iter x 32 launches, no plain
+     likelihood call), held analytically against phase 23's call at config
+     2's box (T <= 100, beta <= 5; re-run at phase 23's settings when phase
+     23 did not run): lnZ(default) - lnZ(config 2) = ln(V_config2 /
+     V_default) - ln p_in within 3x the combined logz_err, p_in the
+     default-box run's weighted posterior mass inside config 2's box (from
+     its samples, printed, not assumed 1), n_iter and ms per iteration
+     beside phase 23's; (c) the batch tiers' mesh legs
+     (batchengine._on_shards) through MultiFitter(mesh=TIERS_MESH_SHARDS
+     shards) at TIER_SOURCES sources, the shards sharing cuda:0 on one card
+     (one per card on several): run(50, 250) on K3 per shard (3 launches per
+     shard), then on its chains posterior_predictive and compute_loo, then
+     run_pt (TIERS_MESH_PT), run_hmc (TIERS_MESH_HMC), run_map +
+     map_importance (TIERS_MESH_MAP, TIERS_MESH_IS) and compute_evidence
+     (TIERS_MESH_NESTED, stopped at its max_iter), each bitwise the
+     unsharded call on the same data and seed (every stream keyed by global
+     source), with no kernel launched after the run. Budget:
+     TIERS_CARD_BUDGET_S, advisory; `--phases 31` rehearses it alone.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
 and the kernels' planned layouts), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, ..., `28`, `29`, `30`) runs
+before any phase. `--phases 3,15` (or `21`, ..., `29`, `30`, `31`) runs
 the build and those phases alone, a rehearsal that prints no kernel table
 and no result line (phase 30 runs only so);
 `--profile-derived` adds torch.profiler's device busy time to the derived
@@ -3512,10 +3545,20 @@ def _tier_segments(tag, run, flushes):
     return whole, t_whole, t_seg
 
 
+def _truth_init(mf):
+    """A batch fitter's walker balls at the parity truth with MBBFitter's
+    scatter (as sedmulti_fitter sets SEDMultiFitter's). Returns it."""
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.fitter import DEFAULT_SCATTER
+    for i in range(5):
+        mf.set_param_init(i, vp.TRUE[i], DEFAULT_SCATTER[i])
+    return mf
+
+
 def phase_tiers(card):
     """HMC and parallel tempering through the user's entry points (see the
     module docstring, phase 22). Returns (K1 launches of run_pt, seconds
-    and counts by step)."""
+    and counts by step, the batch runs phase 31 reuses)."""
     import numpy as np
     import torch
     from tools import validate_tpu_parity as vp
@@ -3631,16 +3674,18 @@ def phase_tiers(card):
                 "run_hmc defaults s (worked out)":
                     default_grads * us_grad / 1e6})
 
-    # -- the batch tiers at TIER_SOURCES of the batch cell's sources
+    # -- the batch tiers at TIER_SOURCES of the batch cell's sources (walker
+    # balls at the truth: phase 31 holds SEDMultiFitter's same calls to
+    # these runs)
     bflux, bunc = batch_data(TIER_SOURCES, seed=3000, missing_every=16)
 
     def run_pt(ck, interval):
-        mf = batch_fitter(bflux, bunc, seed=4322)
+        mf = _truth_init(batch_fitter(bflux, bunc, seed=4322))
         return mf.run_pt(**PT_BATCH, checkpoint=ck,
                          checkpoint_interval=interval)
 
     def run_hmc(ck, interval):
-        mf = batch_fitter(bflux, bunc, seed=4323)
+        mf = _truth_init(batch_fitter(bflux, bunc, seed=4323))
         return mf.run_hmc(**HMC_BATCH, checkpoint=ck,
                           checkpoint_interval=interval)
 
@@ -3672,7 +3717,8 @@ def phase_tiers(card):
                 "MultiFitter.run_hmc whole": t3,
                 "MultiFitter.run_hmc segmented": t4})
     log(f"[22] phase 22: {time.time() - t0:.1f} s")
-    return out["run_pt K1 launches"], out
+    return out["run_pt K1 launches"], out, {"MultiFitter.run_pt": mp,
+                                            "MultiFitter.run_hmc": mh}
 
 
 # Phase 23: nested sampling and the population tier, within ~90 s (its
@@ -3979,7 +4025,8 @@ def phase_evidence(card, tiers=None):
     """Nested sampling and the population tier through the user's entry
     points (see the module docstring, phase 23). `tiers` is phase 22's
     result (for its run_pt evidence), None when phase 22 did not run.
-    Returns (launches by kernel and path, seconds and numbers by step)."""
+    Returns (launches by kernel and path, seconds and numbers by step, the
+    evidences phase 31 reuses)."""
     import concurrent.futures
     import multiprocessing
     import warnings
@@ -4208,6 +4255,9 @@ def phase_evidence(card, tiers=None):
         out.update({"MultiFitter.compute_evidence": t_b,
                     "batch n_iter": [int(evb.n_iter.min()),
                                      int(evb.n_iter.max())]})
+        reuse = {"compute_evidence": ev,
+                 "ms per iteration": out["ms per iteration"],
+                 "MultiFitter.compute_evidence": evb}
 
         # -- the CPU references
         t_wait = time.time()
@@ -4256,7 +4306,7 @@ def phase_evidence(card, tiers=None):
         pool.shutdown(wait=True, cancel_futures=True)
     out["phase 23"] = time.time() - t0
     log(f"[23] phase 23: {out['phase 23']:.1f} s")
-    return launches, out
+    return launches, out, reuse
 
 
 # -- phase 24: the generic-model tier (sed.py) --------------------------------
@@ -4984,11 +5034,11 @@ def sedmulti_fitter(flux, unc, seed, device=None, mesh=None):
     return smf
 
 
-def _batch_posterior_vs(tag, a, b, rel):
+def _batch_posterior_vs(tag, a, b, rel, phase=25):
     """Per-source medians and 68% widths of batch fit `a` against `b`, each
     within max(rel, 3 sigma_MC) (sigma_MC of both runs from their batched
-    autocorrelation times). Returns the number of (source, parameter)
-    checks."""
+    autocorrelation times); the lines carry the phase number `phase`.
+    Returns the number of (source, parameter) checks."""
     import numpy as np
     from mbb_emcee_tpu_torch.likelihood import param_index
     stats = []
@@ -5011,8 +5061,8 @@ def _batch_posterior_vs(tag, a, b, rel):
     worst = [f"{n} median max |d|/tol {np.max(np.abs(m1 - m2)[:, k] / tm[:, k]):.3f}"
              f", width {np.max(np.abs(w1 - w2)[:, k] / tw[:, k]):.3f}"
              for k, n in enumerate(names)]
-    log(f"[25] {tag}: {m1.shape[0]} sources x {m1.shape[1]} parameters, "
-        f"max(2%, 3 sigma_MC): " + "; ".join(worst)
+    log(f"[{phase}] {tag}: {m1.shape[0]} sources x {m1.shape[1]} "
+        f"parameters, max({100 * rel:g}%, 3 sigma_MC): " + "; ".join(worst)
         + f"; {int(bad_m.sum() + bad_w.sum())} outside "
         f"{'PASS' if ok else 'FAIL'}")
     if not ok:
@@ -6376,9 +6426,298 @@ def phase_sbc(card, modes, phase):
     return launches, out
 
 
+# -- phase 31: the card legs of the ported tiers that had run on the CPU
+# only (ROADMAP A14). (a) the generic batch tier's PT, HMC and evidence at
+# phase 22's and 23's settings, (b) the single fit's evidence at the
+# default box on K1, (c) the mesh legs of the batch tiers at TIERS_MESH_*
+# depths (enough for a bitwise check). Budget TIERS_CARD_BUDGET_S, advisory.
+TIERS_CARD_BUDGET_S = 45.0
+TIERS_MESH_SHARDS = 4
+TIERS_MESH_RUN = (50, 250)
+TIERS_MESH_PT = {"nrungs": 4, "nburn": 10, "nsteps": 20}
+TIERS_MESH_HMC = {"nwarmup": 5, "nsteps": 10, "n_leapfrog": 2}
+TIERS_MESH_MAP = {"nstarts": 4, "n_adam": 20, "n_newton": 3}
+TIERS_MESH_IS = 64
+# (each shard runs its own host loop of launch-bound iterations, 22-35 ms
+# each on an H100 at 8 steps, to its slowest source: nbatch 8 at nlive 32
+# took up to 729 iterations, 48 s sharded and 16 s unsharded; nbatch 16 up
+# to 254, 23-24 s and 6-8 s; max_iter 40 still took 11 s and 3 s on a slow
+# host. So the leg stops at max_iter 20, converged or not: the check is
+# bitwise, the converged flags included)
+TIERS_MESH_NESTED = {"nlive": 32, "nbatch": 16, "nsteps": 8, "max_iter": 20}
+
+
+def _default_box_evidence(card, out, launches, evidence):
+    """Phase 31 (b): MBBFitter.compute_evidence() at the default box on
+    config 2's data and priors, on K1, against config 2's box (phase 23's
+    call in `evidence`, or None) by the volume ratio and the posterior mass
+    inside config 2's box."""
+    import numpy as np
+    from tools import validate_tpu_parity as vp
+    from mbb_emcee_tpu_torch.likelihood import (
+        DEFAULT_LOWER, DEFAULT_UPPER, FreeSpace)
+
+    flux, unc, cov = vp.mock_data(vp.CONFIGS[2])
+    seed = 2301                       # phase 23's call
+    if evidence is not None:
+        ev2, ms2 = evidence["compute_evidence"], evidence["ms per iteration"]
+        where = "phase 23's call"
+    else:
+        fit2 = port_fitter(2, flux, unc, cov, seed=seed)
+        ev2, t2 = _timed(fit2.compute_evidence)
+        ms2 = 1e3 * t2 / ev2.n_iter
+        where = "re-run at phase 23's settings"
+    fit = port_fitter(2, flux, unc, cov, seed=seed)
+    fs2 = FreeSpace.from_spec(fit._effective_spec())      # config 2's box
+    fit.set_uplim("T", DEFAULT_UPPER[0]).set_uplim("beta", DEFAULT_UPPER[1])
+    spec = fit._effective_spec()
+    if not (np.array_equal(spec.lower, DEFAULT_LOWER)
+            and np.array_equal(spec.upper, DEFAULT_UPPER)):
+        raise AssertionError("the fitter's box is not the default box")
+    _counts(reset=True)
+    with _counting_plain_likelihood() as nplain:
+        ev, t_ev = _timed(fit.compute_evidence)
+    c = _counts()
+    want = 1 + ev.n_iter * 32
+    plain = _plain_runs(c) + nplain[0]
+    ok = (c["mbb_lnprob"] == want and plain == 0 and ev.converged
+          and c["mbb_stretch_run"] == 0)
+    ms = 1e3 * t_ev / ev.n_iter
+    log(f"[31] (b) MBBFitter.compute_evidence() at the default box (T <= "
+        f"{DEFAULT_UPPER[0]:g}, beta <= {DEFAULT_UPPER[1]:g}), config 2's "
+        f"data and priors: lnZ {ev.logz:.4f} +- {ev.logz_err:.4f}, n_iter "
+        f"{ev.n_iter} ({ms:.2f} ms per iteration) against config 2's box "
+        f"{ev2.n_iter} ({ms2:.2f} ms, {where}), {t_ev:.2f} s (host "
+        f"clock); {c['mbb_lnprob']} K1 launches (want 1 + n_iter x 32 = "
+        f"{want}), {plain} plain likelihood calls or runs "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("the default-box evidence did not run through "
+                             "K1 alone")
+    launches["mbb_lnprob"]["compute_evidence, default box (phase 31)"] = \
+        c["mbb_lnprob"]
+    fsd = FreeSpace.from_spec(spec)
+    ln_vratio = float(np.sum(np.log(fs2.upper - fs2.lower))
+                      - np.sum(np.log(fsd.upper - fsd.lower)))
+    # the default-box posterior's weighted mass inside config 2's box (not
+    # assumed 1: config 2 has no prior on T, so a high-T tail may lie out)
+    w = ev.posterior_weights()
+    inside = np.all((ev.samples[:, fs2.free_idx] >= fs2.lower)
+                    & (ev.samples[:, fs2.free_idx] <= fs2.upper), axis=1)
+    p_in = float(w[inside].sum())
+    d = ev.logz - ev2.logz
+    want_d = ln_vratio - np.log(p_in)
+    tol = 3 * np.hypot(ev.logz_err, ev2.logz_err)
+    ok = abs(d - want_d) <= tol
+    log(f"[31] (b) lnZ(default) - lnZ(config 2's box) = {ev.logz:.4f} - "
+        f"{ev2.logz:.4f} = {d:.4f}; ln(V_config2 / V_default) "
+        f"{ln_vratio:.4f} - ln p_in {np.log(p_in):.4f} (p_in {p_in:.6f}, "
+        f"the default-box run's weighted mass inside config 2's box) = "
+        f"{want_d:.4f}; |d| {abs(d - want_d):.4f} <= 3 x combined "
+        f"{tol:.4f} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the default-box evidence does not follow "
+                             "config 2's by the volume ratio")
+    out.update({"(b) compute_evidence, default box": t_ev,
+                "(b) n_iter": int(ev.n_iter), "(b) ms per iteration": ms,
+                "(b) config 2's n_iter": int(ev2.n_iter),
+                "(b) config 2's ms per iteration": ms2,
+                "(b) lnZ default / config 2": [ev.logz, ev.logz_err,
+                                               ev2.logz, ev2.logz_err],
+                "(b) p_in": p_in, "(b) ln volume ratio": ln_vratio})
+
+
+def _mesh_tier_legs(card, out, launches):
+    """Phase 31 (c): the batch tiers' mesh legs (batchengine._on_shards),
+    each bitwise the unsharded call on the same data and seed."""
+    import collections
+    import warnings
+    import numpy as np
+    import torch
+
+    mesh, where = card_mesh(TIERS_MESH_SHARDS)
+    flux, unc = batch_data(TIER_SOURCES, seed=3100, missing_every=16)
+    a = batch_fitter(flux, unc, seed=3101, mesh=mesh)
+    b = batch_fitter(flux, unc, seed=3101)
+    rows, kernels = [], collections.Counter()
+
+    def check(tag, fn, fields):
+        """fn(fitter) -> the call's result on the sharded fitter `a` and the
+        unsharded `b`; fields(result, fitter) -> the arrays compared."""
+        _counts(reset=True)
+        ra, ta = _timed(lambda: fn(a))
+        c = _counts()
+        kernels.update({k: c[k] for k in ("mbb_lnprob",
+                                          "mbb_multi_stretch_run")})
+        rb, tb = _timed(lambda: fn(b))
+        same = all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor)
+            else np.array_equal(np.asarray(x), np.asarray(y), equal_nan=True)
+            for x, y in zip(fields(ra, a), fields(rb, b)))
+        rows.append(f"{tag} {ta:.2f} / {tb:.2f} s "
+                    f"{'bitwise' if same else 'NOT bitwise'}")
+        out[f"(c) {tag} sharded / unsharded s"] = [ta, tb]
+        if not same:
+            log(f"[31] (c) {tag}: NOT bitwise the unsharded call FAIL")
+            raise AssertionError(f"the sharded {tag} is not the unsharded "
+                                 "call")
+        return c
+
+    chains = ("chain_free", "lnprobability", "acceptance_fraction")
+
+    def attrs(names):
+        return lambda r, f: [getattr(f, k) for k in names]
+
+    nburn, nsteps = TIERS_MESH_RUN
+    c = check(f"run({nburn}, {nsteps})",
+              lambda f: f.run(nburn=nburn, nsteps=nsteps), attrs(chains))
+    n_k3 = 3 * TIERS_MESH_SHARDS
+    ok = (c["mbb_multi_stretch_run"] == n_k3 and _plain_runs(c) == 0
+          and a._backend_used == "fused")
+    log(f"[31] (c) MultiFitter(mesh={TIERS_MESH_SHARDS} shards) on {where}, "
+        f"{TIER_SOURCES} sources x {NWALKERS} walkers x 5 bands: run("
+        f"{nburn}, {nsteps}) {c['mbb_multi_stretch_run']} K3 launches (want "
+        f"{n_k3}: 3 per shard), {_plain_runs(c)} plain runs "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the sharded run did not run through K3 per "
+                             "shard")
+    launches["mbb_multi_stretch_run"][
+        f"MultiFitter(mesh={TIERS_MESH_SHARDS} shards).run (phase 31)"] = \
+        c["mbb_multi_stretch_run"]
+    kernels.clear()
+    check("posterior_predictive", lambda f: f.posterior_predictive(seed=3),
+          lambda r, f: [r.p_value, r.band_p, r.chi2_obs, r.chi2_rep])
+    check("compute_loo", lambda f: f.compute_loo(),
+          lambda r, f: [v for v in vars(r).values()
+                        if isinstance(v, np.ndarray)])
+    check(f"run_pt({TIERS_MESH_PT})", lambda f: f.run_pt(**TIERS_MESH_PT),
+          lambda r, f: [getattr(f, k) for k in chains + (
+              "pt_betas", "swap_fraction")] + list(f.logz_pt + f.logz_ti))
+    check(f"run_hmc({TIERS_MESH_HMC})",
+          lambda f: f.run_hmc(**TIERS_MESH_HMC),
+          attrs(chains + ("hmc_step_size", "hmc_mass")))
+    check(f"run_map({TIERS_MESH_MAP}) + map_importance({TIERS_MESH_IS})",
+          lambda f: (f.run_map(**TIERS_MESH_MAP),
+                     f.map_importance(TIERS_MESH_IS))[1],
+          lambda r, f: [r] + [getattr(f, k) for k in (
+              "map_logw", "map_samples", "map_params", "map_lnprob",
+              "map_cov", "map_interior")])
+    with warnings.catch_warnings():
+        # the sources the max_iter cut stops short, named once per call
+        warnings.filterwarnings("ignore", message=".*hit max_iter")
+        check(f"compute_evidence({TIERS_MESH_NESTED})",
+              lambda f: f.compute_evidence(**TIERS_MESH_NESTED),
+              lambda r, f: [getattr(r, k) for k in (
+                  "logz", "logz_err", "h", "samples", "loglike", "logwt",
+                  "n_iter", "converged")])
+    ok = not any(kernels.values())
+    log(f"[31] (c) each leg bitwise the unsharded call on the same data and "
+        f"seed (sharded / unsharded host seconds): " + "; ".join(rows)
+        + f"; K1 / K3 launches of the sharded legs after run (the plain "
+        f"batch likelihood): {kernels['mbb_lnprob']} / "
+        f"{kernels['mbb_multi_stretch_run']} (want 0 / 0) "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("a sharded plain-likelihood leg launched a "
+                             "kernel")
+
+
+def phase_card_tiers(card, tiers=None, evidence=None):
+    """The ported tiers' card legs (see the module docstring, phase 31).
+    `tiers` and `evidence` are what phases 22 and 23 return for reuse,
+    None when they did not run. Returns (launches by kernel and path,
+    seconds and numbers by step)."""
+    import numpy as np
+
+    t0 = time.time()
+    out = {}
+    launches = {"mbb_lnprob": {}, "mbb_stretch_run": {},
+                "mbb_multi_stretch_run": {}}
+
+    def lap(part):
+        out[f"{part} ends at s"] = time.time() - t0
+
+    # -- (a) SEDMultiFitter's PT, HMC and evidence against MultiFitter's
+    bflux, bunc = batch_data(TIER_SOURCES, seed=3000, missing_every=16)
+    if evidence is not None:
+        evb = evidence["MultiFitter.compute_evidence"]
+    else:
+        evb = batch_fitter(
+            bflux[:NESTED_BATCH_SOURCES], bunc[:NESTED_BATCH_SOURCES],
+            seed=4331).compute_evidence(nlive=NESTED_BATCH_NLIVE)
+    # PT and HMC start from the walker balls (HMC's warmup is short): both
+    # fitters' at the truth with MBBFitter's scatter, on phase 22's seeds
+    if tiers is not None:
+        mp, mh = tiers["MultiFitter.run_pt"], tiers["MultiFitter.run_hmc"]
+    else:
+        mp, mh = (_truth_init(batch_fitter(bflux, bunc, seed=s))
+                  for s in (4322, 4323))
+        _, out["(a) MultiFitter.run_pt"] = _timed(
+            lambda: mp.run_pt(**PT_BATCH))
+        _, out["(a) MultiFitter.run_hmc"] = _timed(
+            lambda: mh.run_hmc(**HMC_BATCH))
+    sp, sh, se = (sedmulti_fitter(bflux[:n], bunc[:n], seed=s)
+                  for n, s in ((TIER_SOURCES, 4322), (TIER_SOURCES, 4323),
+                               (NESTED_BATCH_SOURCES, 4331)))
+    for tag, call in (("run_pt", lambda: sp.run_pt(**PT_BATCH)),
+                      ("run_hmc", lambda: sh.run_hmc(**HMC_BATCH)),
+                      ("compute_evidence", lambda: se.compute_evidence(
+                          nlive=NESTED_BATCH_NLIVE))):
+        _counts(reset=True)
+        res, t = _timed(call)
+        c = _counts()
+        ok = c["mbb_lnprob"] == 0 and c["mbb_multi_stretch_run"] == 0
+        log(f"[31] (a) SEDMultiFitter.{tag} of the wrapped MBB at "
+            f"{TIER_SOURCES} of the batch cell's sources x {NWALKERS} "
+            f"walkers x 5 bands: {t:.2f} s (host clock); K1 / K3 launches "
+            f"{c['mbb_lnprob']} / {c['mbb_multi_stretch_run']} (want 0 / 0: "
+            f"the plain batch likelihood) {'PASS' if ok else 'FAIL'} "
+            f"({card})")
+        if not ok:
+            raise AssertionError(f"SEDMultiFitter.{tag} launched a kernel")
+        out[f"(a) SEDMultiFitter.{tag}"] = t
+        if tag == "compute_evidence":
+            evs = res
+    _batch_posterior_vs(f"SEDMultiFitter.run_pt({PT_BATCH}) against "
+                        f"MultiFitter's same call", sp, mp, 0.02, phase=31)
+    _batch_posterior_vs(f"SEDMultiFitter.run_hmc({HMC_BATCH}) against "
+                        f"MultiFitter's same call", sh, mh, 0.02, phase=31)
+    tol = 3 * np.hypot(evs.logz_err, evb.logz_err)
+    d = np.abs(evs.logz - evb.logz)
+    ok = (bool(evs.converged.all()) and bool(evb.converged.all())
+          and bool(np.all(d <= tol)))
+    log(f"[31] (a) SEDMultiFitter.compute_evidence(nlive="
+        f"{NESTED_BATCH_NLIVE}) against MultiFitter's same call: all "
+        f"converged {bool(evs.converged.all())} / "
+        f"{bool(evb.converged.all())}, iterations {evs.n_iter.min()}-"
+        f"{evs.n_iter.max()}, max |d lnZ| / (3 x combined error) "
+        f"{float(np.max(d / tol)):.3f} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("SEDMultiFitter's evidence is not "
+                             "MultiFitter's")
+    lap("(a)")
+
+    # -- (b) the single fit's evidence at the default box on K1
+    _default_box_evidence(card, out, launches, evidence)
+    lap("(b)")
+
+    # -- (c) the mesh legs on TIERS_MESH_SHARDS shards
+    _mesh_tier_legs(card, out, launches)
+    lap("(c)")
+    out["phase 31"] = time.time() - t0
+    ok = out["phase 31"] <= TIERS_CARD_BUDGET_S
+    log(f"[31] phase 31: {out['phase 31']:.1f} s (advisory budget "
+        f"{TIERS_CARD_BUDGET_S:.0f} s: {'within' if ok else 'OVER'}); parts "
+        f"end at " + ", ".join(f"{k_.split()[0]} {v:.1f} s"
+                               for k_, v in out.items()
+                               if k_.endswith("ends at s")) + f" ({card})")
+    return launches, out
+
+
 PHASES = ("0", "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
           "13", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23",
-          "24", "25", "26", "27", "28", "29", "30")
+          "24", "25", "26", "27", "28", "29", "30", "31")
 # Phases a whole run leaves out: each runs alone (--phases 30).
 ALONE_PHASES = ("30",)
 
@@ -6431,7 +6770,10 @@ def main(argv=None):
         ("27", lambda: phase_migration(card)),
         ("28", lambda: phase_mesh(card)),
         ("29", lambda: phase_sbc(card, SBC_WHOLE, 29)),
-        ("30", lambda: phase_sbc(card, SBC_ALONE, 30))]
+        ("30", lambda: phase_sbc(card, SBC_ALONE, 30)),
+        ("31", lambda: phase_card_tiers(
+            card, res["22"][2] if "22" in res else None,
+            res["23"][2] if "23" in res else None))]
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
@@ -6465,15 +6807,16 @@ def main(argv=None):
     k1_sweep, k1_host = res["20"]
     k3_by_path["extend (phase 12)"] = ext["mbb_multi_stretch_run"]
     map_paths, map_times = res["21"]
-    pt_launches, tier_times = res["22"]
+    pt_launches, tier_times, _ = res["22"]
     k1_by_path["run_pt (phase 22)"] = pt_launches
-    evidence_paths, evidence_times = res["23"]
+    evidence_paths, evidence_times, _ = res["23"]
     generic_paths, generic_times = res["24"]
     batch_paths, batch_times = res["25"]
     cli_sed_paths, cli_sed_times = res["26"]
     migration_paths, migration_times = res["27"]
     mesh_paths, mesh_times, mesh_errs = res["28"]
     sbc_paths, sbc_stats = res["29"]
+    card_tier_paths, card_tier_times = res["31"]
     for by_path, name in ((k1_by_path, "mbb_lnprob"),
                           (k2_by_path, "mbb_stretch_run"),
                           (k3_by_path, "mbb_multi_stretch_run")):
@@ -6486,6 +6829,7 @@ def main(argv=None):
         by_path.update(migration_paths[name])
         by_path.update(mesh_paths[name])
         by_path.update(sbc_paths[name])
+        by_path.update(card_tier_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
     kernels = [
@@ -6596,6 +6940,8 @@ def main(argv=None):
         + json.dumps(mesh_times))
     log(f"simulation-based calibration, ranks, seconds and counts "
         f"({card}): " + json.dumps(sbc_stats))
+    log(f"the ported tiers' card legs (phase 31), host seconds and counts "
+        f"({card}): " + json.dumps(card_tier_times))
     log(f"all phases: {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -634,11 +634,12 @@ class BatchEngine:
     # -- the stretch-move run protocol ------------------------------------------
     def _balls(self, gen, centers, scatters, n=None):
         """(S, n, nfree) balls (n = nwalkers by default), one per source in
-        source order from the CPU generator `gen`, reflected at the box."""
+        source order from the CPU generator `gen`, reflected at the box:
+        built on the host and moved to the fitter's device in one copy."""
         fs = self.free_space
         n = self.nwalkers if n is None else int(n)
         return torch.stack([
-            make_initial_ball(gen, c, s, n, fs.lower, fs.upper)
+            make_initial_ball(gen, c, s, n, fs.lower, fs.upper, device="cpu")
             for c, s in zip(centers, scatters)]).to(self.device)
 
     def _map_centers(self):
@@ -957,7 +958,7 @@ class BatchEngine:
         (tempering.auto_ladder_batch; one rung count K for the batch),
         seeded rung by nearest rung from the scout state; and PRODUCTION
         segments carrying the tempered state and the stepping-stone
-        accumulators (merged per segment, tempering.pt_segment).
+        accumulators from segment to segment (tempering.pt_segment).
 
         With `checkpoint=path` production is segmented every
         `checkpoint_interval` records and the tempered state, ladders and
@@ -1054,7 +1055,7 @@ class BatchEngine:
                     state, torch.as_tensor(
                         betas_b, dtype=torch.float32, device=dev))
                 state = reset_counters(state)
-            ss, lnp_sum = None, 0.0
+            ss = lnp_sum = None
             chain_blocks, lnp_blocks, done = [], [], 0
 
         # -- phase 3: production segments (one when not checkpointing; every
@@ -1071,16 +1072,14 @@ class BatchEngine:
         while done < nrec:
             seg = nrec - done if checkpoint is None else min(interval,
                                                               nrec - done)
-            state, chain, lnpch, ls, st = self._on_shards(
-                shards, lambda ops, src, st, b: pt_segment(
-                    st, ops.plain, b, seg, int(thin), a, src),
-                state, betas_t)
+            state, chain, lnpch, lnp_sum, ss = self._on_shards(
+                shards, lambda ops, src, st, b, c: pt_segment(
+                    st, ops.plain, b, seg, int(thin), a, src, c),
+                state, betas_t, None if ss is None else (lnp_sum, ss))
             keep = (lambda t: t) if checkpoint is None else (
                 lambda t: t.cpu().numpy())
             chain_blocks.append(keep(chain))
             lnp_blocks.append(keep(lnpch))
-            ss = st if ss is None else ss.merge(st)
-            lnp_sum = lnp_sum + ls
             done += seg
             if checkpoint is not None:
                 save_tier_checkpoint(

@@ -228,7 +228,8 @@ def _counters(f):
 
 def load_checkpoint(path, device="cpu"):
     """Returns (SamplerState on `device`, chain_so_far, lnp_so_far,
-    meta)."""
+    meta). It only reads a file, so `device` defaults to the CPU: the
+    fitter that resumes names its own device."""
     import h5py
     with h5py.File(path, "r") as f:
         meta = _open_state(f, path, multi=False)
@@ -252,7 +253,8 @@ def save_multi_checkpoint(path, state: MultiSamplerState, chain_blocks,
 
 def load_multi_checkpoint(path, device="cpu"):
     """Returns (MultiSamplerState on `device`, chain_so_far, lnp_so_far,
-    meta)."""
+    meta). Like load_checkpoint it only reads a file: `device` defaults to
+    the CPU."""
     import h5py
     with h5py.File(path, "r") as f:
         meta = _open_state(f, path, multi=True)

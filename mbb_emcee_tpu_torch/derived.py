@@ -56,15 +56,18 @@ def lir_integrand(shape):
 
 
 def lir_zparam_integrand(fnu, zi, wavemin, wavemax, n=LIR_NODES,
-                         device="cpu"):
+                         device=None):
     """one(theta (npar,)) -> 0-dim tensor: the L_IR integral of a generic
     model (sed.SEDModel's single-theta `fnu`) whose parameter `zi` is a
     SAMPLED redshift, for torch.func.vmap over the chain. The z = 0
     ln-lambda nodes scale by the sample's own (1 + z) on the device (nodes
     *= opz, weights /= opz: the lir_nodes_weights map), so no (nsamples,
-    nodes) host arrays are built. The nodes live on `device`; pair with a
+    nodes) host arrays are built. The nodes live on `device` (None: the
+    card; without one this raises, naming device="cpu"); pair with a
     per-sample D_L from cosmology.luminosity_distance_batch and
     `lir_prefactor`."""
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     base_lam, base_w = lir_nodes_weights(1.0, wavemin, wavemax, n)
     lam = torch.as_tensor(base_lam.astype(np.float32), device=device)
     w = torch.as_tensor(base_w.astype(np.float32), device=device)
@@ -125,11 +128,11 @@ def peak_finder(shape, lo=PEAK_RANGE[0], hi=PEAK_RANGE[1],
     return peak
 
 
-def sed_eval(shape, waves):
+def sed_eval(shape, waves_j):
     """sed(theta (n, 5)) -> (n, nwave): f_nu in mJy at fixed observed
-    wavelengths (fp32 tensor)."""
+    wavelengths `waves_j` (fp32 tensor)."""
     def sed(theta):
-        return torch.exp(log_mbb_fnu(theta, waves, shape))
+        return torch.exp(log_mbb_fnu(theta, waves_j, shape))
     return sed
 
 

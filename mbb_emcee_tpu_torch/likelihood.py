@@ -280,14 +280,18 @@ def spec_arrays(spec: LikelihoodSpec) -> SpecArrays:
 
 
 def build_lnprob(phot: Photometry, shape: MBBShape, spec: LikelihoodSpec,
-                 response_pack=None, device="cpu"):
+                 response_pack=None, device=None):
     """Build the batched lnprob over the FREE parameter space.
 
     Returns (lnprob_fn, free_space); lnprob_fn maps a (n, nfree) fp32
     tensor on `device` to (n,) log-probabilities. With `response_pack` =
     (waves, weights), each of shape (nbands, nnodes), model fluxes are
     band-integrated; otherwise the SED is sampled at the data wavelengths.
+    `device` None is the card (fitter.resolve_device: without one this
+    raises, naming device="cpu").
     """
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     sa = spec_arrays(spec)
     free_space = sa.free_space
 
@@ -367,7 +371,7 @@ def signed_iunc(unc, uplim_bands=None):
 
 
 def build_lnprob_data(shape: MBBShape, spec: LikelihoodSpec,
-                      response_pack=None, correlated=False, device="cpu"):
+                      response_pack=None, correlated=False, device=None):
     """The batch tier's lnprob: the photometry arrives as ARGUMENTS, with a
     leading source axis, so one function serves a whole catalog.
 
@@ -384,7 +388,10 @@ def build_lnprob_data(shape: MBBShape, spec: LikelihoodSpec,
     correlated errors: spec.uplim_bands must then be unset.
 
     This is the plain version the multi-source kernel
-    (ops/multifit_kernel.py) is held against."""
+    (ops/multifit_kernel.py) is held against. `device` None is the card,
+    as in build_lnprob."""
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     if correlated and spec.uplim_bands is not None and np.any(
             np.asarray(spec.uplim_bands)):
         raise ValueError(

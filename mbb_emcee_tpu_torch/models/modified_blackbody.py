@@ -116,21 +116,21 @@ def log_mbb_fnu_params(T, beta, lambda0, alpha, fnorm, wave,
     return torch.log(fnorm) + log_s(log_x) - log_s(log_x_norm)
 
 
-def log_mbb_fnu(theta, wave, shape: MBBShape = MBBShape()):
+def log_mbb_fnu(params, wave, shape: MBBShape = MBBShape()):
     """ln f_nu at observer-frame wavelengths, in the units of fnorm.
 
-    theta: (..., 5) parameter rows (T, beta, lambda0, alpha, fnorm);
+    params: (..., 5) parameter rows (T, beta, lambda0, alpha, fnorm);
     wave: tensor of wavelengths shared by every row. Returns
-    theta.shape[:-1] + wave.shape."""
-    wave = torch.as_tensor(wave, dtype=theta.dtype, device=theta.device)
-    bshape = theta.shape[:-1] + (1,) * wave.dim()
-    p = [theta[..., i].reshape(bshape) for i in range(5)]
+    params.shape[:-1] + wave.shape."""
+    wave = torch.as_tensor(wave, dtype=params.dtype, device=params.device)
+    bshape = params.shape[:-1] + (1,) * wave.dim()
+    p = [params[..., i].reshape(bshape) for i in range(5)]
     return log_mbb_fnu_params(*p, wave, shape)
 
 
-def mbb_fnu(theta, wave, shape: MBBShape = MBBShape()):
+def mbb_fnu(params, wave, shape: MBBShape = MBBShape()):
     """f_nu at observer-frame wavelengths (micron); units of fnorm."""
-    return torch.exp(log_mbb_fnu(theta, wave, shape))
+    return torch.exp(log_mbb_fnu(params, wave, shape))
 
 
 class ModifiedBlackbody:

@@ -113,9 +113,9 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
     """
 
     def __init__(self, nwalkers=250, wavenorm=500.0, noalpha=False,
-                 opthin=False, responses=None, seed=1234, a=2.0, mesh=None,
-                 sampler_backend="auto", device=None, dtype=None,
-                 prng_impl=None, lnprob_backend=None):
+                 opthin=False, responses=None, seed=1234, a=2.0,
+                 prng_impl=None, mesh=None, sampler_backend="auto",
+                 device=None, dtype=None, lnprob_backend=None):
         check_jax_keywords(dtype, prng_impl, lnprob_backend)
         if sampler_backend not in ("auto", "torch", "fused"):
             raise ValueError(

@@ -11,6 +11,32 @@ _INVPHI = 0.6180339887498949   # 1/phi
 _INVPHI2 = 0.3819660112501051  # 1/phi^2
 
 
+def _bisect(f, a, b, iters):
+    """`iters` bisection steps of the bracket [a, b] of a decreasing f."""
+    for _ in range(iters):
+        m = 0.5 * (a + b)
+        pos = f(m) > 0.0
+        a = torch.where(pos, m, a)
+        b = torch.where(pos, b, m)
+    return a, b
+
+
+def bisect_decreasing(f, lo, hi, iters=48):
+    """Root of a monotonically DECREASING function on [lo, hi].
+
+    Requires f(lo) > 0 > f(hi). Fixed `iters` bisection steps; with
+    iters=48 the bracket shrinks by 2^-48, far below fp32 resolution.
+    f maps a tensor to values of its shape, elementwise; lo/hi are floats
+    or tensors broadcastable against f's operand (floats become fp32, the
+    reference's default).
+    """
+    if not torch.is_tensor(lo):
+        lo = torch.as_tensor(lo, dtype=torch.float32)
+    hi = torch.as_tensor(hi, dtype=lo.dtype, device=lo.device)
+    a, b = _bisect(f, lo, hi, iters)
+    return 0.5 * (a + b)
+
+
 def bisect_newton_decreasing(g_and_gp, lo, hi, bisect_iters=10,
                              newton_iters=3):
     """Root of a strictly DECREASING g on [lo, hi] (g(lo) > 0 > g(hi)):
@@ -20,13 +46,7 @@ def bisect_newton_decreasing(g_and_gp, lo, hi, bisect_iters=10,
     tensors of the batch shape. The clamp keeps every Newton iterate inside
     the current bracket, so the solve cannot diverge.
     """
-    a, b = lo, hi
-    for _ in range(bisect_iters):
-        m = 0.5 * (a + b)
-        gm, _ = g_and_gp(m)
-        pos = gm > 0.0
-        a = torch.where(pos, m, a)
-        b = torch.where(pos, b, m)
+    a, b = _bisect(lambda u: g_and_gp(u)[0], lo, hi, bisect_iters)
     return _clamped_newton(g_and_gp, a, b, newton_iters)
 
 

@@ -585,9 +585,10 @@ class MultiEnsembleSampler:
 
 
 def make_initial_ball(generator, center, scatter, nwalkers, lower=None,
-                      upper=None, device="cpu"):
+                      upper=None, device=None):
     """Gaussian ball of walkers around `center` (free space), REFLECTED at
-    the box bounds, as an fp32 (nwalkers, ndim) tensor on `device`.
+    the box bounds, as an fp32 (nwalkers, ndim) tensor on `device` (None:
+    the card; without one this raises, naming device="cpu").
 
     The normal draws come from `generator` (a CPU torch.Generator), so a
     seed gives the same ball on every device. Reflection (not clipping)
@@ -596,6 +597,8 @@ def make_initial_ball(generator, center, scatter, nwalkers, lower=None,
     out-of-box values are reflected, so in-box values are never rounded to
     the fp32 quantum at the bound.
     """
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     center = torch.as_tensor(np.asarray(center, np.float32))
     scatter = torch.as_tensor(np.asarray(scatter, np.float32))
     eps = torch.randn((nwalkers, center.numel()), generator=generator,

@@ -363,6 +363,16 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
             np.asarray([self.a]), *self._ps_token(),
             np.asarray(self.model.param_names), np.asarray([self.model.name]))
 
+    def run(self, nburn=50, nsteps=250, thin=1, recenter_burn=True,
+            verbose=False, init="auto", checkpoint=None,
+            checkpoint_interval=100, resume=False):
+        """BatchEngine.run, with `init` in the place the JAX SEDMultiFitter
+        gives it (before `checkpoint`; MultiFitter's comes last)."""
+        return super().run(nburn, nsteps, thin, recenter_burn, verbose,
+                           checkpoint=checkpoint,
+                           checkpoint_interval=checkpoint_interval,
+                           resume=resume, init=init)
+
     def extend(self, nsteps, verbose=False):
         """Continue every source's production run from the stored state
         (BatchEngine.extend; also after from_h5 of this package's file)."""

@@ -317,23 +317,34 @@ def pt_advance(state, lnprob_batch, betas, nsteps, a=2.0, source=0):
     return state
 
 
-def pt_segment(state, lnprob_batch, betas, nrec, thin=1, a=2.0, source=0):
+def pt_segment(state, lnprob_batch, betas, nrec, thin=1, a=2.0, source=0,
+               carry=None):
     """`nrec` records of `thin` tempered steps, recording the cold rung and
     accumulating the per-rung <lnprob> and the stepping-stone sums (fp32 on
     the device, ss_stream_update) after each record. Returns (state, chain
     (..., nrec, W, d), lnpchain (..., nrec, W), per-rung lnprob sums
-    (..., K) host fp64, SSStats of the segment (host fp64, n = nrec * W)).
-    Segments merge with SSStats.merge: the batch tier's checkpointed
-    production is a sequence of them."""
+    (..., K) host fp64, SSStats (host fp64)). `carry`, the last two of a
+    previous segment's return, continues that segment's accumulators (the
+    fp64 values are fp32 ones, so the stream goes on bit for bit): the
+    batch tier's checkpointed production is a sequence of segments whose
+    evidence is the one segment's of the uninterrupted run, as the JAX
+    package's is."""
     K, W, d = state.pos.shape[-3:]
     lead = state.pos.shape[:-3]
     dev = state.pos.device
     dbeta = (betas[..., :-1] - betas[..., 1:]).to(torch.float32)
-    m = torch.full(lead + (K - 1,), -torch.inf, dtype=torch.float32,
-                   device=dev)
-    s1 = torch.zeros(lead + (K - 1,), dtype=torch.float32, device=dev)
-    s2 = torch.zeros_like(s1)
-    lnp_sum = torch.zeros(lead + (K,), dtype=torch.float32, device=dev)
+    if carry is None:
+        m = torch.full(lead + (K - 1,), -torch.inf, dtype=torch.float32,
+                       device=dev)
+        s1 = torch.zeros(lead + (K - 1,), dtype=torch.float32, device=dev)
+        s2 = torch.zeros_like(s1)
+        lnp_sum = torch.zeros(lead + (K,), dtype=torch.float32, device=dev)
+        n0 = 0.0
+    else:
+        lnp_sum, m, s1, s2 = (
+            torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
+            for v in (carry[0], carry[1].m, carry[1].s1, carry[1].s2))
+        n0 = float(carry[1].n)
     chain = torch.empty(lead + (nrec, W, d), dtype=state.pos.dtype,
                         device=dev)
     lnpch = torch.empty(lead + (nrec, W), dtype=state.lnp.dtype, device=dev)
@@ -349,7 +360,7 @@ def pt_segment(state, lnprob_batch, betas, nrec, thin=1, a=2.0, source=0):
         m, s1, s2 = ss_stream_update(m, s1, s2, dbeta, state.lnp[..., 1:, :])
     host = [t.double().cpu().numpy() for t in (lnp_sum, m, s1, s2)]
     return (state, chain, lnpch, host[0],
-            SSStats(host[1], host[2], host[3], float(nrec * W)))
+            SSStats(host[1], host[2], host[3], n0 + float(nrec * W)))
 
 
 class ParallelTemperingSampler:

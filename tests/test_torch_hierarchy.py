@@ -444,7 +444,7 @@ def _oracle_chain(lnprob, lo, hi, pop, seed, nburn, nsteps):
     p0 = make_initial_ball(torch.Generator().manual_seed(seed),
                            np.array([35.0, 5.0]), np.array([3.0, 1.0]), 64,
                            np.array([lo, pop.sigma_min[0]]),
-                           np.array([hi, pop.sigma_max[0]]))
+                           np.array([hi, pop.sigma_max[0]]), device="cpu")
     st = samp.advance(samp.init_state(p0, seed=seed), nburn)
     st = EnsembleSampler.reset_counters(st)
     _, chain, _ = samp.run_mcmc(st, nsteps)

@@ -109,7 +109,8 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     p0 = make_initial_ball(torch.Generator().manual_seed(0),
                            [30.0, 1.8, 250.0, 3.5, 23.0],
                            [2.0, 0.1, 20.0, 0.3, 1.0], 16,
-                           samp.free_space.lower, samp.free_space.upper)
+                           samp.free_space.lower, samp.free_space.upper,
+                           device="cpu")
     state = samp.init_state(p0, seed=7)
     state, chain, lnp = samp.run_mcmc(state, 4, thin=2)
     assert chain.shape == (2, 16, 5) and lnp.shape == (2, 16)
@@ -434,3 +435,235 @@ def test_multi_layouts_agree_on_the_card():
             assert torch.equal(got[1], want[1]), p
             assert torch.equal(got[2], want[2]), p
             assert torch.equal(got[0].naccept, want[0].naccept), p
+
+
+def _reference_all(relpath):
+    """__all__ of a JAX package source file, read by ast (the package
+    imports jax)."""
+    import ast
+    tree = ast.parse((REPO / "mbb_emcee_tpu" / relpath).read_text())
+    return next(ast.literal_eval(n.value) for n in tree.body
+                if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in n.targets))
+
+
+@pytest.mark.parametrize("sub", ["models", "ops", "parallel", "utils"])
+def test_subpackage_exports_match_the_reference(sub):
+    """Each subpackage's __all__ is the JAX subpackage's, and every name in
+    it imports from the subpackage (`from mbb_emcee_tpu_torch.models import
+    mbb_fnu`)."""
+    import importlib
+    mod = importlib.import_module(f"mbb_emcee_tpu_torch.{sub}")
+    assert sorted(mod.__all__) == sorted(_reference_all(f"{sub}/__init__.py"))
+    assert all(hasattr(mod, n) for n in mod.__all__)
+
+
+def test_ops_exports_keep_the_kernel_wrappers_lazy():
+    """ops exports the numeric building blocks beside kernel_launches, and
+    its module level imports only special, rootfind and quadrature: no
+    kernel wrapper and no build, which import where they are used."""
+    import ast
+    from mbb_emcee_tpu_torch.models import (  # noqa: F401
+        Cosmology, cmb_corrected_mbb, mbb_fnu)
+    from mbb_emcee_tpu_torch.ops import (  # noqa: F401
+        bisect_decreasing, gauss_legendre, golden_max, kernel_launches,
+        log_expm1)
+    from mbb_emcee_tpu_torch.utils import read_fits_image  # noqa: F401
+    tree = ast.parse((PKG / "ops" / "__init__.py").read_text())
+    top = {n.module for n in tree.body if isinstance(n, ast.ImportFrom)}
+    top |= {a.name for n in tree.body if isinstance(n, ast.Import)
+            for a in n.names}
+    assert top == {f"mbb_emcee_tpu_torch.ops.{m}"
+                   for m in ("special", "rootfind", "quadrature")}
+
+
+def test_bisect_decreasing_matches_the_reference():
+    """ops.bisect_decreasing against the JAX package's on the same inputs:
+    elementwise over a batch of brackets, and with float brackets."""
+    import jax.numpy as jnp
+    from mbb_emcee_tpu.ops.rootfind import bisect_decreasing as jbisect
+    from mbb_emcee_tpu_torch.ops import bisect_decreasing
+    c = np.random.default_rng(3).uniform(0.5, 40.0, 64).astype(np.float32)
+    got = bisect_decreasing(lambda x: torch.as_tensor(c) - x ** 2, 0.0,
+                            10.0)
+    want = jbisect(lambda x: jnp.asarray(c) - x ** 2, 0.0, 10.0)
+    assert got.dtype == torch.float32 and got.shape == (64,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.sqrt(c), rtol=1e-6)
+    lo = torch.as_tensor(np.full(64, 0.1, np.float32))
+    got = bisect_decreasing(lambda x: torch.log(torch.as_tensor(c) / x), lo,
+                            100.0, iters=30)
+    want = jbisect(lambda x: jnp.log(jnp.asarray(c) / x),
+                   jnp.full(64, 0.1, jnp.float32), 100.0, iters=30)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_renamed_keywords_match_the_reference():
+    """mbb_fnu / log_mbb_fnu take `params` and derived.sed_eval `waves_j`,
+    by name, as the JAX package's do."""
+    from mbb_emcee_tpu_torch import derived
+    from mbb_emcee_tpu_torch.models import log_mbb_fnu, mbb_fnu
+    p = torch.tensor([[30.0, 1.8, 250.0, 3.5, 23.0]])
+    w = torch.as_tensor(WAVE.astype(np.float32))
+    f = mbb_fnu(params=p, wave=w)
+    assert torch.equal(torch.log(f), log_mbb_fnu(params=p, wave=w))
+    assert torch.equal(derived.sed_eval(MBBShape(), waves_j=w)(p), f)
+
+
+@pytest.mark.parametrize("name", ["build_lnprob", "build_lnprob_data",
+                                  "make_initial_ball",
+                                  "lir_zparam_integrand"])
+def test_builders_default_to_the_card(name, monkeypatch):
+    """The public builders run on the card unless the caller names the CPU:
+    with no device named and no card they raise the RuntimeError that names
+    device="cpu" (fitter.resolve_device), as every entry point does."""
+    from mbb_emcee_tpu_torch import derived, likelihood, sampler
+    phot, shape, spec = _problem()
+    call = {
+        "build_lnprob": lambda: likelihood.build_lnprob(phot, shape, spec),
+        "build_lnprob_data": lambda: likelihood.build_lnprob_data(shape,
+                                                                  spec),
+        "make_initial_ball": lambda: sampler.make_initial_ball(
+            torch.Generator().manual_seed(0), [30.0, 1.8], [1.0, 0.1], 8),
+        "lir_zparam_integrand": lambda: derived.lir_zparam_integrand(
+            lambda theta, lam: lam, 0, 8.0, 1000.0)}[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+
+
+def test_builders_on_the_cpu_when_named():
+    """With device="cpu" the builders behave as before: build_lnprob gives
+    the same lnprob as the K1 operands' plain version, and the ball is the
+    CPU generator's."""
+    from mbb_emcee_tpu_torch.likelihood import build_lnprob
+    from mbb_emcee_tpu_torch.ops.lnprob_kernel import prepare_lnprob_inputs
+    phot, shape, spec = _problem()
+    fn, fs = build_lnprob(phot, shape, spec, device="cpu")
+    x = make_initial_ball(torch.Generator().manual_seed(0),
+                          [30.0, 1.8, 250.0, 3.5, 23.0],
+                          [2.0, 0.1, 20.0, 0.3, 1.0], 16, fs.lower,
+                          fs.upper, device="cpu")
+    assert x.device.type == "cpu" and x.dtype == torch.float32
+    ops = prepare_lnprob_inputs(phot, shape, spec, device="cpu")
+    assert torch.equal(fn(x), ops.plain(x))
+
+
+# The parameter differences that ROADMAP.md lists under "Deliberate
+# differences", each with its reason: the name, the side whose signatures
+# may hold it where the other's do not ("jax", "port" or either, "both"),
+# and why.
+DELIBERATE = {
+    "key": ("jax", "the JAX PRNG key: the port draws Philox-4x32-10 by an "
+                   "integer seed and a step counter"),
+    "seed": ("both", "the port's stream position (seed) sits where the "
+                     "reference's key does not"),
+    "step": ("port", "the Philox step counter that continues a stream "
+                     "(extend, resume)"),
+    "source": ("port", "the global source index of a Philox stream "
+                       "(batch tiers and mesh shards)"),
+    "generator": ("port", "make_initial_ball draws from a CPU "
+                          "torch.Generator where JAX takes a key"),
+    "uniforms": ("port", "external uniforms: the kernels' rng='external' "
+                         "replay contract"),
+    "capture": ("port", "the CUDA graph of one stretch step (sampler."
+                        "_StepGraph)"),
+    "device": ("port", "the port's device: the card unless the caller "
+                       "names the CPU (fitter.resolve_device)"),
+    "dtype": ("both", "one precision, float32 "
+                      "(fitter.check_jax_keywords)"),
+    "prng_impl": ("both", "one generator, named in every checkpoint "
+                          "(fitter.check_jax_keywords)"),
+    "lnprob_backend": ("both", "the likelihood is the device's: K1 on the "
+                               "card (fitter.check_jax_keywords)"),
+    "rec_cap": ("jax", "the traced programs' record buffer: torch runs "
+                       "eagerly"),
+    "program_token": ("jax", "the compiled-program cache: not ported"),
+    "interpret": ("jax", "Pallas interpret mode: the kernels are CUDA"),
+    "vary": ("jax", "shard_map's varying-carry marker: the mesh is one "
+                    "process over torch devices"),
+}
+# Names of a batched lnprob: the port's samplers take lnprob_batch where
+# the JAX samplers take a scalar lnprob_fn / lnprob / loglike.
+LNPROB_NAMES = {"lnprob_fn", "lnprob", "loglike", "lnprob_batch"}
+# Whole objects with a deliberate difference, and why.
+DELIBERATE_OBJECTS = {
+    "likelihood.SpecArrays": "the port maps the free parameters into the "
+                             "full vector by index (free_idx), not by a "
+                             "(5, nfree) scatter matrix",
+    "sampler.ensemble_step": "key-based; the port draws by seed and step "
+                             "(stretch_half_step_from_uniforms and the "
+                             "samplers cover it)",
+    "sampler.stretch_half_step": "key-based, as ensemble_step",
+    "sampler.shared_program": "the compiled-program cache: not ported",
+}
+
+
+def _shared_modules():
+    """Dotted names of the JAX package's modules that have a twin file in
+    the port (read from the file trees, so collection imports no jax)."""
+    ref = REPO / "mbb_emcee_tpu"
+    out = []
+    for p in sorted(ref.rglob("*.py")):
+        rel = p.relative_to(ref)
+        if (PKG / rel).is_file():
+            parts = rel.with_suffix("").parts
+            out.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                                else parts))
+    return out
+
+
+def _params(obj, side):
+    import inspect
+    try:
+        names = list(inspect.signature(obj).parameters)
+    except (TypeError, ValueError):
+        return None
+    return ["lnprob" if n in LNPROB_NAMES else n for n in names
+            if DELIBERATE.get(n, ("",))[0] not in (side, "both")]
+
+
+@pytest.mark.parametrize("module", _shared_modules())
+def test_public_signatures_match_the_reference(module):
+    """Every public function and class that a JAX module defines exists in
+    its port twin with the same parameter names in the same order, and so
+    does every public method of such a class, apart from DELIBERATE (the
+    differences ROADMAP.md keeps, by name) and DELIBERATE_OBJECTS."""
+    import importlib
+    import inspect
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        J = importlib.import_module(
+            "mbb_emcee_tpu" + (f".{module}" if module else ""))
+    T = importlib.import_module(
+        "mbb_emcee_tpu_torch" + (f".{module}" if module else ""))
+    found = []
+    for name, x in sorted(vars(J).items()):
+        if (name.startswith("_") or getattr(x, "__module__", None)
+                != J.__name__ or not (inspect.isfunction(x)
+                                      or inspect.isclass(x))):
+            continue
+        label = f"{module}.{name}"
+        if label in DELIBERATE_OBJECTS:
+            continue
+        y = getattr(T, name, None)
+        if y is None:
+            found.append(f"{label}: missing")
+            continue
+        pairs = [(label, x, y)]
+        if inspect.isclass(x):
+            pairs += [(f"{label}.{m}", getattr(x, m), getattr(y, m, None))
+                      for m, v in vars(x).items()
+                      if not m.startswith("_") and isinstance(
+                          v, (staticmethod, classmethod))
+                      or not m.startswith("_") and inspect.isfunction(v)]
+        for lab, a, b in pairs:
+            if b is None:
+                found.append(f"{lab}: missing")
+                continue
+            pa, pb = _params(a, "jax"), _params(b, "port")
+            if pa != pb and None not in (pa, pb):
+                found.append(f"{lab}: {pa} != {pb}")
+    assert found == []

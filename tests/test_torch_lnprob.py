@@ -86,7 +86,7 @@ def _both(jphot, jshape, jspec, pack=None):
     shape = MBBShape(opthin=jshape.opthin, noalpha=jshape.noalpha,
                      wavenorm=jshape.wavenorm)
     t_fn, fs2 = build_lnprob(phot, shape, spec_from_reference(jspec),
-                             response_pack=pack)
+                             response_pack=pack, device="cpu")
     np.testing.assert_array_equal(fs.free_idx, fs2.free_idx)
     return t_fn, jax.jit(jax.vmap(j_fn)), fs.free_idx
 

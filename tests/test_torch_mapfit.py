@@ -83,7 +83,7 @@ def _lnprobs(ci):
     tl, fs = T.build_lnprob(
         T.Photometry(vp.WAVE, flux, unc, cov=cov, band_names=names),
         MBBShape(opthin=cfg["opthin"], noalpha=cfg["noalpha"]),
-        _spec(T, cfg), response_pack=pack)
+        _spec(T, cfg), response_pack=pack, device="cpu")
     return jl, tl, fs
 
 
@@ -344,7 +344,8 @@ def test_map_importance_runs_the_fitters_lnprob():
     launches = mbb_lnprob.launches
     x, logw, ess = fit.map_importance(nsamples=256, seed=8)
     assert mbb_lnprob.launches == launches
-    lnprob, _ = T.build_lnprob(fit.phot, shape, fit._effective_spec())
+    lnprob, _ = T.build_lnprob(fit.phot, shape, fit._effective_spec(),
+                               device="cpu")
     lnp = lnprob(torch.tensor(x.astype(np.float32))).double().numpy()
     r = fit.map_result
     d = np.linalg.solve(np.linalg.cholesky(r.cov), (x - r.x).T).T

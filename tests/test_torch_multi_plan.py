@@ -280,7 +280,8 @@ def _state(samp):
     p0 = make_initial_ball(torch.Generator().manual_seed(1),
                            [30.0, 1.8, 250.0, 3.5, 40.0],
                            [2.0, 0.1, 20.0, 0.3, 1.0], 16,
-                           samp.free_space.lower, samp.free_space.upper)
+                           samp.free_space.lower, samp.free_space.upper,
+                           device="cpu")
     return samp.init_state(
         torch.stack([p0.roll(s, 0) for s in range(samp.nsources)]), seed=5)
 

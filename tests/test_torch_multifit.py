@@ -142,7 +142,8 @@ def test_build_lnprob_data_matches_jax(case):
                                     correlated=correlated)
     t_fn, tfs = build_lnprob_data(MBBShape(**shape_kw),
                                   spec_from_reference(jspec),
-                                  response_pack=pack, correlated=correlated)
+                                  response_pack=pack, correlated=correlated,
+                                  device="cpu")
     np.testing.assert_array_equal(jfs.free_idx, tfs.free_idx)
     rng = np.random.default_rng(3)
     th = TRUE[None, None, :] * rng.uniform(0.6, 1.6, (S, 48, 5))
@@ -165,7 +166,7 @@ def test_build_lnprob_data_matches_jax(case):
 def test_correlated_errors_refuse_upper_limits():
     spec = spec_from_reference(_jspec(uplim=np.ones(5, bool)))
     with pytest.raises(ValueError, match="correlated"):
-        build_lnprob_data(MBBShape(), spec, correlated=True)
+        build_lnprob_data(MBBShape(), spec, correlated=True, device="cpu")
     flux, unc = _data()
     with pytest.raises(ValueError, match="correlated"):
         FusedMultiSampler(NW, WAVE, flux, unc, MBBShape(), spec,
@@ -227,7 +228,8 @@ def _balls(free_space, nsrc, seed=50):
     c = TRUE[free_space.free_idx]
     return torch.stack([
         make_initial_ball(torch.Generator().manual_seed(seed + s), c,
-                          0.05 * c, NW, free_space.lower, free_space.upper)
+                          0.05 * c, NW, free_space.lower, free_space.upper,
+                          device="cpu")
         for s in range(nsrc)])
 
 

@@ -76,7 +76,7 @@ def _gauss(x):
 
 def _ball(nwalkers, seed, scale=1.0):
     return make_initial_ball(torch.Generator().manual_seed(seed), MEAN,
-                             scale * SIG, nwalkers)
+                             scale * SIG, nwalkers, device="cpu")
 
 
 def _mock_batch(trues, seed=0):
@@ -212,7 +212,8 @@ def test_sharded_half_step_replays_jax():
     j_fn, fs = j_build_lnprob(jphot, JShape(), jspec)
     t_fn, _ = build_lnprob(photometry_from_arrays(jphot.wave, jphot.flux,
                                                   jphot.unc),
-                           MBBShape(), spec_from_reference(jspec))
+                           MBBShape(), spec_from_reference(jspec),
+                           device="cpu")
     nwalkers, ndev = 64, 4
     rng = np.random.default_rng(11)
     p0 = (TRUE * (1 + 0.05 * rng.standard_normal((nwalkers, 5)))).astype(
@@ -253,13 +254,13 @@ def test_sharded_mbb_fit_recovers():
     spec.upper[1] = 5.0
     spec.fixed[2], spec.fixed_values[2] = True, 250.0
     spec.fixed[3], spec.fixed_values[3] = True, 3.5
-    lnprob, fs = build_lnprob(phot, shape, spec)
+    lnprob, fs = build_lnprob(phot, shape, spec, device="cpu")
     nwalkers = 64
     s = ShardedEnsembleSampler(nwalkers, fs.nfree, lnprob, cpu_mesh(8))
     center = TRUE[fs.free_idx]
     p0 = make_initial_ball(torch.Generator().manual_seed(3), center,
                            0.1 * np.abs(center), nwalkers, fs.lower,
-                           fs.upper)
+                           fs.upper, device="cpu")
     st = s.advance(s.init_state(p0, seed=4), 100)
     st, chain, _ = s.run_mcmc(st, 300)
     full = fs.expand(chain.double().numpy().reshape(-1, fs.nfree))

@@ -321,7 +321,7 @@ def test_plain_replay_with_a_pack_matches_jax_stretch_move():
     fs = samp.free_space
     p0 = make_initial_ball(torch.Generator().manual_seed(1),
                            vp.TRUE[fs.free_idx], 0.05 * vp.TRUE[fs.free_idx],
-                           32, fs.lower, fs.upper)
+                           32, fs.lower, fs.upper, device="cpu")
     state = samp.init_state(p0, seed=5)
     nsteps = 3
     u = np.random.default_rng(2).uniform(

@@ -93,7 +93,7 @@ def test_replay_matches_jax_stretch_move(opthin, noalpha):
 
     ref_chain, ref_lnp, ref_nacc = _jax_replay(u, p0,
                                                jax.jit(jax.vmap(j_fn)))
-    t_fn, _ = build_lnprob(phot, shape, spec)
+    t_fn, _ = build_lnprob(phot, shape, spec, device="cpu")
     sampler = tsampler.EnsembleSampler(NW, fs.nfree, t_fn)
     state = sampler.init_state(torch.as_tensor(p0), seed=1)
     state, chain, lnp = sampler.run_mcmc(state, nrec * thin, thin,
@@ -128,7 +128,7 @@ def test_state_from_jax_arrays_runs():
     np.testing.assert_array_equal(st.position.numpy(), np.asarray(p0))
     t_fn, _ = build_lnprob(photometry_from_arrays(
         jphot.wave, jphot.flux, jphot.unc), MBBShape(),
-        spec_from_reference(jspec))
+        spec_from_reference(jspec), device="cpu")
     np.testing.assert_allclose(t_fn(st.position).numpy(),
                                np.asarray(js.lnprob), rtol=1e-5, atol=1e-4)
     st2, chain, _ = tsampler.EnsembleSampler(NW, fs.nfree, t_fn).run_mcmc(
@@ -168,7 +168,8 @@ def test_initial_ball_reflects_at_bounds(bounds):
     lo = lo if bounds in ("both", "lower") else None
     hi = hi if bounds in ("both", "upper") else None
     ball = tsampler.make_initial_ball(torch.Generator().manual_seed(3),
-                                      center, scatter, 500, lo, hi).numpy()
+                                      center, scatter, 500, lo, hi,
+                                      device="cpu").numpy()
     eps = torch.randn((500, 3), generator=torch.Generator().manual_seed(3),
                       dtype=torch.float32).numpy()
     want = _reflect_reference(center + eps * scatter, lo, hi)
@@ -250,11 +251,12 @@ def test_split_runs_continue_the_stream():
     jphot, _, jspec = _problem(noalpha=True)
     t_fn, fs = build_lnprob(photometry_from_arrays(
         jphot.wave, jphot.flux, jphot.unc), MBBShape(noalpha=True),
-        spec_from_reference(jspec))
+        spec_from_reference(jspec), device="cpu")
     samp = tsampler.EnsembleSampler(32, fs.nfree, t_fn)
     c = TRUE[fs.free_idx]
     p0 = tsampler.make_initial_ball(torch.Generator().manual_seed(0), c,
-                                    0.05 * c, 32, fs.lower, fs.upper)
+                                    0.05 * c, 32, fs.lower, fs.upper,
+                                    device="cpu")
     s0 = samp.init_state(p0, seed=2024)
     _, whole, _ = samp.run_mcmc(s0, 6)
     s1, first, _ = samp.run_mcmc(s0, 2)

@@ -179,7 +179,7 @@ def test_lnprob_matches_mbb_builder():
                        (None, np.array([False] * 4 + [True]))]:
         phot = Photometry(WAVE, flux, unc, cov=cov)
         sp = dataclasses.replace(_spec(), uplim_bands=uplim)
-        ln_mbb, fs_mbb = build_lnprob(phot, SHAPE5, sp)
+        ln_mbb, fs_mbb = build_lnprob(phot, SHAPE5, sp, device="cpu")
         ln_sed, fs_sed = build_sed_lnprob(phot, model, sp)
         assert np.array_equal(fs_mbb.free_idx, fs_sed.free_idx)
         thetas = torch.as_tensor((rng.uniform(0.9, 1.1, (16, fs_mbb.nfree))
@@ -214,7 +214,7 @@ def test_builder_equivalence_random_configs():
             spec, fixed=fixed, fixed_values=fixed_vals,
             prior_mean=pm, prior_isigma=pis, uplim_bands=uplim)
         phot = Photometry(WAVE, flux, unc, cov=cov)
-        ln_mbb, fs = build_lnprob(phot, SHAPE5, spec)
+        ln_mbb, fs = build_lnprob(phot, SHAPE5, spec, device="cpu")
         ln_sed, fs2 = build_sed_lnprob(phot, model, spec)
         j_fn, _ = jsed.build_sed_lnprob(JPhotometry(WAVE, flux, unc,
                                                     cov=cov),
