@@ -121,13 +121,18 @@ non-zero without printing a result):
      run_pt(nsteps=200) on the same draws over their first 199 records
      (3x the combined batch-means error); run_hmc(100 + 200 x 8 leapfrog
      steps) against the same K2 fit (max(2%, 3 sigma_MC)), its time per
-     gradient, and one short call under torch.profiler for the kernels per
-     leapfrog step;
+     gradient, every transition one replay of its captured CUDA graph
+     (hmc._TransitionGraph; mode 'graph' required), the captured run
+     bitwise the same call eager at HMC_EAGER_DEPTH (chain, lnprob,
+     acceptance, step size, mass), ms per gradient captured and eager from
+     one state (at least 4x), the graph's kernel nodes per transition
+     (cuGraphGetNodes) beside the eager transition's kernels under
+     torch.profiler;
      MultiFitter.run_pt(12 rungs, 100 + 200) and run_hmc(25 + 100 x 2) at
      16 of the batch cell's sources (walker balls at the truth), each whole
      and in production segments of 50 records through the checkpoint= path
      (its flush replaced by a recorder: the card's machine has no h5py),
-     chains bitwise equal;
+     chains bitwise equal, both HMC runs in mode 'graph';
  23. nested sampling and the population tier through the user's entry
      points: MBBFitter.compute_evidence() at its defaults at config 2 on K1
      (1 + n_iter x nsteps launches counted, no plain likelihood call, n_iter
@@ -164,7 +169,8 @@ non-zero without printing a result):
      cmb_corrected_mbb(5.0, opthin=True, noalpha=True) through run(50, 250)
      against the CPU's same call (medians within 3 sigma_MC); (e) fit_map
      against the CPU's, map_importance, run(init="map") and run_pt against
-     the K2 fit, run_hmc against the CPU's same call, posterior_predictive
+     the K2 fit, run_hmc against the CPU's same call (mode 'graph'),
+     posterior_predictive
      and compute_loo against the MBB band fluxes on the same chain,
      compute_evidence against MBBFitter.compute_evidence on K1 (3x the
      combined error), each at the depths SED_* name; (f) the stretch step's marginal time, kernels and
@@ -289,12 +295,17 @@ non-zero without printing a result):
      the K1/K2/K3 launches and runs on the captured step (plain, response
      and correlated on K3, single on K1 + K2, sedmulti, photoz and the
      hierarchy on the captured plain step in graph mode, PT, MAP +
-     importance and nested sampling on plain torch); a variant whose ranks
-     miss a threshold, or which ran off its path, fails the phase. Budget:
-     SBC_BUDGET_S, advisory;
- 30. the SBC variants a whole run has no room for (SBC_ALONE: HMC and
-     fit_map -> run(init="map")), the same checks. Not part of the whole
-     run: `python3 chip_smoke.py --phases 30` runs it alone;
+     importance and nested sampling on plain torch, HMC on its captured
+     transition in mode 'graph'); a variant whose ranks miss a threshold,
+     or which ran off its path, fails the phase. Budget: SBC_BUDGET_S,
+     advisory;
+ 30. MBBFitter.run_hmc() at its defaults (500 + 1000 x 16 leapfrog steps:
+     24,001 gradients) at config 2, 250 chains x 5 bands, on the captured
+     transition (mode 'graph'), against K2's run(200, 1000) (max(2%, 3
+     sigma_MC)), its seconds, ms per gradient and acceptance; then the SBC
+     variant a whole run has no room for (SBC_ALONE: fit_map ->
+     run(init="map")), the same checks. Not part of the whole run:
+     `python3 chip_smoke.py --phases 30` runs it alone;
  31. the card legs of the ported tiers that had run on the CPU only, through
      the user's entry points at the batch cell's width (250 walkers x 5
      bands), with no plain run where a kernel is the path: (a)
@@ -325,7 +336,8 @@ non-zero without printing a result):
      map_importance (TIERS_MESH_MAP, TIERS_MESH_IS) and compute_evidence
      (TIERS_MESH_NESTED, stopped at its max_iter), each bitwise the
      unsharded call on the same data and seed (every stream keyed by global
-     source), with no kernel launched after the run. Budget:
+     source), with no kernel launched after the run, run_hmc in mode
+     'graph' sharded and unsharded. Budget:
      TIERS_CARD_BUDGET_S, advisory; `--phases 31` rehearses it alone.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
@@ -340,6 +352,7 @@ takes about 5-8 minutes on one H100 (H100 80GB HBM3 at 700 W), the
 kernels' build included.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2679,10 +2692,11 @@ def _graph_us(fn, reps):
     so a kernel of a few microseconds is timed by the device and not by the
     host's launch rate."""
     import torch
+    from mbb_emcee_tpu_torch.sampler import gc_paused
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -3120,15 +3134,22 @@ def phase_map_checks(card):
 
 # Phase 22's depths. run_pt runs at its defaults (12 rungs, beta_min="auto",
 # 300 burn + 1000 steps); run_hmc is cut from its defaults (500 warmup +
-# 1000 steps x 16 leapfrog steps) and the defaults' time is worked out from
-# the measured time per gradient: plain torch there takes ~14 ms per
-# gradient on an H100 (~910 kernels per leapfrog step), so 200 + 400 x 8
-# took 68 s and the batch tier's 100 + 200 x 8 37 s a call. The single fit
-# is cut to half (its posterior check needs the 8-step trajectories: at 4
-# steps and 100 + 200 alpha's median sat outside 3 sigma_MC in a CPU
-# rehearsal), the batch tier, which has no posterior check, to a quarter.
+# 1000 steps x 16 leapfrog steps), which phase 30 runs. Eager plain torch
+# took ~14 ms per gradient on an H100 (~910 kernels per leapfrog step), so
+# 200 + 400 x 8 took 68 s; each transition now replays one captured CUDA
+# graph (hmc._TransitionGraph). The single fit is cut to half (its
+# posterior check needs the 8-step trajectories: at 4 steps and 100 + 200
+# alpha's median sat outside 3 sigma_MC in a CPU rehearsal), the batch
+# tier, which has no posterior check, to a quarter.
 HMC_DEPTH = {"nwarmup": 100, "nsteps": 200, "n_leapfrog": 8}
-HMC_PROFILE_DEPTH = {"nwarmup": 2, "nsteps": 4, "n_leapfrog": 8}
+# The captured single fit against the same call with the capture off, on
+# the same seed and start: a short depth, since the eager transition is the
+# slow one (its warmup phases and production both run: nwarmup >= 4).
+HMC_EAGER_DEPTH = {"nwarmup": 4, "nsteps": 8, "n_leapfrog": 8}
+# ms per gradient from one post-warmup state: production runs of these many
+# transitions of HMC_DEPTH's n_leapfrog, marginal, captured and eager.
+HMC_TIME_TRANSITIONS = (4, 12)
+HMC_EAGER_TRANSITIONS = (1, 3)
 # The CPU's run_pt for the evidence check: the card's call with a shorter
 # production (the CPU took 39.5 s for the whole default call on the card's
 # host). The stepping-stone estimate moves with the production's length (at
@@ -3378,8 +3399,7 @@ def _eager_run(sampler, state, nrec, thin):
 def _graph_kernel_nodes(sampler, state):
     """(kernel nodes, all nodes) of the sampler's step captured anew from
     `state` into a graph that keeps its nodes, read with the CUDA driver
-    API's cuGraphGetNodes / cuGraphNodeGetType (kernel nodes: type 0)."""
-    import ctypes
+    API's cuGraphGetNodes / cuGraphNodeGetType (_count_graph_nodes)."""
     import torch
     from mbb_emcee_tpu_torch import sampler as ts
     pos_a, pos_b = _halves(state)
@@ -3389,21 +3409,7 @@ def _graph_kernel_nodes(sampler, state):
            sampler.lnprob_batch(pos_b), state.seed, state.step)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     g.capture(graph)
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
-        raise RuntimeError("cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kinds.append(kind.value)
-    return kinds.count(0), len(kinds)
+    return _count_graph_nodes(graph)
 
 
 def _all_graph(mode):
@@ -3514,11 +3520,162 @@ def _step_figures(tag, phase, sampler, state, steps, eager_steps, card):
     return f
 
 
-def _tier_segments(tag, run, flushes):
+@contextlib.contextmanager
+def _hmc_eager():
+    """A context in which HMC runs its transitions eagerly on the card
+    (hmc._CAPTURE off): what the captured runs are held against."""
+    from mbb_emcee_tpu_torch import hmc
+    hmc._CAPTURE = False
+    try:
+        yield
+    finally:
+        hmc._CAPTURE = True
+
+
+def _require_hmc_graph(tag, phase, fitter):
+    """Require that a fitter's last run_hmc replayed its captured
+    transition (fitter._hmc_mode "graph"): the MBB and wrapped-MBB models
+    must capture."""
+    mode = fitter._hmc_mode
+    ok = mode == "graph"
+    log(f"[{phase}] {tag}: HMC transition mode {mode!r} (want 'graph') "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} did not replay its captured HMC "
+                             "transition")
+
+
+def _hmc_graph_vs_eager(tag, phase, make_fit, depth):
+    """make_fit().run_hmc(**depth) on the captured transition against the
+    same call with the capture off, from the same seed and start: chain,
+    lnprob, acceptance, step size and mass bitwise. Returns (captured s,
+    eager s)."""
+    import numpy as np
+    import torch
+    got, t_graph = _timed(lambda: make_fit().run_hmc(**depth))
+    with _hmc_eager():
+        want, t_eager = _timed(lambda: make_fit().run_hmc(**depth))
+
+    def tuning(f):
+        if hasattr(f, "hmc_step_size"):
+            return [f.hmc_step_size, f.hmc_mass]
+        return [np.asarray(f.hmc_result.step_size), f.hmc_result.mass]
+    same = (torch.equal(got.chain_free, want.chain_free)
+            and torch.equal(got.lnprobability, want.lnprobability)
+            and all(np.array_equal(a, b) for a, b in zip(
+                [got.acceptance_fraction] + tuning(got),
+                [want.acceptance_fraction] + tuning(want))))
+    ok = same and got._hmc_mode == "graph" and want._hmc_mode == "eager"
+    log(f"[{phase}] {tag}.run_hmc({depth}) on the captured transition "
+        f"({t_graph:.2f} s, mode {got._hmc_mode!r}) against the same call "
+        f"eager ({t_eager:.2f} s, mode {want._hmc_mode!r}), same seed and "
+        f"start: chain, lnprob, acceptance, step size and mass "
+        f"{'bitwise equal' if same else 'DIFFERENT'} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the captured HMC run is not the "
+                             "eager run")
+    return t_graph, t_eager
+
+
+def _count_graph_nodes(graph):
+    """(kernel nodes, all nodes) of a torch.cuda.CUDAGraph built with
+    keep_graph=True, read with the CUDA driver API's cuGraphGetNodes /
+    cuGraphNodeGetType (kernel nodes: type 0)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0), len(kinds)
+
+
+def _hmc_figures(tag, phase, fit, n_leapfrog, card):
+    """ms per gradient of the fit's HMC transition captured and eager from
+    one state (a start of the fit's walker ball at eps 0.1 and unit mass:
+    the work of a transition does not depend on it), marginal over
+    HMC_TIME_TRANSITIONS and HMC_EAGER_TRANSITIONS production transitions
+    (_marginal_ms); the captured graph's kernel nodes per transition
+    against the eager transition's device kernels under torch.profiler
+    (run(1) - run(0))."""
+    import torch
+    from mbb_emcee_tpu_torch import hmc
+    lnprob, fs, x0 = fit._tier_setup("", None, None, plain=True)
+    dev = x0.device
+    lo = torch.as_tensor(fs.lower, dtype=torch.float32, device=dev)
+    width = torch.as_tensor(fs.upper, dtype=torch.float32, device=dev) - lo
+    seed = 2206
+    u, g, lp, raw, eps, mass, step = hmc._warmup_core(
+        lnprob, lo, width, hmc._to_unconstrained(x0, lo, width), 0,
+        n_leapfrog, 0.8, seed, 0, 0, hmc._HMCGraphs())
+    nacc = torch.zeros(u.shape[:-1], dtype=torch.int32, device=dev)
+    graphs = hmc._HMCGraphs()
+    with _hmc_eager():
+        eager_graphs = hmc._HMCGraphs()
+
+    def run(graphs_):
+        return lambda n: hmc._prod_core(
+            lnprob, lo, width, u, g, lp, raw, nacc, eps, mass, n, 1,
+            n_leapfrog, seed, step, 0, graphs_)
+    captured, eager = run(graphs), run(eager_graphs)
+    t0 = time.time()
+    f = {"graph ms per gradient": _marginal_ms(
+        captured, HMC_TIME_TRANSITIONS) / n_leapfrog,
+         "eager ms per gradient": _marginal_ms(
+        eager, HMC_EAGER_TRANSITIONS) / n_leapfrog}
+    if graphs.mode != "graph":
+        raise AssertionError(f"{tag}: the timed transition did not replay "
+                             "a graph")
+    _, hmc_step = hmc._make_stepper(lnprob, lo, width, n_leapfrog)
+    tr = hmc._TransitionGraph(hmc_step, u, torch.zeros(
+        (), dtype=torch.int64, device=dev))
+    tr.load((u, g, lp, raw, eps, mass), seed, step, 3)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    tr.capture(graph)
+    f["graph kernel nodes per transition"], f["graph nodes per transition"] \
+        = _count_graph_nodes(graph)
+    (k0, h0), (k1, h1) = (_profiled_launches(lambda: eager(n))
+                          for n in (0, 1))
+    f["eager kernels per transition"] = k1 - k0
+    f["eager launch calls per transition"] = h1 - h0
+    f["timed and traced s"] = time.time() - t0
+    x = f["eager ms per gradient"] / f["graph ms per gradient"]
+    ok = x >= 4.0
+    log(f"[{phase}] {tag}: {n_leapfrog} leapfrog steps per transition; "
+        f"captured {f['graph ms per gradient']:.3f} ms per gradient "
+        f"(marginal over {HMC_TIME_TRANSITIONS[1]} - "
+        f"{HMC_TIME_TRANSITIONS[0]} transitions), "
+        f"{f['graph kernel nodes per transition']} kernel nodes of "
+        f"{f['graph nodes per transition']} in the transition's graph; "
+        f"eager {f['eager ms per gradient']:.3f} ms per gradient (over "
+        f"{HMC_EAGER_TRANSITIONS[1]} - {HMC_EAGER_TRANSITIONS[0]}), "
+        f"{f['eager kernels per transition']} device kernels and "
+        f"{f['eager launch calls per transition']} cudaLaunchKernel calls "
+        f"per transition under torch.profiler: {x:.1f}x (want >= 4) "
+        f"{'PASS' if ok else 'FAIL'} ({f['timed and traced s']:.1f} s) "
+        f"({card})")
+    if not ok:
+        raise AssertionError(f"{tag}: the captured transition is not 4x "
+                             "the eager one")
+    return f
+
+
+def _tier_segments(tag, run, flushes, hmc=False):
     """run(checkpoint, interval) whole and in production segments of
     TIER_SEGMENT records through the checkpoint= path, the flush replaced by
-    a recorder (the card's machine has no h5py). Returns (whole, segmented,
-    seconds of each)."""
+    a recorder (the card's machine has no h5py); `hmc`: both runs must
+    replay their captured transition. Returns (whole, seconds of the whole
+    and of the segmented run)."""
     from mbb_emcee_tpu_torch import checkpoint
     whole, t_whole = _timed(lambda: run(None, 100))
     orig = checkpoint.save_tier_checkpoint
@@ -3542,6 +3699,9 @@ def _tier_segments(tag, run, flushes):
     if not ok:
         raise AssertionError(f"{tag}: segmented production is not the "
                              "whole run")
+    if hmc:
+        for f, how in ((whole, "whole"), (seg, "segmented")):
+            _require_hmc_graph(f"{tag} {how}", 22, f)
     return whole, t_whole, t_seg
 
 
@@ -3641,7 +3801,8 @@ def phase_tiers(card):
                       "card first records": [lz_pre, se_pre],
                       "cpu records": [lc_rec, se_cpu]}
 
-    # -- single-fit HMC (plain likelihood under torch.autograd)
+    # -- single-fit HMC (plain likelihood under torch.autograd), each
+    # transition one replay of its captured CUDA graph
     hfit = port_fitter(2, flux, unc, cov, seed=2203)
     _counts(reset=True)
     _, t_hmc = _timed(lambda: hfit.run_hmc(**HMC_DEPTH))
@@ -3649,30 +3810,24 @@ def phase_tiers(card):
     grads = 1 + (HMC_DEPTH["nwarmup"] + HMC_DEPTH["nsteps"]) \
         * HMC_DEPTH["n_leapfrog"]
     us_grad = 1e6 * t_hmc / grads
-    log(f"[22] run_hmc({HMC_DEPTH}): {t_hmc:.2f} s (host clock), "
-        f"{grads} gradient evaluations, {us_grad:.0f} us each; acceptance "
-        f"{hfit.acceptance_fraction.mean():.3f}, step size "
+    log(f"[22] run_hmc({HMC_DEPTH}): {t_hmc:.2f} s (host clock, the "
+        f"capture included), {grads} gradient evaluations, {us_grad:.0f} us "
+        f"each; acceptance {hfit.acceptance_fraction.mean():.3f}, step size "
         f"{hfit.hmc_result.step_size:.4g}; K1 launches {c['mbb_lnprob']} "
         f"({card})")
+    _require_hmc_graph(f"MBBFitter.run_hmc({HMC_DEPTH})", 22, hfit)
     _posterior_vs("run_hmc", hfit, ref, 0.02, free)
-    prof = port_fitter(2, flux, unc, cov, seed=2204)
-    kernels, host = _profiled_launches(
-        lambda: prof.run_hmc(**HMC_PROFILE_DEPTH))
-    leap = (HMC_PROFILE_DEPTH["nwarmup"] + HMC_PROFILE_DEPTH["nsteps"]) \
-        * HMC_PROFILE_DEPTH["n_leapfrog"]
-    default_grads = 1 + (500 + 1000) * 16
-    log(f"[22] run_hmc({HMC_PROFILE_DEPTH}) under torch.profiler: "
-        f"{kernels} device kernels, {host} cudaLaunchKernel calls, "
-        f"{kernels / leap:.1f} kernels per leapfrog step ({leap} steps, "
-        f"{leap + 1} gradients); run_hmc() at its defaults ({default_grads} "
-        f"gradients) would take ~{default_grads * us_grad / 1e6:.0f} s at "
-        f"the measured {us_grad:.0f} us per gradient ({card})")
+    t_graph, t_eager = _hmc_graph_vs_eager(
+        "MBBFitter", 22, lambda: port_fitter(2, flux, unc, cov, seed=2204),
+        HMC_EAGER_DEPTH)
+    f = _hmc_figures("MBBFitter's HMC transition at config 2", 22, hfit,
+                     HMC_DEPTH["n_leapfrog"], card)
     out.update({"run_hmc": t_hmc, "run_hmc us per gradient": us_grad,
-                "run_hmc kernels per leapfrog step": kernels / leap,
-                "run_hmc profiled kernels": kernels,
-                "run_hmc profiled launch calls": host,
-                "run_hmc defaults s (worked out)":
-                    default_grads * us_grad / 1e6})
+                f"run_hmc({HMC_EAGER_DEPTH}) captured / eager s":
+                    [t_graph, t_eager],
+                **{f"run_hmc {k}": v for k, v in f.items()},
+                "run_hmc defaults": "measured in phase 30 "
+                                    "(--phases 30)"})
 
     # -- the batch tiers at TIER_SOURCES of the batch cell's sources (walker
     # balls at the truth: phase 31 holds SEDMultiFitter's same calls to
@@ -3695,7 +3850,7 @@ def phase_tiers(card):
         PT_BATCH["nsteps"] // TIER_SEGMENT)
     mh, t3, t4 = _tier_segments(
         f"MultiFitter.run_hmc({HMC_BATCH}) x {TIER_SOURCES} sources",
-        run_hmc, HMC_BATCH["nsteps"] // TIER_SEGMENT)
+        run_hmc, HMC_BATCH["nsteps"] // TIER_SEGMENT, hmc=True)
     c = _counts()
     ok = (np.all(np.isfinite(mp.logz_pt[0]))
           and np.all(np.isfinite(mp.par_cen("T")))
@@ -4732,6 +4887,8 @@ def phase_generic(card):
             f"{1e3 * out['run_hmc'] / grads:.1f} ms per gradient, acceptance "
             f"{hfit.acceptance_fraction.mean():.3f} (CPU {acc_cpu:.3f}, "
             f"{t_hc:.1f} s)")
+        _require_hmc_graph(f"(e) SEDFitter.run_hmc({SED_HMC}) of the "
+                           "wrapped MBB", 24, hfit)
         _medians_vs(f"(e) run_hmc({SED_HMC}) on the card against the CPU's "
                     "same call (a depth too short to converge: held to the "
                     "CPU, not to K2), within 3 sigma_MC",
@@ -6336,12 +6493,14 @@ def _mesh_graph_checks(mesh, where, card):
 # Phases 29-30: the SBC twin (tests/test_torch_sbc.py's sbc_ranks and
 # sbc_hierarchy_ranks) on the card at tests/test_sbc.py's full S, depths,
 # truths and thresholds. Phase 29 runs in the whole run; phase 30 holds the
-# variants a whole run has no room for and runs alone (--phases 30).
-# The split by the variants' seconds on an H100 (PERF.md): 34 s for these
-# together in a whole run, 55 s for the two left alone.
+# variant a whole run has no room for and runs alone (--phases 30), beside
+# run_hmc() at its defaults. The split by the variants' seconds on an H100
+# (PERF.md): 34 s for the first ten together in a whole run; hmc 37-55 s
+# eager, 5 s on its captured transition, so it joined them; single_map_init
+# 17-48 s.
 SBC_WHOLE = ("plain", "response", "correlated", "single", "sedmulti",
-             "photoz", "hierarchy", "pt", "map_is", "nested")
-SBC_ALONE = ("hmc", "single_map_init")
+             "photoz", "hierarchy", "pt", "map_is", "nested", "hmc")
+SBC_ALONE = ("single_map_init",)
 SBC_BUDGET_S = 60.0
 
 
@@ -6381,6 +6540,8 @@ def _sbc_variant(mode):
                          "graph_mode": ("graph",)},
             "photoz": {"K3": 0, "graphed runs": 3, "graph_mode": ("graph",)},
             "hierarchy": {"graphed runs": 3 * n, "graph_mode": "graph"},
+            "hmc": {"K2": 0, "K3": 0, "graphed runs": 0,
+                    "graph_mode": "graph"},
             }.get(mode, {"K2": 0, "K3": 0, "graphed runs": 0})
     want["plain stretch runs"] = 0
     path_ok = all(st[k] == v for k, v in want.items())
@@ -6398,6 +6559,38 @@ def _sbc_variant(mode):
     if not st["ok"]:
         raise AssertionError(f"SBC {mode}: ranks not uniform: {st}")
     return st
+
+
+def phase_hmc_defaults(card):
+    """MBBFitter.run_hmc() at its defaults (500 warmup + 1000 steps x 16
+    leapfrog steps: 24,001 gradients) at config 2, 250 walkers x 5 bands,
+    on the captured transition, against K2's run(200, 1000) on the same
+    data (medians and 68% widths within max(2%, 3 sigma_MC), phase 22's
+    bound). Returns its seconds and figures (phase 30)."""
+    from tools import validate_tpu_parity as vp
+    cfg = vp.CONFIGS[2]
+    free = vp.free_indices(cfg)
+    flux, unc, cov = vp.mock_data(cfg)
+    ref = port_fitter(2, flux, unc, cov, seed=2201)
+    ref.run(nburn=200, nsteps=1000)
+    fit = port_fitter(2, flux, unc, cov, seed=2205)
+    _counts(reset=True)
+    _, t = _timed(fit.run_hmc)
+    c = _counts()
+    grads = 1 + (500 + 1000) * 16
+    out = {"run_hmc() s": t, "gradients": grads,
+           "ms per gradient": 1e3 * t / grads,
+           "acceptance": float(fit.acceptance_fraction.mean()),
+           "step size": fit.hmc_result.step_size}
+    log(f"[30] MBBFitter.run_hmc() at its defaults, config 2, {NWALKERS} "
+        f"chains x 5 bands: {t:.2f} s (host clock, the capture included), "
+        f"{grads} gradients, {out['ms per gradient']:.3f} ms per gradient, "
+        f"acceptance {out['acceptance']:.3f}, step size "
+        f"{out['step size']:.4g}; K1 launches {c['mbb_lnprob']} ({card})")
+    _require_hmc_graph("MBBFitter.run_hmc() at its defaults", 30, fit)
+    _posterior_vs("run_hmc() at its defaults", fit, ref, 0.02, free,
+                  phase=30)
+    return out
 
 
 def phase_sbc(card, modes, phase):
@@ -6597,6 +6790,9 @@ def _mesh_tier_legs(card, out, launches):
     check(f"run_hmc({TIERS_MESH_HMC})",
           lambda f: f.run_hmc(**TIERS_MESH_HMC),
           attrs(chains + ("hmc_step_size", "hmc_mass")))
+    for f, how in ((a, f"MultiFitter(mesh={TIERS_MESH_SHARDS} shards)"),
+                   (b, "MultiFitter")):
+        _require_hmc_graph(f"(c) {how}.run_hmc({TIERS_MESH_HMC})", 31, f)
     check(f"run_map({TIERS_MESH_MAP}) + map_importance({TIERS_MESH_IS})",
           lambda f: (f.run_map(**TIERS_MESH_MAP),
                      f.map_importance(TIERS_MESH_IS))[1],
@@ -6679,6 +6875,9 @@ def phase_card_tiers(card, tiers=None, evidence=None):
         out[f"(a) SEDMultiFitter.{tag}"] = t
         if tag == "compute_evidence":
             evs = res
+        if tag == "run_hmc":
+            _require_hmc_graph(f"(a) SEDMultiFitter.run_hmc({HMC_BATCH}) "
+                               "of the wrapped MBB", 31, sh)
     _batch_posterior_vs(f"SEDMultiFitter.run_pt({PT_BATCH}) against "
                         f"MultiFitter's same call", sp, mp, 0.02, phase=31)
     _batch_posterior_vs(f"SEDMultiFitter.run_hmc({HMC_BATCH}) against "
@@ -6770,7 +6969,8 @@ def main(argv=None):
         ("27", lambda: phase_migration(card)),
         ("28", lambda: phase_mesh(card)),
         ("29", lambda: phase_sbc(card, SBC_WHOLE, 29)),
-        ("30", lambda: phase_sbc(card, SBC_ALONE, 30)),
+        ("30", lambda: (phase_hmc_defaults(card),
+                        phase_sbc(card, SBC_ALONE, 30))),
         ("31", lambda: phase_card_tiers(
             card, res["22"][2] if "22" in res else None,
             res["23"][2] if "23" in res else None))]

@@ -1149,7 +1149,8 @@ class BatchEngine:
 
         The recorded chains have run()'s shapes; extend() does not apply."""
         from mbb_emcee_tpu_torch.hmc import (
-            _to_unconstrained, check_box, hmc_prod_core, hmc_warmup_core)
+            _HMCGraphs, _prod_core, _to_unconstrained, _warmup_core,
+            check_box)
 
         self._tier_checks(nsteps, thin, resume, checkpoint)
         spec = self._effective_spec()
@@ -1171,6 +1172,9 @@ class BatchEngine:
         lower, width = box(dev)
         resuming = bool(checkpoint and resume and os.path.exists(checkpoint))
         interval = max(1, int(checkpoint_interval))
+        # one captured transition per shard for the whole call: the warmup
+        # and every production segment replay it
+        graphs = _HMCGraphs()
         expect = {"nwarmup": int(nwarmup), "n_leapfrog": int(n_leapfrog),
                   "target_accept": float(target_accept)}
         names = ("u", "g", "lp", "raw", "nacc", "eps", "mass")
@@ -1189,9 +1193,10 @@ class BatchEngine:
                              cen[:, idx], sca[:, idx])
             seed = philox_key(self.seed)
             u, g, lp, raw, eps, mass, step = self._on_shards(
-                shards, lambda ops, src, u0: hmc_warmup_core(
+                shards, lambda ops, src, u0: _warmup_core(
                     ops.plain, *box(src.device), u0, int(nwarmup),
-                    int(n_leapfrog), float(target_accept), seed, 0, src),
+                    int(n_leapfrog), float(target_accept), seed, 0, src,
+                    graphs),
                 _to_unconstrained(p0, lower, width))
             nacc = torch.zeros((S, W), dtype=torch.int32, device=dev)
             chain_blocks, lnp_blocks, done = [], [], 0
@@ -1206,9 +1211,9 @@ class BatchEngine:
             seg = nrec - done if checkpoint is None else min(interval,
                                                               nrec - done)
             chain, lnpch, u, g, lp, raw, nacc, step = self._on_shards(
-                shards, lambda ops, src, *st: hmc_prod_core(
+                shards, lambda ops, src, *st: _prod_core(
                     ops.plain, *box(src.device), *st, seg * thin_i, thin_i,
-                    int(n_leapfrog), seed, step, src),
+                    int(n_leapfrog), seed, step, src, graphs),
                 u, g, lp, raw, nacc, eps, mass)
             keep = (lambda t: t) if checkpoint is None else (
                 lambda t: t.cpu().numpy())
@@ -1233,6 +1238,7 @@ class BatchEngine:
                                     / (done * thin_i))          # (S, W)
         self.hmc_step_size = eps.double().cpu().numpy()
         self.hmc_mass = mass.double().cpu().numpy()
+        self._hmc_mode = graphs.mode     # "graph": one captured transition
         self._engine_record_nonextendable("hmc")
         if verbose:
             from mbb_emcee_tpu_torch.utils.log import enable_console

@@ -43,9 +43,14 @@ def spec_from_reference(spec):
 
 
 def state_from_arrays(pos_a, pos_b, lnp_a, lnp_b, naccept, nsteps, seed,
-                      device="cpu"):
+                      device=None):
     """SamplerState from array-likes (e.g. the fields of the JAX package's
-    SamplerState); `seed` becomes the 64-bit Philox key of the state."""
+    SamplerState); `seed` becomes the 64-bit Philox key of the state.
+    `device` None is the card (fitter.resolve_device: without one this
+    raises, naming device="cpu")."""
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
+
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
     return SamplerState(

@@ -545,16 +545,18 @@ class MBBFitter(ParamSpaceMixin):
         `nsteps` production steps recorded every `thin`. MBBResults,
         gelman_rubin and writeToHDF5 see the usual (nrec, nchains, nfree)
         chain. extend() does not apply (re-run with more nsteps)."""
-        from mbb_emcee_tpu_torch.hmc import hmc_sample
+        from mbb_emcee_tpu_torch import hmc
 
         lnprob, free_space, x0 = self._tier_setup(
             "run_hmc samples one set of chains -- use nchains= for more HMC "
             "chains", nchains, p0, plain=True)
         self.thin = int(thin)
-        res = hmc_sample(lnprob, free_space.lower, free_space.upper, x0,
-                         philox_key(self.seed), nwarmup=nwarmup,
-                         nsteps=nsteps, thin=thin, n_leapfrog=n_leapfrog,
-                         target_accept=target_accept)
+        graphs = hmc._HMCGraphs()
+        res = hmc._sample(lnprob, free_space.lower, free_space.upper, x0,
+                          philox_key(self.seed), graphs, nwarmup=nwarmup,
+                          nsteps=nsteps, thin=thin, n_leapfrog=n_leapfrog,
+                          target_accept=target_accept)
+        self._hmc_mode = graphs.mode     # "graph": one captured transition
         self._tier_done("hmc", res.chain, res.lnprob, res.acceptance_fraction)
         self.hmc_result = res
         if verbose:

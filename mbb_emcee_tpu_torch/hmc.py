@@ -34,11 +34,22 @@ counted by the run's global step, so a checkpointed production run is the
 uninterrupted one bit for bit; the step (_make_stepper's
 hmc_step_from_draws) takes the draws as tensors (the JAX package's draws in
 the cross-package tests).
+
+The JAX package jits the whole sampler into one program. On a card the
+port replays one captured CUDA graph per transition (_TransitionGraph: the
+draws from a step counter on the device, the leapfrog's forward and
+autograd backward passes, the accept), the eager transition's results bit
+for bit, one launch where the eager transition launches ~910 kernels per
+gradient from Python; a call keeps its graph for its warmup and every
+production segment (_HMCGraphs). Dual averaging and the warmup's moments
+run eagerly between replays. The CPU runs the eager loop; a transition
+that cannot be captured warns, naming the model, and runs it too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -47,7 +58,12 @@ import torch.nn.functional as F
 # The logit transform and the gradient oracle MAP fitting uses (mapfit is
 # the single definition: init='map' seeding assumes the tiers share it).
 from mbb_emcee_tpu_torch.mapfit import _to_unconstrained, _value_and_grad
-from mbb_emcee_tpu_torch.ops.philox import hmc_draws, step_blocks
+from mbb_emcee_tpu_torch.ops.philox import (
+    check_tagged_steps, hmc_draws, round_keys, step_blocks)
+# The warm-up before a capture, the capture warning's model name and the
+# collector held off during a capture are the captured stretch step's
+# (sampler._StepGraph).
+from mbb_emcee_tpu_torch.sampler import GRAPH_WARMUP_STEPS, _label, gc_paused
 
 # Dual-averaging constants (Hoffman & Gelman 2014).
 _DA_T0 = 10.0
@@ -144,6 +160,194 @@ def _draws(seed, step, nsteps, u, source):
         step, nsteps, nchains * nsrc)
 
 
+# The private switch of the card's capture: False runs every transition
+# eagerly on the card too (the card tests and chip_smoke.py compare the
+# two runs; no public parameter, as the JAX signatures have none).
+_CAPTURE = True
+
+
+class _TransitionGraph:
+    """One MH-corrected transition -- hmc_step_from_draws: its draws, the
+    leapfrog's n_leapfrog value-and-gradient calls (forward and autograd
+    backward) and the accept -- captured as a CUDA graph over static
+    buffers: the state (u, g, lp, raw), the step size (...,) and mass
+    (..., nfree) it runs at, its accepts and mean acceptance statistic,
+    the global step (a 0-d int64 the graph increments) and the round keys.
+    `source` (an int64 tensor on the device: 0-d for one fit, the global
+    source indices for S) keys the streams as hmc_draws does, so a replay
+    draws what the eager loop's block draw gives that step. Dual averaging
+    and the warmup's moments stay eager between replays (their iteration
+    number changes every step): the graph holds only what every step
+    repeats. One graph per transition, not per gradient: ~n_leapfrog x 910
+    kernel nodes and their intermediates in one private pool, one replay
+    per transition."""
+
+    def __init__(self, hmc_step, u, source):
+        self.hmc_step, self.source = hmc_step, source
+        lead, nchains = u.shape[:-2], u.shape[-2]
+        dev = u.device
+        self.u = torch.empty_like(u, memory_format=torch.contiguous_format)
+        self.g = torch.empty_like(self.u)
+        self.lp = torch.empty(lead + (nchains,), dtype=u.dtype, device=dev)
+        self.raw = torch.empty_like(self.lp)
+        self.acc = torch.zeros(lead + (nchains,), dtype=torch.bool,
+                               device=dev)
+        self.alpha = torch.empty(lead, dtype=u.dtype, device=dev)
+        self.eps = torch.empty(lead, dtype=u.dtype, device=dev)
+        self.mass = torch.empty(lead + u.shape[-1:], dtype=u.dtype,
+                                device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.keys = round_keys(0, dev)
+        self.graph = None
+
+    def _put(self, state):
+        """Copy (u, g, lp, raw, eps, mass) into the buffers (a buffer
+        handed back is already there)."""
+        for dst, src in zip((self.u, self.g, self.lp, self.raw, self.eps,
+                             self.mass), state):
+            if src is not dst:
+                dst.copy_(src)
+
+    def load(self, state, seed, step, nsteps):
+        """A run of `nsteps` transitions from global step `step` of the
+        stream `seed`, from `state` (u, g, lp, raw, eps, mass)."""
+        check_tagged_steps(step, nsteps)
+        self._put(state)
+        self.step.fill_(int(step))
+        self.keys.copy_(round_keys(seed, self.keys.device))
+
+    def transition(self):
+        """The captured body: one transition on the static buffers."""
+        nchains, nfree = self.u.shape[-2:]
+        draws = hmc_draws(self.keys, self.step, 1, nchains, nfree,
+                          self.step.device, self.source)
+        u, g, lp, raw, acc, alpha = self.hmc_step(
+            tuple(d[0] for d in draws), self.u, self.g, self.lp, self.raw,
+            self.eps, self.mass)
+        for dst, src in ((self.u, u), (self.g, g), (self.lp, lp),
+                         (self.raw, raw), (self.acc, acc),
+                         (self.alpha, alpha)):
+            dst.copy_(src)
+        self.step += 1
+
+    def capture(self, graph=None):
+        """Warm up on a side stream (autograd's first backward and the
+        model's lazy set-up run there), then capture transition() into
+        `graph` (a new torch.cuda.CUDAGraph by default; one built with
+        keep_graph=True keeps its nodes readable). The buffers must hold a
+        run's start: the warm-up transitions move them."""
+        dev = self.step.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP_STEPS):
+                    self.transition()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph() if graph is None else graph
+            with gc_paused(), torch.cuda.graph(graph, stream=side):
+                self.transition()
+        self.graph = graph
+
+    def advance(self, u, g, lp, raw, eps, mass):
+        """The next transition from (u, g, lp, raw) at (eps, mass): a
+        replay, or before a capture (the CPU) transition() run eagerly.
+        Returns the buffers (u, g, lp, raw, accepted, mean acceptance
+        statistic), which the next transition overwrites."""
+        self._put((u, g, lp, raw, eps, mass))
+        if self.graph is None:
+            self.transition()
+        else:
+            self.graph.replay()
+        return self.u, self.g, self.lp, self.raw, self.acc, self.alpha
+
+
+class _HMCGraphs:
+    """A call's captured transitions, one per (leading shape, device,
+    n_leapfrog, source) of its chains, kept for the call's life so that
+    both warmup phases and every production segment replay the graph
+    captured first; and the mode of the call: "graph", or "eager" (the
+    CPU, _CAPTURE off, or a transition that raised while being captured
+    or launched a hand-written kernel: that warns once, naming the model
+    (sampler._label) and the cause, and runs the eager loop). `cpu_body`
+    runs the graph's body eagerly on the CPU (the tests hold it there)."""
+
+    def __init__(self, cpu_body=False):
+        self.capture = _CAPTURE
+        self.cpu_body = bool(cpu_body)
+        self.graphs = {}
+        self.modes = set()
+
+    @property
+    def mode(self):
+        if not self.modes:
+            return None
+        return "eager" if "eager" in self.modes else "graph"
+
+    def _graph(self, key, lnprob, hmc_step, state, source, seed, step):
+        if key not in self.graphs:
+            from mbb_emcee_tpu_torch.ops import kernel_launches
+            u = state[0]
+            g = _TransitionGraph(hmc_step, u, torch.as_tensor(
+                source, dtype=torch.int64, device=u.device))
+            if u.is_cuda:
+                g.load(state, seed, step, 1 + GRAPH_WARMUP_STEPS)
+                launched = kernel_launches()
+                try:
+                    g.capture()
+                    if kernel_launches() != launched:
+                        raise RuntimeError(
+                            "it launches a hand-written kernel (ops."
+                            "kernel_launches), which counts its launches "
+                            "in its wrapper where a replay would not")
+                except Exception as e:  # noqa: BLE001 -- any capture fault
+                    cause = e.__context__ or e
+                    warnings.warn(
+                        f"the HMC transition of {_label(lnprob)} could not "
+                        f"be captured as a CUDA graph ({type(cause).__name__}"
+                        f": {cause}); it runs eagerly, one launch per "
+                        "operation (see sed.py's model contract)",
+                        RuntimeWarning, stacklevel=5)
+                    torch.cuda.synchronize(u.device)
+                    g = None
+            self.graphs[key] = g
+        return self.graphs[key]
+
+    def advancer(self, lnprob, hmc_step, n_leapfrog, seed, step, nsteps,
+                 state, source):
+        """The call's captured transition loaded with `state` (u, g, lp,
+        raw, eps, mass) for `nsteps` transitions from `step`, or None where
+        the eager loop runs."""
+        u = state[0]
+        if not (self.capture and (u.is_cuda or self.cpu_body)):
+            self.modes.add("eager")
+            return None
+        src = source if torch.is_tensor(source) else int(source)
+        key = (tuple(u.shape), u.device, int(n_leapfrog),
+               id(src) if torch.is_tensor(src) else src)
+        g = self._graph(key, lnprob, hmc_step, state, src, seed, step)
+        self.modes.add("graph" if g is not None and g.graph is not None
+                       else "eager")
+        if g is not None:
+            g.load(state, seed, step, nsteps)
+        return g
+
+
+def _advance(graphs, lnprob, hmc_step, n_leapfrog, seed, step, nsteps,
+             state, source):
+    """(u, g, lp, raw, eps, mass) -> (u, g, lp, raw, accepted, mean
+    acceptance statistic): each call the next of the `nsteps` transitions
+    from global step `step`, from `state` -- a replay of the call's
+    captured transition on a card, else hmc_step on draws taken a block at
+    a time (the CPU, or a transition that could not be captured)."""
+    g = graphs.advancer(lnprob, hmc_step, n_leapfrog, seed, step, nsteps,
+                        state, source)
+    if g is not None:
+        return g.advance
+    draws = _draws(seed, step, nsteps, state[0], source)
+    return lambda *st: hmc_step(next(draws), *st)
+
+
 def da_update(da, m, alpha_mean, target_accept):
     """Dual averaging on ln eps (Hoffman & Gelman 2014, Alg. 5), fp32; `da`
     = (log_eps, log_eps_bar, h_bar, mu) and m the 1-based iteration."""
@@ -168,29 +372,37 @@ def hmc_warmup_core(lnprob, lower, width, u0, nwarmup, n_leapfrog,
     post-warmup production state (u, g, lp, raw, eps (...,), mass
     (..., nfree), step): everything hmc_prod_core needs, and everything a
     mid-production checkpoint must persist."""
+    return _warmup_core(lnprob, lower, width, u0, nwarmup, n_leapfrog,
+                        target_accept, seed, step, source, _HMCGraphs())
+
+
+def _warmup_core(lnprob, lower, width, u0, nwarmup, n_leapfrog,
+                 target_accept, seed, step, source, graphs):
+    """hmc_warmup_core on the transitions of `graphs` (_HMCGraphs)."""
     lead = u0.shape[:-2]
     nchains, nfree = u0.shape[-2:]
     dev = u0.device
     vg, hmc_step = _make_stepper(lnprob, lower, width, n_leapfrog)
 
     def warmup_phase(step, u, g, lp, raw, mass, eps0, niter, collect):
-        draws = _draws(seed, step, niter, u, source)
         mu = torch.log(10.0 * eps0)
         da = (torch.log(eps0), torch.log(eps0),
               torch.zeros(lead, dtype=torch.float32, device=dev), mu)
+        advance = _advance(graphs, lnprob, hmc_step, n_leapfrog, seed, step,
+                           niter, (u, g, lp, raw, eps0, mass), source)
         # moment accumulators for the diagonal mass (second half only)
         n = torch.zeros(lead, dtype=torch.float32, device=dev)
         s1 = torch.zeros(lead + (nfree,), dtype=torch.float32, device=dev)
         s2 = torch.zeros_like(s1)
         for m in range(1, int(niter) + 1):
             eps = torch.exp(da[0])
-            u, g, lp, raw, _, alpha_mean = hmc_step(next(draws), u, g, lp,
-                                                    raw, eps, mass)
+            u, g, lp, raw, _, alpha_mean = advance(u, g, lp, raw, eps, mass)
             da = da_update(da, m, alpha_mean, target_accept)
             if collect and m > niter // 2:
                 n = n + nchains
                 s1 = s1 + torch.sum(u, dim=-2)
                 s2 = s2 + torch.sum(u * u, dim=-2)
+        u, g, lp, raw = (t.clone() for t in (u, g, lp, raw))
         eps_bar = torch.exp(da[1])
         step += int(niter)
         if not collect:
@@ -235,6 +447,14 @@ def hmc_prod_core(lnprob, lower, width, u, g, lp, raw, nacc, eps, mass,
     segmented for checkpointing advances exactly the chain an
     uninterrupted run would. Returns (chain (..., nrec, nchains, nfree),
     lnp_chain (..., nrec, nchains), u, g, lp, raw, nacc, step)."""
+    return _prod_core(lnprob, lower, width, u, g, lp, raw, nacc, eps, mass,
+                      nsteps, thin, n_leapfrog, seed, step, source,
+                      _HMCGraphs())
+
+
+def _prod_core(lnprob, lower, width, u, g, lp, raw, nacc, eps, mass,
+               nsteps, thin, n_leapfrog, seed, step, source, graphs):
+    """hmc_prod_core on the transitions of `graphs` (_HMCGraphs)."""
     _, hmc_step = _make_stepper(lnprob, lower, width, n_leapfrog)
     nrec = int(nsteps) // int(thin)
     lead = u.shape[:-2]
@@ -242,14 +462,15 @@ def hmc_prod_core(lnprob, lower, width, u, g, lp, raw, nacc, eps, mass,
                         device=u.device)
     lnpch = torch.empty(lead + (nrec, u.shape[-2]), dtype=raw.dtype,
                         device=u.device)
-    draws = _draws(seed, step, nrec * int(thin), u, source)
+    advance = _advance(graphs, lnprob, hmc_step, n_leapfrog, seed, step,
+                       nrec * int(thin), (u, g, lp, raw, eps, mass), source)
     for r in range(nrec):
         for _ in range(int(thin)):
-            u, g, lp, raw, acc, _ = hmc_step(next(draws), u, g, lp, raw,
-                                             eps, mass)
+            u, g, lp, raw, acc, _ = advance(u, g, lp, raw, eps, mass)
             nacc = nacc + acc.to(torch.int32)
         chain[..., r, :, :] = lower + width * torch.sigmoid(u)
         lnpch[..., r, :] = raw
+    u, g, lp, raw = (t.clone() for t in (u, g, lp, raw))
     return chain, lnpch, u, g, lp, raw, nacc, step + nrec * int(thin)
 
 
@@ -257,13 +478,21 @@ def hmc_core(lnprob, lower, width, u0, nwarmup, nsteps, thin, n_leapfrog,
              target_accept, seed, source=0):
     """Both warmup phases + production from u0 (..., nchains, nfree).
     Returns (chain, lnp_chain, nacc, eps, mass)."""
-    u, g, lp, raw, eps, mass, step = hmc_warmup_core(
+    return _hmc_core(lnprob, lower, width, u0, nwarmup, nsteps, thin,
+                     n_leapfrog, target_accept, seed, source, _HMCGraphs())
+
+
+def _hmc_core(lnprob, lower, width, u0, nwarmup, nsteps, thin, n_leapfrog,
+              target_accept, seed, source, graphs):
+    """hmc_core on the transitions of `graphs` (_HMCGraphs): the warmup and
+    the production replay one captured transition."""
+    u, g, lp, raw, eps, mass, step = _warmup_core(
         lnprob, lower, width, u0, nwarmup, n_leapfrog, target_accept, seed,
-        0, source)
+        0, source, graphs)
     nacc = torch.zeros(u.shape[:-1], dtype=torch.int32, device=u.device)
-    chain, lnp_chain, _, _, _, _, nacc, _ = hmc_prod_core(
+    chain, lnp_chain, _, _, _, _, nacc, _ = _prod_core(
         lnprob, lower, width, u, g, lp, raw, nacc, eps, mass, nsteps, thin,
-        n_leapfrog, seed, step, source)
+        n_leapfrog, seed, step, source, graphs)
     return chain, lnp_chain, nacc, eps, mass
 
 
@@ -281,7 +510,16 @@ def hmc_sample(lnprob, lower, upper, x0, seed, nwarmup=500, nsteps=1000,
     finite box [lower, upper]. x0: (nchains, nfree) initial positions
     strictly inside the box, a tensor on the device to run on; `seed` the
     Philox key of the run. Returns the thinned production chain in the
-    original (constrained) space plus diagnostics."""
+    original (constrained) space plus diagnostics. On a card every
+    transition replays one captured CUDA graph (_TransitionGraph)."""
+    return _sample(lnprob, lower, upper, x0, seed, _HMCGraphs(), nwarmup,
+                   nsteps, thin, n_leapfrog, target_accept)
+
+
+def _sample(lnprob, lower, upper, x0, seed, graphs, nwarmup=500,
+            nsteps=1000, thin=1, n_leapfrog=16, target_accept=0.8):
+    """hmc_sample on the transitions of `graphs` (_HMCGraphs: a fitter
+    keeps it for its graph mode)."""
     check_box(lower, upper)
     if int(nsteps) <= 0:
         # 0 % thin == 0 would pass the divisibility check and produce an
@@ -294,9 +532,10 @@ def hmc_sample(lnprob, lower, upper, x0, seed, nwarmup=500, nsteps=1000,
     width = torch.as_tensor(np.asarray(upper, np.float32),
                             device=x0.device) - lo
     u0 = _to_unconstrained(x0, lo, width)
-    chain, lnp, nacc, eps, mass = hmc_core(
+    chain, lnp, nacc, eps, mass = _hmc_core(
         lnprob, lo, width, u0, int(nwarmup), int(nsteps),
-        max(int(thin), 1), int(n_leapfrog), float(target_accept), seed)
+        max(int(thin), 1), int(n_leapfrog), float(target_accept), seed, 0,
+        graphs)
     return HMCResult(
         chain=chain, lnprob=lnp,
         acceptance_fraction=nacc.double().cpu().numpy() / int(nsteps),

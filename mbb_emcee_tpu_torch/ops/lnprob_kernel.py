@@ -224,11 +224,15 @@ def check_smem(nbytes, device, what):
             f"(cudaDevAttrMaxSharedMemoryPerBlockOptin) is {limit} bytes")
 
 
-def response_nodes(wave, response_pack=None, device="cpu"):
+def response_nodes(wave, response_pack=None, device=None):
     """The (nbands, nnodes) fp64 wavelength nodes and weights the kernels
     sum over: the response pack, or one unit-weight node per band at the
     data wavelength. On a CUDA device a pack the lnprob kernel's block
-    cannot hold is refused; on the CPU the plain version takes any size."""
+    cannot hold is refused; on the CPU the plain version takes any size.
+    `device` None is the card (fitter.resolve_device: without one this
+    raises, naming device="cpu")."""
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     nb = len(wave)
     if response_pack is not None:
         waves = np.asarray(response_pack[0], np.float64)
@@ -279,10 +283,13 @@ def pack_constants(shape, spec, free_space, flux, whiten, nodes, use_chol,
 
 
 def prepare_lnprob_inputs(phot, shape, spec, response_pack=None,
-                          device="cpu") -> LnprobOperands:
+                          device=None) -> LnprobOperands:
     """Pack a likelihood (photometry, model shape, spec, optional
     (waves, weights) response pack of shape (nbands, nnodes)) into kernel
-    operands on `device`, with the plain version built beside them."""
+    operands on `device`, with the plain version built beside them.
+    `device` None is the card, as in build_lnprob."""
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     plain, free_space = build_lnprob(phot, shape, spec,
                                      response_pack=response_pack,
                                      device=device)

@@ -256,12 +256,15 @@ def _f32(a, device):
 
 
 def prepare_multi_inputs(wave, flux, unc, shape, spec, response_pack=None,
-                         whiten=None, device="cpu") -> MultiOperands:
+                         whiten=None, device=None) -> MultiOperands:
     """Pack a batch likelihood (shared wavelengths (nb,), per-source
     flux/unc (S, nb) with NaN/inf marking missing bands, model shape, spec
     with an optional (nb,) or (S, nb) upper-limit mask, optional response
     pack, optional per-source whitening (S, nb, nb)) into kernel operands
-    on `device`, with the plain version's function beside them."""
+    on `device`, with the plain version's function beside them. `device`
+    None is the card, as in build_lnprob."""
+    from mbb_emcee_tpu_torch.fitter import resolve_device
+    device = resolve_device(device)
     correlated = whiten is not None
     wave = np.atleast_1d(np.asarray(wave, np.float64))
     nb = wave.size

@@ -131,30 +131,45 @@ _MAX_TAGGED_STEP = 1 << 52
 _NESTED_START_LANE = 1 << 31
 
 
+def check_tagged_steps(step0, nsteps):
+    """Refuse steps step0..step0+nsteps-1 outside the tagged streams'
+    range: on the host, once, where the device-counter form draws them."""
+    if int(step0) < 0 or int(step0) + int(nsteps) > _MAX_TAGGED_STEP:
+        raise ValueError(f"step {step0} + {nsteps} outside the tagged "
+                         f"streams' range [0, 2^52)")
+
+
 def tagged_bits(key, tag, step0, nsteps, nlanes, device, source=0, lane0=0):
     """The four Philox words of counter (step low 32 bits, source, lane,
     2^31 + tag * 2^20 + step high bits) for `nsteps` steps from global step
     `step0` and lanes lane0..lane0+nlanes-1: int64 tensors of shape
     (nsteps, nlanes), or (nsteps, S, nlanes) when `source` is a 1-D
     sequence of S source indices. A source's words depend on its index
-    alone, not on the batch it is drawn with."""
-    if int(step0) < 0 or int(step0) + int(nsteps) > _MAX_TAGGED_STEP:
-        raise ValueError(f"step {step0} + {nsteps} outside the tagged "
-                         f"streams' range [0, 2^52)")
+    alone, not on the batch it is drawn with.
+
+    The device-counter form, as stretch_uniforms': `step0` a 0-d int64
+    tensor on `device`, `key` its round_keys tensor and `source` an int64
+    tensor on `device`. Nothing is read back, so a captured HMC transition
+    (hmc._TransitionGraph) draws from the counter it increments; its
+    caller checks the range (check_tagged_steps) when it loads the
+    counter. The words are the int form's bit for bit."""
+    if not torch.is_tensor(step0):
+        check_tagged_steps(step0, nsteps)
+        step0 = int(step0)
     if int(lane0) < 0 or int(lane0) + int(nlanes) > 1 << 32:
         raise ValueError(f"lanes {lane0} + {nlanes} outside [0, 2^32)")
     src = torch.as_tensor(source, dtype=torch.int64, device=device)
     lead = tuple(src.shape)
     ones = (1,) * len(lead)
     step = (torch.arange(nsteps, dtype=torch.int64, device=device)
-            + int(step0)).view((nsteps,) + ones + (1,))
+            + step0).view((nsteps,) + ones + (1,))
     full = (nsteps,) + lead + (nlanes,)
     c0 = (step & _MASK32).expand(full)
     c1 = (src.view((1,) + lead + (1,)) & _MASK32).expand(full)
     c2 = (torch.arange(nlanes, dtype=torch.int64, device=device)
           + int(lane0)).expand(full)
     c3 = (_TAG_BASE + (int(tag) << 20) + (step >> 32)).expand(full)
-    return philox4x32(c0, c1, c2, c3, int(key))
+    return philox4x32(c0, c1, c2, c3, key)
 
 
 def pt_uniforms(key, step0, nsteps, nrungs, nwalkers, device, source=0):
@@ -178,7 +193,8 @@ def hmc_draws(key, step0, nsteps, nchains, nfree, device, source=0):
     into Box-Muller normals (momenta; nfree <= 6), the seventh the step-size
     jitter 0.8 + 0.4 u and the eighth the accept uniform. Returns (normals
     (nsteps, [S,] nchains, nfree), jitter (nsteps, [S,] nchains, 1), accept
-    uniforms (nsteps, [S,] nchains)) fp32."""
+    uniforms (nsteps, [S,] nchains)) fp32. `key`, `step0` and `source` in
+    either of tagged_bits' forms."""
     if nfree > 6:
         raise ValueError(f"hmc_draws serves at most 6 free parameters; "
                          f"got {nfree}")

@@ -137,7 +137,7 @@ def _require_photoz_model(model, what):
     return model
 
 
-def _dustmass_g(model, kappa_wave, device="cpu"):
+def _dustmass_g(model, kappa_wave, device):
     """one(theta (npar,)) -> 0-dim tensor, for torch.func.vmap over the
     chain: S_obs / occupation factor, the occupation factor being the
     contrast B_nu(T_dust) - B_nu(T_CMB(z)) (cmb=True) or the plain

@@ -33,7 +33,9 @@ instead and warns once; `graph_mode` says which ran.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import warnings
 
 import numpy as np
@@ -212,6 +214,22 @@ multi_stretch_run_plain.runs = 0
 GRAPH_WARMUP_STEPS = 2
 
 
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector held off. A collection inside a
+    capture can free a dead object's CUDA graph (a fitter in a reference
+    cycle, with its sampler's graph), and a graph destroyed while a stream
+    captures invalidates the capture (cudaErrorStreamCaptureInvalidated):
+    every capture runs in this context."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _StepGraph:
     """One ensemble step of _stretch_records -- half A then half B, each
     with its three rows of Philox draws -- captured as a CUDA graph over
@@ -277,7 +295,7 @@ class _StepGraph:
                     self.step_once()
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph() if graph is None else graph
-            with torch.cuda.graph(graph, stream=side):
+            with gc_paused(), torch.cuda.graph(graph, stream=side):
                 self.step_once()
         self.graph = graph
 

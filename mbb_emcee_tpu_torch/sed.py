@@ -120,12 +120,15 @@ class SEDModel:
         raise ValueError(f"unknown parameter {name_or_idx!r}; "
                          f"known: {list(self.param_names)}")
 
-    def validate(self, wave=None, device="cpu"):
+    def validate(self, wave=None, device=None):
         """Evaluate fnu at the box center on a small grid on `device` and
         check shape and finiteness; then evaluate it batched over 2 rows
         under torch.func.vmap and take one backward pass, so a model that
         vmap cannot batch or autograd cannot differentiate fails here,
-        naming the model, not deep inside a sampler."""
+        naming the model, not deep inside a sampler. `device` None is the
+        card (fitter.resolve_device: without one this raises, naming
+        device="cpu")."""
+        device = resolve_device(device)
         wave = np.array([100.0, 250.0, 500.0]) if wave is None \
             else np.atleast_1d(np.asarray(wave, np.float64))
         theta = torch.as_tensor(0.5 * (self.lower + self.upper),
@@ -206,7 +209,7 @@ def _spec_tensors(spec, device):
 
 
 def build_sed_lnprob(phot: Photometry, model: SEDModel,
-                     spec: LikelihoodSpec, response_pack=None, device="cpu"):
+                     spec: LikelihoodSpec, response_pack=None, device=None):
     """Generic-model twin of likelihood.build_lnprob, with its semantics
     and operation order (box, clip, upper-limit clamp, whitening or
     1/sigma, priors, LNPROB_FLOOR) and the MBB evaluation swapped for the
@@ -214,8 +217,10 @@ def build_sed_lnprob(phot: Photometry, model: SEDModel,
     nodes and weights move to `device` here, once.
 
     Returns (lnprob_fn, free_space); lnprob_fn maps a (n, nfree) fp32
-    tensor on `device` to (n,)."""
+    tensor on `device` to (n,). `device` None is the card, as in
+    build_lnprob."""
     _check_spec_size(model, spec)
+    device = resolve_device(device)
     (free_space, free_idx, template, lo_free, hi_free, lo_full, hi_full,
      prior_mean, prior_isig) = _spec_tensors(spec, device)
 
@@ -267,13 +272,15 @@ def build_sed_lnprob(phot: Photometry, model: SEDModel,
     return lnprob, free_space
 
 
-def sed_band_flux_eval(fnu, wave, response_pack=None, device="cpu"):
+def sed_band_flux_eval(fnu, wave, response_pack=None, device=None):
     """fluxes(theta (n, npar)) -> (n, nbands): the generic model's BAND
     fluxes on `device` -- point evaluation at the data wavelengths, or
     response-integrated over a quadrature pack. The generic twin of
     derived.band_flux_eval and the one place this convention lives:
     posterior_predictive and compute_loo reuse it, so their band fluxes can
-    never diverge from each other or from the fitted likelihood's."""
+    never diverge from each other or from the fitted likelihood's. `device`
+    None is the card, as in build_lnprob."""
+    device = resolve_device(device)
     vfnu = batched_fnu(fnu)
     grids = [torch.as_tensor(np.asarray(a, np.float32), device=device)
              for a in ((wave,) if response_pack is None else response_pack)]
@@ -287,7 +294,7 @@ def sed_band_flux_eval(fnu, wave, response_pack=None, device="cpu"):
 
 def build_sed_lnprob_data(model: SEDModel, spec: LikelihoodSpec,
                           response_pack=None, correlated=False,
-                          device="cpu"):
+                          device=None):
     """Generic-model twin of likelihood.build_lnprob_data: the photometry
     arrives as ARGUMENTS, with a leading source axis, so one function
     serves a whole catalog.
@@ -300,8 +307,10 @@ def build_sed_lnprob_data(model: SEDModel, spec: LikelihoodSpec,
     missing band). With correlated=True the 4th argument is instead a
     per-source (S, nb, nb) whitening matrix W, r = W delta (rows and
     columns of missing bands zero). One-sided upper limits do not compose
-    with correlated errors: spec.uplim_bands must then be unset."""
+    with correlated errors: spec.uplim_bands must then be unset. `device`
+    None is the card, as in build_lnprob."""
     _check_spec_size(model, spec)
+    device = resolve_device(device)
     if correlated and spec.uplim_bands is not None and np.any(
             np.asarray(spec.uplim_bands)):
         raise ValueError(
@@ -662,17 +671,19 @@ class SEDFitter(ParamSpaceMixin):
         user model on the fitter's device. Downstream analysis (results(),
         gelman_rubin, writeToHDF5) is unchanged; extend() does not apply
         (re-run with more nsteps)."""
-        from mbb_emcee_tpu_torch.hmc import hmc_sample
+        from mbb_emcee_tpu_torch import hmc
 
         nchains = self.nwalkers if nchains is None else int(nchains)
         lnprob, free_space = self._lnprob()
         self.free_space = free_space
         self.thin = int(thin)
         x0 = self._start(free_space, p0, nchains)
-        res = hmc_sample(lnprob, free_space.lower, free_space.upper, x0,
-                         philox_key(self.seed), nwarmup=nwarmup,
-                         nsteps=nsteps, thin=thin, n_leapfrog=n_leapfrog,
-                         target_accept=target_accept)
+        graphs = hmc._HMCGraphs()
+        res = hmc._sample(lnprob, free_space.lower, free_space.upper, x0,
+                          philox_key(self.seed), graphs, nwarmup=nwarmup,
+                          nsteps=nsteps, thin=thin, n_leapfrog=n_leapfrog,
+                          target_accept=target_accept)
+        self._hmc_mode = graphs.mode     # "graph": one captured transition
         self._tier_done(res.chain, res.lnprob, res.acceptance_fraction)
         self.hmc_result = res
         if verbose:

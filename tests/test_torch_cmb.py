@@ -183,4 +183,4 @@ def test_factory_validation():
     m = cmb_corrected_mbb(2.0, name="custom")
     assert m.name == "custom"
     assert cmb_corrected_mbb(2.0).name == "cmb-mbb-z2"
-    m.validate(wave=np.array([250.0, 500.0]))
+    m.validate(wave=np.array([250.0, 500.0]), device="cpu")

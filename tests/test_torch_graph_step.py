@@ -184,6 +184,29 @@ def test_cpu_runs_stay_eager():
     assert msamp.graph_mode == "eager"
 
 
+def test_captures_hold_the_collector_off():
+    """Every capture runs under sampler.gc_paused: Python's cyclic
+    collector is off inside (a collection there could destroy a dead
+    fitter's graph and so invalidate the capture) and back as it was
+    after, also when the capture raises."""
+    import gc
+    assert gc.isenabled()
+    with tsampler.gc_paused():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with tsampler.gc_paused():
+            raise RuntimeError("a capture fault")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with tsampler.gc_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()               # left as it was found
+    finally:
+        gc.enable()
+
+
 def _mbb_wrapped_model(shape=None):
     """The 5-parameter MBB as a generic SEDModel ('mbb-wrapped')."""
     from mbb_emcee_tpu_torch import SEDModel

@@ -511,15 +511,32 @@ def test_renamed_keywords_match_the_reference():
     assert torch.equal(derived.sed_eval(MBBShape(), waves_j=w)(p), f)
 
 
+def _line_model():
+    """A one-parameter generic model, fnu = a * wave."""
+    from mbb_emcee_tpu_torch import SEDModel
+    return SEDModel(fnu=lambda th, w: th[0] * w, param_names=("a",),
+                    lower=[0.5], upper=[1.5], name="line")
+
+
 @pytest.mark.parametrize("name", ["build_lnprob", "build_lnprob_data",
                                   "make_initial_ball",
-                                  "lir_zparam_integrand"])
+                                  "lir_zparam_integrand",
+                                  "SEDModel.validate", "build_sed_lnprob",
+                                  "sed_band_flux_eval",
+                                  "build_sed_lnprob_data", "response_nodes",
+                                  "prepare_lnprob_inputs",
+                                  "prepare_multi_inputs",
+                                  "state_from_arrays"])
 def test_builders_default_to_the_card(name, monkeypatch):
     """The public builders run on the card unless the caller names the CPU:
     with no device named and no card they raise the RuntimeError that names
     device="cpu" (fitter.resolve_device), as every entry point does."""
-    from mbb_emcee_tpu_torch import derived, likelihood, sampler
+    from mbb_emcee_tpu_torch import (
+        convert, derived, likelihood, sampler, sed)
+    from mbb_emcee_tpu_torch.ops import lnprob_kernel, multifit_kernel
     phot, shape, spec = _problem()
+    line, line_spec = _line_model(), LikelihoodSpec.for_box([0.5], [1.5])
+    half = np.zeros((4, 2), np.float32)
     call = {
         "build_lnprob": lambda: likelihood.build_lnprob(phot, shape, spec),
         "build_lnprob_data": lambda: likelihood.build_lnprob_data(shape,
@@ -527,7 +544,21 @@ def test_builders_default_to_the_card(name, monkeypatch):
         "make_initial_ball": lambda: sampler.make_initial_ball(
             torch.Generator().manual_seed(0), [30.0, 1.8], [1.0, 0.1], 8),
         "lir_zparam_integrand": lambda: derived.lir_zparam_integrand(
-            lambda theta, lam: lam, 0, 8.0, 1000.0)}[name]
+            lambda theta, lam: lam, 0, 8.0, 1000.0),
+        "SEDModel.validate": lambda: line.validate(),
+        "build_sed_lnprob": lambda: sed.build_sed_lnprob(phot, line,
+                                                         line_spec),
+        "sed_band_flux_eval": lambda: sed.sed_band_flux_eval(line.fnu,
+                                                             WAVE),
+        "build_sed_lnprob_data": lambda: sed.build_sed_lnprob_data(
+            line, line_spec),
+        "response_nodes": lambda: lnprob_kernel.response_nodes(WAVE),
+        "prepare_lnprob_inputs": lambda: lnprob_kernel.prepare_lnprob_inputs(
+            phot, shape, spec),
+        "prepare_multi_inputs": lambda: multifit_kernel.prepare_multi_inputs(
+            WAVE, FLUX[None], 0.05 * FLUX[None], shape, spec),
+        "state_from_arrays": lambda: convert.state_from_arrays(
+            half, half, half[:, 0], half[:, 0], np.zeros(8), 0, seed=1)}[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

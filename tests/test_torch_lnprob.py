@@ -216,7 +216,8 @@ def test_kernel_operands_layout(cov, uplim, pack):
     phot = photometry_from_arrays(jphot.wave, jphot.flux, jphot.unc,
                                   jphot.cov)
     spec = spec_from_reference(jspec)
-    ops = prepare_lnprob_inputs(phot, MBBShape(noalpha=True), spec, rp)
+    ops = prepare_lnprob_inputs(phot, MBBShape(noalpha=True), spec, rp,
+                                device="cpu")
     c = ops.consts.numpy()
     nb, nn = 5, (rp[0].shape[1] if pack else 1)
     assert c.size == 20 + nb + nb * nb + 2 * nb * nn + nb

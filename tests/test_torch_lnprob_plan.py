@@ -124,7 +124,7 @@ def _ops():
     spec = LikelihoodSpec.default()
     spec.upper[0], spec.upper[1] = 100.0, 5.0
     return prepare_lnprob_inputs(Photometry(WAVE, FLUX, 0.05 * FLUX),
-                                 MBBShape(), spec)
+                                 MBBShape(), spec, device="cpu")
 
 
 def _thetas(n=40, seed=3):

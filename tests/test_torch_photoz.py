@@ -126,7 +126,7 @@ def test_variants_pass_validate(opthin, noalpha):
     on every sampler tier; an SEDFitter takes it."""
     m = photoz_mbb(opthin=opthin, noalpha=noalpha)
     assert isinstance(m, PhotoZMBBModel) and m.param_names == PARAM_NAMES
-    m.validate(WAVE)
+    m.validate(WAVE, device="cpu")
     SEDFitter(m, nwalkers=16, device="cpu")
 
 

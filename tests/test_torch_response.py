@@ -268,7 +268,7 @@ def test_response_mode_with_a_covariance_matches_jax():
     shape = MBBShape(opthin=True, noalpha=True)
     ops = prepare_lnprob_inputs(
         Photometry(vp.WAVE, flux, unc, cov=cov, band_names=list(vp.BANDS)),
-        shape, spec, pack)
+        shape, spec, pack, device="cpu")
     assert ops.icfg[2] == 1 and tuple(ops.icfg[3:5]) == (5, 65)
     jfn, jfree = J.build_lnprob(
         J.Photometry(vp.WAVE, flux, unc, cov=cov, band_names=list(vp.BANDS)),
@@ -286,7 +286,7 @@ def test_response_mode_with_a_covariance_matches_jax():
     # the covariance matters: the diagonal likelihood gives other values
     diag = prepare_lnprob_inputs(
         Photometry(vp.WAVE, flux, unc, band_names=list(vp.BANDS)), shape,
-        spec, pack)
+        spec, pack, device="cpu")
     assert not np.allclose(diag.plain(x).numpy(), want, rtol=1e-3)
     tfit, jfit = _config3_fits(65)
     for fit in (tfit, jfit):
@@ -351,12 +351,12 @@ def test_packs_above_the_old_staging_cap():
     rs = ResponseSet.builtin(names, nnodes=400)
     pack = rs.pack(names)
     wave = np.array([rs[n].effective_wavelength for n in names])
-    waves, weights = response_nodes(wave, pack)
+    waves, weights = response_nodes(wave, pack, device="cpu")
     assert waves.shape == (8, 400)
     phot = Photometry(wave, np.linspace(5, 50, 8), np.ones(8),
                       band_names=names)
     spec = T.LikelihoodSpec.default()
-    ops = prepare_lnprob_inputs(phot, MBBShape(), spec, pack)
+    ops = prepare_lnprob_inputs(phot, MBBShape(), spec, pack, device="cpu")
     # box and priors, flux, whitening, waves and weights, upper-limit flags
     assert ops.consts.numel() == 20 + 8 + 8 * 8 + 2 * 8 * 400 + 8
     jfn, _ = J.build_lnprob(

@@ -124,7 +124,7 @@ def test_state_from_jax_arrays_runs():
                                     fs.lower, fs.upper)
     js = jsamp.init_state(jax.random.key(1), p0)
     st = state_from_arrays(js.pos_a, js.pos_b, js.lnp_a, js.lnp_b,
-                           js.naccept, js.nsteps, seed=99)
+                           js.naccept, js.nsteps, seed=99, device="cpu")
     np.testing.assert_array_equal(st.position.numpy(), np.asarray(p0))
     t_fn, _ = build_lnprob(photometry_from_arrays(
         jphot.wave, jphot.flux, jphot.unc), MBBShape(),

@@ -153,9 +153,9 @@ def sbc_ranks(mode, S=None, device="cpu", depth=None):
     """(ranks, S, info) of SBC mode `mode` through the port's entry point
     of that name on `device`: 3 x S ranks (4 x S for photo-z) in [0, 1];
     info["graph_mode"] names the mode of the plain stretch step where the
-    variant runs one (sedmulti, photoz). `depth` ({"nburn", "nsteps"})
-    replaces the JAX test's depth of the stretch-move and SEDMultiFitter
-    modes."""
+    variant runs one (sedmulti, photoz), and of the HMC transition (hmc).
+    `depth` ({"nburn", "nsteps"}) replaces the JAX test's depth of the
+    stretch-move and SEDMultiFitter modes."""
     S = sbc_size(mode) if S is None else S
     rng, trues, flux, unc, names, corr, rs = sbc_data(mode, S)
     idx = {"T": 0, "beta": 1, "fnorm": 4}
@@ -273,6 +273,7 @@ def sbc_ranks(mode, S=None, device="cpu", depth=None):
 
     if mode == "hmc":
         mf.run_hmc(nwarmup=300, nsteps=600, thin=2)
+        info["graph_mode"] = mf._hmc_mode
     elif mode == "pt":
         mf.run_pt(nrungs=8, nburn=250, nsteps=600, thin=2)
     else:

@@ -152,7 +152,7 @@ def test_lnprob_matches_jax(mode):
     identical."""
     phot, jphot, spec, pack = _phot_and_spec(mode)
     t_fn, fs = build_sed_lnprob(phot, _mbb_wrapped(), spec,
-                                response_pack=pack)
+                                response_pack=pack, device="cpu")
     j_fn, jfs = jsed.build_sed_lnprob(jphot, _j_mbb_wrapped(),
                                       _jspec(spec), response_pack=pack)
     assert np.array_equal(fs.free_idx, jfs.free_idx)
@@ -180,7 +180,7 @@ def test_lnprob_matches_mbb_builder():
         phot = Photometry(WAVE, flux, unc, cov=cov)
         sp = dataclasses.replace(_spec(), uplim_bands=uplim)
         ln_mbb, fs_mbb = build_lnprob(phot, SHAPE5, sp, device="cpu")
-        ln_sed, fs_sed = build_sed_lnprob(phot, model, sp)
+        ln_sed, fs_sed = build_sed_lnprob(phot, model, sp, device="cpu")
         assert np.array_equal(fs_mbb.free_idx, fs_sed.free_idx)
         thetas = torch.as_tensor((rng.uniform(0.9, 1.1, (16, fs_mbb.nfree))
                                   * np.array([32.0, 1.9, 250.0, 45.0])
@@ -215,7 +215,7 @@ def test_builder_equivalence_random_configs():
             prior_mean=pm, prior_isigma=pis, uplim_bands=uplim)
         phot = Photometry(WAVE, flux, unc, cov=cov)
         ln_mbb, fs = build_lnprob(phot, SHAPE5, spec, device="cpu")
-        ln_sed, fs2 = build_sed_lnprob(phot, model, spec)
+        ln_sed, fs2 = build_sed_lnprob(phot, model, spec, device="cpu")
         j_fn, _ = jsed.build_sed_lnprob(JPhotometry(WAVE, flux, unc,
                                                     cov=cov),
                                         jmodel, _jspec(spec))
@@ -261,7 +261,8 @@ def test_lnprob_data_matches_jax(correlated):
         ul = np.zeros((3, 5), bool)
         ul[0, 4] = ul[2, 1] = True
         aux = signed_iunc(unc, ul)
-    t_fn, fs = build_sed_lnprob_data(model, spec, correlated=correlated)
+    t_fn, fs = build_sed_lnprob_data(model, spec, correlated=correlated,
+                                     device="cpu")
     j_fn, _ = jsed.build_sed_lnprob_data(jmodel, _jspec(spec),
                                          correlated=correlated)
     rng = np.random.default_rng(5)
@@ -285,7 +286,7 @@ def test_half_steps_replay_jax():
     flux, unc = _mock_flux(SHAPE5)
     spec = _spec()
     t_fn, fs = build_sed_lnprob(Photometry(WAVE, flux, unc), _mbb_wrapped(),
-                                spec)
+                                spec, device="cpu")
     j_fn, _ = jsed.build_sed_lnprob(JPhotometry(WAVE, flux, unc),
                                     _j_mbb_wrapped(), _jspec(spec))
     j_batch = jax.jit(jax.vmap(j_fn))
@@ -347,7 +348,7 @@ def test_sedmodel_validation():
     bad = SEDModel(fnu=lambda th, w: torch.sum(w) * th[0],
                    param_names=("a",), lower=[0.5], upper=[1.5])
     with pytest.raises(ValueError, match="shape"):
-        bad.validate()
+        bad.validate(device="cpu")
 
 
 def _branchy(th, w):
@@ -553,7 +554,7 @@ def test_response_mode_matches_manual_quadrature():
                      torch.tensor(pack[0], dtype=torch.float32)).numpy()
     manual = np.sum(np.asarray(pack[1]) * vals, axis=-1)
     lnp, fs = build_sed_lnprob(fit.phot, model, fit.spec,
-                               response_pack=pack)
+                               response_pack=pack, device="cpu")
     r = (manual - flux) / unc
     expect = -0.5 * np.sum(r * r)
     got = float(lnp(torch.tensor(theta[fs.free_idx][None],
@@ -599,7 +600,8 @@ def test_spec_size_mismatch_raises():
     flux, unc = _mock_flux()
     with pytest.raises(ValueError, match="sized for"):
         build_sed_lnprob(Photometry(WAVE, flux, unc), _mbb_wrapped(),
-                         LikelihoodSpec.for_box([0.0, 1.0], [1.0, 2.0]))
+                         LikelihoodSpec.for_box([0.0, 1.0], [1.0, 2.0]),
+                         device="cpu")
 
 
 # -- derived quantities and model checks on a chain shared with the JAX package --

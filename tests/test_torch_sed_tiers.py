@@ -101,7 +101,7 @@ def test_map_core_and_hessian_match_jax():
     (rtol 1e-3 of the largest element), Laplace sigmas to rtol 1e-2."""
     tm, jm = _models()
     fit, jfit = _thin_fit(), _jax_fit()
-    tl, fs = build_sed_lnprob(fit.phot, tm, fit.spec)
+    tl, fs = build_sed_lnprob(fit.phot, tm, fit.spec, device="cpu")
     flux, unc = _data()
     jl, _ = jsed.build_sed_lnprob(JPhotometry(WAVE, flux, unc), jm,
                                   jfit.spec)
