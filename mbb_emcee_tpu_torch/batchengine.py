@@ -80,6 +80,7 @@ from mbb_emcee_tpu_torch.likelihood import signed_iunc
 from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch.paramspace import _replace
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 from mbb_emcee_tpu_torch.sampler import (
     MultiEnsembleSampler, make_initial_ball)
 
@@ -336,55 +337,57 @@ class BatchEngine:
         per-source z) are optional metadata: names label the summary and
         HDF5 output, and a stored redshift vector is the default for
         compute_lir and compute_dustmass."""
-        wave = np.atleast_1d(np.asarray(wave, np.float64))
-        flux = np.atleast_2d(np.asarray(flux, np.float64))
-        unc = np.atleast_2d(np.asarray(unc, np.float64))
-        if flux.shape != unc.shape or flux.shape[1] != wave.size:
-            raise ValueError(
-                f"flux {flux.shape} / unc {unc.shape} must be "
-                f"(S, {wave.size})")
-        missing = ~np.isfinite(flux) | ~np.isfinite(unc)
-        if missing.any():
-            flux = np.where(missing, 0.0, flux)
-            unc = np.where(missing, np.inf, unc)
-            if missing.all(axis=1).any():
-                bad = int(np.argwhere(missing.all(axis=1))[0, 0])
+        with span("mbb.fit.set_data"):
+            wave = np.atleast_1d(np.asarray(wave, np.float64))
+            flux = np.atleast_2d(np.asarray(flux, np.float64))
+            unc = np.atleast_2d(np.asarray(unc, np.float64))
+            if flux.shape != unc.shape or flux.shape[1] != wave.size:
                 raise ValueError(
-                    f"source index {bad} has no bands at all (every "
-                    f"flux/unc pair is missing)")
-        if np.any(unc[~missing] <= 0):
-            raise ValueError("uncertainties must be positive")
-        ub = self._spec.uplim_bands
-        if ub is not None and ub.ndim == 2 and self.flux is not None:
-            # A per-source mask binds to source identities, not to the
-            # batch geometry: a new same-shape catalog must not inherit it.
-            raise ValueError(
-                "a per-source upper-limit mask is set; it cannot carry "
-                "over to a new batch -- call set_phot_upperlimits again "
-                "after set_data")
-        if ub is not None and ub.ndim == 1 and ub.size != wave.size:
-            raise ValueError(
-                f"existing upper-limit mask ({ub.size},) does not fit "
-                f"the new data (nb={wave.size}); call "
-                f"set_phot_upperlimits again")
-        corr = self._band_corr
-        if corr is not None and corr.shape != (wave.size, wave.size):
-            raise ValueError(
-                f"existing band correlation {corr.shape} does not fit "
-                f"the new data (nb={wave.size}); call "
-                f"set_band_correlation again")
-        self.wave, self.flux, self.unc = wave, flux, unc
-        self.band_names = band_names
-        if source_names is not None:
-            source_names = [str(n) for n in source_names]
-            if len(source_names) != flux.shape[0]:
-                raise ValueError("need one source name per source")
-        self.source_names = source_names
-        if redshifts is not None:
-            redshifts = np.asarray(redshifts, np.float64).ravel()
-            if redshifts.size != flux.shape[0]:
-                raise ValueError("need one redshift per source")
-        self.redshifts = redshifts
+                    f"flux {flux.shape} / unc {unc.shape} must be "
+                    f"(S, {wave.size})")
+            missing = ~np.isfinite(flux) | ~np.isfinite(unc)
+            if missing.any():
+                flux = np.where(missing, 0.0, flux)
+                unc = np.where(missing, np.inf, unc)
+                if missing.all(axis=1).any():
+                    bad = int(np.argwhere(missing.all(axis=1))[0, 0])
+                    raise ValueError(
+                        f"source index {bad} has no bands at all (every "
+                        f"flux/unc pair is missing)")
+            if np.any(unc[~missing] <= 0):
+                raise ValueError("uncertainties must be positive")
+            ub = self._spec.uplim_bands
+            if ub is not None and ub.ndim == 2 and self.flux is not None:
+                # A per-source mask binds to source identities, not to
+                # the batch geometry: a new same-shape catalog must not
+                # inherit it.
+                raise ValueError(
+                    "a per-source upper-limit mask is set; it cannot carry "
+                    "over to a new batch -- call set_phot_upperlimits again "
+                    "after set_data")
+            if ub is not None and ub.ndim == 1 and ub.size != wave.size:
+                raise ValueError(
+                    f"existing upper-limit mask ({ub.size},) does not fit "
+                    f"the new data (nb={wave.size}); call "
+                    f"set_phot_upperlimits again")
+            corr = self._band_corr
+            if corr is not None and corr.shape != (wave.size, wave.size):
+                raise ValueError(
+                    f"existing band correlation {corr.shape} does not fit "
+                    f"the new data (nb={wave.size}); call "
+                    f"set_band_correlation again")
+            self.wave, self.flux, self.unc = wave, flux, unc
+            self.band_names = band_names
+            if source_names is not None:
+                source_names = [str(n) for n in source_names]
+                if len(source_names) != flux.shape[0]:
+                    raise ValueError("need one source name per source")
+            self.source_names = source_names
+            if redshifts is not None:
+                redshifts = np.asarray(redshifts, np.float64).ravel()
+                if redshifts.size != flux.shape[0]:
+                    raise ValueError("need one redshift per source")
+            self.redshifts = redshifts
         return self
 
     def set_phot_upperlimits(self, mask):
@@ -515,19 +518,23 @@ class BatchEngine:
         if hit.size == 0:
             v = float(fs.template[i])
             return np.tile([v, 0.0, 0.0], (self.nsources, 1))
-        data = self.chain_free[..., int(hit[0])].reshape(self.nsources, -1)
-        srt = torch.sort(data, dim=1).values
-        n = srt.shape[1]
-        p = float(percentile)
-        out = []
-        for q in (50.0 - p / 2, 50.0, 50.0 + p / 2):
-            # numpy's default (linear) percentile
-            pos = q / 100.0 * (n - 1)
-            lo = int(np.floor(pos))
-            hi = min(lo + 1, n - 1)
-            vals = srt[:, [lo, hi]].double().cpu().numpy()
-            out.append(vals[:, 0] + (vals[:, 1] - vals[:, 0]) * (pos - lo))
-        lo, mid, hi = out
+        with span("mbb.results.percentiles", param=param):
+            data = self.chain_free[..., int(hit[0])].reshape(
+                self.nsources, -1)
+            srt = torch.sort(data, dim=1).values
+            n = srt.shape[1]
+            p = float(percentile)
+            out = []
+            for q in (50.0 - p / 2, 50.0, 50.0 + p / 2):
+                # numpy's default (linear) percentile
+                pos = q / 100.0 * (n - 1)
+                lo = int(np.floor(pos))
+                hi = min(lo + 1, n - 1)
+                vals = srt[:, [lo, hi]].double().cpu().numpy()
+                count("d2h_bytes", vals.nbytes)
+                out.append(vals[:, 0]
+                           + (vals[:, 1] - vals[:, 0]) * (pos - lo))
+            lo, mid, hi = out
         return np.stack([mid, hi - mid, mid - lo], axis=1)
 
     def best_fit(self):
@@ -601,10 +608,11 @@ class BatchEngine:
     def _dl_mpc(self, redshifts, lumdists=None, cosmology="WMAP9"):
         if lumdists is not None:
             return np.asarray(lumdists, np.float64)
-        cosmo = (Cosmology.named(cosmology)
-                 if isinstance(cosmology, str) else cosmology)
-        return np.array([luminosity_distance(float(z), cosmo)
-                         for z in np.asarray(redshifts).ravel()])
+        with span("mbb.derived.distance"):
+            cosmo = (Cosmology.named(cosmology)
+                     if isinstance(cosmology, str) else cosmology)
+            return np.array([luminosity_distance(float(z), cosmo)
+                             for z in np.asarray(redshifts).ravel()])
 
     def _thinned(self, thin):
         """(S, nsamp, npar) fp32 thinned full-parameter samples on the
@@ -627,8 +635,13 @@ class BatchEngine:
         such as quadrature nodes), as (S, N, ...) host fp64."""
         S, N = samples.shape[:2]
         chunk = max(1, (64 << 20) // max(S * inner_elems, 1))
-        out = [fn(samples[:, i:i + chunk]).double().cpu().numpy()
-               for i in range(0, N, chunk)]
+        out = []
+        for k, i in enumerate(range(0, N, chunk)):
+            part = samples[:, i:i + chunk]
+            with span("mbb.derived.chunk", index=k,
+                      samples=int(part.shape[1])):
+                out.append(fn(part).double().cpu().numpy())
+                count("d2h_bytes", out[-1].nbytes)
         return np.concatenate(out, axis=1)
 
     # -- the stretch-move run protocol ------------------------------------------
@@ -739,26 +752,30 @@ class BatchEngine:
                 "resume=True requires checkpoint= (the path the previous "
                 "run flushed state to); without it the run would silently "
                 "restart from scratch")
-        # before the sampler replaces free_space: init="map" reads run_map's
-        centers = self._init_centers(init)
-        spec = self._effective_spec()
-        samp = self._batch_sampler(spec)
-        self.free_space = samp.free_space
-        self._run_spec = spec       # persisted by writeToHDF5
-        self.thin = int(thin)
-        state, chain, lnpchain = production(
-            samp.run_mcmc,
-            lambda: self._burn(samp, nburn, recenter_burn, centers),
-            nsteps, thin, self.device, checkpoint, checkpoint_interval,
-            bool(checkpoint and resume and os.path.exists(checkpoint)),
-            None if checkpoint is None else self._checkpoint_meta(nsteps),
-            multi=True, verbose=verbose)
-        self._record(state, chain, lnpchain)
-        self._run_data = (self.flux.copy(), self.unc.copy(),
-                          self.wave.copy())
-        self._post_token = self._posterior_token(spec)
-        self.logz_pt = self.logz_ti = self.swap_fraction = None
-        self.pt_betas = self.hmc_step_size = self.hmc_mass = None
+        with span("mbb.fit.run", nburn=int(nburn), nsteps=int(nsteps),
+                  thin=int(thin), nsources=self.nsources):
+            # before the sampler replaces free_space: init="map" reads
+            # run_map's
+            centers = self._init_centers(init)
+            spec = self._effective_spec()
+            samp = self._batch_sampler(spec)
+            self.free_space = samp.free_space
+            self._run_spec = spec       # persisted by writeToHDF5
+            self.thin = int(thin)
+            state, chain, lnpchain = production(
+                samp.run_mcmc,
+                lambda: self._burn(samp, nburn, recenter_burn, centers),
+                nsteps, thin, self.device, checkpoint, checkpoint_interval,
+                bool(checkpoint and resume and os.path.exists(checkpoint)),
+                None if checkpoint is None
+                else self._checkpoint_meta(nsteps), multi=True,
+                verbose=verbose)
+            self._record(state, chain, lnpchain)
+            self._run_data = (self.flux.copy(), self.unc.copy(),
+                              self.wave.copy())
+            self._post_token = self._posterior_token(spec)
+            self.logz_pt = self.logz_ti = self.swap_fraction = None
+            self.pt_betas = self.hmc_step_size = self.hmc_mass = None
         if verbose:
             from mbb_emcee_tpu_torch.utils.log import enable_console
             af = self.acceptance_fraction
@@ -777,23 +794,30 @@ class BatchEngine:
         centers, scatters = init_centers
         cen_f, sca_f = centers[:, fs.free_idx], scatters[:, fs.free_idx]
         gen = torch.Generator().manual_seed(self.seed)
-        state = samp.init_state(self._balls(gen, cen_f, sca_f),
-                                seed=philox_key(self.seed))
+        with span("mbb.fit.ball"):
+            state = samp.init_state(self._balls(gen, cen_f, sca_f),
+                                    seed=philox_key(self.seed))
         if nburn > 0:
-            state = samp.advance(state, nburn)
+            with span("mbb.fit.burn"):
+                state = samp.advance(state, nburn)
             if recenter_burn:
                 # Each source re-centers on the best walker of ITS final
                 # burn state (not the single fit's whole-burn-chain rule);
                 # the Philox streams continue where the burn stopped.
-                S = self.nsources
-                best = state.pos[torch.arange(S, device=state.pos.device),
-                                 torch.argmax(state.lnp, dim=1)]
-                p0b = self._balls(gen, best.double().cpu().numpy(),
-                                  0.1 * sca_f)
-                state = samp.init_state(p0b, seed=state.seed,
-                                        step=state.step)
-                state = samp.advance(state, nburn)
-            state = samp.reset_counters(state)
+                with span("mbb.fit.recentre"):
+                    S = self.nsources
+                    best = state.pos[
+                        torch.arange(S, device=state.pos.device),
+                        torch.argmax(state.lnp, dim=1)]
+                    best = best.double().cpu().numpy()
+                    count("d2h_bytes", best.nbytes)
+                    p0b = self._balls(gen, best, 0.1 * sca_f)
+                    state = samp.init_state(p0b, seed=state.seed,
+                                            step=state.step)
+                with span("mbb.fit.reburn"):
+                    state = samp.advance(state, nburn)
+            with span("mbb.fit.reset"):
+                state = samp.reset_counters(state)
         return state
 
     def _checkpoint_meta(self, nsteps):
@@ -817,10 +841,13 @@ class BatchEngine:
                 "run_id": new_run_id()}
 
     def _record(self, state, chain, lnpchain):
-        self.final_state = state
-        self.chain_free = chain
-        self.lnprobability = lnpchain
-        self.acceptance_fraction = self._sampler.acceptance_fraction(state)
+        with span("mbb.fit.record"):
+            self.final_state = state
+            self.chain_free = chain
+            self.lnprobability = lnpchain
+            self.acceptance_fraction = self._sampler.acceptance_fraction(
+                state)
+            count("d2h_bytes", self.acceptance_fraction.nbytes)
 
     def extend(self, nsteps, verbose=False):
         """Continue the production run of every source from the stored

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch.sampler import MultiSamplerState, SamplerState
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 _VERSION = 2
 # The generator the port's samplers draw from (ops/philox.py and the
@@ -278,7 +279,9 @@ def production(run_mcmc, burn, nsteps, thin, device, checkpoint=None,
     run_id). Returns (state, chain, lnp) with the whole chain on
     `device`."""
     if checkpoint is None:
-        return run_mcmc(burn(), nsteps, thin)
+        state = burn()
+        with span("mbb.fit.production"):
+            return run_mcmc(state, nsteps, thin)
     if multi:
         load, save, axis = load_multi_checkpoint, save_multi_checkpoint, 1
         geometry = ("nwalkers", "nsources", "thin")
@@ -305,7 +308,8 @@ def production(run_mcmc, burn, nsteps, thin, device, checkpoint=None,
     seg = max(int(interval), 1) * thin
     while done < nsteps:
         n = min(seg, nsteps - done)
-        state, c, l = run_mcmc(state, n, thin)
+        with span("mbb.fit.production"):
+            state, c, l = run_mcmc(state, n, thin)
         chain_blocks.append(_np(c))
         lnp_blocks.append(_np(l))
         done += n

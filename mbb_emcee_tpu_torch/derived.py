@@ -18,6 +18,7 @@ from mbb_emcee_tpu_torch.models.modified_blackbody import (
     log_mbb_fnu, log_mbb_fnu_params)
 from mbb_emcee_tpu_torch.ops.quadrature import loglam_nodes
 from mbb_emcee_tpu_torch.ops.rootfind import golden_max
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 LIR_NODES = 128
 # Observed-um search window + fixed iteration count for the SED peak.
@@ -33,8 +34,12 @@ _C_MS = 2.99792458e8
 
 def batched(fn, samples, chunk=CHUNK):
     """fn over `samples` in row chunks, concatenated along dim 0."""
-    return torch.cat([fn(samples[i:i + chunk])
-                      for i in range(0, samples.shape[0], chunk)], dim=0)
+    out = []
+    for k, i in enumerate(range(0, samples.shape[0], chunk)):
+        part = samples[i:i + chunk]
+        with span("mbb.derived.chunk", index=k, samples=int(part.shape[0])):
+            out.append(fn(part))
+    return torch.cat(out, dim=0)
 
 
 def lir_nodes_weights(opz, wavemin, wavemax, n=LIR_NODES):

@@ -36,6 +36,7 @@ from mbb_emcee_tpu_torch.likelihood import (
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, make_initial_ball, autocorrelation_time, split_rhat)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 
 # Default initial guess and ball scatter (observer frame).
 DEFAULT_INIT = np.array([12.0, 2.0, 250.0, 4.0, 40.0])
@@ -194,9 +195,11 @@ class MBBFitter(ParamSpaceMixin):
         return self
 
     def set_data(self, wave, flux, unc, cov=None, band_names=None):
-        phot = Photometry(wave, flux, unc, cov=cov, band_names=band_names)
-        self._check_uplim_mask(phot)
-        self.phot = phot
+        with span("mbb.fit.set_data"):
+            phot = Photometry(wave, flux, unc, cov=cov,
+                              band_names=band_names)
+            self._check_uplim_mask(phot)
+            self.phot = phot
         return self
 
     def _check_uplim_mask(self, phot):
@@ -409,24 +412,28 @@ class MBBFitter(ParamSpaceMixin):
                 "checkpointed state would silently win; drop init= (or the "
                 "checkpoint file) to make the intent explicit")
 
-        self._auto_init_fnorm()
-        _, free_space, sampler = self.build()
-        self.free_space = free_space
-        self.thin = int(thin)
-        if resuming:
-            self.burn_chain_free = None
-        state, chain, lnpchain = production(
-            sampler.run_mcmc,
-            lambda: self._burn(sampler, free_space, p0, nburn,
-                               recenter_burn, init),
-            nsteps, thin, self.device, checkpoint, checkpoint_interval,
-            resuming, None if checkpoint is None
-            else self._checkpoint_meta(nsteps), verbose=verbose)
-        self.chain_free = chain
-        self.lnprobability = lnpchain
-        self.final_state = state
-        self.acceptance_fraction = sampler.acceptance_fraction(state)
-        self.sampler = sampler
+        with span("mbb.fit.run", nburn=int(nburn), nsteps=int(nsteps),
+                  thin=int(thin), nsources=1):
+            self._auto_init_fnorm()
+            _, free_space, sampler = self.build()
+            self.free_space = free_space
+            self.thin = int(thin)
+            if resuming:
+                self.burn_chain_free = None
+            state, chain, lnpchain = production(
+                sampler.run_mcmc,
+                lambda: self._burn(sampler, free_space, p0, nburn,
+                                   recenter_burn, init),
+                nsteps, thin, self.device, checkpoint, checkpoint_interval,
+                resuming, None if checkpoint is None
+                else self._checkpoint_meta(nsteps), verbose=verbose)
+            with span("mbb.fit.record"):
+                self.chain_free = chain
+                self.lnprobability = lnpchain
+                self.final_state = state
+                self.acceptance_fraction = sampler.acceptance_fraction(state)
+                count("d2h_bytes", self.acceptance_fraction.nbytes)
+                self.sampler = sampler
 
         if verbose:
             from mbb_emcee_tpu_torch.utils.log import enable_console
@@ -465,35 +472,44 @@ class MBBFitter(ParamSpaceMixin):
         re-center on the best burn-in sample, re-burn, counters reset."""
         idx = free_space.free_idx
         gen = torch.Generator().manual_seed(self.seed)
-        if p0 is None:
-            center, scatter = (self._map_ball(free_space) if init == "map"
-                               else (self._init[idx], self._scatter[idx]))
-            p0 = make_initial_ball(gen, center, scatter,
-                                   self.nwalkers, free_space.lower,
-                                   free_space.upper, device=self.device)
-        else:
-            p0 = torch.as_tensor(np.asarray(p0, np.float32),
-                                 device=self.device)
-            if p0.shape[-1] == NPARAMS:
-                p0 = p0[..., torch.as_tensor(idx, device=self.device)]
-        state = sampler.init_state(p0, seed=philox_key(self.seed))
+        with span("mbb.fit.ball"):
+            if p0 is None:
+                center, scatter = (
+                    self._map_ball(free_space) if init == "map"
+                    else (self._init[idx], self._scatter[idx]))
+                p0 = make_initial_ball(gen, center, scatter,
+                                       self.nwalkers, free_space.lower,
+                                       free_space.upper, device=self.device)
+            else:
+                p0 = torch.as_tensor(np.asarray(p0, np.float32),
+                                     device=self.device)
+                if p0.shape[-1] == NPARAMS:
+                    p0 = p0[..., torch.as_tensor(idx, device=self.device)]
+            state = sampler.init_state(p0, seed=philox_key(self.seed))
         if nburn > 0:
-            state, bchain, blnp = sampler.run_mcmc(state, nburn)
+            with span("mbb.fit.burn"):
+                state, bchain, blnp = sampler.run_mcmc(state, nburn)
             self.burn_chain_free = bchain
             if recenter_burn:
                 # Re-center the whole ensemble on the best burn-in sample
                 # with a tight ball, then burn again from there; the Philox
                 # stream continues where the burn-in stopped.
-                flat = bchain.reshape(-1, free_space.nfree)
-                best = flat[int(torch.argmax(blnp.reshape(-1)))]
-                p0b = make_initial_ball(gen, best.double().cpu().numpy(),
-                                        self._scatter[idx] * 0.1,
-                                        self.nwalkers, free_space.lower,
-                                        free_space.upper, device=self.device)
-                state = sampler.init_state(p0b, seed=state.seed,
-                                           step=state.step)
-                state = sampler.advance(state, nburn)
-            state = sampler.reset_counters(state)
+                with span("mbb.fit.recentre"):
+                    flat = bchain.reshape(-1, free_space.nfree)
+                    best = flat[int(torch.argmax(blnp.reshape(-1)))]
+                    best = best.double().cpu().numpy()
+                    count("d2h_bytes", best.nbytes)
+                    p0b = make_initial_ball(gen, best,
+                                            self._scatter[idx] * 0.1,
+                                            self.nwalkers, free_space.lower,
+                                            free_space.upper,
+                                            device=self.device)
+                    state = sampler.init_state(p0b, seed=state.seed,
+                                               step=state.step)
+                with span("mbb.fit.reburn"):
+                    state = sampler.advance(state, nburn)
+            with span("mbb.fit.reset"):
+                state = sampler.reset_counters(state)
         return state
 
     def _checkpoint_meta(self, nsteps):
@@ -1069,7 +1085,9 @@ class MBBFitter(ParamSpaceMixin):
     def _chain_np(self):
         if self.chain_free is None:
             raise RuntimeError("run() has not been called")
-        return self.chain_free.double().cpu().numpy()
+        chain = self.chain_free.double().cpu().numpy()
+        count("d2h_bytes", chain.nbytes)
+        return chain
 
     @property
     def chain(self):

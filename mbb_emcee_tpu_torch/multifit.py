@@ -55,6 +55,7 @@ from mbb_emcee_tpu_torch.models.modified_blackbody import (
     MBBShape, log_mbb_fnu_params)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
 from mbb_emcee_tpu_torch.sampler import MultiEnsembleSampler
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -272,74 +273,83 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         """(S, nsamp) L_IR posteriors in L_sun: one batched quadrature over
         sources x samples, per-source nodes scaled by 1+z. `redshifts`
         defaults to the vector stored by set_data()."""
-        self._require_run()
-        z = self._source_redshifts(redshifts)
-        lam_h, w_h = derived.lir_nodes_weights((1.0 + z)[:, None], wavemin,
-                                               wavemax)
-        lam = torch.as_tensor(lam_h.astype(np.float32), device=self.device)
-        w = torch.as_tensor(w_h.astype(np.float32), device=self.device)
+        with span("mbb.derived.lir"):
+            self._require_run()
+            z = self._source_redshifts(redshifts)
+            lam_h, w_h = derived.lir_nodes_weights((1.0 + z)[:, None],
+                                                   wavemin, wavemax)
+            lam = torch.as_tensor(lam_h.astype(np.float32),
+                                  device=self.device)
+            w = torch.as_tensor(w_h.astype(np.float32), device=self.device)
 
-        def integrand(th):
-            lnf = log_mbb_fnu_params(*self._params(th), lam[:, None, :],
-                                     self.shape)
-            return torch.sum(w[:, None, :] * torch.exp(lnf), dim=-1)
+            def integrand(th):
+                lnf = log_mbb_fnu_params(*self._params(th),
+                                         lam[:, None, :], self.shape)
+                return torch.sum(w[:, None, :] * torch.exp(lnf), dim=-1)
 
-        integ = self._chunked_samples(integrand, self._thinned(thin),
-                                      derived.LIR_NODES)
-        prefac = derived.lir_prefactor(self._dl_mpc(z, lumdists, cosmology))
-        self.lir_chain = prefac[:, None] * integ
-        return self.lir_chain
+            integ = self._chunked_samples(integrand, self._thinned(thin),
+                                          derived.LIR_NODES)
+            prefac = derived.lir_prefactor(
+                self._dl_mpc(z, lumdists, cosmology))
+            self.lir_chain = prefac[:, None] * integ
+            return self.lir_chain
 
     def lir_cen(self, percentile=68.3):
         if self.lir_chain is None:
             raise RuntimeError("call compute_lir(redshifts) first")
-        return _batch_percentiles(self.lir_chain, percentile)
+        with span("mbb.derived.summary"):
+            return _batch_percentiles(self.lir_chain, percentile)
 
     def compute_dustmass(self, redshifts=None, kappa=2.64, kappa_wave=125.0,
                          thin=1, lumdists=None, cosmology="WMAP9"):
         """(S, nsamp) dust-mass posteriors in M_sun. `redshifts` defaults
         to the vector stored by set_data()."""
-        self._require_run()
-        z = self._source_redshifts(redshifts)
-        opz = 1.0 + z
-        lam_obs = torch.as_tensor((kappa_wave * opz).astype(np.float32),
-                                  device=self.device)
+        with span("mbb.derived.dustmass"):
+            self._require_run()
+            z = self._source_redshifts(redshifts)
+            opz = 1.0 + z
+            lam_obs = torch.as_tensor(
+                (kappa_wave * opz).astype(np.float32), device=self.device)
 
-        def integrand(th):
-            s_mjy = torch.exp(log_mbb_fnu_params(
-                *self._params(th), lam_obs[:, None, None], self.shape))
-            x = HCOK_UM_K / (lam_obs[:, None] * th[..., 0])
-            return s_mjy[..., 0] * torch.expm1(
-                torch.clamp(x, max=derived.DUST_X_CLAMP))
+            def integrand(th):
+                s_mjy = torch.exp(log_mbb_fnu_params(
+                    *self._params(th), lam_obs[:, None, None], self.shape))
+                x = HCOK_UM_K / (lam_obs[:, None] * th[..., 0])
+                return s_mjy[..., 0] * torch.expm1(
+                    torch.clamp(x, max=derived.DUST_X_CLAMP))
 
-        g = self._chunked_samples(integrand, self._thinned(thin), 4)
-        prefac = derived.dustmass_prefactor(
-            self._dl_mpc(z, lumdists, cosmology), opz, kappa, kappa_wave)
-        self.dustmass_chain = prefac[:, None] * g
-        return self.dustmass_chain
+            g = self._chunked_samples(integrand, self._thinned(thin), 4)
+            prefac = derived.dustmass_prefactor(
+                self._dl_mpc(z, lumdists, cosmology), opz, kappa,
+                kappa_wave)
+            self.dustmass_chain = prefac[:, None] * g
+            return self.dustmass_chain
 
     def dustmass_cen(self, percentile=68.3):
         if self.dustmass_chain is None:
             raise RuntimeError("call compute_dustmass(redshifts) first")
-        return _batch_percentiles(self.dustmass_chain, percentile)
+        with span("mbb.derived.summary"):
+            return _batch_percentiles(self.dustmass_chain, percentile)
 
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
         """(S, nsamp) observed peak-wavelength posteriors in um."""
-        self._require_run()
-        peak = derived.peak_finder(self.shape, lo, hi)
+        with span("mbb.derived.peaklambda"):
+            self._require_run()
+            peak = derived.peak_finder(self.shape, lo, hi)
 
-        def fn(th):
-            return peak(th.reshape(-1, NPARAMS)).reshape(th.shape[:2])
+            def fn(th):
+                return peak(th.reshape(-1, NPARAMS)).reshape(th.shape[:2])
 
-        self.peaklambda_chain = self._chunked_samples(fn, self._thinned(thin),
-                                                      8)
-        return self.peaklambda_chain
+            self.peaklambda_chain = self._chunked_samples(
+                fn, self._thinned(thin), 8)
+            return self.peaklambda_chain
 
     def peaklambda_cen(self, percentile=68.3):
         if self.peaklambda_chain is None:
             raise RuntimeError("call compute_peaklambda() first")
-        return _batch_percentiles(self.peaklambda_chain, percentile)
+        with span("mbb.derived.summary"):
+            return _batch_percentiles(self.peaklambda_chain, percentile)
 
     def sed_percentiles(self, waves, percentile=68.3, thin=1):
         """(S, 3, nwave) per-wavelength [median, upper, lower] f_nu in mJy

@@ -30,6 +30,7 @@ from mbb_emcee_tpu_torch.constants import NPARAMS
 from mbb_emcee_tpu_torch.likelihood import FreeSpace, build_lnprob
 from mbb_emcee_tpu_torch.models.modified_blackbody import LOG_C2
 from mbb_emcee_tpu_torch.ops.build import build_kernels
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 
 # The lnprob kernel's layouts (csrc/lnprob.cu): lanes of one warp per vector,
@@ -328,6 +329,11 @@ def mbb_lnprob(theta_free, ops: LnprobOperands, plan=None):
     `plan` (a LnprobPlan) sets the kernel's layout; None takes
     plan_lnprob_launch's for the card (the plain version on the CPU has
     none, but a bad plan is refused on every device)."""
+    with span("mbb.kernel.k1"):
+        return _mbb_lnprob(theta_free, ops, plan)
+
+
+def _mbb_lnprob(theta_free, ops: LnprobOperands, plan=None):
     if theta_free.device != ops.device:
         raise ValueError(f"theta on {theta_free.device}, likelihood "
                          f"operands on {ops.device}")

@@ -39,6 +39,7 @@ from mbb_emcee_tpu_torch.ops.sampler_kernel import (
 from mbb_emcee_tpu_torch.sampler import (
     MultiEnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 # K3's layouts (csrc/multifit.cu): G lanes per walker in one block per
 # source, or in a thread-block cluster of C blocks per source.
@@ -298,6 +299,15 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
     for the card (the plain version on the CPU has none, but a bad plan is
     refused on every device). Returns (state, chain
     (S, nrec, nwalkers, nfree), lnpchain (S, nrec, nwalkers))."""
+    with span("mbb.kernel.k3", steps=nrec * thin, records=nrec,
+              sources=int(state.pos.shape[0])):
+        return _mbb_multi_stretch_run(state, ops, nrec, thin, a, uniforms,
+                                      plan, source0)
+
+
+def _mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
+                           nrec, thin, a=2.0, uniforms=None, plan=None,
+                           source0=0):
     device = state.pos.device
     if device != ops.device:
         raise ValueError(f"state on {device}, likelihood operands on "

@@ -28,6 +28,7 @@ from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
     mbb_lnprob, plan_mode, prepare_lnprob_inputs, smem_optin_bytes)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, SamplerState, _check_run_args, stretch_run_plain)
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 # The G = 1, C = 1 layout holds the ensemble in one block of at most 1024
 # threads, one per walker pair.
@@ -167,6 +168,12 @@ def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
     version on the CPU has none, but a bad plan is refused on every device).
     Returns (state, chain (nrec, nwalkers, nfree), lnpchain
     (nrec, nwalkers))."""
+    with span("mbb.kernel.k2", steps=nrec * thin, records=nrec, sources=1):
+        return _mbb_stretch_run(state, ops, nrec, thin, a, uniforms, plan)
+
+
+def _mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
+                     a=2.0, uniforms=None, plan=None):
     device = state.pos_a.device
     if device != ops.device:
         raise ValueError(f"state on {device}, likelihood operands on "

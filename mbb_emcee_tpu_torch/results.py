@@ -33,6 +33,7 @@ from mbb_emcee_tpu_torch.likelihood import param_index
 from mbb_emcee_tpu_torch.sampler import (
     autocorrelation_time, effective_sample_size, split_rhat,
     split_rhat_rank_normalized)
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 
 
 def _percentile_summary(samples, percentile=68.3):
@@ -134,7 +135,9 @@ class ChainResults:
 
     def par_cen(self, param, percentile=68.3):
         """(median, +err, -err) of a parameter (ref: mbb_results.par_cen)."""
-        return _percentile_summary(self.parameter_chain(param), percentile)
+        with span("mbb.results.percentiles", param=param):
+            return _percentile_summary(self.parameter_chain(param),
+                                       percentile)
 
     def par_uplim(self, param, conf=0.683):
         """One-sided upper limit at confidence conf."""
@@ -330,7 +333,8 @@ class ChainResults:
             raise RuntimeError(
                 "redshift (or explicit lumdist) required for derived "
                 "physical quantities")
-        return luminosity_distance(self.redshift, self._cosmo)
+        with span("mbb.derived.distance"):
+            return luminosity_distance(self.redshift, self._cosmo)
 
     def _opz(self):
         if self.redshift is None:
@@ -338,18 +342,20 @@ class ChainResults:
         return 1.0 + self.redshift
 
     def lir_cen(self, percentile=68.3):
-        if self.lir_chain is None:
-            self.compute_lir()
-        return _percentile_summary(self.lir_chain, percentile)
+        with span("mbb.derived.summary"):
+            if self.lir_chain is None:
+                self.compute_lir()
+            return _percentile_summary(self.lir_chain, percentile)
 
     @property
     def lir(self):
         return self.lir_cen()
 
     def peaklambda_cen(self, percentile=68.3):
-        if self.peaklambda_chain is None:
-            self.compute_peaklambda()
-        return _percentile_summary(self.peaklambda_chain, percentile)
+        with span("mbb.derived.summary"):
+            if self.peaklambda_chain is None:
+                self.compute_peaklambda()
+            return _percentile_summary(self.peaklambda_chain, percentile)
 
     @property
     def peaklambda(self):
@@ -373,7 +379,8 @@ class MBBResults(ChainResults):
         self.evidence = None  # NestedResult (compute_evidence on the fitter)
 
         if fit is not None:
-            self._from_fit(fit)
+            with span("mbb.results.load"):
+                self._from_fit(fit)
         else:
             self._from_h5(h5file)
 
@@ -383,8 +390,9 @@ class MBBResults(ChainResults):
         if self.redshift is None and fit.redshift is not None:
             self.redshift = float(fit.redshift)
         self.chain = fit.chain                    # (nwalkers, nsteps, 5)
-        self.lnprobability = np.transpose(
-            fit.lnprobability.double().cpu().numpy(), (1, 0))
+        lnp = fit.lnprobability.double().cpu().numpy()
+        count("d2h_bytes", lnp.nbytes)
+        self.lnprobability = np.transpose(lnp, (1, 0))
         self.acceptance_fraction = np.asarray(fit.acceptance_fraction)
         self.shape = fit.shape
         self.phot = fit.phot
@@ -472,14 +480,17 @@ class MBBResults(ChainResults):
     # -- L_IR -----------------------------------------------------------------------
     def compute_lir(self, wavemin=8.0, wavemax=1000.0, thin=1):
         """Posterior of L_IR(wavemin-wavemax um REST) in L_sun."""
-        lam, w = derived.lir_nodes_weights(self._opz(), wavemin, wavemax)
-        lam_t = torch.as_tensor(lam.astype(np.float32), device=self.device)
-        w_t = torch.as_tensor(w.astype(np.float32), device=self.device)
-        one = derived.lir_integrand(self.shape)
-        integ = derived.batched(lambda th: one(th, lam_t, w_t),
-                                self._samples(thin))
-        self.lir_chain = (derived.lir_prefactor(self._dl_mpc())
-                          * integ.double().cpu().numpy())
+        with span("mbb.derived.lir"):
+            lam, w = derived.lir_nodes_weights(self._opz(), wavemin, wavemax)
+            lam_t = torch.as_tensor(lam.astype(np.float32),
+                                    device=self.device)
+            w_t = torch.as_tensor(w.astype(np.float32), device=self.device)
+            one = derived.lir_integrand(self.shape)
+            integ = derived.batched(lambda th: one(th, lam_t, w_t),
+                                    self._samples(thin))
+            integ = integ.double().cpu().numpy()
+            count("d2h_bytes", integ.nbytes)
+            self.lir_chain = derived.lir_prefactor(self._dl_mpc()) * integ
         self.lir_meta = {"wavemin": float(wavemin), "wavemax": float(wavemax),
                          "thin": int(thin)}
         return self.lir_chain
@@ -488,23 +499,28 @@ class MBBResults(ChainResults):
     def compute_dustmass(self, kappa=2.64, kappa_wave=125.0, thin=1):
         """Posterior of dust mass in M_sun (kappa in m^2/kg at REST
         kappa_wave um)."""
-        opz = self._opz()
-        lam_obs = torch.tensor(kappa_wave * opz, dtype=torch.float32,
-                               device=self.device)
-        one = derived.dustmass_integrand(self.shape)
-        g = derived.batched(lambda th: one(th, lam_obs), self._samples(thin))
-        prefac = derived.dustmass_prefactor(self._dl_mpc(), opz, kappa,
-                                            kappa_wave)
-        self.dustmass_chain = prefac * g.double().cpu().numpy()
+        with span("mbb.derived.dustmass"):
+            opz = self._opz()
+            lam_obs = torch.tensor(kappa_wave * opz, dtype=torch.float32,
+                                   device=self.device)
+            one = derived.dustmass_integrand(self.shape)
+            g = derived.batched(lambda th: one(th, lam_obs),
+                                self._samples(thin))
+            g = g.double().cpu().numpy()
+            count("d2h_bytes", g.nbytes)
+            prefac = derived.dustmass_prefactor(self._dl_mpc(), opz, kappa,
+                                                kappa_wave)
+            self.dustmass_chain = prefac * g
         self.dustmass_meta = {"kappa": float(kappa),
                               "kappa_wave": float(kappa_wave),
                               "thin": int(thin)}
         return self.dustmass_chain
 
     def dustmass_cen(self, percentile=68.3):
-        if self.dustmass_chain is None:
-            self.compute_dustmass()
-        return _percentile_summary(self.dustmass_chain, percentile)
+        with span("mbb.derived.summary"):
+            if self.dustmass_chain is None:
+                self.compute_dustmass()
+            return _percentile_summary(self.dustmass_chain, percentile)
 
     @property
     def dustmass(self):
@@ -514,9 +530,11 @@ class MBBResults(ChainResults):
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
         """Posterior of the OBSERVED f_nu peak wavelength in um."""
-        peak = derived.peak_finder(self.shape, lo, hi)
-        self.peaklambda_chain = derived.batched(
-            peak, self._samples(thin)).double().cpu().numpy()
+        with span("mbb.derived.peaklambda"):
+            peak = derived.peak_finder(self.shape, lo, hi)
+            self.peaklambda_chain = derived.batched(
+                peak, self._samples(thin)).double().cpu().numpy()
+            count("d2h_bytes", self.peaklambda_chain.nbytes)
         return self.peaklambda_chain
 
     # -- persistence -------------------------------------------------------------------

@@ -9,6 +9,13 @@ Torch twin of mbb_emcee_tpu/utils/profiling.py:
     (ui.perfetto.dev) or chrome://tracing. Wired to both MBB CLIs as
     --profile-dir. The JAX package writes jax.profiler's TensorBoard
     format instead.
+  * `span(name, **attrs)`, `count(name, n)`, `recorded()` -- the port's
+    own spans (`mbb.fit.*`, `mbb.kernel.*`, `mbb.results.*`,
+    `mbb.derived.*`) and their `d2h_bytes` counter. They record only while
+    torch's profiler records (trace() above, or any torch.profiler
+    session): each span is then also a `record_function` annotation of the
+    Chrome trace, beside the kernels it launched. Otherwise `span` returns
+    one shared no-op context and `count` returns at once.
   * `StepTimer` -- wall-clock walker-steps/sec meter with the JAX
     package's phase / rate / report output.
 """
@@ -16,9 +23,12 @@ Torch twin of mbb_emcee_tpu/utils/profiling.py:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import socket
 import time
+
+import torch
 
 
 @contextlib.contextmanager
@@ -31,11 +41,12 @@ def trace(log_dir: str | None, device=None):
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     from mbb_emcee_tpu_torch.fitter import resolve_device
 
     dev = resolve_device(device)
+    _SPANS.clear()
+    _OPEN.clear()
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -47,6 +58,77 @@ def trace(log_dir: str | None, device=None):
     prof.export_chrome_trace(os.path.join(
         str(log_dir), f"{socket.gethostname()}_{os.getpid()}."
                       f"{time.time_ns()}.pt.trace.json"))
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span: host times from time.perf_counter_ns(), the
+    indices (into recorded()) of its parent (None for a root) and of its
+    root, one per top-level program call."""
+    name: str
+    attrs: dict
+    parent: int | None
+    root: int
+    start_ns: int = 0
+    end_ns: int | None = None
+    counters: dict = dataclasses.field(default_factory=dict)
+
+
+_SPANS: list[Span] = []     # every span recorded, in the order opened
+_OPEN: list = []            # the open spans' recordings, innermost last
+
+
+class _Recording:
+    __slots__ = ("name", "attrs", "index", "span", "_annotation")
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        outer = _OPEN[-1] if _OPEN else None
+        self.index = len(_SPANS)
+        self.span = Span(self.name, self.attrs,
+                         None if outer is None else outer.index,
+                         self.index if outer is None else outer.span.root)
+        _SPANS.append(self.span)
+        _OPEN.append(self)
+        self._annotation = torch.profiler.record_function(self.name)
+        self._annotation.__enter__()
+        self.span.start_ns = time.perf_counter_ns()
+        return self.span
+
+    def __exit__(self, *exc):
+        self.span.end_ns = time.perf_counter_ns()
+        self._annotation.__exit__(*exc)
+        if _OPEN and _OPEN[-1] is self:     # trace() may have cleared it
+            _OPEN.pop()
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **attrs):
+    """A span of host time named `name` (with attributes `attrs`) around
+    the block, kept while torch's profiler records; no device is
+    synchronised."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Recording(name, attrs)
+
+
+def count(name: str, n: int):
+    """Add n to the counter `name` of the innermost open span."""
+    if not _OPEN:
+        return
+    counters = _OPEN[-1].span.counters
+    counters[name] = counters.get(name, 0) + int(n)
+
+
+def recorded() -> list[Span]:
+    """The spans recorded so far, in the order they opened (trace()
+    clears them when it opens)."""
+    return list(_SPANS)
 
 
 class StepTimer:

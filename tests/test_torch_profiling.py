@@ -1,7 +1,10 @@
 """The port's tracing hooks and step-rate timer
 (mbb_emcee_tpu_torch/utils/profiling.py) on the CPU: StepTimer against the
 JAX package's on the same phases, trace() as a no-op, around a fit, and
-refusing a missing card, and --profile-dir in both MBB command lines."""
+refusing a missing card, --profile-dir in both MBB command lines, and the
+program's spans and d2h_bytes counter: off without a profiler, the span
+tree of a fit, its results and derived posteriors under one, the bytes
+each copy moves, and the same chains either way."""
 
 import glob
 import json
@@ -14,7 +17,8 @@ import torch
 torch.set_num_threads(1)
 
 from mbb_emcee_tpu.utils import profiling as jprofiling  # noqa: E402
-from mbb_emcee_tpu_torch import MBBFitter  # noqa: E402
+from mbb_emcee_tpu_torch import MBBFitter, MBBResults, MultiFitter  # noqa
+from mbb_emcee_tpu_torch import derived  # noqa: E402
 from mbb_emcee_tpu_torch import cli, cli_batch  # noqa: E402
 from mbb_emcee_tpu_torch.utils import profiling  # noqa: E402
 from mbb_emcee_tpu_torch.utils.profiling import StepTimer, trace  # noqa
@@ -146,3 +150,178 @@ def test_profile_dir_resolves_the_cli_device(which, tmp_path, monkeypatch):
         mod.main([str(src), str(tmp_path / "o.h5"), "--profile-dir",
                   str(d)])
     assert not d.exists()
+
+
+def _recording(fn):
+    """fn() under torch's CPU profiler; returns (fn's value, the spans it
+    recorded)."""
+    n0 = len(profiling.recorded())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    return out, profiling.recorded()[n0:]
+
+
+def _single(backend="auto"):
+    fit = MBBFitter(nwalkers=16, seed=3, opthin=True, noalpha=True,
+                    device="cpu", sampler_backend=backend)
+    fit.set_data(WAVE, FLUX, 0.06 * FLUX)
+    fit.run(nburn=4, nsteps=8, thin=2)
+    res = MBBResults(fit, redshift=2.0)
+    return fit, res, res.par_cen("T")
+
+
+def _catalog():
+    mf = MultiFitter(nwalkers=16, seed=5, opthin=True, noalpha=True,
+                     device="cpu")
+    mf.set_data(WAVE, np.stack([FLUX, 1.3 * FLUX, 0.8 * FLUX]),
+                0.06 * np.stack([FLUX] * 3), redshifts=[0.5, 1.5, 2.5])
+    mf.run(nburn=4, nsteps=8)
+    return mf, mf.par_cen("T"), mf.compute_lir(), mf.lir_cen()
+
+
+@pytest.mark.parametrize("what", ["calls", "fit"])
+def test_spans_without_a_profiler_are_the_shared_noop(what):
+    n0 = len(profiling.recorded())
+    assert profiling.span("mbb.a") is profiling.span("mbb.b", x=1)
+    if what == "calls":
+        with profiling.span("mbb.a", x=1) as got:
+            profiling.count("d2h_bytes", 8)
+        assert got is None
+    else:
+        _single()
+        _catalog()
+    assert len(profiling.recorded()) == n0
+
+
+# (name, parent's position, attributes) of a CPU fit, its results and par_cen;
+# the fused backend adds the kernel wrappers' spans (their plain versions):
+# the burn records every step, the re-burn none but its last
+TREE = {
+    "auto": [
+        ("mbb.fit.set_data", None, {}),
+        ("mbb.fit.run", None, {"nburn": 4, "nsteps": 8, "thin": 2,
+                               "nsources": 1}),
+        ("mbb.fit.ball", 1, {}), ("mbb.fit.burn", 1, {}),
+        ("mbb.fit.recentre", 1, {}), ("mbb.fit.reburn", 1, {}),
+        ("mbb.fit.reset", 1, {}), ("mbb.fit.production", 1, {}),
+        ("mbb.fit.record", 1, {}), ("mbb.results.load", None, {}),
+        ("mbb.results.percentiles", None, {"param": "T"})],
+    "fused": [
+        ("mbb.fit.set_data", None, {}),
+        ("mbb.fit.run", None, {"nburn": 4, "nsteps": 8, "thin": 2,
+                               "nsources": 1}),
+        ("mbb.fit.ball", 1, {}), ("mbb.kernel.k1", 2, {}),
+        ("mbb.fit.burn", 1, {}),
+        ("mbb.kernel.k2", 4, {"steps": 4, "records": 4, "sources": 1}),
+        ("mbb.fit.recentre", 1, {}), ("mbb.kernel.k1", 6, {}),
+        ("mbb.fit.reburn", 1, {}),
+        ("mbb.kernel.k2", 8, {"steps": 4, "records": 1, "sources": 1}),
+        ("mbb.fit.reset", 1, {}), ("mbb.fit.production", 1, {}),
+        ("mbb.kernel.k2", 11, {"steps": 8, "records": 4, "sources": 1}),
+        ("mbb.fit.record", 1, {}), ("mbb.results.load", None, {}),
+        ("mbb.results.percentiles", None, {"param": "T"})]}
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused"])
+def test_a_cpu_fit_records_the_span_tree(backend):
+    _, spans = _recording(lambda: _single(backend))
+    assert [(s.name, s.parent, s.attrs) for s in spans] == [
+        (n, None if p is None else spans[0].root + p, a)
+        for n, p, a in TREE[backend]]
+    base = spans[0].root
+    for i, s in enumerate(spans):
+        # roots: set_data, run, results.load, percentiles; the rest under run
+        want = base + i if s.parent is None else spans[1].root
+        assert s.root == want
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            p = spans[s.parent - base]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+@pytest.mark.parametrize("nodes", [None, 2_000_000])
+def test_multifitter_lir_records_one_chunk_span_per_chunk(nodes,
+                                                          monkeypatch):
+    """compute_lir's chunk loop, at its own width (one chunk here) and
+    with chunks of a few samples (the chunk width counts LIR_NODES as the
+    fan-out of each sample): the same chain either way."""
+    mf, _, lir, _ = _catalog()
+    if nodes is not None:
+        monkeypatch.setattr(derived, "LIR_NODES", nodes)
+    got, spans = _recording(lambda: mf.compute_lir())
+    np.testing.assert_array_equal(got, lir)
+    S, N = mf.nsources, lir.shape[1]
+    chunk = max(1, (64 << 20) // (S * derived.LIR_NODES))
+    want = -(-N // chunk)
+    assert (want > 5) == (nodes is not None)
+    chunks = [s for s in spans if s.name == "mbb.derived.chunk"]
+    assert [s.attrs["index"] for s in chunks] == list(range(want))
+    assert sum(s.attrs["samples"] for s in chunks) == N
+    assert spans[0].name == "mbb.derived.lir" and spans[0].parent is None
+    assert all(s.parent == spans[0].root for s in chunks)
+    assert [s.name for s in spans if s.name != "mbb.derived.chunk"] == [
+        "mbb.derived.lir", "mbb.derived.distance"]
+
+
+SITES = {"load": "mbb.results.load", "recentre": "mbb.fit.recentre",
+         "record": "mbb.fit.record",
+         "percentiles": "mbb.results.percentiles",
+         "chunk": "mbb.derived.chunk"}
+
+
+@pytest.mark.parametrize("site", SITES)
+def test_d2h_bytes_are_the_nbytes_copied(site):
+    """Each copy counts what crosses: fp64 chains, lnprob, best walkers
+    and acceptance fractions, par_cen's (S, 2) pairs at three
+    percentiles, each derived chunk."""
+    if site in ("load", "recentre", "record"):
+        (fit, _, _), spans = _recording(_single)
+        want = {"load": 8 * (fit.chain_free.numel()
+                             + fit.lnprobability.numel()),
+                "recentre": 8 * fit.free_space.nfree,
+                "record": fit.acceptance_fraction.nbytes}[site]
+    else:
+        (mf, _, lir, _), spans = _recording(_catalog)
+        want = {"percentiles": 3 * 2 * 8 * mf.nsources,
+                "chunk": lir.nbytes}[site]
+    assert want > 0
+    assert sum(s.counters.get("d2h_bytes", 0) for s in spans
+               if s.name == SITES[site]) == want
+
+
+@pytest.mark.parametrize("which", ["single", "catalog"])
+def test_recording_leaves_chains_and_summaries_bitwise(which):
+    run = _single if which == "single" else _catalog
+    off = run()
+    on, spans = _recording(run)
+    assert spans
+    if which == "single":
+        (f0, r0, c0), (f1, r1, c1) = off, on
+        pairs = [(f0.chain_free, f1.chain_free),
+                 (f0.lnprobability, f1.lnprobability)]
+        arrays = [(r0.chain, r1.chain), (c0, c1)]
+    else:
+        (m0, *a0), (m1, *a1) = off, on
+        pairs = [(m0.chain_free, m1.chain_free),
+                 (m0.lnprobability, m1.lnprobability)]
+        arrays = list(zip(a0, a1))
+    for a, b in pairs:
+        assert torch.equal(a, b)
+    for a, b in arrays:
+        np.testing.assert_array_equal(a, b)
+
+
+def test_trace_holds_the_program_spans(tmp_path):
+    """trace() clears the recorder when it opens; its Chrome trace holds
+    every span as a user annotation."""
+    with profiling.trace(str(tmp_path), device="cpu"):
+        fit, res, _ = _single()
+    spans = profiling.recorded()
+    assert spans[0].name == "mbb.fit.set_data" and spans[0].root == 0
+    with open(_traces(tmp_path)[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    marks = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert sorted(marks) == sorted(s.name for s in spans)
+    assert {"mbb.fit.run", "mbb.fit.burn", "mbb.fit.recentre",
+            "mbb.fit.production", "mbb.results.load"} <= set(marks)
