@@ -77,8 +77,7 @@ from mbb_emcee_tpu_torch.checkpoint import production
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 from mbb_emcee_tpu_torch.fitter import philox_key
 from mbb_emcee_tpu_torch.likelihood import signed_iunc
-from mbb_emcee_tpu_torch.models.cosmology import (
-    Cosmology, luminosity_distance)
+from mbb_emcee_tpu_torch.models.cosmology import luminosity_distance_batch
 from mbb_emcee_tpu_torch.paramspace import _replace
 from mbb_emcee_tpu_torch.utils.profiling import count, span
 from mbb_emcee_tpu_torch.sampler import (
@@ -606,13 +605,17 @@ class BatchEngine:
         return z
 
     def _dl_mpc(self, redshifts, lumdists=None, cosmology="WMAP9"):
+        """Each source's D_L in Mpc: `lumdists` as given, else one
+        vectorised pass over every redshift under `cosmology` (a named
+        set, a Cosmology, None for the default, or one explicit D_L for
+        every source)."""
         if lumdists is not None:
             return np.asarray(lumdists, np.float64)
-        with span("mbb.derived.distance"):
-            cosmo = (Cosmology.named(cosmology)
-                     if isinstance(cosmology, str) else cosmology)
-            return np.array([luminosity_distance(float(z), cosmo)
-                             for z in np.asarray(redshifts).ravel()])
+        z = np.asarray(redshifts, np.float64).ravel()
+        with span("mbb.derived.distance", redshifts=int(z.size)):
+            if isinstance(cosmology, (int, float)):
+                return np.full(z.size, float(cosmology))
+            return luminosity_distance_batch(z, cosmology)
 
     def _thinned(self, thin):
         """(S, nsamp, npar) fp32 thinned full-parameter samples on the
