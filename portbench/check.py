@@ -6,7 +6,9 @@ drawn from the seed) and every checked source of it, the numbers are:
 
 - lnp_gap: the largest gap between the lnprob the kernel recorded beside
   a stored sample and the reference's lnprob at that sample, over every
-  stored sample, as a share of max(1, |reference|);
+  stored sample, as a share of max(1, |reference|); where the
+  configuration holds filter responses, the reference's band fluxes are
+  its own quadrature over each curve (reference/response.py);
 - summary_gap: the largest gap between a summary the port returned
   (par_cen of each parameter; the derived posteriors' *_cen) and the
   reference's percentiles of the same samples, as a share of the
@@ -19,7 +21,8 @@ drawn from the seed) and every checked source of it, the numbers are:
   last stored positions are the same (a sampler that never moves them);
 - post_gap: the largest gap between a parameter's summary the port
   returned (median, +err, -err of par_cen) and the same percentiles of the
-  posterior itself, as a share of the posterior's 68% half-width. The
+  posterior itself, as a share of the posterior's 68% half-width, over
+  the parameters that the model depends on. The
   posterior is reference/posterior.py's importance sampling of the
   reference density for the source's photometry, box and priors: it
   reads nothing of the port's chain, so it judges the sampler's
@@ -45,6 +48,7 @@ import torch
 from portbench import mockdata
 from portbench.reference import model as ref
 from portbench.reference import posterior
+from portbench.reference.response import pack_of
 
 ROWS = 1 << 18
 
@@ -90,17 +94,31 @@ def _start(cfg, mean, sigma):
 
 def _posterior(cfg, traffic, seed, index, k, lnp_fn, mean, sigma,
                device):
-    """The reference posterior's (median, +err, -err) of every parameter
-    of kept item k of request `index` (5, 3), fp64 on `device`."""
+    """The reference posterior's (median, +err, -err) of each parameter
+    that the density depends on, {index in params: (3,)}, for kept item k
+    of request `index`, fp64 on `device`. A parameter that the model
+    leaves out (lambda0 of optically thin dust, alpha without the Wien
+    power law) is held at its true value: its posterior would be the flat
+    box, which no fit samples."""
     pc = traffic["check"]["posterior"]
     g = torch.Generator(device=device)
     g.manual_seed(int(mockdata.rng(seed, index, 4, k).integers(2 ** 62)))
     start, scale = _start(cfg, mean, sigma)
+    free = ref.free_indices(_shape(cfg))
+    fn = lnp_fn
+    if len(free) < len(start):
+        full = torch.as_tensor(start, dtype=torch.float64, device=device)
+
+        def fn(t):
+            theta = full.expand(t.shape[0], -1).clone()
+            theta[:, free] = t
+            return lnp_fn(theta)
+        start, scale = start[free], scale[free]
     cen, _ = posterior.posterior_summary(
-        lnp_fn, start, scale, g, rounds=int(pc["rounds"]),
+        fn, start, scale, g, rounds=int(pc["rounds"]),
         n_round=int(pc["round_samples"]), n_final=int(pc["samples"]),
         block=min(int(pc["samples"]), ROWS))
-    return cen
+    return dict(zip(free, cen))
 
 
 def _bf16(a):
@@ -111,9 +129,11 @@ def _bf16(a):
 def judge(kept, cfg, traffic, seed, mode="port", device="cpu"):
     """{number: value} over the kept items [(index, [source dicts])]."""
     shape = _shape(cfg)
+    free = ref.free_indices(shape)
     mean, sigma = _prior_arrays(cfg)
     cosmo = cfg["cosmology"]
     wave = np.asarray(cfg["wave"], np.float64)
+    pack = pack_of(cfg)
     low = torch.bfloat16
     numbers = {"lnp_gap": 0.0, "summary_gap": 0.0, "frozen_share": 0.0}
     checks_posterior = "posterior" in traffic["check"]
@@ -129,7 +149,7 @@ def judge(kept, cfg, traffic, seed, mode="port", device="cpu"):
             def lnp_fn(t, it=it):
                 return ref.lnprob(t, wave, it["flux"], it["unc"],
                                   cfg["lower"], cfg["upper"], mean, sigma,
-                                  shape)
+                                  shape, pack)
             want = _blocks(lnp_fn, theta, torch.float64, device)
             got = (np.asarray(it["lnp"], np.float64).reshape(-1)
                    if mode == "port" else _blocks(lnp_fn, theta, low, device))
@@ -143,23 +163,24 @@ def judge(kept, cfg, traffic, seed, mode="port", device="cpu"):
             post = (_posterior(cfg, traffic, seed, index, k, lnp_fn, mean,
                                sigma, device)
                     if checks_posterior else None)
-            for p in cfg["params"]:
+            for i, p in enumerate(cfg["params"]):
                 if p not in it["cen"]:
-                    numbers["summary_gap"] = math.inf
-                    if checks_posterior:
-                        numbers["post_gap"] = math.inf
+                    # a catalog summarises only the parameters it fits
+                    if i in free:
+                        numbers["summary_gap"] = math.inf
+                        if checks_posterior:
+                            numbers["post_gap"] = math.inf
                     continue
                 got_cen = it["cen"][p]
-                col = theta[:, cfg["params"].index(p)]
+                col = theta[:, i]
                 want_cen = ref.percentile_summary(col)
                 if mode != "port":
                     got_cen = _bf16(ref.percentile_summary(_bf16(col)))
                 numbers["summary_gap"] = max(
                     numbers["summary_gap"], _summary_gap(got_cen, want_cen))
-                if checks_posterior:
+                if checks_posterior and i in post:
                     numbers["post_gap"] = max(
-                        numbers["post_gap"],
-                        _summary_gap(got_cen, post[cfg["params"].index(p)]))
+                        numbers["post_gap"], _summary_gap(got_cen, post[i]))
             for q in traffic["derived"]:
                 if q not in it["derived"] or q not in it["derived_cen"]:
                     numbers[f"{q}_gap"] = math.inf

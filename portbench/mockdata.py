@@ -2,7 +2,8 @@
 
 The recipe is a frozen copy of tools/validate_tpu_parity.py:55-84 (WAVE,
 TRUE, UNC_FRAC, the box, config 2's priors) and :162-190 (mock_data: the
-fp64 oracle's fluxes at the true parameters, 5% errors, one Gaussian draw
+fp64 oracle's fluxes at the true parameters, through each band's filter
+curve where the configuration has responses, 5% errors, one Gaussian draw
 per band), without that module's imports; the numbers themselves live in
 the configuration files (configs/*.json), and a catalog's missing band
 follows chip_smoke.batch_data(missing_every=...). Every request gets new
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from portbench.reference.oracle import ModifiedBlackbodyOracle
+from portbench.reference.response import pack_of
 
 SEED_MOD = 2 ** 64
 
@@ -27,12 +29,18 @@ def rng(seed, *stream):
 
 def true_flux(cfg):
     """The oracle's fp64 band fluxes at the configuration's true
-    parameters."""
+    parameters: f_nu at each band's wavelength, or where the configuration
+    holds filter responses, the oracle's SED contracted with the
+    reference's quadrature of each curve."""
     m = cfg["model"]
     oracle = ModifiedBlackbodyOracle(*cfg["true"], wavenorm=m["wavenorm"],
                                      noalpha=m["noalpha"],
                                      opthin=m["opthin"])
-    return oracle(np.asarray(cfg["wave"], np.float64))
+    pack = pack_of(cfg)
+    if pack is None:
+        return oracle(np.asarray(cfg["wave"], np.float64))
+    waves, weights = pack
+    return np.sum(weights * oracle(waves), axis=-1)
 
 
 def request_data(cfg, traffic, seed, index, flux_true=None):

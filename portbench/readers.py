@@ -35,10 +35,18 @@ def idle_pct(ctx, fitter):
     return 100.0 * (1.0 - busy / tl.window_s)
 
 
+def _nnodes(cfg):
+    """Quadrature nodes a band: the filter responses' count, or 1 for point
+    bands."""
+    return int(cfg.get("responses", {}).get("nnodes", 1))
+
+
 def _icfg(cfg):
-    """The likelihood configuration lnprob_ops counts: point bands."""
+    """The likelihood configuration lnprob_ops counts: point bands, or
+    each band's filter curve at its node count."""
     m = cfg["model"]
-    return (int(m["opthin"]), int(m["noalpha"]), 0, len(cfg["wave"]), 1)
+    return (int(m["opthin"]), int(m["noalpha"]), 0, len(cfg["wave"]),
+            _nnodes(cfg))
 
 
 def request_bound_ms(cfg, traffic, nsrc):
@@ -50,6 +58,8 @@ def request_bound_ms(cfg, traffic, nsrc):
     nfree = 5 - int(cfg["model"]["opthin"]) - int(cfg["model"]["noalpha"])
     nburn, nsteps = int(traffic["nburn"]), int(traffic["nsteps"])
     nconsts = 20 + 2 * nb * nsrc        # box, priors, and each band's data
+    if _nnodes(cfg) > 1:                # the curves' nodes and weights
+        nconsts += 2 * nb * _nnodes(cfg)
     burn_rec = nburn if cfg["fitter"] == "single" else 1
     phases = [(nburn, burn_rec), (nburn, 1),
               (nsteps, nsteps // int(traffic["thin"]))]

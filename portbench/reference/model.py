@@ -69,6 +69,14 @@ class Shape:
         self.wavenorm = float(wavenorm)
 
 
+def free_indices(shape):
+    """The parameters the density depends on: lambda0 (index 2) only where
+    the dust can be optically thick, alpha (3) only with the Wien-side
+    power law. A fit holds the others fixed."""
+    return [i for i in range(5)
+            if not (i == 2 and shape.opthin) and not (i == 3 and shape.noalpha)]
+
+
 def _split(theta):
     return [theta[..., i] for i in range(5)]
 
@@ -139,11 +147,16 @@ def log_fnu(theta, wave, shape):
 
 
 def lnprob(theta, wave, flux, unc, lower, upper, prior_mean, prior_sigma,
-           shape):
+           shape, pack=None):
     """The posterior density the fit samples, up to a constant, at samples
     theta (n, 5): Gaussian band residuals (a band with a non-finite flux
     or uncertainty is missing and left out), Gaussian priors where
-    prior_sigma is finite, and -inf outside the box [lower, upper]."""
+    prior_sigma is finite, and -inf outside the box [lower, upper].
+
+    A band's model flux is f_nu at its wavelength, or with a filter-response
+    pack (waves, weights), each (nbands, nnodes) (response.py), the
+    quadrature sum_i W_i f_nu(lambda_i) over its curve; the pack is
+    rounded to theta's dtype like every other input."""
     dt = theta.dtype
     dev = theta.device
 
@@ -153,7 +166,12 @@ def lnprob(theta, wave, flux, unc, lower, upper, prior_mean, prior_sigma,
     flux = np.asarray(flux, np.float64)
     unc = np.asarray(unc, np.float64)
     ok = np.isfinite(flux) & np.isfinite(unc)
-    f = torch.exp(log_fnu(theta, t(np.asarray(wave)[ok]), shape))
+    if pack is None:
+        f = torch.exp(log_fnu(theta, t(np.asarray(wave)[ok]), shape))
+    else:
+        waves, weights = (np.asarray(a, np.float64)[ok] for a in pack)
+        s = torch.exp(log_fnu(theta, t(waves.reshape(-1)), shape))
+        f = torch.sum(s.reshape(-1, *waves.shape) * t(weights), dim=-1)
     r = (f - t(flux[ok])) / t(unc[ok])
     out = -0.5 * torch.sum(r * r, dim=-1)
     sig = np.asarray(prior_sigma, np.float64)

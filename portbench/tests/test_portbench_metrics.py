@@ -24,10 +24,17 @@ def _ctx(latencies_ms, window_s, fitter="single", spans=None, steps=10):
                                  timeline=None, cards=[0])
 
 
-def test_rate_is_all_work_over_all_time():
+@pytest.mark.parametrize("name", ["walker_steps_per_s",
+                                  "walker_steps_per_s.single"])
+def test_rate_is_all_work_over_all_time(name):
     ctx = _ctx([100.0] * 7 + [5000.0], 5.7, steps=1000)
-    assert bench.reader("walker_steps_per_s")(ctx) == pytest.approx(
-        8 * 1000 / 5.7)
+    assert bench.reader(name)(ctx) == pytest.approx(8 * 1000 / 5.7)
+
+
+def test_single_rate_reads_nothing_in_a_catalog_cell():
+    ctx = _ctx([100.0] * 3, 1.0, fitter="catalog", steps=1000)
+    assert bench.reader("walker_steps_per_s.single")(ctx) is None
+    assert bench.reader("walker_steps_per_s")(ctx) == pytest.approx(3000.0)
 
 
 def test_p95_is_of_every_request():

@@ -14,7 +14,8 @@ from portbench.trace import WINDOW, Timeline
 OFF_US = 7_000_000.0          # the trace's clock = perf_counter us + OFF_US
 NEW = ["protocol_idle_ms.single", "protocol_idle_ms.catalog",
        "results_idle_ms.single", "results_idle_ms.catalog",
-       "derived_idle_ms.catalog", "d2h_mb.single", "d2h_mb.catalog"]
+       "derived_idle_ms.catalog", "derived_idle_ms.single", "d2h_mb.single",
+       "d2h_mb.catalog"]
 B = bench.load_benchmark()
 LISTED = {m["name"]: m["workloads"] for m in B["per_layer"]}
 
@@ -140,6 +141,36 @@ def test_layers_and_the_remainder_add_up_to_the_idle_time(spans):
     assert bench.reader("derived_idle_ms.catalog")(ctx) == \
         pytest.approx(1.9)
     assert bench.reader("d2h_mb.catalog")(ctx) == pytest.approx(3.0)
+
+
+@pytest.mark.parametrize("derived", [["lir", "dustmass", "peaklambda"], []])
+def test_single_derived_idle_reads_the_derived_spans(spans, derived):
+    """A single fit's idle under MBBResults' mbb.derived.* roots (each
+    compute_* with its distance and chunk, each *_cen summary) is the
+    derived layer's; a mix without derived quantities reads nothing."""
+    harness = [("run", 0, 1000), ("summary", 1000, 1500),
+               ("derived", 1500, 4000)]
+    ctx = _ctx(harness, [(100, 900), (2000, 2200), (3000, 3100)],
+               derived=derived)
+    spans += [_span("mbb.fit.run", 10, 990, root=0),
+              _span("mbb.results.load", 1000, 1200, root=1),
+              _span("mbb.results.percentiles", 1200, 1490, root=2),
+              _span("mbb.derived.lir", 1500, 2500, root=3),
+              _span("mbb.derived.distance", 1600, 1700, parent=3, root=3),
+              _span("mbb.derived.chunk", 1900, 2300, parent=3, root=3,
+                    counters={"d2h_bytes": 500_000}),
+              _span("mbb.derived.summary", 2500, 2600, root=6),
+              _span("mbb.derived.peaklambda", 2600, 3900, root=7)]
+    got = bench.reader("derived_idle_ms.single")(ctx)
+    if not derived:
+        assert got is None
+        return
+    # idle 1500-2000 and 2200-3000 and 3100-3900 us, all under the roots
+    assert got == pytest.approx(2.1)
+    assert program.split(ctx)["steps"]["mbb.derived.distance"] == \
+        pytest.approx(0.1)
+    assert bench.reader("results_idle_ms.single")(ctx) == pytest.approx(0.49)
+    assert bench.reader("derived_idle_ms.catalog")(ctx) is None
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in B["workloads"]])

@@ -7,8 +7,10 @@ outputs read back to the host: for a single fit MBBFitter.run, then
 MBBResults' par_cen of every parameter and the acceptance fraction; for a
 catalog MultiFitter.run, par_cen of every free parameter. Either then
 computes the derived posteriors that the traffic mix names, and their
-summaries. The harness's spans wrap the
-calls into each layer.
+summaries. A configuration that holds filter responses fits in response
+mode: the port's built-in curves of its bands (ResponseSet.builtin, as
+--builtin-responses builds them) and the band names in set_data. The
+harness's spans wrap the calls into each layer.
 """
 
 from __future__ import annotations
@@ -96,6 +98,11 @@ class Workload:
         if self.fitter not in ("single", "catalog"):
             raise ValueError(f"unknown fitter {self.fitter!r}")
         self._true_flux = mockdata.true_flux(cfg)
+        self._responses = None
+        if "responses" in cfg:
+            from mbb_emcee_tpu_torch.response import ResponseSet
+            self._responses = ResponseSet.builtin(
+                cfg["bands"], nnodes=int(cfg["responses"]["nnodes"]))
 
     @property
     def steps_per_walker(self):
@@ -130,15 +137,25 @@ class Workload:
 
     def _model_kw(self):
         m = self.cfg["model"]
-        return dict(nwalkers=int(self.cfg["nwalkers"]),
-                    wavenorm=float(m["wavenorm"]), noalpha=bool(m["noalpha"]),
-                    opthin=bool(m["opthin"]))
+        kw = dict(nwalkers=int(self.cfg["nwalkers"]),
+                  wavenorm=float(m["wavenorm"]), noalpha=bool(m["noalpha"]),
+                  opthin=bool(m["opthin"]))
+        if self._responses is not None:
+            kw["responses"] = self._responses
+        return kw
+
+    def _data_kw(self):
+        """set_data's band names, which response mode needs."""
+        if self._responses is None:
+            return {}
+        return dict(band_names=list(self.cfg["bands"]))
 
     def _single(self, flux, unc, z, fit_seed, span):
         from mbb_emcee_tpu_torch import MBBFitter, MBBResults
         t = self.traffic
         fit = MBBFitter(seed=fit_seed, device=self.device, **self._model_kw())
-        fit.set_data(np.asarray(self.cfg["wave"]), flux, unc)
+        fit.set_data(np.asarray(self.cfg["wave"]), flux, unc,
+                     **self._data_kw())
         self._constrain(fit)
         with span("run"):
             fit.run(nburn=int(t["nburn"]), nsteps=int(t["nsteps"]),
@@ -173,7 +190,8 @@ class Workload:
         t = self.traffic
         mf = MultiFitter(seed=fit_seed, device=self.device,
                          **self._model_kw())
-        mf.set_data(np.asarray(self.cfg["wave"]), flux, unc, redshifts=z)
+        mf.set_data(np.asarray(self.cfg["wave"]), flux, unc, redshifts=z,
+                    **self._data_kw())
         self._constrain(mf)
         with span("run"):
             mf.run(nburn=int(t["nburn"]), nsteps=int(t["nsteps"]),
