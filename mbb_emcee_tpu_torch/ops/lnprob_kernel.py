@@ -30,7 +30,7 @@ from mbb_emcee_tpu_torch.constants import NPARAMS
 from mbb_emcee_tpu_torch.likelihood import FreeSpace, build_lnprob
 from mbb_emcee_tpu_torch.models.modified_blackbody import LOG_C2
 from mbb_emcee_tpu_torch.ops.build import build_kernels
-from mbb_emcee_tpu_torch.utils.profiling import span
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 
 
 # The lnprob kernel's layouts (csrc/lnprob.cu): lanes of one warp per vector,
@@ -328,8 +328,15 @@ def mbb_lnprob(theta_free, ops: LnprobOperands, plan=None):
     the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
     `plan` (a LnprobPlan) sets the kernel's layout; None takes
     plan_lnprob_launch's for the card (the plain version on the CPU has
-    none, but a bad plan is refused on every device)."""
-    with span("mbb.kernel.k1"):
+    none, but a bad plan is refused on every device).
+
+    Under the profiler its span records the bands and the nodes a band
+    (the pack's padded count, 1 for point bands) and counts `sed_evals`:
+    vectors x bands x nodes."""
+    nb, nodes = int(ops.icfg[3]), int(ops.icfg[4])
+    with span("mbb.kernel.k1", bands=nb, nodes=nodes):
+        count("sed_evals",
+              theta_free.numel() // theta_free.shape[-1] * nb * nodes)
         return _mbb_lnprob(theta_free, ops, plan)
 
 

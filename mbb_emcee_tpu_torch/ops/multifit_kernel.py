@@ -39,7 +39,7 @@ from mbb_emcee_tpu_torch.ops.sampler_kernel import (
 from mbb_emcee_tpu_torch.sampler import (
     MultiEnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
-from mbb_emcee_tpu_torch.utils.profiling import span
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 
 # K3's layouts (csrc/multifit.cu): G lanes per walker in one block per
 # source, or in a thread-block cluster of C blocks per source.
@@ -298,9 +298,16 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
     MULTI_LAYOUTS) sets the kernel's layout; None takes plan_multi_on_card's
     for the card (the plain version on the CPU has none, but a bad plan is
     refused on every device). Returns (state, chain
-    (S, nrec, nwalkers, nfree), lnpchain (S, nrec, nwalkers))."""
+    (S, nrec, nwalkers, nfree), lnpchain (S, nrec, nwalkers)).
+
+    Under the profiler its span records the bands and the nodes a band
+    (the pack's padded count, 1 for point bands) and counts `sed_evals`:
+    steps x walkers x bands x nodes x sources."""
+    nsrc, nw = int(state.pos.shape[0]), int(state.pos.shape[1])
+    nb, nodes = int(ops.icfg[3]), int(ops.icfg[4])
     with span("mbb.kernel.k3", steps=nrec * thin, records=nrec,
-              sources=int(state.pos.shape[0])):
+              sources=nsrc, bands=nb, nodes=nodes):
+        count("sed_evals", nrec * thin * nw * nb * nodes * nsrc)
         return _mbb_multi_stretch_run(state, ops, nrec, thin, a, uniforms,
                                       plan, source0)
 

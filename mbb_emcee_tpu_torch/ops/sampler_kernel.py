@@ -28,7 +28,7 @@ from mbb_emcee_tpu_torch.ops.lnprob_kernel import (
     mbb_lnprob, plan_mode, prepare_lnprob_inputs, smem_optin_bytes)
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, SamplerState, _check_run_args, stretch_run_plain)
-from mbb_emcee_tpu_torch.utils.profiling import span
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 
 # The G = 1, C = 1 layout holds the ensemble in one block of at most 1024
 # threads, one per walker pair.
@@ -167,8 +167,16 @@ def mbb_stretch_run(state: SamplerState, ops: LnprobOperands, nrec, thin,
     sets the kernel's layout; None takes plan_stretch_launch's (the plain
     version on the CPU has none, but a bad plan is refused on every device).
     Returns (state, chain (nrec, nwalkers, nfree), lnpchain
-    (nrec, nwalkers))."""
-    with span("mbb.kernel.k2", steps=nrec * thin, records=nrec, sources=1):
+    (nrec, nwalkers)).
+
+    Under the profiler its span records the bands and the nodes a band
+    (the pack's padded count, 1 for point bands) and counts `sed_evals`:
+    steps x walkers x bands x nodes."""
+    nb, nodes = int(ops.icfg[3]), int(ops.icfg[4])
+    with span("mbb.kernel.k2", steps=nrec * thin, records=nrec, sources=1,
+              bands=nb, nodes=nodes):
+        count("sed_evals",
+              nrec * thin * 2 * state.pos_a.shape[0] * nb * nodes)
         return _mbb_stretch_run(state, ops, nrec, thin, a, uniforms, plan)
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch.ops.quadrature import gauss_legendre
+from mbb_emcee_tpu_torch.utils.profiling import span
 
 
 def _trapz_weights(x):
@@ -229,13 +230,16 @@ class ResponseSet:
         Returns (waves, weights) HOST float32 arrays of shape (nbands, nmax);
         padded entries carry weight 0 and a harmless wavelength so the SED
         eval stays finite. This is the representation the likelihood and
-        the kernels contract against.
+        the kernels contract against. Every fitter's _response_pack builds
+        its pack here, under the span mbb.fit.response_pack (its bands and
+        padded nodes) while the profiler records.
         """
         rs = [self[n] for n in names]
         nmax = max(r.wave.size for r in rs)
-        waves = np.full((len(rs), nmax), 500.0, dtype=np.float64)
-        wts = np.zeros((len(rs), nmax), dtype=np.float64)
-        for i, r in enumerate(rs):
-            waves[i, :r.wave.size] = r.wave
-            wts[i, :r.wave.size] = r.weights
-        return waves.astype(np.float32), wts.astype(np.float32)
+        with span("mbb.fit.response_pack", bands=len(rs), nodes=nmax):
+            waves = np.full((len(rs), nmax), 500.0, dtype=np.float64)
+            wts = np.zeros((len(rs), nmax), dtype=np.float64)
+            for i, r in enumerate(rs):
+                waves[i, :r.wave.size] = r.wave
+                wts[i, :r.wave.size] = r.weights
+            return waves.astype(np.float32), wts.astype(np.float32)

@@ -11,11 +11,13 @@ Torch twin of mbb_emcee_tpu/utils/profiling.py:
     format instead.
   * `span(name, **attrs)`, `count(name, n)`, `recorded()` -- the port's
     own spans (`mbb.fit.*`, `mbb.kernel.*`, `mbb.results.*`,
-    `mbb.derived.*`) and their `d2h_bytes` counter. They record only while
-    torch's profiler records (trace() above, or any torch.profiler
-    session): each span is then also a `record_function` annotation of the
-    Chrome trace, beside the kernels it launched. Otherwise `span` returns
-    one shared no-op context and `count` returns at once.
+    `mbb.derived.*`) and their counters (`d2h_bytes`, the bytes a copy to
+    the host moves; `sed_evals`, the SED evaluations a kernel launch
+    computes). They record only while torch's profiler records (trace()
+    above, or any torch.profiler session): each span is then also a
+    `record_function` annotation of the Chrome trace, beside the kernels
+    it launched. Otherwise `span` returns one shared no-op context and
+    `count` returns at once.
   * `StepTimer` -- wall-clock walker-steps/sec meter with the JAX
     package's phase / rate / report output.
 """

@@ -195,8 +195,10 @@ def test_spans_without_a_profiler_are_the_shared_noop(what):
 
 
 # (name, parent's position, attributes) of a CPU fit, its results and par_cen;
-# the fused backend adds the kernel wrappers' spans (their plain versions):
-# the burn records every step, the re-burn none but its last
+# the fused backend adds the kernel wrappers' spans (their plain versions),
+# each with its bands and nodes a band (point bands: 1): the burn records
+# every step, the re-burn none but its last
+POINT = {"bands": 5, "nodes": 1}
 TREE = {
     "auto": [
         ("mbb.fit.set_data", None, {}),
@@ -211,14 +213,17 @@ TREE = {
         ("mbb.fit.set_data", None, {}),
         ("mbb.fit.run", None, {"nburn": 4, "nsteps": 8, "thin": 2,
                                "nsources": 1}),
-        ("mbb.fit.ball", 1, {}), ("mbb.kernel.k1", 2, {}),
+        ("mbb.fit.ball", 1, {}), ("mbb.kernel.k1", 2, POINT),
         ("mbb.fit.burn", 1, {}),
-        ("mbb.kernel.k2", 4, {"steps": 4, "records": 4, "sources": 1}),
-        ("mbb.fit.recentre", 1, {}), ("mbb.kernel.k1", 6, {}),
+        ("mbb.kernel.k2", 4, {"steps": 4, "records": 4, "sources": 1,
+                              **POINT}),
+        ("mbb.fit.recentre", 1, {}), ("mbb.kernel.k1", 6, POINT),
         ("mbb.fit.reburn", 1, {}),
-        ("mbb.kernel.k2", 8, {"steps": 4, "records": 1, "sources": 1}),
+        ("mbb.kernel.k2", 8, {"steps": 4, "records": 1, "sources": 1,
+                              **POINT}),
         ("mbb.fit.reset", 1, {}), ("mbb.fit.production", 1, {}),
-        ("mbb.kernel.k2", 11, {"steps": 8, "records": 4, "sources": 1}),
+        ("mbb.kernel.k2", 11, {"steps": 8, "records": 4, "sources": 1,
+                               **POINT}),
         ("mbb.fit.record", 1, {}), ("mbb.results.load", None, {}),
         ("mbb.results.percentiles", None, {"param": "T"})]}
 
