@@ -39,7 +39,13 @@ non-zero without printing a result):
      walkers x 5 bands (full model) with summaries and derived posteriors,
      each derived quantity timed on its first and its second call (host
      clock and CUDA events; with --profile-derived the device's busy time
-     too) and the chunks it is cut into;
+     too) and the derived kernel's launches (one a call, counted from 0);
+     then the derived kernel D on the batch's own samples, one source's
+     62,500 and all 256 x 62,500: each quantity one launch a call, the
+     single launch against derived.py's plain path on the same samples and
+     operands, the catalog's compute_* against the same call on the plain
+     route (relative 1e-5 L_IR and dust mass, 1e-3 the peak), its CUDA-event
+     and profiler time beside its bound and the plain path's time;
  10. time: K3's aggregate walker-steps/s at 256 x 250 x 5 against the plain
      multi run on the card, in point mode and in response mode (config 3's
      5 x 65 pack), each with its bound;
@@ -341,11 +347,11 @@ non-zero without printing a result):
      TIERS_CARD_BUDGET_S, advisory; `--phases 31` rehearses it alone.
 
 It then prints the kernel table as one JSON line (with each kernel's bound
-and the kernels' planned layouts), the nvidia-smi line, and as its last line
-{"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
-before any phase. `--phases 3,15` (or `21`, ..., `29`, `30`, `31`) runs
-the build and those phases alone, a rehearsal that prints no kernel table
-and no result line (phase 30 runs only so);
+and the kernels' planned layouts; D's from phase 9), the nvidia-smi line,
+and as its last line {"ok": true, "device": {...}}. Without a CUDA device
+it exits with code 1 before any phase. `--phases 3,15` (or `21`, ..., `29`,
+`30`, `31`) runs the build and those phases alone, a rehearsal that prints
+no kernel table and no result line (phase 30 runs only so);
 `--profile-derived` adds torch.profiler's device busy time to the derived
 posteriors' timings of phases 9 and 14 (about a minute more). A whole run
 takes about 5-8 minutes on one H100 (H100 80GB HBM3 at 700 W), the
@@ -389,21 +395,33 @@ PEAK_BYTES = 3.35e12
 OPS_TRANS, OPS_DIV = 20, 10
 
 
+def sed_ops(opthin, noalpha):
+    """(grey, merge): fp32 operations of csrc/lnprob.cuh's ln S of the pure
+    greybody at one wavelength, and of the Wien merge solve with ln S there
+    (0 without alpha), counted from its formulas."""
+    t, d = OPS_TRANS, OPS_DIV
+    # grey ln S: x, 3u - log_expm1(x) [+ beta u | + log1mexp(tau)]
+    grey = 3 * t + 5 + (2 if opthin else 3 * t + 6)
+    # g and g': x, q, g'_Planck [+ tau, h(tau), clamp, g'] + g
+    slope = 2 * t + d + 7 + (3 if opthin else 2 * t + d + 17)
+    if noalpha:
+        return grey, 0
+    # bracket, 6 bisections, 2 Newton steps, ln S at the merge point
+    return grey, ((2 * t + 7) + 6 * (slope + 5) + 2 * (slope + d + 4)
+                  + grey)
+
+
 def lnprob_ops(icfg):
     """fp32 operations of one lnprob of csrc/lnprob.cuh for the likelihood
     configuration icfg (opthin, noalpha, use_chol, nb, nnodes, ...), counted
     from its formulas: the same for every walker (out-of-box walkers run the
     whole chain on clipped values)."""
     opthin, noalpha, use_chol, nb, nnodes = (int(v) for v in icfg[:5])
-    t, d = OPS_TRANS, OPS_DIV
-    # grey ln S: x, 3u - log_expm1(x) [+ beta u | + log1mexp(tau)]
-    grey = 3 * t + 5 + (2 if opthin else 3 * t + 6)
-    # g and g': x, q, g'_Planck [+ tau, h(tau), clamp, g'] + g
-    slope = 2 * t + d + 7 + (3 if opthin else 2 * t + d + 17)
+    t = OPS_TRANS
+    grey, merge = sed_ops(opthin, noalpha)
     node = 1 + grey + 5 + (t + 4)       # ln x, ln S, Wien select, w e^(..)
     n = 20 + 2 * t + 2 + t              # box, ln T, ln x0, ln fnorm
-    if not noalpha:                     # bracket, 6 bisections, 2 Newton
-        n += (2 * t + 7) + 6 * (slope + 5) + 2 * (slope + d + 4) + grey
+    n += merge
     n += 1 + grey + 5                   # the normalization point
     n += nb * nnodes * node + 3 * nb    # band sums, residuals
     n += nb * (nb + 1) + 2 * nb if use_chol else 3 * nb
@@ -1382,8 +1400,11 @@ def _k3_counts(path, reset=False):
 def phase_batch_path(card):
     """The batch path through the user's entry points, with K3's launch
     count taken over each entry point's run; the batch's derived posteriors
-    timed per quantity and call (time_derived) with the chunks each takes.
-    Returns (the counts, the derived posteriors' times)."""
+    timed per quantity and call (time_derived) with the derived kernel's
+    launches, then the derived kernel checked and timed on the batch's
+    samples (check_derived_kernel).
+    Returns (the counts, the derived posteriors' times with the check's
+    rows under "kernel")."""
     import numpy as np
     from tools import validate_tpu_parity as vp
     from mbb_emcee_tpu_torch import MBBFitter
@@ -1451,23 +1472,18 @@ def phase_batch_path(card):
     shape_ok = tuple(mf.chain_free.shape) == (NSOURCES, 250, NWALKERS, 5)
     cen = {p: mf.par_cen(p) for p in mf.free_param_names}
     rhat = mf.gelman_rubin()
-    # count the chunks MultiFitter._chunked_samples cuts each quantity into
-    chunks, chunked = [], mf._chunked_samples
-
-    def counting(fn, samples, inner_elems):
-        def counted(part):
-            chunks[-1] += 1
-            return fn(part)
-        chunks.append(0)
-        return chunked(counted, samples, inner_elems)
-    mf._chunked_samples = counting
+    from mbb_emcee_tpu_torch.ops.derived_kernel import mbb_derived
+    mbb_derived.launches = 0
     t2 = time.time()
     derived, derived_times = time_derived("9", mf, card)
     t_derived = time.time() - t2
-    del mf._chunked_samples
-    log(f"[9] chunks per call of _chunked_samples (lir, dustmass, "
-        f"peaklambda; every call): {chunks}")
-    derived_times["chunks"] = chunks
+    calls = 3 * (3 if PROFILE_DERIVED else 2)
+    log(f"[9] derived kernel launches over the {calls} timed compute_* "
+        f"calls: {mbb_derived.launches}")
+    if mbb_derived.launches != calls:
+        raise AssertionError(f"{mbb_derived.launches} derived kernel "
+                             f"launches for {calls} compute_* calls")
+    derived_times["derived_launches"] = mbb_derived.launches
     finite = (shape_ok and all(np.isfinite(c).all() for c in cen.values())
               and np.isfinite(rhat).all()
               and all(np.isfinite(d).all() and d.shape == (
@@ -1486,7 +1502,134 @@ def phase_batch_path(card):
         f"{'PASS' if finite else 'FAIL'}")
     if not finite:
         raise AssertionError("batch summaries or posteriors not finite")
+    derived_times["kernel"] = check_derived_kernel(mf, derived, card)
     return by_path, derived_times
+
+
+# The derived kernel against derived.py's plain path, relative: L_IR's sum
+# runs in another order; the peak is the root of a flat fp32 maximum
+# (tests/test_torch_derived_kernel.py's tolerances).
+DERIVED_RTOL = {"lir": 1e-5, "dustmass": 1e-5, "peaklambda": 1e-3}
+
+
+def derived_ops(quantity, opthin, noalpha, nnodes, iters):
+    """fp32 operations of csrc/derived.cu for one sample, counted from its
+    formulas as lnprob_ops counts K1's: the sample's shared terms (ln T,
+    ln x0, the merge solve, ln S at the normalization, ln fnorm), then
+    L_IR's nnodes weighted e^(ln f), the dust mass's one ln f and
+    (e^x - 1), or the peak's 2 + iters golden-section evaluations of
+    ln f(e^u) and the final e^mid."""
+    t, d = OPS_TRANS, OPS_DIV
+    grey, merge = sed_ops(opthin, noalpha)
+    ev = 1 + grey + 5 + 2               # ln x, ln S, Wien select, ln f
+    n = 5 + 2 * t + 2 + merge + ev + t  # loads, ln T, ln x0, norm, ln fnorm
+    if quantity == "lir":
+        return n + nnodes * (ev + t + 2)
+    if quantity == "dustmass":          # ln lambda, e^(ln f), x, clamp, expm1
+        return n + (t + 1) + ev + t + (d + 2) + 1 + t + 1
+    per = 2 * t + 1 + ev                # ln(e^u), LOG_C2 - ., ln f
+    return n + 4 + 2 * per + iters * (per + 10) + t + 2
+
+
+def check_derived_kernel(mf, chains, card, reps=5):
+    """D (csrc/derived.cu) at the shapes the main path gives it, on the
+    batch fit's own posterior samples: one source's 62,500 (a single fit's
+    request) and all 256 x 62,500 (a catalog's). Each quantity: one launch
+    a call (the launch counter reset first); the single launch against
+    derived.py's plain path on the same samples and operands, the catalog's
+    compute_* (through the kernel, from time_derived) against the same call
+    on the plain route; the launch's CUDA-event time (the constants' copy
+    included) and torch.profiler's device time, its bound from
+    derived_ops and the bytes it moves, and the plain path's time."""
+    import numpy as np
+    import torch
+    from mbb_emcee_tpu_torch import derived
+    from mbb_emcee_tpu_torch.ops import derived_kernel as dk
+    shape = mf.shape
+    samples = mf._thinned(1)
+    single = samples[0].contiguous()
+    opz = 1.0 + np.asarray(mf.redshifts, np.float64)
+    make = {"lir": lambda z: dk.lir_operands(shape, z, 8.0, 1000.0),
+            "dustmass": lambda z: dk.dustmass_operands(shape, z, 125.0),
+            "peaklambda": lambda z: dk.peak_operands(shape)}
+
+    def plain_single(q, ops):
+        if q == "lir":
+            lam, w = (torch.as_tensor(a[0], device=DEVICE)
+                      for a in (ops.nodes, ops.weights))
+            one = derived.lir_integrand(shape)
+            return derived.batched(lambda th: one(th, lam, w), single)
+        if q == "dustmass":
+            lam_obs = torch.as_tensor(ops.nodes[0, 0], device=DEVICE)
+            one = derived.dustmass_integrand(shape)
+            return derived.batched(lambda th: one(th, lam_obs), single)
+        return derived.batched(derived.peak_finder(shape), single)
+
+    def gap(got, want):
+        got, want = (np.asarray(a, np.float64) for a in (got, want))
+        if not np.all(np.isfinite(want)):
+            raise AssertionError("the plain path gave non-finite values")
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    out = {}
+    for q in ("lir", "dustmass", "peaklambda"):
+        row = {}
+        for x, ops in ((single, make[q](opz[:1])), (samples, make[q](opz))):
+            size = "x".join(str(k) for k in x.shape[:-1])
+            nsamp = x.numel() // 5
+            dk.mbb_derived.launches = 0
+            got = dk.mbb_derived(x, ops)
+            if dk.mbb_derived.launches != 1:
+                raise AssertionError(f"{q}: {dk.mbb_derived.launches} "
+                                     "launches for one call")
+            if x is single:
+                want = plain_single(q, ops).double().cpu().numpy()
+                err = gap(got.cpu().numpy(), want)
+                plain_ms = _cuda_ms(lambda: plain_single(q, ops), 2)
+            else:
+                dk.route_to_kernel, route = (lambda _: False,
+                                             dk.route_to_kernel)
+                try:
+                    t0 = time.perf_counter()
+                    want = getattr(mf, f"compute_{q}")()
+                    plain_ms = 1e3 * (time.perf_counter() - t0)
+                finally:
+                    dk.route_to_kernel = route
+                if dk.mbb_derived.launches != 1:
+                    raise AssertionError(f"{q}: the plain route launched "
+                                         "the kernel")
+                err = gap(chains[q], want)
+            dk.mbb_derived.launches = 0
+            ms = _cuda_ms(lambda: dk.mbb_derived(x, ops), reps)
+            dev_us = _profiled_device_us(lambda: dk.mbb_derived(x, ops),
+                                         reps, "mbb_derived_kernel")
+            timed = dk.mbb_derived.launches
+            if timed != 2 * (reps + 1):
+                raise AssertionError(f"{q}: {timed} launches for "
+                                     f"{2 * (reps + 1)} timed calls")
+            nodes = 0 if ops.nodes is None else ops.nodes.shape[1]
+            consts = 0 if ops.consts() is None else ops.consts().size
+            bnd = bound(nsamp * derived_ops(q, shape.opthin, shape.noalpha,
+                                            nodes, ops.iters),
+                        20 * nsamp + 8 * nsamp + 4 * consts)
+            row[size] = {"ms": ms, "device_ms": (None if dev_us is None
+                                                 else dev_us / 1e3),
+                         "bound_ms": bnd[0], "bound_by": bnd[1],
+                         "plain_ms": plain_ms, "max_rel_err": err,
+                         "launches": 1 + timed}
+            log(f"[9] derived kernel {q} at {size} samples: largest "
+                f"relative gap to the plain path {err:.3e} (limit "
+                f"{DERIVED_RTOL[q]:g}), 1 launch a call; {ms:.4f} ms a "
+                f"call by CUDA events, device "
+                + ("not measured" if dev_us is None
+                   else f"{dev_us / 1e3:.4f} ms") +
+                f" (profiler), bound {bnd[0]:.4f} ms ({bnd[1]}); the plain "
+                f"path {plain_ms:.2f} ms ({card})")
+            if not err <= DERIVED_RTOL[q]:
+                raise AssertionError(f"derived kernel {q} at {size}: gap "
+                                     f"{err:.3e} over {DERIVED_RTOL[q]:g}")
+        out[q] = row
+    return out
 
 
 def phase_time_k3(card):
@@ -7032,6 +7175,7 @@ def main(argv=None):
         by_path.update(card_tier_paths[name])
     from mbb_emcee_tpu_torch.ops.lnprob_kernel import LnprobPlan
     no_library = "no single PyTorch call computes it"
+    d_kernel = res["9"][1]["kernel"]
     kernels = [
         {"name": "mbb_lnprob", "route": "cuda",
          "source": "mbb_emcee_tpu_torch/csrc/lnprob.cu",
@@ -7118,6 +7262,32 @@ def main(argv=None):
          "ptxas": [{k: r[k] for k in ("group", "cluster", "registers",
                                       "spill_stores", "spill_loads")}
                    for r in res["1"][0]]},
+        {"name": "mbb_derived", "route": "cuda",
+         "source": "mbb_emcee_tpu_torch/csrc/derived.cu",
+         "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package leaves derived.py's "
+                          "jnp chains to XLA's fusion",
+         "launches": res["9"][1]["derived_launches"] + sum(
+             r["launches"] for q in d_kernel.values() for r in q.values()),
+         "launches_by_path": {
+             "MultiFitter compute_* (phase 9)":
+                 res["9"][1]["derived_launches"],
+             "kernel check (phase 9)": sum(
+                 r["launches"] for q in d_kernel.values()
+                 for r in q.values())},
+         "max_rel_err": {q: max(r["max_rel_err"] for r in v.values())
+                         for q, v in d_kernel.items()},
+         "ms": {q: {k: r["ms"] for k, r in v.items()}
+                for q, v in d_kernel.items()},
+         "device_ms": {q: {k: r["device_ms"] for k, r in v.items()}
+                       for q, v in d_kernel.items()},
+         "bound_ms": {q: {k: r["bound_ms"] for k, r in v.items()}
+                      for q, v in d_kernel.items()},
+         "bound_by": {q: {k: r["bound_by"] for k, r in v.items()}
+                      for q, v in d_kernel.items()},
+         "plain_ms": {q: {k: r["plain_ms"] for k, r in v.items()}
+                      for q, v in d_kernel.items()},
+         "library_ms": None, "library_note": no_library},
     ]
     log("derived posteriors (the next thing to shorten): " + json.dumps(
         {"batch 256 x 62500 samples": res["9"][1],

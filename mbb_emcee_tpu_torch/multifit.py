@@ -14,9 +14,11 @@ limits and redshift -- are fit at once:
     that source's final burn state, re-burn, production, checkpoint,
     resume, extend) is batchengine.BatchEngine.run, shared with the
     generic-model batch tier (sedmulti.SEDMultiFitter);
-  * summaries (par_cen, best_fit, split-R-hat, tau) and derived posteriors
-    (L_IR, dust mass, peak wavelength) are batched reductions over all
-    sources on the chain's device (batchengine.py);
+  * summaries (par_cen, best_fit, split-R-hat, tau) are batched
+    reductions over all sources on the chain's device (batchengine.py);
+    the derived posteriors (L_IR, dust mass, peak wavelength) are one
+    launch of the derived kernel a quantity on a CUDA device
+    (ops/derived_kernel.py), derived.py's plain path in chunks on the CPU;
   * run_pt and run_hmc (batchengine.py; tempering.py, hmc.py) sample the
     same catalog by parallel tempering (with per-source evidence) and by
     HMC, and compute_evidence (nested.py) gives each source's nested-
@@ -53,6 +55,8 @@ from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, Photometry)
 from mbb_emcee_tpu_torch.models.modified_blackbody import (
     MBBShape, log_mbb_fnu_params)
+from mbb_emcee_tpu_torch.ops.derived_kernel import (
+    device_part, dustmass_operands, lir_operands, peak_operands)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
 from mbb_emcee_tpu_torch.sampler import MultiEnsembleSampler
 from mbb_emcee_tpu_torch.utils.profiling import span
@@ -276,19 +280,25 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         with span("mbb.derived.lir"):
             self._require_run()
             z = self._source_redshifts(redshifts)
-            lam_h, w_h = derived.lir_nodes_weights((1.0 + z)[:, None],
-                                                   wavemin, wavemax)
-            lam = torch.as_tensor(lam_h.astype(np.float32),
-                                  device=self.device)
-            w = torch.as_tensor(w_h.astype(np.float32), device=self.device)
 
-            def integrand(th):
-                lnf = log_mbb_fnu_params(*self._params(th),
-                                         lam[:, None, :], self.shape)
-                return torch.sum(w[:, None, :] * torch.exp(lnf), dim=-1)
+            def plain(samples):
+                lam_h, w_h = derived.lir_nodes_weights((1.0 + z)[:, None],
+                                                       wavemin, wavemax)
+                lam = torch.as_tensor(lam_h.astype(np.float32),
+                                      device=self.device)
+                w = torch.as_tensor(w_h.astype(np.float32),
+                                    device=self.device)
 
-            integ = self._chunked_samples(integrand, self._thinned(thin),
-                                          derived.LIR_NODES)
+                def integrand(th):
+                    lnf = log_mbb_fnu_params(*self._params(th),
+                                             lam[:, None, :], self.shape)
+                    return torch.sum(w[:, None, :] * torch.exp(lnf), dim=-1)
+
+                return self._chunked_samples(integrand, samples,
+                                             derived.LIR_NODES)
+
+            integ = device_part(self._thinned(thin), lir_operands(
+                self.shape, 1.0 + z, wavemin, wavemax), plain)
             prefac = derived.lir_prefactor(
                 self._dl_mpc(z, lumdists, cosmology))
             self.lir_chain = prefac[:, None] * integ
@@ -308,17 +318,23 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             self._require_run()
             z = self._source_redshifts(redshifts)
             opz = 1.0 + z
-            lam_obs = torch.as_tensor(
-                (kappa_wave * opz).astype(np.float32), device=self.device)
 
-            def integrand(th):
-                s_mjy = torch.exp(log_mbb_fnu_params(
-                    *self._params(th), lam_obs[:, None, None], self.shape))
-                x = HCOK_UM_K / (lam_obs[:, None] * th[..., 0])
-                return s_mjy[..., 0] * torch.expm1(
-                    torch.clamp(x, max=derived.DUST_X_CLAMP))
+            def plain(samples):
+                lam_obs = torch.as_tensor(
+                    (kappa_wave * opz).astype(np.float32), device=self.device)
 
-            g = self._chunked_samples(integrand, self._thinned(thin), 4)
+                def integrand(th):
+                    s_mjy = torch.exp(log_mbb_fnu_params(
+                        *self._params(th), lam_obs[:, None, None],
+                        self.shape))
+                    x = HCOK_UM_K / (lam_obs[:, None] * th[..., 0])
+                    return s_mjy[..., 0] * torch.expm1(
+                        torch.clamp(x, max=derived.DUST_X_CLAMP))
+
+                return self._chunked_samples(integrand, samples, 4)
+
+            g = device_part(self._thinned(thin), dustmass_operands(
+                self.shape, opz, kappa_wave), plain)
             prefac = derived.dustmass_prefactor(
                 self._dl_mpc(z, lumdists, cosmology), opz, kappa,
                 kappa_wave)
@@ -336,13 +352,18 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         """(S, nsamp) observed peak-wavelength posteriors in um."""
         with span("mbb.derived.peaklambda"):
             self._require_run()
-            peak = derived.peak_finder(self.shape, lo, hi)
 
-            def fn(th):
-                return peak(th.reshape(-1, NPARAMS)).reshape(th.shape[:2])
+            def plain(samples):
+                peak = derived.peak_finder(self.shape, lo, hi)
 
-            self.peaklambda_chain = self._chunked_samples(
-                fn, self._thinned(thin), 8)
+                def fn(th):
+                    return peak(th.reshape(-1, NPARAMS)).reshape(
+                        th.shape[:2])
+
+                return self._chunked_samples(fn, samples, 8)
+
+            self.peaklambda_chain = device_part(
+                self._thinned(thin), peak_operands(self.shape, lo, hi), plain)
             return self.peaklambda_chain
 
     def peaklambda_cen(self, percentile=68.3):

@@ -1,8 +1,8 @@
 """Numeric building blocks (stable special functions, fixed-iteration root
 finding, fixed-node quadrature, the Philox generator) and the CUDA kernels'
-wrappers (lnprob_kernel, sampler_kernel, multifit_kernel) with their build
-(build). Neither the wrappers nor the build are imported here: a kernel is
-built when its wrapper first launches it."""
+wrappers (lnprob_kernel, sampler_kernel, multifit_kernel, derived_kernel)
+with their build (build). Neither the wrappers nor the build are imported
+here: a kernel is built when its wrapper first launches it."""
 
 from mbb_emcee_tpu_torch.ops.special import log_expm1, log1mexp, xoexpm1x
 from mbb_emcee_tpu_torch.ops.rootfind import bisect_decreasing, golden_max

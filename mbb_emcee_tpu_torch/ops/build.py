@@ -33,6 +33,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def find_nvcc():
@@ -129,6 +130,9 @@ def _load(path):
     lib.mbb_lnprob_smem_bytes.restype = ctypes.c_longlong
     lib.mbb_run_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.mbb_run_smem_bytes.restype = ctypes.c_longlong
+    lib.mbb_derived_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _F, _F, _F, _F, _P]
+    lib.mbb_derived_launch.restype = _I
     return lib
 
 

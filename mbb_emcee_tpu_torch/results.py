@@ -13,7 +13,9 @@ chain, on the chain's device:
     ln-lambda.
 
 Large cosmological prefactors overflow fp32, so each formula is an fp32
-device part per sample times an fp64 host prefactor.
+device part per sample times an fp64 host prefactor. On a CUDA device the
+device part is one launch of the derived kernel (ops/derived_kernel.py);
+on the CPU it is derived.py's plain path.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch import hdf5io
 from mbb_emcee_tpu_torch.fitter import resolve_device
 from mbb_emcee_tpu_torch.likelihood import param_index
+from mbb_emcee_tpu_torch.ops.derived_kernel import (
+    device_part, dustmass_operands, lir_operands, peak_operands, to_host)
 from mbb_emcee_tpu_torch.sampler import (
     autocorrelation_time, effective_sample_size, split_rhat,
     split_rhat_rank_normalized)
@@ -481,15 +485,19 @@ class MBBResults(ChainResults):
     def compute_lir(self, wavemin=8.0, wavemax=1000.0, thin=1):
         """Posterior of L_IR(wavemin-wavemax um REST) in L_sun."""
         with span("mbb.derived.lir"):
-            lam, w = derived.lir_nodes_weights(self._opz(), wavemin, wavemax)
-            lam_t = torch.as_tensor(lam.astype(np.float32),
-                                    device=self.device)
-            w_t = torch.as_tensor(w.astype(np.float32), device=self.device)
-            one = derived.lir_integrand(self.shape)
-            integ = derived.batched(lambda th: one(th, lam_t, w_t),
-                                    self._samples(thin))
-            integ = integ.double().cpu().numpy()
-            count("d2h_bytes", integ.nbytes)
+            def plain(samples):
+                lam, w = derived.lir_nodes_weights(self._opz(), wavemin,
+                                                   wavemax)
+                lam_t = torch.as_tensor(lam.astype(np.float32),
+                                        device=self.device)
+                w_t = torch.as_tensor(w.astype(np.float32),
+                                      device=self.device)
+                one = derived.lir_integrand(self.shape)
+                return to_host(derived.batched(
+                    lambda th: one(th, lam_t, w_t), samples))
+
+            integ = device_part(self._samples(thin), lir_operands(
+                self.shape, self._opz(), wavemin, wavemax), plain)
             self.lir_chain = derived.lir_prefactor(self._dl_mpc()) * integ
         self.lir_meta = {"wavemin": float(wavemin), "wavemax": float(wavemax),
                          "thin": int(thin)}
@@ -501,13 +509,16 @@ class MBBResults(ChainResults):
         kappa_wave um)."""
         with span("mbb.derived.dustmass"):
             opz = self._opz()
-            lam_obs = torch.tensor(kappa_wave * opz, dtype=torch.float32,
-                                   device=self.device)
-            one = derived.dustmass_integrand(self.shape)
-            g = derived.batched(lambda th: one(th, lam_obs),
-                                self._samples(thin))
-            g = g.double().cpu().numpy()
-            count("d2h_bytes", g.nbytes)
+
+            def plain(samples):
+                lam_obs = torch.tensor(kappa_wave * opz, dtype=torch.float32,
+                                       device=self.device)
+                one = derived.dustmass_integrand(self.shape)
+                return to_host(derived.batched(lambda th: one(th, lam_obs),
+                                               samples))
+
+            g = device_part(self._samples(thin), dustmass_operands(
+                self.shape, opz, kappa_wave), plain)
             prefac = derived.dustmass_prefactor(self._dl_mpc(), opz, kappa,
                                                 kappa_wave)
             self.dustmass_chain = prefac * g
@@ -531,10 +542,10 @@ class MBBResults(ChainResults):
                            hi=derived.PEAK_RANGE[1]):
         """Posterior of the OBSERVED f_nu peak wavelength in um."""
         with span("mbb.derived.peaklambda"):
-            peak = derived.peak_finder(self.shape, lo, hi)
-            self.peaklambda_chain = derived.batched(
-                peak, self._samples(thin)).double().cpu().numpy()
-            count("d2h_bytes", self.peaklambda_chain.nbytes)
+            self.peaklambda_chain = device_part(
+                self._samples(thin), peak_operands(self.shape, lo, hi),
+                lambda samples: to_host(derived.batched(
+                    derived.peak_finder(self.shape, lo, hi), samples)))
         return self.peaklambda_chain
 
     # -- persistence -------------------------------------------------------------------

@@ -89,8 +89,8 @@ def test_build_kernels_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_packaged():
     names = sorted(p.name for p in (PKG / "csrc").iterdir())
-    assert names == ["lnprob.cu", "lnprob.cuh", "multifit.cu", "sampler.cu",
-                     "stretch.cuh"]
+    assert names == ["derived.cu", "lnprob.cu", "lnprob.cuh", "multifit.cu",
+                     "sampler.cu", "stretch.cuh"]
 
 
 def _problem():
