@@ -41,11 +41,11 @@ non-zero without printing a result):
      clock and CUDA events; with --profile-derived the device's busy time
      too) and the derived kernel's launches (one a call, counted from 0);
      then the derived kernel D on the batch's own samples, one source's
-     62,500 and all 256 x 62,500: each quantity one launch a call, the
-     single launch against derived.py's plain path on the same samples and
-     operands, the catalog's compute_* against the same call on the plain
-     route (relative 1e-5 L_IR and dust mass, 1e-3 the peak), its CUDA-event
-     and profiler time beside its bound and the plain path's time;
+     62,500 and all 256 x 62,500: each quantity one launch a call against
+     its plain twin (derived.py's formulas on the same samples and
+     operands; relative 1e-5 L_IR and dust mass, 1e-3 the peak), its
+     CUDA-event and profiler time beside its bound and the plain twin's
+     time;
  10. time: K3's aggregate walker-steps/s at 256 x 250 x 5 against the plain
      multi run on the card, in point mode and in response mode (config 3's
      5 x 65 pack), each with its bound;
@@ -1502,7 +1502,7 @@ def phase_batch_path(card):
         f"{'PASS' if finite else 'FAIL'}")
     if not finite:
         raise AssertionError("batch summaries or posteriors not finite")
-    derived_times["kernel"] = check_derived_kernel(mf, derived, card)
+    derived_times["kernel"] = check_derived_kernel(mf, card)
     return by_path, derived_times
 
 
@@ -1531,19 +1531,16 @@ def derived_ops(quantity, opthin, noalpha, nnodes, iters):
     return n + 4 + 2 * per + iters * (per + 10) + t + 2
 
 
-def check_derived_kernel(mf, chains, card, reps=5):
+def check_derived_kernel(mf, card, reps=5):
     """D (csrc/derived.cu) at the shapes the main path gives it, on the
     batch fit's own posterior samples: one source's 62,500 (a single fit's
     request) and all 256 x 62,500 (a catalog's). Each quantity: one launch
-    a call (the launch counter reset first); the single launch against
-    derived.py's plain path on the same samples and operands, the catalog's
-    compute_* (through the kernel, from time_derived) against the same call
-    on the plain route; the launch's CUDA-event time (the constants' copy
-    included) and torch.profiler's device time, its bound from
-    derived_ops and the bytes it moves, and the plain path's time."""
+    a call (the launch counter reset first), against its plain twin
+    (derived.py's formulas on the same samples and operands, with its host
+    copy); the launch's CUDA-event time (the constants' copy included) and
+    torch.profiler's device time, its bound from derived_ops and the bytes
+    it moves, and the plain twin's time with its host copy."""
     import numpy as np
-    import torch
-    from mbb_emcee_tpu_torch import derived
     from mbb_emcee_tpu_torch.ops import derived_kernel as dk
     shape = mf.shape
     samples = mf._thinned(1)
@@ -1552,18 +1549,6 @@ def check_derived_kernel(mf, chains, card, reps=5):
     make = {"lir": lambda z: dk.lir_operands(shape, z, 8.0, 1000.0),
             "dustmass": lambda z: dk.dustmass_operands(shape, z, 125.0),
             "peaklambda": lambda z: dk.peak_operands(shape)}
-
-    def plain_single(q, ops):
-        if q == "lir":
-            lam, w = (torch.as_tensor(a[0], device=DEVICE)
-                      for a in (ops.nodes, ops.weights))
-            one = derived.lir_integrand(shape)
-            return derived.batched(lambda th: one(th, lam, w), single)
-        if q == "dustmass":
-            lam_obs = torch.as_tensor(ops.nodes[0, 0], device=DEVICE)
-            one = derived.dustmass_integrand(shape)
-            return derived.batched(lambda th: one(th, lam_obs), single)
-        return derived.batched(derived.peak_finder(shape), single)
 
     def gap(got, want):
         got, want = (np.asarray(a, np.float64) for a in (got, want))
@@ -1582,23 +1567,18 @@ def check_derived_kernel(mf, chains, card, reps=5):
             if dk.mbb_derived.launches != 1:
                 raise AssertionError(f"{q}: {dk.mbb_derived.launches} "
                                      "launches for one call")
-            if x is single:
-                want = plain_single(q, ops).double().cpu().numpy()
-                err = gap(got.cpu().numpy(), want)
-                plain_ms = _cuda_ms(lambda: plain_single(q, ops), 2)
-            else:
-                dk.route_to_kernel, route = (lambda _: False,
-                                             dk.route_to_kernel)
-                try:
-                    t0 = time.perf_counter()
-                    want = getattr(mf, f"compute_{q}")()
-                    plain_ms = 1e3 * (time.perf_counter() - t0)
-                finally:
-                    dk.route_to_kernel = route
-                if dk.mbb_derived.launches != 1:
-                    raise AssertionError(f"{q}: the plain route launched "
-                                         "the kernel")
-                err = gap(chains[q], want)
+            x3 = x if x.dim() == 3 else x[None]
+            t0 = time.perf_counter()
+            want = dk._plain_twin(x3, ops).reshape(tuple(x.shape[:-1]))
+            # one source by CUDA events after a warm-up; the catalog's one
+            # call (0.1-2 s) by the host clock
+            plain_ms = (_cuda_ms(lambda: dk._plain_twin(x3, ops), 2)
+                        if x is single
+                        else 1e3 * (time.perf_counter() - t0))
+            if dk.mbb_derived.launches != 1:
+                raise AssertionError(f"{q}: the plain twin launched the "
+                                     "kernel")
+            err = gap(got.cpu().numpy(), want)
             dk.mbb_derived.launches = 0
             ms = _cuda_ms(lambda: dk.mbb_derived(x, ops), reps)
             dev_us = _profiled_device_us(lambda: dk.mbb_derived(x, ops),

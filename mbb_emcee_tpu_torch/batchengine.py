@@ -73,6 +73,7 @@ import os
 import numpy as np
 import torch
 
+from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch.checkpoint import production
 from mbb_emcee_tpu_torch.constants import PARAM_NAMES
 from mbb_emcee_tpu_torch.fitter import philox_key
@@ -208,15 +209,6 @@ def batched_tau(chain, c=5.0):
         tau = torch.gather(tau_run, 1, idx[:, None])[:, 0]
         out.append(torch.where(a0[:, 0] > 0, tau, torch.nan))
     return torch.stack(out, dim=1)
-
-
-def _batch_percentiles(chains, percentile=68.3):
-    """(S, 3) (median, +err, -err) per source from (S, nsamples): the
-    per-source results._percentile_summary in one pass."""
-    p = float(percentile)
-    lo, mid, hi = np.percentile(np.asarray(chains, np.float64),
-                                [50.0 - p / 2, 50.0, 50.0 + p / 2], axis=1)
-    return np.stack([mid, hi - mid, mid - lo], axis=1)
 
 
 @dataclasses.dataclass
@@ -630,22 +622,6 @@ class BatchEngine:
         full[..., torch.as_tensor(fs.free_idx, device=free.device)] = \
             free.to(torch.float32)
         return full
-
-    @staticmethod
-    def _chunked_samples(fn, samples, inner_elems):
-        """fn over (S, N, npar) samples in sample-axis chunks (about 64M
-        elements of intermediates each, `inner_elems` = per-sample fan-out
-        such as quadrature nodes), as (S, N, ...) host fp64."""
-        S, N = samples.shape[:2]
-        chunk = max(1, (64 << 20) // max(S * inner_elems, 1))
-        out = []
-        for k, i in enumerate(range(0, N, chunk)):
-            part = samples[:, i:i + chunk]
-            with span("mbb.derived.chunk", index=k,
-                      samples=int(part.shape[1])):
-                out.append(fn(part).double().cpu().numpy())
-                count("d2h_bytes", out[-1].nbytes)
-        return np.concatenate(out, axis=1)
 
     # -- the stretch-move run protocol ------------------------------------------
     def _balls(self, gen, centers, scatters, n=None):
@@ -1645,7 +1621,7 @@ class BatchEngine:
         inner = max(inner, nb * (pack[0].shape[1] if pack is not None
                                  else 1))
         flux_shards = self._shards(lambda v: v._band_flux_eval())
-        q = self._chunked_samples(
+        q = derived._chunked_samples(
             lambda th: self._on_shards(flux_shards, lambda f, _, *a: one(
                 f, *a), th, *per_source), self._thinned(thin), inner)
         with np.errstate(invalid="ignore"):

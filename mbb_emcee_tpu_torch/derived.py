@@ -1,10 +1,14 @@
 """Derived-quantity evaluators: L_IR, dust mass, SED peak, SED band.
 
 Torch twin of mbb_emcee_tpu/derived.py. Each evaluator takes a (n, 5)
-fp32 tensor of chain samples and computes one batched pass on the samples'
-device (chunked, so a long chain never materializes more than CHUNK rows of
-(samples x nodes) intermediates); the large cosmological prefactors
-(4 pi D_L^2 ~ 1e53 m^2) stay fp64 on the host.
+fp32 tensor of chain samples, or (S, n, 5) with per-source operands, and
+computes one batched pass on the samples' device (chunked, so a long chain
+never materializes more than a chunk of (samples x nodes) intermediates);
+the large cosmological prefactors (4 pi D_L^2 ~ 1e53 m^2) stay fp64 on the
+host. The single fit (results.py) and the batch tier (multifit.py,
+batchengine.py) share these formulas, `_chunked_samples` and
+`_percentile_summary`; the derived kernel (ops/derived_kernel.py) is the
+formulas' CUDA twin.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from mbb_emcee_tpu_torch.models.modified_blackbody import (
     log_mbb_fnu, log_mbb_fnu_params)
 from mbb_emcee_tpu_torch.ops.quadrature import loglam_nodes
 from mbb_emcee_tpu_torch.ops.rootfind import golden_max
-from mbb_emcee_tpu_torch.utils.profiling import span
+from mbb_emcee_tpu_torch.utils.profiling import count, span
 
 LIR_NODES = 128
 # Observed-um search window + fixed iteration count for the SED peak.
@@ -42,6 +46,21 @@ def batched(fn, samples, chunk=CHUNK):
     return torch.cat(out, dim=0)
 
 
+def _chunked_samples(fn, samples, inner_elems):
+    """fn over (S, N, npar) samples in sample-axis chunks (about 64M
+    elements of intermediates each, `inner_elems` = per-sample fan-out
+    such as quadrature nodes), as (S, N, ...) host fp64."""
+    S, N = samples.shape[:2]
+    chunk = max(1, (64 << 20) // max(S * inner_elems, 1))
+    out = []
+    for k, i in enumerate(range(0, N, chunk)):
+        part = samples[:, i:i + chunk]
+        with span("mbb.derived.chunk", index=k, samples=int(part.shape[1])):
+            out.append(fn(part).double().cpu().numpy())
+            count("d2h_bytes", out[-1].nbytes)
+    return np.concatenate(out, axis=1)
+
+
 def lir_nodes_weights(opz, wavemin, wavemax, n=LIR_NODES):
     """Quadrature nodes/weights for the L_IR integral, host fp64: observed
     wavelengths spanning [wavemin, wavemax]*(1+z) log-spaced, weights with
@@ -51,12 +70,18 @@ def lir_nodes_weights(opz, wavemin, wavemax, n=LIR_NODES):
     return opz * base_lam, (1.0 / opz) * (base_w / base_lam ** 2)
 
 
+def _params(theta):
+    """(..., n, 5) samples -> five (..., n, 1) parameter tensors."""
+    return [theta[..., i:i + 1] for i in range(5)]
+
+
 def lir_integrand(shape):
     """one(theta (n, 5), lam (m,), w (m,)) -> (n,): integral of f_nu dnu in
-    mJy/um units."""
+    mJy/um units; with leading source axes, theta (S, n, 5) against each
+    source's nodes lam, w (S, m) -> (S, n)."""
     def one(theta, lam, w):
-        return torch.sum(w * torch.exp(log_mbb_fnu(theta, lam, shape)),
-                         dim=-1)
+        lnf = log_mbb_fnu_params(*_params(theta), lam[..., None, :], shape)
+        return torch.sum(w[..., None, :] * torch.exp(lnf), dim=-1)
     return one
 
 
@@ -92,10 +117,12 @@ def lir_prefactor(dl_mpc):
 def dustmass_integrand(shape):
     """one(theta (n, 5), lam_obs 0-dim tensor) -> (n,):
     S_obs(lam_obs)[mJy] * (e^x - 1), x = h nu_rest / (k T_rest), equal to
-    the observed-frame x at lam_obs = kappa_wave*(1+z)."""
+    the observed-frame x at lam_obs = kappa_wave*(1+z); with leading source
+    axes, theta (S, n, 5) and lam_obs (S,) -> (S, n)."""
     def one(theta, lam_obs):
-        s_mjy = torch.exp(log_mbb_fnu(theta, lam_obs[None], shape))[:, 0]
-        x = HCOK_UM_K / (lam_obs * theta[:, 0])
+        s_mjy = torch.exp(log_mbb_fnu_params(
+            *_params(theta), lam_obs[..., None, None], shape))[..., 0]
+        x = HCOK_UM_K / (lam_obs[..., None] * theta[..., 0])
         return s_mjy * torch.expm1(torch.clamp(x, max=DUST_X_CLAMP))
     return one
 
@@ -113,21 +140,21 @@ def dustmass_prefactor(dl_mpc, opz, kappa, kappa_wave):
 
 def peak_finder(shape, lo=PEAK_RANGE[0], hi=PEAK_RANGE[1],
                 iters=PEAK_ITERS):
-    """peak(theta (n, 5)) -> (n,): observed f_nu peak wavelength in um by
-    fixed-iteration golden-section in ln-lambda, per sample."""
+    """peak(theta (..., n, 5)) -> (..., n): observed f_nu peak wavelength
+    in um by fixed-iteration golden-section in ln-lambda, per sample."""
     ulo, uhi = float(np.log(lo)), float(np.log(hi))
 
     def peak(theta):
-        p = [theta[:, i] for i in range(5)]
+        p = [theta[..., i] for i in range(5)]
 
         def log_flux(u):
             return log_mbb_fnu_params(*p, torch.exp(u), shape)
 
-        n = theta.shape[0]
+        n = theta.shape[:-1]
         um, _ = golden_max(
             log_flux,
-            torch.full((n,), ulo, dtype=theta.dtype, device=theta.device),
-            torch.full((n,), uhi, dtype=theta.dtype, device=theta.device),
+            torch.full(n, ulo, dtype=theta.dtype, device=theta.device),
+            torch.full(n, uhi, dtype=theta.dtype, device=theta.device),
             iters=iters)
         return torch.exp(um)
     return peak
@@ -155,6 +182,16 @@ def band_flux_eval(shape, wave, response_pack=None):
         return torch.sum(wts * torch.exp(log_mbb_fnu(theta, nodes, shape)),
                          dim=-1)
     return fluxes
+
+
+def _percentile_summary(samples, percentile=68.3):
+    """(central, +err, -err): median and distance to the percentile bounds
+    (ref: mbb_results.par_cen convention, 50 +- 34.15) of (n,) samples, or
+    (S, 3) of (S, n), along the last axis."""
+    p = float(percentile)
+    lo, mid, hi = np.percentile(np.asarray(samples, np.float64),
+                                [50.0 - p / 2, 50.0, 50.0 + p / 2], axis=-1)
+    return np.stack([mid, hi - mid, mid - lo], axis=-1)
 
 
 def sed_band(fluxes, percentile, sample_axis):

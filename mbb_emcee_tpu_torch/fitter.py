@@ -955,7 +955,7 @@ class MBBFitter(ParamSpaceMixin):
 
         samples = mf._thinned(thin)                     # (K, N, 5)
         n = int(samples.shape[1])
-        lnp = mf._chunked_samples(one, samples, nb * (
+        lnp = derived._chunked_samples(one, samples, nb * (
             1 if self.responses is None else
             self._response_pack()[0].shape[1]))         # (K, N)
         m = lnp.max(axis=1, keepdims=True)

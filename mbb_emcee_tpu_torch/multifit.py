@@ -46,15 +46,15 @@ import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch import derived, hdf5io
-from mbb_emcee_tpu_torch.batchengine import BatchEngine, _batch_percentiles
+from mbb_emcee_tpu_torch.batchengine import BatchEngine
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
+from mbb_emcee_tpu_torch.derived import _percentile_summary
 from mbb_emcee_tpu_torch.fitter import (
     DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, check_jax_keywords,
     resolve_device)
 from mbb_emcee_tpu_torch.likelihood import (
     FreeSpace, LikelihoodSpec, Photometry)
-from mbb_emcee_tpu_torch.models.modified_blackbody import (
-    MBBShape, log_mbb_fnu_params)
+from mbb_emcee_tpu_torch.models.modified_blackbody import MBBShape
 from mbb_emcee_tpu_torch.ops.derived_kernel import (
     device_part, dustmass_operands, lir_operands, peak_operands)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
@@ -268,10 +268,6 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
                                 self.shape, self.a)
 
     # -- batched derived quantities --------------------------------------------
-    def _params(self, th):
-        """(S, n, 5) samples -> five (S, n, 1) parameter tensors."""
-        return [th[..., i:i + 1] for i in range(NPARAMS)]
-
     def compute_lir(self, redshifts=None, wavemin=8.0, wavemax=1000.0,
                     thin=1, lumdists=None, cosmology="WMAP9"):
         """(S, nsamp) L_IR posteriors in L_sun: one batched quadrature over
@@ -280,25 +276,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         with span("mbb.derived.lir"):
             self._require_run()
             z = self._source_redshifts(redshifts)
-
-            def plain(samples):
-                lam_h, w_h = derived.lir_nodes_weights((1.0 + z)[:, None],
-                                                       wavemin, wavemax)
-                lam = torch.as_tensor(lam_h.astype(np.float32),
-                                      device=self.device)
-                w = torch.as_tensor(w_h.astype(np.float32),
-                                    device=self.device)
-
-                def integrand(th):
-                    lnf = log_mbb_fnu_params(*self._params(th),
-                                             lam[:, None, :], self.shape)
-                    return torch.sum(w[:, None, :] * torch.exp(lnf), dim=-1)
-
-                return self._chunked_samples(integrand, samples,
-                                             derived.LIR_NODES)
-
             integ = device_part(self._thinned(thin), lir_operands(
-                self.shape, 1.0 + z, wavemin, wavemax), plain)
+                self.shape, 1.0 + z, wavemin, wavemax))
             prefac = derived.lir_prefactor(
                 self._dl_mpc(z, lumdists, cosmology))
             self.lir_chain = prefac[:, None] * integ
@@ -308,7 +287,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         if self.lir_chain is None:
             raise RuntimeError("call compute_lir(redshifts) first")
         with span("mbb.derived.summary"):
-            return _batch_percentiles(self.lir_chain, percentile)
+            return _percentile_summary(self.lir_chain, percentile)
 
     def compute_dustmass(self, redshifts=None, kappa=2.64, kappa_wave=125.0,
                          thin=1, lumdists=None, cosmology="WMAP9"):
@@ -318,23 +297,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             self._require_run()
             z = self._source_redshifts(redshifts)
             opz = 1.0 + z
-
-            def plain(samples):
-                lam_obs = torch.as_tensor(
-                    (kappa_wave * opz).astype(np.float32), device=self.device)
-
-                def integrand(th):
-                    s_mjy = torch.exp(log_mbb_fnu_params(
-                        *self._params(th), lam_obs[:, None, None],
-                        self.shape))
-                    x = HCOK_UM_K / (lam_obs[:, None] * th[..., 0])
-                    return s_mjy[..., 0] * torch.expm1(
-                        torch.clamp(x, max=derived.DUST_X_CLAMP))
-
-                return self._chunked_samples(integrand, samples, 4)
-
             g = device_part(self._thinned(thin), dustmass_operands(
-                self.shape, opz, kappa_wave), plain)
+                self.shape, opz, kappa_wave))
             prefac = derived.dustmass_prefactor(
                 self._dl_mpc(z, lumdists, cosmology), opz, kappa,
                 kappa_wave)
@@ -345,32 +309,22 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         if self.dustmass_chain is None:
             raise RuntimeError("call compute_dustmass(redshifts) first")
         with span("mbb.derived.summary"):
-            return _batch_percentiles(self.dustmass_chain, percentile)
+            return _percentile_summary(self.dustmass_chain, percentile)
 
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
         """(S, nsamp) observed peak-wavelength posteriors in um."""
         with span("mbb.derived.peaklambda"):
             self._require_run()
-
-            def plain(samples):
-                peak = derived.peak_finder(self.shape, lo, hi)
-
-                def fn(th):
-                    return peak(th.reshape(-1, NPARAMS)).reshape(
-                        th.shape[:2])
-
-                return self._chunked_samples(fn, samples, 8)
-
             self.peaklambda_chain = device_part(
-                self._thinned(thin), peak_operands(self.shape, lo, hi), plain)
+                self._thinned(thin), peak_operands(self.shape, lo, hi))
             return self.peaklambda_chain
 
     def peaklambda_cen(self, percentile=68.3):
         if self.peaklambda_chain is None:
             raise RuntimeError("call compute_peaklambda() first")
         with span("mbb.derived.summary"):
-            return _batch_percentiles(self.peaklambda_chain, percentile)
+            return _percentile_summary(self.peaklambda_chain, percentile)
 
     def sed_percentiles(self, waves, percentile=68.3, thin=1):
         """(S, 3, nwave) per-wavelength [median, upper, lower] f_nu in mJy
@@ -385,7 +339,8 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             return sed(th.reshape(-1, NPARAMS)).reshape(
                 th.shape[:2] + (w.numel(),))
 
-        fluxes = self._chunked_samples(fn, self._thinned(thin), w.numel())
+        fluxes = derived._chunked_samples(fn, self._thinned(thin),
+                                          w.numel())
         return derived.sed_band(fluxes, percentile, sample_axis=1)
 
     # -- persistence -----------------------------------------------------------

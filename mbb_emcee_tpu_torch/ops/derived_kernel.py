@@ -9,12 +9,12 @@ bounds it and how it is laid out are noted there); its per-sample formulas
 are csrc/lnprob.cuh's, which K1-K3 share.
 
 `MBBResults` and `MultiFitter` take each quantity's device part from
-`device_part`, which routes by the samples' device (`route_to_kernel`):
-CUDA samples go through `mbb_derived`, one launch over every sample of
-every source; CPU samples run the caller's plain path (derived.py's), which
-stays the kernel's twin in the tests. The `*_operands` builders make
-the host operands from the same fp64 host arrays the plain path casts to
-fp32. `mbb_derived.launches` counts kernel launches.
+`device_part`: (S, n, 5) samples on a CUDA device go through `mbb_derived`,
+one launch over every sample of every source; elsewhere the kernel's plain
+twin runs derived.py's formulas on the operands' own fp32 inputs, in
+derived._chunked_samples' chunks, and stays the kernel's twin in the tests.
+The `*_operands` builders make the operands from derived.py's fp64 host
+arrays and constants. `mbb_derived.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 
 from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
-from mbb_emcee_tpu_torch.models.modified_blackbody import LOG_C2
+from mbb_emcee_tpu_torch.models.modified_blackbody import LOG_C2, MBBShape
 from mbb_emcee_tpu_torch.ops.build import build_kernels
 from mbb_emcee_tpu_torch.utils.profiling import count, span
 
@@ -37,21 +37,32 @@ QUANTITIES = {"lir": 0, "dustmass": 1, "peaklambda": 2}
 
 @dataclasses.dataclass(frozen=True)
 class DerivedOperands:
-    """One quantity's operands besides the samples: the model's shape
-    flags, fp32 (LOG_C2 - ln wavenorm), the per-source fp32 `nodes` (L_IR's
-    observed wavelengths, (S, nnodes); the dust mass's lambda_obs, (S, 1))
-    and L_IR's `weights` (S, nnodes), the quantity's two fp32 scalars p0,
-    p1 (the peak's ln lo and ln hi; the dust mass's h c / k and its expm1
-    clamp) and the peak's golden-section iterations."""
+    """One quantity's operands besides the samples: the model's `shape`,
+    the per-source fp32 `nodes` (L_IR's observed wavelengths, (S, nnodes);
+    the dust mass's lambda_obs, (S, 1)) and L_IR's `weights` (S, nnodes),
+    the quantity's two fp32 scalars p0, p1 (the peak's ln lo and ln hi; the
+    dust mass's h c / k and its expm1 clamp) and the peak's golden-section
+    iterations."""
     quantity: str
-    opthin: bool
-    noalpha: bool
-    lxn_base: np.float32
+    shape: MBBShape
     nodes: np.ndarray | None = None
     weights: np.ndarray | None = None
     p0: np.float32 = np.float32(0.0)
     p1: np.float32 = np.float32(0.0)
     iters: int = 0
+
+    @property
+    def opthin(self):
+        return bool(self.shape.opthin)
+
+    @property
+    def noalpha(self):
+        return bool(self.shape.noalpha)
+
+    @property
+    def lxn_base(self):
+        """fp32 (LOG_C2 - ln wavenorm), as the plain path rounds it."""
+        return np.float32(LOG_C2 - math.log(self.shape.wavenorm))
 
     @property
     def nsources(self):
@@ -77,11 +88,6 @@ class DerivedOperands:
         return np.concatenate(parts)
 
 
-def _shape_kw(shape):
-    return dict(opthin=bool(shape.opthin), noalpha=bool(shape.noalpha),
-                lxn_base=np.float32(LOG_C2 - math.log(shape.wavenorm)))
-
-
 def _per_source(opz):
     return np.reshape(np.asarray(opz, np.float64), (-1, 1))
 
@@ -91,38 +97,26 @@ def lir_operands(shape, opz, wavemin, wavemax):
     (a number or one a source): derived.lir_nodes_weights per source, cast
     to fp32."""
     lam, w = derived.lir_nodes_weights(_per_source(opz), wavemin, wavemax)
-    return DerivedOperands("lir", nodes=lam.astype(np.float32),
-                           weights=w.astype(np.float32), **_shape_kw(shape))
+    return DerivedOperands("lir", shape, nodes=lam.astype(np.float32),
+                           weights=w.astype(np.float32))
 
 
 def dustmass_operands(shape, opz, kappa_wave):
     """The dust mass's S(lambda_obs) (e^x - 1) at lambda_obs = kappa_wave
     (1 + z), per source, cast to fp32."""
     lam_obs = (kappa_wave * _per_source(opz)).astype(np.float32)
-    return DerivedOperands("dustmass", nodes=lam_obs,
+    return DerivedOperands("dustmass", shape, nodes=lam_obs,
                            p0=np.float32(HCOK_UM_K),
-                           p1=np.float32(derived.DUST_X_CLAMP),
-                           **_shape_kw(shape))
+                           p1=np.float32(derived.DUST_X_CLAMP))
 
 
 def peak_operands(shape, lo=derived.PEAK_RANGE[0], hi=derived.PEAK_RANGE[1],
                   iters=derived.PEAK_ITERS):
     """The observed f_nu peak by `iters` golden-section steps over [ln lo,
     ln hi], as derived.peak_finder bounds it (fp32)."""
-    return DerivedOperands("peaklambda", p0=np.float32(float(np.log(lo))),
-                           p1=np.float32(float(np.log(hi))),
-                           iters=int(iters), **_shape_kw(shape))
-
-
-def route_to_kernel(samples):
-    """True when `samples` lie on a CUDA device, where the kernel computes
-    the derived quantities; counts them under the open span as
-    `derived_kernel_samples`, or `derived_plain_samples` for the plain
-    path."""
-    kernel = samples.device.type == "cuda"
-    count("derived_kernel_samples" if kernel else "derived_plain_samples",
-          samples.numel() // NPARAMS)
-    return kernel
+    return DerivedOperands("peaklambda", shape,
+                           p0=np.float32(float(np.log(lo))),
+                           p1=np.float32(float(np.log(hi))), iters=int(iters))
 
 
 def to_host(values):
@@ -133,14 +127,38 @@ def to_host(values):
     return out
 
 
-def device_part(samples, ops: DerivedOperands, plain):
-    """A derived quantity's fp32 device part at every sample, as a host
-    fp64 array: one kernel launch when the samples lie on a CUDA device,
-    else `plain(samples)`, the caller's plain path, which returns its host
-    array with its copies counted."""
-    if route_to_kernel(samples):
+def device_part(samples, ops: DerivedOperands):
+    """A derived quantity's fp32 device part at every sample of (S, n, 5)
+    samples, as (S, n) host fp64: one kernel launch when the samples lie on
+    a CUDA device, else the plain twin; the host copy is counted as
+    `d2h_bytes` either way."""
+    if samples.device.type == "cuda":
         return to_host(mbb_derived(samples, ops))
-    return plain(samples)
+    return _plain_twin(samples, ops)
+
+
+def _plain_twin(samples, ops):
+    """The kernel's plain twin on (S, n, 5) samples on any device: derived.
+    py's formula of `ops.quantity` on the operands' fp32 nodes, weights,
+    ln-bounds and iterations, chunked by derived._chunked_samples (its
+    spans and host copies) at the formula's fan-out of intermediates a
+    sample."""
+    dev = samples.device
+    if ops.quantity == "peaklambda":
+        # peak_finder takes the window in um and rounds its logs to fp32:
+        # exp of the fp32 ln-bounds rounds back to p0, p1 exactly.
+        fn = derived.peak_finder(ops.shape, math.exp(ops.p0),
+                                 math.exp(ops.p1), ops.iters)
+        return derived._chunked_samples(fn, samples, 8)
+    nodes = torch.as_tensor(ops.nodes, device=dev)
+    if ops.quantity == "dustmass":
+        one = derived.dustmass_integrand(ops.shape)
+        return derived._chunked_samples(lambda th: one(th, nodes[:, 0]),
+                                        samples, 4)
+    one = derived.lir_integrand(ops.shape)
+    w = torch.as_tensor(ops.weights, device=dev)
+    return derived._chunked_samples(lambda th: one(th, nodes, w), samples,
+                                    derived.LIR_NODES)
 
 
 def _check(samples, ops):

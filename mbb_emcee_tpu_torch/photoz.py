@@ -55,7 +55,6 @@ from mbb_emcee_tpu_torch.models.cmb import (
 from mbb_emcee_tpu_torch.models.cosmology import luminosity_distance_batch
 from mbb_emcee_tpu_torch.models.modified_blackbody import (
     MBBShape, log_mbb_fnu)
-from mbb_emcee_tpu_torch.results import _percentile_summary
 from mbb_emcee_tpu_torch.sed import SEDModel
 
 PARAM_NAMES = ("T", "beta", "lambda0", "alpha", "fnorm", "z")
@@ -227,7 +226,7 @@ def compute_dustmass_batch(mf, kappa=2.64, kappa_wave=125.0, thin=1,
     samples = mf._thinned(thin)                    # (S, N, npar) device
     one = torch.func.vmap(torch.func.vmap(
         _dustmass_g(model, kappa_wave, samples.device)))
-    g = mf._chunked_samples(one, samples, 4)
+    g = derived._chunked_samples(one, samples, 4)
     z = samples[..., zi].double().cpu().numpy()
     mf.dustmass_chain = _prefactor(z, kappa, kappa_wave, cosmology) * g
     mf.dustmass_meta = {"kappa": float(kappa),
@@ -241,4 +240,4 @@ def dustmass_cen(res, percentile=68.3):
     compute_dustmass with its defaults first if needed."""
     if getattr(res, "dustmass_chain", None) is None:
         compute_dustmass(res)
-    return _percentile_summary(res.dustmass_chain, percentile)
+    return derived._percentile_summary(res.dustmass_chain, percentile)

@@ -30,23 +30,15 @@ from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch import hdf5io
+from mbb_emcee_tpu_torch.derived import _percentile_summary
 from mbb_emcee_tpu_torch.fitter import resolve_device
 from mbb_emcee_tpu_torch.likelihood import param_index
 from mbb_emcee_tpu_torch.ops.derived_kernel import (
-    device_part, dustmass_operands, lir_operands, peak_operands, to_host)
+    device_part, dustmass_operands, lir_operands, peak_operands)
 from mbb_emcee_tpu_torch.sampler import (
     autocorrelation_time, effective_sample_size, split_rhat,
     split_rhat_rank_normalized)
 from mbb_emcee_tpu_torch.utils.profiling import count, span
-
-
-def _percentile_summary(samples, percentile=68.3):
-    """(central, +err, -err): median and distance to the percentile bounds
-    (ref: mbb_results.par_cen convention, 50 +- 34.15)."""
-    p = float(percentile)
-    lo, mid, hi = np.percentile(np.asarray(samples, np.float64),
-                                [50.0 - p / 2, 50.0, 50.0 + p / 2])
-    return np.array([mid, hi - mid, mid - lo])
 
 
 @dataclasses.dataclass
@@ -485,19 +477,8 @@ class MBBResults(ChainResults):
     def compute_lir(self, wavemin=8.0, wavemax=1000.0, thin=1):
         """Posterior of L_IR(wavemin-wavemax um REST) in L_sun."""
         with span("mbb.derived.lir"):
-            def plain(samples):
-                lam, w = derived.lir_nodes_weights(self._opz(), wavemin,
-                                                   wavemax)
-                lam_t = torch.as_tensor(lam.astype(np.float32),
-                                        device=self.device)
-                w_t = torch.as_tensor(w.astype(np.float32),
-                                      device=self.device)
-                one = derived.lir_integrand(self.shape)
-                return to_host(derived.batched(
-                    lambda th: one(th, lam_t, w_t), samples))
-
-            integ = device_part(self._samples(thin), lir_operands(
-                self.shape, self._opz(), wavemin, wavemax), plain)
+            integ = device_part(self._samples(thin)[None], lir_operands(
+                self.shape, self._opz(), wavemin, wavemax))[0]
             self.lir_chain = derived.lir_prefactor(self._dl_mpc()) * integ
         self.lir_meta = {"wavemin": float(wavemin), "wavemax": float(wavemax),
                          "thin": int(thin)}
@@ -509,16 +490,8 @@ class MBBResults(ChainResults):
         kappa_wave um)."""
         with span("mbb.derived.dustmass"):
             opz = self._opz()
-
-            def plain(samples):
-                lam_obs = torch.tensor(kappa_wave * opz, dtype=torch.float32,
-                                       device=self.device)
-                one = derived.dustmass_integrand(self.shape)
-                return to_host(derived.batched(lambda th: one(th, lam_obs),
-                                               samples))
-
-            g = device_part(self._samples(thin), dustmass_operands(
-                self.shape, opz, kappa_wave), plain)
+            g = device_part(self._samples(thin)[None], dustmass_operands(
+                self.shape, opz, kappa_wave))[0]
             prefac = derived.dustmass_prefactor(self._dl_mpc(), opz, kappa,
                                                 kappa_wave)
             self.dustmass_chain = prefac * g
@@ -542,10 +515,9 @@ class MBBResults(ChainResults):
                            hi=derived.PEAK_RANGE[1]):
         """Posterior of the OBSERVED f_nu peak wavelength in um."""
         with span("mbb.derived.peaklambda"):
+            samples = self._samples(thin)[None]
             self.peaklambda_chain = device_part(
-                self._samples(thin), peak_operands(self.shape, lo, hi),
-                lambda samples: to_host(derived.batched(
-                    derived.peak_finder(self.shape, lo, hi), samples)))
+                samples, peak_operands(self.shape, lo, hi))[0]
         return self.peaklambda_chain
 
     # -- persistence -------------------------------------------------------------------

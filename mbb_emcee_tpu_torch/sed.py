@@ -40,8 +40,7 @@ from mbb_emcee_tpu_torch.likelihood import (
 from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance_batch)
 from mbb_emcee_tpu_torch.paramspace import ParamSpaceMixin, _replace
-from mbb_emcee_tpu_torch.results import (
-    ChainResults, _percentile_summary)
+from mbb_emcee_tpu_torch.results import ChainResults
 from mbb_emcee_tpu_torch.sampler import (
     EnsembleSampler, autocorrelation_time, make_initial_ball, split_rhat)
 
@@ -1246,11 +1245,11 @@ class SEDResults(ChainResults):
                 lines.append(f"  {name:12s} {c[0]:.5g} "
                              f"+{c[1]:.3g} -{c[2]:.3g}")
         if self.lir_chain is not None:
-            c = _percentile_summary(self.lir_chain)
+            c = derived._percentile_summary(self.lir_chain)
             lines.append(f"  L_IR        {c[0]:.4g} +{c[1]:.3g} -{c[2]:.3g} "
                          f"L_sun")
         if self.peaklambda_chain is not None:
-            c = _percentile_summary(self.peaklambda_chain)
+            c = derived._percentile_summary(self.peaklambda_chain)
             lines.append(f"  peak lambda {c[0]:.5g} +{c[1]:.3g} -{c[2]:.3g} "
                          f"um (observed)")
         return "\n".join(lines)

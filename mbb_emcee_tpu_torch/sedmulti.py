@@ -36,8 +36,7 @@ import numpy as np
 import torch
 
 from mbb_emcee_tpu_torch import derived
-from mbb_emcee_tpu_torch.batchengine import (
-    BatchEngine, PlainBatchOperands, _batch_percentiles)
+from mbb_emcee_tpu_torch.batchengine import BatchEngine, PlainBatchOperands
 from mbb_emcee_tpu_torch.checkpoint import PRNG_IMPL, data_fingerprint
 from mbb_emcee_tpu_torch.fitter import check_jax_keywords, resolve_device
 from mbb_emcee_tpu_torch.likelihood import (
@@ -413,7 +412,7 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
 
             batched = vmap(vmap(one, in_dims=(0, None, None)),
                            in_dims=(0, 0, 0))
-            integ = self._chunked_samples(
+            integ = derived._chunked_samples(
                 lambda s: batched(s, lam_t, w_t), samples, lam.shape[-1])
             prefac = derived.lir_prefactor(
                 self._dl_mpc(z, lumdists, cosmology))[:, None]
@@ -425,8 +424,8 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
             zi = self.model.param_index(z_param)
             one_z = derived.lir_zparam_integrand(fnu, zi, wavemin, wavemax,
                                                  device=samples.device)
-            integ = self._chunked_samples(vmap(vmap(one_z)), samples,
-                                          derived.LIR_NODES)
+            integ = derived._chunked_samples(vmap(vmap(one_z)), samples,
+                                             derived.LIR_NODES)
             from mbb_emcee_tpu_torch.models.cosmology import (
                 luminosity_distance_batch)
             zmat = samples[..., zi].double().cpu().numpy()   # (S, N)
@@ -438,7 +437,7 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
     def lir_cen(self, percentile=68.3):
         if self.lir_chain is None:
             self.compute_lir()
-        return _batch_percentiles(self.lir_chain, percentile)
+        return derived._percentile_summary(self.lir_chain, percentile)
 
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
@@ -459,14 +458,14 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
             return torch.exp(um)
 
         vmap = torch.func.vmap
-        self.peaklambda_chain = self._chunked_samples(vmap(vmap(peak)),
-                                                      samples, 8)
+        self.peaklambda_chain = derived._chunked_samples(
+            vmap(vmap(peak)), samples, 8)
         return self.peaklambda_chain
 
     def peaklambda_cen(self, percentile=68.3):
         if self.peaklambda_chain is None:
             self.compute_peaklambda()
-        return _batch_percentiles(self.peaklambda_chain, percentile)
+        return derived._percentile_summary(self.peaklambda_chain, percentile)
 
     def sed_percentiles(self, waves, percentile=68.3, thin=1):
         """(S, 3, nwave) per-source posterior SED bands [median, upper,
@@ -479,7 +478,7 @@ class SEDMultiFitter(BatchEngine, ParamSpaceMixin):
         def fn(th):
             return fnu(th.reshape(-1, th.shape[-1]), w).reshape(
                 th.shape[:2] + (w.numel(),))
-        fluxes = self._chunked_samples(fn, samples, w.numel())
+        fluxes = derived._chunked_samples(fn, samples, w.numel())
         return derived.sed_band(fluxes, percentile, sample_axis=1)
 
     # -- persistence -----------------------------------------------------------------------

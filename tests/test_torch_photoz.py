@@ -203,13 +203,10 @@ def test_dustmass_matches_jax(cmb):
 def test_dustmass_batch_matches_jax():
     """compute_dustmass_batch of a 3-source catalog's (S, N, 6) samples
     against the JAX package's on the same samples: rtol 1e-4."""
-    from mbb_emcee_tpu_torch.batchengine import BatchEngine
     s = np.stack([_samples(n=64, seed=k) for k in range(3)])
     tm = photoz_mbb(cmb=True, z_upper=8.0)
     jm = jphotoz.photoz_mbb(cmb=True, z_upper=8.0)
-    mf = SimpleNamespace(model=tm, _chunked_samples=BatchEngine.
-                         _chunked_samples,
-                         _thinned=lambda thin: _t(s[:, ::thin]))
+    mf = SimpleNamespace(model=tm, _thinned=lambda thin: _t(s[:, ::thin]))
     got = compute_dustmass_batch(mf, thin=2)
     jmf = SimpleNamespace(model=jm,
                           _thinned=lambda thin: _j(s[:, ::thin]))
