@@ -8,10 +8,14 @@ the large cosmological prefactors (4 pi D_L^2 ~ 1e53 m^2) stay fp64 on the
 host. The single fit (results.py) and the batch tier (multifit.py,
 batchengine.py) share these formulas, `_chunked_samples` and
 `_percentile_summary`; the derived kernel (ops/derived_kernel.py) is the
-formulas' CUDA twin.
+formulas' CUDA twin. `derived_summary` summarises L_IR, dust mass and peak
+chains for both tiers: from the kernel's values on the card when their
+compute_* call kept them (`DevicePart`), else from the host chain.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -192,6 +196,84 @@ def _percentile_summary(samples, percentile=68.3):
     lo, mid, hi = np.percentile(np.asarray(samples, np.float64),
                                 [50.0 - p / 2, 50.0, 50.0 + p / 2], axis=-1)
     return np.stack([mid, hi - mid, mid - lo], axis=-1)
+
+
+def _order_summary(values, factor=None, percentile=68.3):
+    """_percentile_summary of the rows of (S, n) `values` times a positive
+    per-source fp64 `factor` (S,) (None: 1), bit for bit, from order
+    statistics on the values' device: a positive factor keeps the order, so
+    the k-th smallest product is the factor times the k-th smallest value.
+    One sort a row; the columns either side of the three percentiles'
+    virtual indices, and the last (where a NaN sorts), in one host copy,
+    counted as `d2h_bytes`; then numpy's linear method on the host. None
+    where that cannot hold: a factor not finite and positive, a percentile
+    outside [0, 100], a row with a NaN (numpy's answer there is NaN)."""
+    p = float(percentile)
+    q = np.array([50.0 - p / 2, 50.0, 50.0 + p / 2]) / 100
+    if not np.all((q >= 0) & (q <= 1)):
+        return None
+    if factor is not None:
+        factor = np.reshape(np.asarray(factor, np.float64), (-1, 1))
+        if not np.all(np.isfinite(factor) & (factor > 0)):
+            return None
+    # numpy's virtual index (n - 1) q, the samples at its floor and the
+    # next; from n - 1 on both are the last sample, at weight v + 1
+    n = values.shape[-1]
+    v = (n - 1) * q
+    last = v >= n - 1
+    i0 = np.where(last, -1.0, np.floor(v))
+    i1 = np.where(last, -1.0, i0 + 1)
+    t = v - i0
+    cols = np.concatenate([i0, i1, [-1.0]]).astype(np.int64) % n
+    srt = torch.sort(values, dim=-1).values
+    picked = srt.index_select(
+        -1, torch.as_tensor(cols, device=values.device)).cpu().numpy()
+    count("d2h_bytes", picked.nbytes)
+    picked = picked.astype(np.float64)
+    if np.isnan(picked[:, -1]).any():
+        return None
+    a, b = picked[:, :3], picked[:, 3:6]
+    if factor is not None:
+        a, b = factor * a, factor * b
+    # numpy's _lerp
+    d = b - a
+    lo, mid, hi = np.where(t >= 0.5, b - d * (1 - t), a + d * t).T
+    return np.stack([mid, hi - mid, mid - lo], axis=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePart:
+    """A derived chain's device part as its compute_* call kept it:
+    `values`, the (S, n) fp32 values the derived kernel wrote on the card
+    (None off the card); `factor`, the positive per-source fp64 prefactor
+    (S,) that the public chain multiplied them by (None: the chain is the
+    values); `chain`, that public host chain, the array the call returned.
+    """
+    values: torch.Tensor | None
+    factor: np.ndarray | None
+    chain: np.ndarray
+
+
+def derived_summary(chain, part, percentile=68.3):
+    """(central, +err, -err) of a derived host chain, (n,) -> (3,) or (S, n)
+    -> (S, 3), bit for bit _percentile_summary's: from the order statistics
+    of `part`'s values when they lie on a CUDA device and `chain` is still
+    the array their compute_* call returned, else from the host chain. A
+    chain loaded from a file or assigned holds no part; an edit in place
+    of the returned array's values is not seen. The span's `route` says
+    which ("device" or "host"); the device route counts
+    `derived_device_summaries`."""
+    with span("mbb.derived.summary") as sp:
+        got = None
+        if (part is not None and part.chain is chain
+                and part.values is not None and part.values.is_cuda):
+            got = _order_summary(part.values, part.factor, percentile)
+        if sp is not None:
+            sp.attrs["route"] = "host" if got is None else "device"
+        if got is None:
+            return _percentile_summary(chain, percentile)
+        count("derived_device_summaries", 1)
+        return got.reshape(np.shape(chain)[:-1] + (3,))
 
 
 def sed_band(fluxes, percentile, sample_axis):

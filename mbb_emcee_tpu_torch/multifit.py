@@ -48,7 +48,6 @@ import torch
 from mbb_emcee_tpu_torch import derived, hdf5io
 from mbb_emcee_tpu_torch.batchengine import BatchEngine
 from mbb_emcee_tpu_torch.constants import HCOK_UM_K, NPARAMS
-from mbb_emcee_tpu_torch.derived import _percentile_summary
 from mbb_emcee_tpu_torch.fitter import (
     DEFAULT_INIT, DEFAULT_SCATTER, MBBFitter, check_jax_keywords,
     resolve_device)
@@ -161,6 +160,7 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         self.lir_chain = None       # (S, nsamp), compute_lir()
         self.dustmass_chain = None  # (S, nsamp), compute_dustmass()
         self.peaklambda_chain = None  # (S, nsamp), compute_peaklambda()
+        self._device_parts = {}     # quantity -> derived.DevicePart
         self.loo_result = None      # LooBatchResult, compute_loo()
         self.map_params = None      # (S, 5), run_map()
         self.logz_pt = None         # ((S,), (S,)) stepping stone, run_pt()
@@ -276,18 +276,20 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
         with span("mbb.derived.lir"):
             self._require_run()
             z = self._source_redshifts(redshifts)
-            integ = device_part(self._thinned(thin), lir_operands(
+            integ, values = device_part(self._thinned(thin), lir_operands(
                 self.shape, 1.0 + z, wavemin, wavemax))
             prefac = derived.lir_prefactor(
                 self._dl_mpc(z, lumdists, cosmology))
             self.lir_chain = prefac[:, None] * integ
+            self._device_parts["lir"] = derived.DevicePart(
+                values, prefac, self.lir_chain)
             return self.lir_chain
 
     def lir_cen(self, percentile=68.3):
         if self.lir_chain is None:
             raise RuntimeError("call compute_lir(redshifts) first")
-        with span("mbb.derived.summary"):
-            return _percentile_summary(self.lir_chain, percentile)
+        return derived.derived_summary(
+            self.lir_chain, self._device_parts.get("lir"), percentile)
 
     def compute_dustmass(self, redshifts=None, kappa=2.64, kappa_wave=125.0,
                          thin=1, lumdists=None, cosmology="WMAP9"):
@@ -297,34 +299,40 @@ class MultiFitter(BatchEngine, ParamSpaceMixin):
             self._require_run()
             z = self._source_redshifts(redshifts)
             opz = 1.0 + z
-            g = device_part(self._thinned(thin), dustmass_operands(
+            g, values = device_part(self._thinned(thin), dustmass_operands(
                 self.shape, opz, kappa_wave))
             prefac = derived.dustmass_prefactor(
                 self._dl_mpc(z, lumdists, cosmology), opz, kappa,
                 kappa_wave)
             self.dustmass_chain = prefac[:, None] * g
+            self._device_parts["dustmass"] = derived.DevicePart(
+                values, prefac, self.dustmass_chain)
             return self.dustmass_chain
 
     def dustmass_cen(self, percentile=68.3):
         if self.dustmass_chain is None:
             raise RuntimeError("call compute_dustmass(redshifts) first")
-        with span("mbb.derived.summary"):
-            return _percentile_summary(self.dustmass_chain, percentile)
+        return derived.derived_summary(
+            self.dustmass_chain, self._device_parts.get("dustmass"),
+            percentile)
 
     def compute_peaklambda(self, thin=1, lo=derived.PEAK_RANGE[0],
                            hi=derived.PEAK_RANGE[1]):
         """(S, nsamp) observed peak-wavelength posteriors in um."""
         with span("mbb.derived.peaklambda"):
             self._require_run()
-            self.peaklambda_chain = device_part(
+            self.peaklambda_chain, values = device_part(
                 self._thinned(thin), peak_operands(self.shape, lo, hi))
+            self._device_parts["peaklambda"] = derived.DevicePart(
+                values, None, self.peaklambda_chain)
             return self.peaklambda_chain
 
     def peaklambda_cen(self, percentile=68.3):
         if self.peaklambda_chain is None:
             raise RuntimeError("call compute_peaklambda() first")
-        with span("mbb.derived.summary"):
-            return _percentile_summary(self.peaklambda_chain, percentile)
+        return derived.derived_summary(
+            self.peaklambda_chain, self._device_parts.get("peaklambda"),
+            percentile)
 
     def sed_percentiles(self, waves, percentile=68.3, thin=1):
         """(S, 3, nwave) per-wavelength [median, upper, lower] f_nu in mJy

@@ -10,7 +10,8 @@ are csrc/lnprob.cuh's, which K1-K3 share.
 
 `MBBResults` and `MultiFitter` take each quantity's device part from
 `device_part`: (S, n, 5) samples on a CUDA device go through `mbb_derived`,
-one launch over every sample of every source; elsewhere the kernel's plain
+one launch over every sample of every source, whose values stay on the card
+for the summaries (derived.derived_summary); elsewhere the kernel's plain
 twin runs derived.py's formulas on the operands' own fp32 inputs, in
 derived._chunked_samples' chunks, and stays the kernel's twin in the tests.
 The `*_operands` builders make the operands from derived.py's fp64 host
@@ -129,12 +130,14 @@ def to_host(values):
 
 def device_part(samples, ops: DerivedOperands):
     """A derived quantity's fp32 device part at every sample of (S, n, 5)
-    samples, as (S, n) host fp64: one kernel launch when the samples lie on
-    a CUDA device, else the plain twin; the host copy is counted as
-    `d2h_bytes` either way."""
+    samples: (S, n) host fp64 and, on a CUDA device, the same values as an
+    (S, n) fp32 tensor there (None elsewhere), for derived_summary. One
+    kernel launch when the samples lie on a CUDA device, else the plain
+    twin; the host copy is counted as `d2h_bytes` either way."""
     if samples.device.type == "cuda":
-        return to_host(mbb_derived(samples, ops))
-    return _plain_twin(samples, ops)
+        values = mbb_derived(samples, ops)
+        return to_host(values), values.float()
+    return _plain_twin(samples, ops), None
 
 
 def _plain_twin(samples, ops):

@@ -30,7 +30,8 @@ from mbb_emcee_tpu_torch.models.cosmology import (
     Cosmology, luminosity_distance)
 from mbb_emcee_tpu_torch import derived
 from mbb_emcee_tpu_torch import hdf5io
-from mbb_emcee_tpu_torch.derived import _percentile_summary
+from mbb_emcee_tpu_torch.derived import (
+    DevicePart, _percentile_summary, derived_summary)
 from mbb_emcee_tpu_torch.fitter import resolve_device
 from mbb_emcee_tpu_torch.likelihood import param_index
 from mbb_emcee_tpu_torch.ops.derived_kernel import (
@@ -102,6 +103,7 @@ class ChainResults:
         self.dustmass_chain = None
         self.dustmass_meta = None
         self.peaklambda_chain = None
+        self._device_parts = {}     # quantity -> derived.DevicePart
         self.loo_result = None
 
     @property
@@ -338,20 +340,21 @@ class ChainResults:
         return 1.0 + self.redshift
 
     def lir_cen(self, percentile=68.3):
-        with span("mbb.derived.summary"):
-            if self.lir_chain is None:
-                self.compute_lir()
-            return _percentile_summary(self.lir_chain, percentile)
+        if self.lir_chain is None:
+            self.compute_lir()
+        return derived_summary(self.lir_chain, self._device_parts.get("lir"),
+                               percentile)
 
     @property
     def lir(self):
         return self.lir_cen()
 
     def peaklambda_cen(self, percentile=68.3):
-        with span("mbb.derived.summary"):
-            if self.peaklambda_chain is None:
-                self.compute_peaklambda()
-            return _percentile_summary(self.peaklambda_chain, percentile)
+        if self.peaklambda_chain is None:
+            self.compute_peaklambda()
+        return derived_summary(self.peaklambda_chain,
+                               self._device_parts.get("peaklambda"),
+                               percentile)
 
     @property
     def peaklambda(self):
@@ -477,9 +480,13 @@ class MBBResults(ChainResults):
     def compute_lir(self, wavemin=8.0, wavemax=1000.0, thin=1):
         """Posterior of L_IR(wavemin-wavemax um REST) in L_sun."""
         with span("mbb.derived.lir"):
-            integ = device_part(self._samples(thin)[None], lir_operands(
-                self.shape, self._opz(), wavemin, wavemax))[0]
-            self.lir_chain = derived.lir_prefactor(self._dl_mpc()) * integ
+            integ, values = device_part(self._samples(thin)[None],
+                                        lir_operands(self.shape, self._opz(),
+                                                     wavemin, wavemax))
+            prefac = derived.lir_prefactor(self._dl_mpc())
+            self.lir_chain = prefac * integ[0]
+            self._device_parts["lir"] = DevicePart(values, prefac,
+                                                   self.lir_chain)
         self.lir_meta = {"wavemin": float(wavemin), "wavemax": float(wavemax),
                          "thin": int(thin)}
         return self.lir_chain
@@ -490,21 +497,24 @@ class MBBResults(ChainResults):
         kappa_wave um)."""
         with span("mbb.derived.dustmass"):
             opz = self._opz()
-            g = device_part(self._samples(thin)[None], dustmass_operands(
-                self.shape, opz, kappa_wave))[0]
+            g, values = device_part(self._samples(thin)[None],
+                                    dustmass_operands(self.shape, opz,
+                                                      kappa_wave))
             prefac = derived.dustmass_prefactor(self._dl_mpc(), opz, kappa,
                                                 kappa_wave)
-            self.dustmass_chain = prefac * g
+            self.dustmass_chain = prefac * g[0]
+            self._device_parts["dustmass"] = DevicePart(values, prefac,
+                                                        self.dustmass_chain)
         self.dustmass_meta = {"kappa": float(kappa),
                               "kappa_wave": float(kappa_wave),
                               "thin": int(thin)}
         return self.dustmass_chain
 
     def dustmass_cen(self, percentile=68.3):
-        with span("mbb.derived.summary"):
-            if self.dustmass_chain is None:
-                self.compute_dustmass()
-            return _percentile_summary(self.dustmass_chain, percentile)
+        if self.dustmass_chain is None:
+            self.compute_dustmass()
+        return derived_summary(self.dustmass_chain,
+                               self._device_parts.get("dustmass"), percentile)
 
     @property
     def dustmass(self):
@@ -515,9 +525,11 @@ class MBBResults(ChainResults):
                            hi=derived.PEAK_RANGE[1]):
         """Posterior of the OBSERVED f_nu peak wavelength in um."""
         with span("mbb.derived.peaklambda"):
-            samples = self._samples(thin)[None]
-            self.peaklambda_chain = device_part(
-                samples, peak_operands(self.shape, lo, hi))[0]
+            peak, values = device_part(self._samples(thin)[None],
+                                       peak_operands(self.shape, lo, hi))
+            self.peaklambda_chain = peak[0]
+            self._device_parts["peaklambda"] = DevicePart(
+                values, None, self.peaklambda_chain)
         return self.peaklambda_chain
 
     # -- persistence -------------------------------------------------------------------

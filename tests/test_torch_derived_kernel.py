@@ -242,7 +242,8 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
 
 def test_device_part_off_the_card_is_the_plain_path():
     """CPU samples take the plain twin: no launch, (S, n) host fp64 of the
-    formula on the operands, the bytes it copies counted."""
+    formula on the operands and no device values beside it, the bytes it
+    copies counted."""
     samples = _samples(4, nsrc=3, device="cpu")
     ops = dk.lir_operands(MBBShape(), np.array([1.5, 2.0, 3.5]), 8.0, 1000.0)
 
@@ -251,8 +252,9 @@ def test_device_part_off_the_card_is_the_plain_path():
             return dk.device_part(samples, ops)
 
     n0 = dk.mbb_derived.launches
-    got, spans = _recording(call)
+    (got, values), spans = _recording(call)
     assert dk.mbb_derived.launches == n0
+    assert values is None
     assert got.dtype == np.float64 and got.shape == (3, 4)
     want = derived.lir_integrand(MBBShape())(
         samples, torch.as_tensor(ops.nodes), torch.as_tensor(ops.weights))
