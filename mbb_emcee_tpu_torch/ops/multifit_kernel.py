@@ -39,7 +39,7 @@ from mbb_emcee_tpu_torch.ops.sampler_kernel import (
 from mbb_emcee_tpu_torch.sampler import (
     MultiEnsembleSampler, MultiSamplerState, _check_run_args,
     multi_stretch_run_plain)
-from mbb_emcee_tpu_torch.utils.profiling import count, span
+from mbb_emcee_tpu_torch.utils.profiling import count, note, span
 
 # K3's layouts (csrc/multifit.cu): G lanes per walker in one block per
 # source, or in a thread-block cluster of C blocks per source.
@@ -301,8 +301,9 @@ def mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
     (S, nrec, nwalkers, nfree), lnpchain (S, nrec, nwalkers)).
 
     Under the profiler its span records the bands and the nodes a band
-    (the pack's padded count, 1 for point bands) and counts `sed_evals`:
-    steps x walkers x bands x nodes x sources."""
+    (the pack's padded count, 1 for point bands), on the card also the
+    `group` and `cluster` of the layout it launched, and counts
+    `sed_evals`: steps x walkers x bands x nodes x sources."""
     nsrc, nw = int(state.pos.shape[0]), int(state.pos.shape[1])
     nb, nodes = int(ops.icfg[3]), int(ops.icfg[4])
     with span("mbb.kernel.k3", steps=nrec * thin, records=nrec,
@@ -348,6 +349,7 @@ def _mbb_multi_stretch_run(state: MultiSamplerState, ops: MultiOperands,
                                   bool(ops.icfg[0]), device)
     check_run_smem(ops.icfg, half, plan.threads, device,
                    "the multi-source stretch-move kernel")
+    note(group=plan.group, cluster=plan.cluster)
     pos = state.pos.to(torch.float32).contiguous()
     nacc = state.naccept.to(torch.int32).contiguous()
     lib = build_kernels()

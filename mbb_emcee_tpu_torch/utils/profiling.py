@@ -9,15 +9,16 @@ Torch twin of mbb_emcee_tpu/utils/profiling.py:
     (ui.perfetto.dev) or chrome://tracing. Wired to both MBB CLIs as
     --profile-dir. The JAX package writes jax.profiler's TensorBoard
     format instead.
-  * `span(name, **attrs)`, `count(name, n)`, `recorded()` -- the port's
-    own spans (`mbb.fit.*`, `mbb.kernel.*`, `mbb.results.*`,
-    `mbb.derived.*`) and their counters (`d2h_bytes`, the bytes a copy to
-    the host moves; `sed_evals`, the SED evaluations a kernel launch
-    computes). They record only while torch's profiler records (trace()
-    above, or any torch.profiler session): each span is then also a
-    `record_function` annotation of the Chrome trace, beside the kernels
-    it launched. Otherwise `span` returns one shared no-op context and
-    `count` returns at once.
+  * `span(name, **attrs)`, `count(name, n)`, `note(**attrs)`,
+    `recorded()` -- the port's own spans (`mbb.fit.*`, `mbb.kernel.*`,
+    `mbb.results.*`, `mbb.derived.*`), their counters (`d2h_bytes`, the
+    bytes a copy to the host moves; `sed_evals`, the SED evaluations a
+    kernel launch computes) and the attributes known only inside them (K3's
+    `group` and `cluster`, the layout it launched). They record only while
+    torch's profiler records (trace() above, or any torch.profiler
+    session): each span is then also a `record_function` annotation of the
+    Chrome trace, beside the kernels it launched. Otherwise `span` returns
+    one shared no-op context and `count` and `note` return at once.
   * `StepTimer` -- wall-clock walker-steps/sec meter with the JAX
     package's phase / rate / report output.
 """
@@ -125,6 +126,12 @@ def count(name: str, n: int):
         return
     counters = _OPEN[-1].span.counters
     counters[name] = counters.get(name, 0) + int(n)
+
+
+def note(**attrs):
+    """Add `attrs` to the attributes of the innermost open span."""
+    if _OPEN:
+        _OPEN[-1].span.attrs.update(attrs)
 
 
 def recorded() -> list[Span]:

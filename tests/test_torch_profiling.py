@@ -187,11 +187,26 @@ def test_spans_without_a_profiler_are_the_shared_noop(what):
     if what == "calls":
         with profiling.span("mbb.a", x=1) as got:
             profiling.count("d2h_bytes", 8)
+            profiling.note(group=4)
         assert got is None
     else:
         _single()
         _catalog()
     assert len(profiling.recorded()) == n0
+
+
+def test_note_adds_to_the_innermost_open_span():
+    n0 = len(profiling.recorded())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("mbb.outer", x=1):
+            with profiling.span("mbb.inner", x=2):
+                profiling.note(group=4, cluster=1)
+            profiling.note(x=3)
+        profiling.note(y=5)         # no span open: nothing to add to
+    outer, inner = profiling.recorded()[n0:]
+    assert outer.attrs == {"x": 3}
+    assert inner.attrs == {"x": 2, "group": 4, "cluster": 1}
 
 
 # (name, parent's position, attributes) of a CPU fit, its results and par_cen;

@@ -3,7 +3,9 @@
 span records its bands and nodes a band (a response pack's padded count,
 1 for point bands) and counts `sed_evals`, the SED evaluations of its
 launch (K1 vectors x bands x nodes, K2 steps x walkers x bands x nodes, K3
-that x sources), on the kernels' plain versions as on the card; the
+that x sources), on the kernels' plain versions as on the card; K3's
+records the group and cluster of the layout it launched on the card
+alone (`-m cuda`, with --noconftest: this file imports no jax); the
 response pack's own span opens in response mode only; without a profiler
 nothing is recorded."""
 
@@ -53,10 +55,16 @@ def _single(mode):
     return MBBResults(fit, redshift=2.0)
 
 
-def _catalog(mode, nsrc=3):
-    mf = MultiFitter(nwalkers=NW, seed=5, opthin=True, noalpha=True,
-                     device="cpu", sampler_backend="fused",
-                     responses=_responses(mode))
+# the thin three-parameter model and the full five-parameter one (thick
+# dust, free lambda0, the Wien power law merged at alpha)
+MODELS = {"thin": dict(opthin=True, noalpha=True),
+          "full": dict(opthin=False, noalpha=False)}
+
+
+def _catalog(mode, nsrc=3, device="cpu", model="thin"):
+    mf = MultiFitter(nwalkers=NW, seed=5, device=device,
+                     sampler_backend="fused", responses=_responses(mode),
+                     **MODELS[model])
     mf.set_data(WAVE, np.stack([FLUX * (1 + 0.2 * s) for s in range(nsrc)]),
                 0.06 * np.stack([FLUX] * nsrc),
                 band_names=BANDS if mode == "response" else None)
@@ -108,15 +116,18 @@ def test_k1_counts_vectors_bands_nodes(mode, n):
         assert s.counters["sed_evals"] == n * 5 * NODES[mode]
 
 
+@pytest.mark.parametrize("model", sorted(MODELS))
 @pytest.mark.parametrize("mode", ["response", "point"])
 @pytest.mark.parametrize("nsrc", [1, 3])
-def test_k3_counts_the_sources_too(mode, nsrc):
-    _, spans = _recording(lambda: _catalog(mode, nsrc))
+def test_k3_counts_the_sources_too(mode, nsrc, model):
+    """The CPU runs K3's plain version, which has no layout to record."""
+    _, spans = _recording(lambda: _catalog(mode, nsrc, model=model))
     k3 = _named(spans, "mbb.kernel.k3")
     assert len(k3) == 3
     for s in k3:
-        assert (s.attrs["bands"], s.attrs["nodes"], s.attrs["sources"]) == \
-            (5, NODES[mode], nsrc)
+        assert s.attrs == {"steps": s.attrs["steps"], "records":
+                           s.attrs["records"], "sources": nsrc, "bands": 5,
+                           "nodes": NODES[mode]}
         assert s.counters["sed_evals"] == \
             s.attrs["steps"] * NW * 5 * NODES[mode] * nsrc
 
@@ -154,3 +165,28 @@ def test_nothing_is_recorded_without_a_profiler(which):
         ResponseSet.builtin(BANDS, nnodes=65).pack(BANDS)
     assert not torch.autograd._profiler_enabled()
     assert len(profiling.recorded()) == n0
+
+
+# -- on the card -------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("mode", ["response", "point"])
+@pytest.mark.parametrize("nsrc", [3, 256])
+def test_k3_records_the_layout_it_launched_on_the_card(nsrc, mode, model):
+    """Each K3 launch records the group and cluster of the plan it ran:
+    plan_multi_on_card's for the catalog's shape and model."""
+    from mbb_emcee_tpu_torch.ops.multifit_kernel import plan_multi_on_card
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, spans = _recording(lambda: _catalog(mode, nsrc, "cuda", model))
+    plan = plan_multi_on_card(5, NODES[mode], NW // 2, nsrc,
+                              MODELS[model]["noalpha"],
+                              MODELS[model]["opthin"], 0)
+    k3 = _named(spans, "mbb.kernel.k3")
+    assert len(k3) == 3
+    for s in k3:
+        assert (s.attrs["group"], s.attrs["cluster"]) == \
+            (plan.group, plan.cluster)
+        assert s.counters["sed_evals"] == \
+            s.attrs["steps"] * NW * 5 * NODES[mode] * nsrc
